@@ -1,0 +1,33 @@
+"""Machine model of the port's target card, an NVIDIA H100 SXM.
+
+The fusion DP (``core/boundary.py``) and the tile planner
+(``core/tiling.py``) read it under the same attribute names the JAX
+package's TPU model carries: ``hbm_bw``, ``kernel_overhead_s`` and
+``fused_epilogue_s``.  ``smem_bytes`` (shared memory one block may use)
+plays the role the TPU model's VMEM size plays.
+
+Rates and sizes are the H100 SXM datasheet's (not measured on a card).  The
+two launch-cost terms are placeholders until a characterization slice fits
+them on the card; they are not measured either.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class H100:
+    # H100 SXM datasheet, not measured.
+    sms: int = 132
+    hbm_bw: float = 3.35e12              # B/s
+    peak_int8_ops: float = 1979e12       # OP/s, dense int8 tensor cores
+    smem_bytes: int = 232_448            # dynamic shared memory per block
+    # Placeholders, not measured: the fixed host-to-card cost of one kernel
+    # launch, and the cost of one layer boundary kept inside the fused
+    # kernel (requantize through shared memory instead of a new launch).
+    kernel_overhead_s: float = 4e-6
+    fused_epilogue_s: float = 3e-7
+
+
+H100_SXM = H100()

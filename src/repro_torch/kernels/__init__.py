@@ -1,0 +1,4 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version: ``fused_mlp`` (``csrc/fused_mlp_q8.cu``) and ``gemm_int8``
+(``csrc/gemm_int8.cu``).  ``ops`` dispatches on the tensor's device;
+``build`` compiles the sources at first use."""

@@ -1,0 +1,64 @@
+"""Public entry points for the port's kernels, dispatched on the device.
+
+A CPU tensor runs the kernel's plain PyTorch version; any other tensor runs
+the CUDA kernel, which raises on what it cannot take.  There is no fallback
+from the kernel to the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import tiling
+from repro_torch.kernels import fused_mlp as _fm
+from repro_torch.kernels import gemm_int8 as _g8
+from repro_torch.kernels.fused_mlp import FusedGroup, pack_group
+
+
+def reset_launches() -> None:
+    """Zero every kernel's launch counter."""
+    _fm.launches = 0
+    _g8.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {"fused_mlp_q8": _fm.launches, "gemm_int8": _g8.launches}
+
+
+def fused_group(x: torch.Tensor, g: FusedGroup) -> torch.Tensor:
+    """Run a packed fusion group (see :func:`pack_group`) on ``x``."""
+    if x.device.type == "cpu":
+        return _fm.fused_mlp_q8_plain(x, g)
+    return _fm.fused_mlp_q8_cuda(x, g)
+
+
+def fused_mlp_q8(x, weights, w_scales, biases, x_scales, *,
+                 act: str = "relu", act_last: bool = False) -> torch.Tensor:
+    """A whole DR7' fusion group (N int8 dense layers) in one launch; packs
+    the group on every call (the serving path packs once)."""
+    return fused_group(x, pack_group(weights, w_scales, biases, x_scales,
+                                     act=act, act_last=act_last))
+
+
+def gemm_int8(x, w, w_scale, x_scale: float = 1.0, *,
+              block_m: int | None = None, block_k: int | None = None,
+              block_n: int | None = None,
+              out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """int8 GEMM with the dequantizing flush.  Blocks the caller leaves out
+    come from the port's tile planner; a tile the kernel does not take is
+    refused on every device, so a plan cannot pass on the CPU and fail on
+    the card."""
+    if block_m is None or block_k is None or block_n is None:
+        api = tiling.plan_api(x.shape[0], x.shape[1], w.shape[1])
+        block_m = block_m if block_m is not None else api.block_m
+        block_k = block_k if block_k is not None else api.block_k
+        block_n = block_n if block_n is not None else api.block_n
+    if not tiling.tile_ok(block_m, block_k, block_n):
+        raise ValueError(f"gemm_int8: tile {(block_m, block_k, block_n)} is "
+                         f"not one the kernel takes")
+    if x.device.type == "cpu":
+        return _g8.gemm_int8_plain(x, w, w_scale, x_scale,
+                                   out_dtype=out_dtype)
+    return _g8.gemm_int8_cuda(x, w, w_scale, x_scale, block_m=block_m,
+                              block_k=block_k, block_n=block_n,
+                              out_dtype=out_dtype)

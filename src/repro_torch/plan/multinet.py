@@ -1,0 +1,140 @@
+"""Several edge nets served from one card: the fleet plan.
+
+The nets time-share the card, so each is planned by the single-net search;
+the hand-off of each net's result is charged one DR7' crossing, and each
+tenant's latency budget is ``budget_factor x (planned + crossing)``, the
+budget the serving router measures against.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+
+from repro_torch import hw as hwlib
+from repro_torch.core import boundary
+from repro_torch.device import resolve_device
+from repro_torch.plan import planner
+from repro_torch.plan.artifact import (PLAN_SCHEMA_VERSION, PLANNER_VERSION,
+                                       DeploymentPlan, default_cache)
+
+DEFAULT_BUDGET_FACTOR = 2.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TenantPlan:
+    """One net's slice of the fleet: its plan and its latency budget."""
+    net_id: str
+    plan: DeploymentPlan
+    crossing_s: float
+    latency_budget_s: float
+
+    @property
+    def total_latency_s(self) -> float:
+        return self.plan.est_latency_s + self.crossing_s
+
+    def to_dict(self) -> dict:
+        return {"net_id": self.net_id, "crossing_s": self.crossing_s,
+                "latency_budget_s": self.latency_budget_s,
+                "plan": self.plan.to_dict()}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TenantPlan":
+        return cls(net_id=d["net_id"],
+                   plan=DeploymentPlan.from_dict(d["plan"]),
+                   crossing_s=d["crossing_s"],
+                   latency_budget_s=d["latency_budget_s"])
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetPlan:
+    name: str
+    target: str
+    key: str
+    tenants: tuple[TenantPlan, ...]
+    est_latency_s: float          # the slowest tenant
+    schema: int = PLAN_SCHEMA_VERSION
+
+    def tenant(self, net_id: str) -> TenantPlan:
+        for t in self.tenants:
+            if t.net_id == net_id:
+                return t
+        raise KeyError(f"no tenant {net_id!r} in fleet {self.name!r}")
+
+    @property
+    def net_ids(self) -> list[str]:
+        return [t.net_id for t in self.tenants]
+
+    def to_dict(self) -> dict:
+        return {"schema": self.schema, "kind": "fleet", "name": self.name,
+                "target": self.target, "key": self.key,
+                "tenants": [t.to_dict() for t in self.tenants],
+                "totals": {"est_latency_s": self.est_latency_s}}
+
+    def to_json(self, indent: int | None = 2) -> str:
+        return json.dumps(self.to_dict(), indent=indent, sort_keys=True)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "FleetPlan":
+        if d.get("schema") != PLAN_SCHEMA_VERSION:
+            raise ValueError(f"unsupported fleet schema: {d.get('schema')!r}")
+        return cls(name=d["name"], target=d["target"], key=d["key"],
+                   tenants=tuple(TenantPlan.from_dict(t)
+                                 for t in d["tenants"]),
+                   est_latency_s=d["totals"]["est_latency_s"])
+
+    @classmethod
+    def from_json(cls, s: str) -> "FleetPlan":
+        return cls.from_dict(json.loads(s))
+
+
+def _net_ids(graphs) -> list[str]:
+    """Unique tenant ids (duplicate nets get an #index suffix)."""
+    seen: dict[str, int] = {}
+    out = []
+    for g in graphs:
+        n = seen.get(g.name, 0)
+        seen[g.name] = n + 1
+        out.append(g.name if n == 0 else f"{g.name}#{n}")
+    return out
+
+
+def _fleet_key(graphs, target: str, hw: hwlib.H100,
+               budget_factor: float) -> str:
+    payload = {"planner": PLANNER_VERSION, "target": target,
+               "fleet": [planner._key_for(g, target, hw) for g in graphs],
+               "budget_factor": budget_factor}
+    return hashlib.sha256(json.dumps(payload, sort_keys=True).encode()
+                          ).hexdigest()
+
+
+def plan_fleet(cfgs, *, target: str = planner.TARGET,
+               batch: int | None = None,
+               budget_factor: float = DEFAULT_BUDGET_FACTOR,
+               hw: hwlib.H100 = hwlib.H100_SXM, cache=None,
+               device=None) -> FleetPlan:
+    """Plan N edge nets served from one card.  ``device`` is where the fleet
+    will run (``None``: the GPU, raising when there is none).  Repeat calls
+    with the same nets, machine model and budget factor hit the cache."""
+    resolve_device(device)
+    if not cfgs:
+        raise ValueError("plan_fleet needs at least one network")
+    graphs = [planner.as_graph(c, batch=batch) for c in cfgs]
+    ids = _net_ids(graphs)
+    key = _fleet_key(graphs, target, hw, budget_factor)
+    cache = cache if cache is not None else default_cache()
+    hit = cache.get_fleet(key)
+    if hit is not None:
+        return hit
+    tenants = []
+    for g, net_id in zip(graphs, ids):
+        plan = planner._plan_h100(g, hw=hw, key=f"{key}:{net_id}")
+        crossing = boundary.crossing_cost(g.nodes[-1].out_bytes(g.batch), hw)
+        tenants.append(TenantPlan(
+            net_id=net_id, plan=plan, crossing_s=crossing,
+            latency_budget_s=budget_factor * (plan.est_latency_s + crossing)))
+    fleet = FleetPlan(name="+".join(ids), target=target, key=key,
+                      tenants=tuple(tenants),
+                      est_latency_s=max(t.total_latency_s for t in tenants))
+    return cache.put_fleet(fleet, key=key)
