@@ -6,7 +6,8 @@
 Phases, in order; any failure exits non-zero without the final ``ok`` line:
 
 1. the card, as ``nvidia-smi`` names it with its power limit;
-2. build both CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc);
+2. build all four CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
+   one process per source, started together);
 3. kernels: ``fused_mlp_q8`` on every edge net's fused group at batch 8 and
    on an odd shape, ``gemm_int8`` on every layer shape of the five nets and
    on 256 x 1024 x 1024, each held against its plain PyTorch version on the
@@ -21,7 +22,32 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
 5. times with CUDA events at the served shapes: each kernel, its plain
    version and a library yardstick (``torch._int_mm`` plus the same
    epilogue), beside the least time the card could take and the time of an
-   empty launch.
+   empty launch;
+6. LM kernels: ``flash_attention`` at the served shape (1,10,4096,256) /
+   (1,1,4096,256) causal window 2048 in bf16 and f32, a GQA + softcap +
+   ragged case in f32 and bf16, and a non-causal ragged case;
+   ``linear_scan`` at the forward shape (1,4096,2560) and the decode
+   shape (4,1,2560); each held against its plain version on the card;
+7. LM forward: ``api.init`` of full-width, full-depth ``recurrentgemma-2b``
+   (26 layers) on the card from a seeded CUDA generator, ``api.forward`` on
+   B=1, S=4096 tokens: finite logits of the right shape, 8
+   ``flash_attention`` and 18 ``linear_scan`` launches.  Then the float32
+   model: a 64-token prompt decoded token by token against the forward's
+   last row;
+8. LM serve: ``ContinuousBatcher(slots=4, max_len=4096)`` (the ring-cache
+   path) serving 8 requests with 16-64 token prompts and ``max_new=16``,
+   then a decode-heavy run of 4 requests with ``max_new=256``; each run
+   reports its prefill and decode rates apart.  A ``torch.profiler`` trace
+   of 5 batched decode ticks gives the device's busy and idle time per
+   tick.  ``build_serve_steps`` prefill of a 3000-token prompt (past the
+   2048 window: the ring roll) held against the forward, then 8 decode
+   steps.  Counters are zeroed just before each LM path and read just
+   after; each kernel's count must equal 18 (scan) or 8 (flash) per step
+   that runs it;
+9. LM kernel times: device ms per call (graph-replayed) and eager ms, the
+   plain version's, ``F.scaled_dot_product_attention`` with the same band
+   mask as the yardstick for flash (none exists for the scan), and the
+   bound max(bytes / 3.35 TB/s, flops / 989 TFLOP/s bf16).
 
 It prints one ``{"kernels": [...]}`` line, the card line again, and last
 ``{"ok": true, "device": {...}}``.  It needs no network and one card.
@@ -43,15 +69,47 @@ NETS = ("jet_tagger", "tau_select", "vae", "qubit", "autoencoder")
 SERVED = ("jet_tagger", "tau_select")
 DRIVE_ITERS = 50
 DEGRADED_ITERS = 5
-# H100 SXM datasheet (not measured): device memory rate and dense int8 rate.
+# H100 SXM datasheet (not measured): device memory rate and dense int8 and
+# bf16 rates.
 HBM_BW = 3.35e12
 PEAK_INT8 = 1979e12
+PEAK_BF16 = 989e12
 # The int8 side is exact and the f32 epilogue repeats the plain version's
 # arithmetic in the same order, so kernel and plain agree bit for bit; the
 # tolerance is the reference's own fused-vs-per-layer 1e-5.
 TOL = 1e-5
 # bf16 outputs: both sides round the same f32 value; allow one bf16 ulp.
 TOL_BF16 = 2 ** -8
+
+# The LM path (recurrentgemma-2b): forward and prefill length, serving.
+LM_ARCH = "recurrentgemma-2b"
+LM_SEQ = 4096
+LM_CONSISTENCY_TOKENS = 64
+LM_SLOTS = 4
+LM_REQUESTS = 8
+LM_MAX_NEW = 16
+LM_LONG_GEN = 256              # tokens per request in the decode-heavy run
+LM_TRACED_TICKS = 5
+LM_LONG_PROMPT = 3000
+LM_LONG_DECODE = 8
+# Flash against its plain version, as (rtol, atol).  Both sides do f32
+# arithmetic on the same inputs and differ only in summation order (~1e-7),
+# so bf16 outputs differ by at most one rounding: one bf16 ulp, at most
+# 2^-7 of the value.  The bf16 limit is that ulp plus 4e-3 (two ulps at the
+# 0.25-0.5 outputs), far inside the reference's 3e-2, which is as large as
+# a served output (RMS ~0.04 over a 2048-key band).  f32 outputs meet the
+# reference's 2e-3 and also stay within 1e-3 of the output's RMS: leaving
+# one key out of a 2048-key band moves outputs by ~5e-4, ten times that.
+TOL_FLASH = {"float32": (2e-3, 2e-3), "bfloat16": (2 ** -7, 4e-3)}
+TOL_FLASH_RMS = 1e-3
+# SDPA, the yardstick, rounds its probabilities to bf16: the reference's
+# bf16 tolerance (tests/test_kernels.py).
+TOL_FLASH_LIBRARY = 3e-2
+# The scan: the reference's 1e-4.  The float32 decode-vs-forward check uses
+# the CPU parity tests' float32 tolerance (tests/test_torch_griffin.py); the
+# bf16 prefill-vs-forward check the reference's bf16 rtol 3e-2 / atol 3e-1.
+TOL_SCAN = 1e-4
+TOL_LM_F32 = 2e-3
 
 KERNEL_META = {
     "fused_mlp_q8": {
@@ -62,6 +120,14 @@ KERNEL_META = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gemm_int8.cu",
         "replaces": "src/repro/kernels/gemm_int8.py:48"},
+    "flash_attention": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:98"},
+    "linear_scan": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
+        "replaces": "src/repro/kernels/rglru.py:49"},
 }
 
 
@@ -81,10 +147,18 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def check_close(what: str, got, want, *, tol: float = TOL) -> float:
+def on_card(t, what: str) -> None:
+    """The default device must be the card."""
+    if t.device.type != "cuda":
+        raise SmokeFailure(f"{what} is on {t.device}, not cuda")
+
+
+def check_close(what: str, got, want, *, tol: float = TOL,
+                atol: float | None = None) -> float:
     """Max abs error of ``got`` against ``want``; fails outside
-    ``atol = rtol = tol``."""
+    ``rtol = tol`` and ``atol`` (default ``tol``)."""
     import torch
+    atol = tol if atol is None else atol
     got, want = got.float(), want.float()
     if got.shape != want.shape:
         raise SmokeFailure(f"{what}: shape {tuple(got.shape)} != "
@@ -92,8 +166,9 @@ def check_close(what: str, got, want, *, tol: float = TOL) -> float:
     if not bool(torch.isfinite(got).all()):
         raise SmokeFailure(f"{what}: non-finite output")
     err = float((got - want).abs().max()) if got.numel() else 0.0
-    if not torch.allclose(got, want, rtol=tol, atol=tol):
-        raise SmokeFailure(f"{what}: max abs err {err} beyond tol {tol}")
+    if not torch.allclose(got, want, rtol=tol, atol=atol):
+        raise SmokeFailure(f"{what}: max abs err {err} beyond rtol {tol} "
+                           f"atol {atol}")
     return err
 
 
@@ -310,11 +385,11 @@ def graph_ms(fn, *, inner: int = 50, reps: int = 21) -> float:
     return statistics.median(samples)
 
 
-def bound(bytes_moved: float, ops: float) -> dict:
+def bound(bytes_moved: float, ops: float, peak: float = PEAK_INT8) -> dict:
     """The least time the card could take: each input read once and each
-    output written once at the memory rate, or the operations at the int8
-    rate, whichever is larger."""
-    t_bytes, t_ops = bytes_moved / HBM_BW, ops / PEAK_INT8
+    output written once at the memory rate, or the operations at ``peak``
+    (the int8 rate by default), whichever is larger."""
+    t_bytes, t_ops = bytes_moved / HBM_BW, ops / peak
     return {"bytes": bytes_moved, "ops": ops,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -437,6 +512,388 @@ def gemm_row(what, xq, w, sw, x_scale, tile) -> dict:
             "library_ms": graph_ms(library),
             **bound(m * k + k * n + 4 * n + 4 * m * n, 2.0 * m * k * n)}
 
+# ---------------------------------------------------------------------------
+# Phase 6: the LM kernels against their plain versions on the card
+# ---------------------------------------------------------------------------
+
+# (label, B, Hq, Hkv, S, D, dtype, options)
+FLASH_CASES = (
+    ("served", 1, 10, 1, LM_SEQ, 256, "bfloat16",
+     {"causal": True, "window": 2048}),
+    ("served", 1, 10, 1, LM_SEQ, 256, "float32",
+     {"causal": True, "window": 2048}),
+    ("gqa+softcap+ragged", 1, 8, 4, 1000, 256, "float32",
+     {"causal": True, "window": 512, "softcap": 50.0}),
+    ("gqa+softcap+ragged", 1, 8, 4, 1000, 256, "bfloat16",
+     {"causal": True, "window": 512, "softcap": 50.0}),
+    ("non-causal ragged", 1, 2, 1, 1000, 256, "float32", {"causal": False}),
+)
+SCAN_CASES = (("forward", (1, LM_SEQ, 2560)),
+              ("decode tick", (LM_SLOTS, 1, 2560)))
+
+
+def _qkv(gen, device, b, hq, hkv, s, d, dtype):
+    import torch
+    return [torch.randn(shape, generator=gen, device=device).to(dtype)
+            for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+def _scan_inputs(gen, device, shape):
+    import torch
+    a = torch.rand(shape, generator=gen, device=device) * 0.6 + 0.399
+    return a, torch.randn(shape, generator=gen, device=device)
+
+
+def lm_kernel_phase(device) -> dict:
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
+    gen = torch.Generator(device=device).manual_seed(3)
+    errs = {"flash_attention": 0.0, "linear_scan": 0.0}
+    for label, b, hq, hkv, s, d, dt, kw in FLASH_CASES:
+        q, k, v = _qkv(gen, device, b, hq, hkv, s, d, getattr(torch, dt))
+        rtol, atol = TOL_FLASH[dt]
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        err = check_close(f"flash_attention {label} {dt}",
+                          fa.flash_attention_cuda(q, k, v, **kw), want,
+                          tol=rtol, atol=atol)
+        rms = float(want.float().square().mean().sqrt())
+        if dt == "float32" and err > TOL_FLASH_RMS * rms:
+            raise SmokeFailure(f"flash_attention {label}: max abs err {err} "
+                               f"beyond {TOL_FLASH_RMS} of the output RMS "
+                               f"{rms}")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        log(f"kernel flash_attention {label} q={list(q.shape)} "
+            f"k={list(k.shape)} {dt} {kw}: max_abs_err={err} rtol={rtol} "
+            f"atol={atol} out_rms={rms} err/rms={err / rms}")
+    for label, shape in SCAN_CASES:
+        a, b = _scan_inputs(gen, device, shape)
+        err = check_close(f"linear_scan {label}", rg.linear_scan_cuda(a, b),
+                          rg.linear_scan_plain(a, b), tol=TOL_SCAN)
+        errs["linear_scan"] = max(errs["linear_scan"], err)
+        log(f"kernel linear_scan {label} {list(shape)} float32: "
+            f"max_abs_err={err} tol={TOL_SCAN}")
+    torch.cuda.synchronize(device)
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# Phases 7 and 8: the LM forward and serving, through the user's entry points
+# ---------------------------------------------------------------------------
+
+def layer_counts(cfg) -> dict:
+    """Kernel launches one full-sequence step makes: flash per attention
+    layer, the scan per recurrent layer."""
+    pattern = cfg.griffin.pattern
+    kinds = [pattern[i % len(pattern)] for i in range(cfg.num_layers)]
+    return {"flash_attention": kinds.count("attn"),
+            "linear_scan": kinds.count("rec")}
+
+
+def lm_forward_phase():
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, tree
+    # Float32 products stay float32 (the consistency check below).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get(LM_ARCH).config
+    per_step = layer_counts(cfg)
+    t0 = time.perf_counter()
+    params = api.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    on_card(params["emb"], "api.init's model")
+    log(f"lm init {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params} params {cfg.dtype} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, LM_SEQ)).astype(np.int32)
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits = api.forward(params, cfg, {"tokens": tokens})["logits"]
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    want_shape = (1, LM_SEQ, cfg.padded_vocab)
+    if tuple(logits.shape) != want_shape:
+        raise SmokeFailure(f"forward logits {tuple(logits.shape)}, want "
+                           f"{want_shape}")
+    if not bool(torch.isfinite(logits).all()):
+        raise SmokeFailure("forward logits are not finite")
+    for name, n in per_step.items():
+        if launches[name] != n:
+            raise SmokeFailure(f"forward launched {name} {launches[name]} "
+                               f"times, want {n}")
+    log(f"lm forward B=1 S={LM_SEQ}: {forward_s:.3f} s (first call, "
+        f"host clock), launches {json.dumps(launches)}, logits "
+        f"|max| {float(logits.abs().max())}")
+    del logits
+
+    # Decode against the forward, in float32 on a 64-token prompt.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = api.init(cfg32, torch.Generator(device="cuda").manual_seed(0))
+    toks = tokens[:, :LM_CONSISTENCY_TOKENS]
+    full = api.forward(params32, cfg32, {"tokens": toks})["logits"][:, -1]
+    state = api.init_decode_state(cfg32, 1, LM_SEQ)
+    step_logits = None
+    for t in range(LM_CONSISTENCY_TOKENS):
+        step_logits, state = api.decode_step(params32, cfg32,
+                                             toks[:, t:t + 1], state, t)
+    err = check_close("float32 decode vs forward", step_logits[:, 0], full,
+                      tol=TOL_LM_F32)
+    log(f"lm float32 decode vs forward over {LM_CONSISTENCY_TOKENS} tokens: "
+        f"max_abs_err={err} tol={TOL_LM_F32}")
+    del params32, state, full, step_logits
+    torch.cuda.empty_cache()
+    return cfg, params, tokens, launches, per_step
+
+
+def serve_run(cfg, params, prompts, max_new, per_step, label):
+    """Serve ``prompts`` through a fresh ``ContinuousBatcher`` until drained,
+    counters zeroed just before and read just after.  Returns the batcher
+    and a row of rates: overall, and prefill and decode apart from the
+    batcher's own spans (``prefill_chunk``: a prompt fed token by token;
+    ``decode_step``: one batched tick over the live slots)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import engine
+    batcher = engine.ContinuousBatcher(cfg, params, slots=LM_SLOTS,
+                                       max_len=LM_SEQ)
+    reqs = [engine.Request(rid=i, prompt=p, max_new=max_new)
+            for i, p in enumerate(prompts)]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for r in reqs:
+        batcher.submit(r)
+    batcher.run_until_drained()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    bad = [r.rid for r in reqs
+           if not r.done or r.error or len(r.out) != max_new]
+    if bad or batcher.faults:
+        raise SmokeFailure(f"serve {label}: requests {bad} unfinished or "
+                           f"failed, {batcher.faults} faults")
+    prompt_tokens = sum(len(p) for p in prompts)
+    steps = prompt_tokens + batcher.decode_steps_observed
+    want = {"flash_attention": 0,
+            "linear_scan": per_step["linear_scan"] * steps}
+    if {k: launches[k] for k in want} != want:
+        raise SmokeFailure(f"serve {label} launched {launches}, want {want} "
+                           f"for {steps} decode steps")
+    stats = batcher.span_stats()
+    pre, dec = stats["prefill_chunk"], stats["decode_step"]
+    for kind, agg in (("prefill_chunk", pre), ("decode_step", dec)):
+        if agg["count"] != agg["total_count"]:
+            raise SmokeFailure(f"serve {label}: the {kind} window dropped "
+                               f"spans; its totals are not the run's")
+    n_out = sum(len(r.out) for r in reqs)
+    # Each request's first token comes from its prefill, the rest from
+    # decode ticks.
+    decode_tokens = n_out - len(reqs)
+    row = {"requests": len(reqs), "slots": LM_SLOTS,
+           "prompt_lens": [len(p) for p in prompts], "max_new": max_new,
+           "out_tokens": n_out, "wall_s": wall_s, "tok_per_s": n_out / wall_s,
+           "prefill_steps": prompt_tokens, "prefill_s": pre["total_s"],
+           "prefill_tok_per_s": prompt_tokens / pre["total_s"],
+           "decode_ticks": dec["count"], "decode_tokens": decode_tokens,
+           "decode_s": dec["total_s"],
+           "decode_tok_per_s": decode_tokens / dec["total_s"],
+           "decode_p50_ms": dec["p50_s"] * 1e3,
+           "decode_p95_ms": dec["p95_s"] * 1e3, "launches": launches}
+    log(f"lm serve {label} " + json.dumps(row, sort_keys=True))
+    log(f"lm serve {label} span_stats " + json.dumps(stats, sort_keys=True))
+    return batcher, row
+
+
+def _union_us(intervals) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return total + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
+def decode_tick_trace(batcher, cfg, n_ticks: int) -> dict:
+    """The device's busy and idle time over ``n_ticks`` batched decode
+    ticks with every slot live, from a ``torch.profiler`` trace: busy is
+    the union of the device activities (kernels, copies) inside the host
+    span of the ticks, which ends in a synchronize."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.serve import engine
+    rng = np.random.default_rng(1)
+    reqs = [engine.Request(rid=10_000 + i,
+                           prompt=rng.integers(1, cfg.vocab_size, 1)
+                           .astype(np.int32), max_new=n_ticks + 2)
+            for i in range(batcher.slots)]
+    for r in reqs:
+        batcher.submit(r)
+    # Admit and prefill every slot, and one decode tick: from here on each
+    # tick decodes all slots, and n_ticks more finish every request.
+    batcher.step()
+    torch.cuda.synchronize()
+    label = "decode_ticks"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_host = time.perf_counter()
+        with record_function(label):
+            for _ in range(n_ticks):
+                batcher.step()
+            torch.cuda.synchronize()
+        t_host = time.perf_counter() - t_host
+    if not all(r.done and not r.error for r in reqs) or batcher.n_active:
+        raise SmokeFailure("traced decode ticks left requests unfinished")
+    events = prof.events()
+    span = next(e for e in events
+                if e.name == label and e.device_type == DeviceType.CPU)
+    t0, t1 = span.time_range.start, span.time_range.end
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and not e.is_user_annotation and e.name != label]
+    window_us = t1 - t0
+    out = {"ticks": n_ticks, "host_ms_per_tick": window_us / n_ticks / 1e3,
+           "host_clock_ms_per_tick": t_host / n_ticks * 1e3,
+           "device_ops_per_tick": len(dev) / n_ticks}
+    if not dev:
+        out.update(device_busy_ms_per_tick=None, idle_share=None)
+        log("lm decode trace: the profiler recorded no device activity; "
+            "idle share not measured " + json.dumps(out))
+        return out
+    busy_us = _union_us((max(e.time_range.start, t0),
+                         min(e.time_range.end, t1)) for e in dev
+                        if e.time_range.end > t0 and e.time_range.start < t1)
+    by_name: dict = {}
+    for e in dev:
+        by_name[e.name[:80]] = (by_name.get(e.name[:80], 0.0)
+                                + e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out.update(device_busy_ms_per_tick=busy_us / n_ticks / 1e3,
+               idle_share=1.0 - busy_us / window_us,
+               top_device_ms_per_tick={k: v / n_ticks / 1e3 for k, v in top})
+    log("lm decode trace " + json.dumps(out, sort_keys=True))
+    return out
+
+
+def lm_serve_phase(cfg, params, tokens, per_step) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.serve import engine
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size,
+                            int(rng.integers(16, 65))).astype(np.int32)
+               for _ in range(LM_REQUESTS + LM_SLOTS)]
+    _, short = serve_run(cfg, params, prompts[:LM_REQUESTS], LM_MAX_NEW,
+                         per_step, "short")
+    batcher, heavy = serve_run(cfg, params, prompts[LM_REQUESTS:],
+                               LM_LONG_GEN, per_step, "decode-heavy")
+    trace = decode_tick_trace(batcher, cfg, LM_TRACED_TICKS)
+    del batcher
+
+    # Whole-prompt prefill past the window (the ring roll), then decode.
+    prefill, decode = engine.build_serve_steps(cfg)
+    prompt = tokens[:, :LM_LONG_PROMPT]
+    state = api.init_decode_state(cfg, 1, LM_SEQ)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    last, state = prefill(params, prompt, state)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = last[:, -1].argmax(dim=-1, keepdim=True)
+    t0 = time.perf_counter()
+    for i in range(LM_LONG_DECODE):
+        logits, state = decode(params, tok, state, LM_LONG_PROMPT + i)
+        if not bool(torch.isfinite(logits).all()):
+            raise SmokeFailure(f"decode step {i} after the long prefill: "
+                               f"non-finite logits")
+        tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+    torch.cuda.synchronize()
+    decode_s = (time.perf_counter() - t0) / LM_LONG_DECODE
+    long_launches = ops.launch_counts()
+    want = {"flash_attention": per_step["flash_attention"],
+            "linear_scan": per_step["linear_scan"] * (1 + LM_LONG_DECODE)}
+    if {k: long_launches[k] for k in want} != want:
+        raise SmokeFailure(f"prefill + decode launched {long_launches}, "
+                           f"want {want}")
+    ref_last = api.forward(params, cfg, {"tokens": prompt})["logits"][:, -1:]
+    err = check_close("prefill vs forward", last, ref_last, tol=3e-2,
+                      atol=3e-1)
+    log(f"lm prefill {LM_LONG_PROMPT} tokens: {prefill_s:.3f} s; "
+        f"{LM_LONG_DECODE} decode steps {decode_s * 1e3:.3f} ms each (host "
+        f"clock); prefill vs forward max_abs_err={err}; launches "
+        f"{json.dumps(long_launches)}")
+    return {"launches": {"serve": short["launches"],
+                         "serve decode-heavy": heavy["launches"],
+                         "prefill+decode": long_launches},
+            "short": short, "decode_heavy": heavy, "trace": trace}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: LM kernel times
+# ---------------------------------------------------------------------------
+
+def lm_timing_phase(device) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
+    gen = torch.Generator(device=device).manual_seed(4)
+    label, b, hq, hkv, s, d, dt, kw = FLASH_CASES[0]
+    q, k, v = _qkv(gen, device, b, hq, hkv, s, d, getattr(torch, dt))
+    pos = torch.arange(s, device=device)
+    band = (pos[None, :] <= pos[:, None]) \
+        & (pos[None, :] > pos[:, None] - kw["window"])
+    kx = k.repeat_interleave(hq // hkv, dim=1)
+    vx = v.repeat_interleave(hq // hkv, dim=1)
+
+    def kernel():
+        return fa.flash_attention_cuda(q, k, v, **kw)
+
+    def library():
+        return F.scaled_dot_product_attention(q, kx, vx, attn_mask=band)
+
+    check_close("flash library vs kernel", library(), kernel(),
+                tol=TOL_FLASH_LIBRARY)
+    pairs = int(band.sum()) * b * hq
+    flash = {"shape": f"q {list(q.shape)} k/v {list(k.shape)} {dt} {kw}",
+             "ms": graph_ms(kernel, inner=5, reps=11),
+             "eager_ms": event_ms(kernel, inner=5, reps=11),
+             "plain_ms": graph_ms(lambda: fa.flash_attention_plain(
+                 q, k, v, **kw), inner=2, reps=5),
+             "library_ms": graph_ms(library, inner=5, reps=11),
+             **bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                     4.0 * d * pairs, PEAK_BF16)}
+    log("timing flash_attention " + json.dumps(flash, sort_keys=True))
+    scan = {}
+    for label, shape in SCAN_CASES:
+        a, bb = _scan_inputs(gen, device, shape)
+        n = a.numel()
+        row = {"shape": f"{label} a/b {list(shape)} float32",
+               "ms": graph_ms(lambda: rg.linear_scan_cuda(a, bb), inner=20,
+                              reps=11),
+               "eager_ms": event_ms(lambda: rg.linear_scan_cuda(a, bb),
+                                    inner=20, reps=11),
+               "plain_ms": graph_ms(lambda: rg.linear_scan_plain(a, bb),
+                                    inner=1, reps=3),
+               "library_ms": None,
+               **bound(3 * 4 * n, 2.0 * n, PEAK_BF16)}
+        log("timing linear_scan " + json.dumps(row, sort_keys=True))
+        scan[label] = row
+    return {"flash_attention": flash, "linear_scan": scan}
+
 
 def kernels_line(errs, launches, timing) -> dict:
     """One entry per kernel at the first served net's shapes: the fused
@@ -468,6 +925,35 @@ def kernels_line(errs, launches, timing) -> dict:
             "launch_floor_ms": n_launch * timing["empty_graph_ms"],
             "shape": row["shape"]})
     return {"kernels": entries}
+
+
+def lm_kernel_entries(errs, launches_by_path, per_step, timing) -> list:
+    """One entry per LM kernel: flash at the served prefill shape, the scan
+    at the forward shape (its decode-tick row beside it).  ``launches`` sums
+    the LM paths' counts (forward, serve, prefill + decode)."""
+    entries = []
+    for name in ("flash_attention", "linear_scan"):
+        row = timing[name]
+        extra = {}
+        if name == "linear_scan":
+            extra["decode_tick"] = {k: row["decode tick"][k] for k in (
+                "shape", "ms", "eager_ms", "plain_ms", "bound_ms",
+                "bound_by")}
+            row = row["forward"]
+        entries.append({
+            "name": name, **KERNEL_META[name],
+            "launches": sum(c[name] for c in launches_by_path.values()),
+            "launches_by_path": {p: c[name]
+                                 for p, c in launches_by_path.items()},
+            "launches_per_forward": per_step[name],
+            "launches_per_decode_tick": (per_step[name]
+                                         if name == "linear_scan" else 0),
+            "max_abs_err": errs[name],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "eager_ms": row["eager_ms"],
+            "shape": row["shape"], **extra})
+    return entries
 
 
 def main() -> int:
@@ -502,6 +988,14 @@ def main() -> int:
         dep, launches = serve_phase()
         timing = timing_phase(dep, device)
         line = kernels_line(errs, launches, timing)
+        lm_errs = lm_kernel_phase(device)
+        cfg, params, tokens, fwd_launches, per_step = lm_forward_phase()
+        served = lm_serve_phase(cfg, params, tokens, per_step)
+        del params
+        lm_timing = lm_timing_phase(device)
+        line["kernels"] += lm_kernel_entries(
+            lm_errs, {"forward": fwd_launches, **served["launches"]},
+            per_step, lm_timing)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -1,0 +1,35 @@
+"""Architecture registry of the port: ``--arch <id>`` lookup.
+
+Each ``<arch>.py`` exposes ``CONFIG`` (the published shape) and ``SMOKE`` (a
+reduced same-family config for CPU tests), as in the JAX package.  Only the
+architectures the port runs are registered; any other id raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+ARCH_NAMES = ["recurrentgemma_2b"]
+
+# Public --arch ids (hyphenated) -> module names.
+ALIASES = {n.replace("_", "-"): n for n in ARCH_NAMES}
+ALIASES.update({n: n for n in ARCH_NAMES})
+
+
+@dataclasses.dataclass(frozen=True)
+class Arch:
+    name: str
+    config: ModelConfig
+    smoke: ModelConfig
+
+
+def get(name: str) -> Arch:
+    mod_name = ALIASES.get(name.replace(".", "_"))
+    if mod_name is None:
+        raise ValueError(f"architecture {name!r} is not ported to repro_torch "
+                         f"(ported: {', '.join(ALIASES)})")
+    mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
+    return Arch(name=mod_name, config=mod.CONFIG, smoke=mod.SMOKE)

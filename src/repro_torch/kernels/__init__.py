@@ -1,4 +1,5 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version: ``fused_mlp`` (``csrc/fused_mlp_q8.cu``) and ``gemm_int8``
-(``csrc/gemm_int8.cu``).  ``ops`` dispatches on the tensor's device;
-``build`` compiles the sources at first use."""
+version: ``fused_mlp`` (``csrc/fused_mlp_q8.cu``), ``gemm_int8``
+(``csrc/gemm_int8.cu``), ``flash_attention`` (``csrc/flash_attention.cu``)
+and ``rglru`` (``csrc/linear_scan.cu``).  ``ops`` dispatches on the tensor's
+device; ``build`` compiles the sources at first use."""

@@ -1,0 +1,140 @@
+"""Blocked online-softmax (flash) attention with causal masking, a sliding
+window, logit soft-capping and GQA.
+
+Port of the JAX package's ``kernels/flash_attention.py::flash_attention``:
+q ``(B, Hq, S, D)``, k/v ``(B, Hkv, Sk, D)`` in f32 or bf16, query head ``h``
+reading KV head ``h // (Hq // Hkv)``, the result in q's dtype.  Masked logits
+are ``-0.7 * f32max`` with their probabilities zeroed, and a row with zero
+mass is 0.  Keys at positions ``>= Sk`` never carry mass, in any mode.  The
+CUDA kernel is ``csrc/flash_attention.cu``; :func:`flash_attention_plain` is
+the same function in plain PyTorch, used for CPU tensors and as the
+kernel's oracle on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+launches = 0          # kernel launches since the last reset (plain int)
+
+NEG = -0.7 * torch.finfo(torch.float32).max
+MAX_HEAD_DIM = 256
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(q, k, v, *, window, softcap) -> None:
+    """Shape and option checks shared by both versions, so an argument the
+    kernel refuses is refused on the CPU as well."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: want q (B, Hq, S, D) and k, v "
+                         "(B, Hkv, Sk, D)")
+    b, hq, _, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if hq % k.shape[1] != 0:
+        raise ValueError(f"flash_attention: Hq={hq} is not a multiple of "
+                         f"Hkv={k.shape[1]}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be >= 1, got "
+                         f"{window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"flash_attention: softcap must be > 0, got "
+                         f"{softcap}")
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int | None = None,
+                          softcap: float | None = None,
+                          scale: float | None = None) -> torch.Tensor:
+    """The kernel's function as one dense masked softmax in f32: the same
+    constants, the zero-mass rule, and no key past ``Sk`` (the dense form
+    has no padding to mask)."""
+    _check(q, k, v, window=window, softcap=softcap)
+    s_q, d = q.shape[2], q.shape[3]
+    s_k = k.shape[2]
+    group = q.shape[1] // k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    kx = k.float().repeat_interleave(group, dim=1)
+    vx = v.float().repeat_interleave(group, dim=1)
+    s = torch.matmul(q.float(), kx.transpose(-1, -2)) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = torch.arange(s_q, device=q.device)[:, None]
+    k_pos = torch.arange(s_k, device=q.device)[None, :]
+    mask = torch.ones((s_q, s_k), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    s = torch.where(mask, s, NEG)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    den = p.sum(dim=-1, keepdim=True)
+    den = torch.where(den == 0.0, 1.0, den)
+    return (torch.matmul(p, vx) / den).to(q.dtype)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.library("flash_attention")
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.repro_flash_attention.argtypes = (
+        [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci] + [ll] * 9
+        + [ctypes.c_float, ci, ci, ctypes.c_float, vp])
+    lib.repro_flash_attention.restype = ci
+    return lib
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int | None = None,
+                         softcap: float | None = None,
+                         scale: float | None = None) -> torch.Tensor:
+    """Launch ``csrc/flash_attention.cu`` on q's device and stream.  q, k, v
+    may be strided views (the model passes head-transposed projections)
+    as long as the last dimension is contiguous and every stride is a
+    multiple of 8 elements; the output is contiguous."""
+    global launches
+    _check(q, k, v, window=window, softcap=softcap)
+    if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
+        raise ValueError("flash_attention_cuda: q, k, v must lie on one CUDA "
+                         "device")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention_cuda: want q, k, v all f32 or all "
+                         f"bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    b, hq, s, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if d > MAX_HEAD_DIM or d % 8 != 0:
+        raise ValueError(f"flash_attention_cuda: head dim {d} is not a "
+                         f"multiple of 8 up to {MAX_HEAD_DIM}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_cuda: {name} needs a "
+                             f"contiguous last dimension, strides that are "
+                             f"multiples of 8 and 16-byte alignment, got "
+                             f"strides {t.stride()}")
+    if b * hq > 65535:
+        raise ValueError(f"flash_attention_cuda: B*Hq={b * hq} exceeds the "
+                         f"grid limit 65535")
+    out = torch.empty((b, hq, s, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0 or sk == 0:
+        return out.zero_()
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib().repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), b, hq, hkv, s, sk, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale),
+        int(causal), 0 if window is None else int(window),
+        0.0 if softcap is None else float(softcap), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention: CUDA error {err}")
+    launches += 1
+    return out

@@ -10,8 +10,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import tiling
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_mlp as _fm
 from repro_torch.kernels import gemm_int8 as _g8
+from repro_torch.kernels import rglru as _rg
 from repro_torch.kernels.fused_mlp import FusedGroup, pack_group
 
 
@@ -19,10 +21,13 @@ def reset_launches() -> None:
     """Zero every kernel's launch counter."""
     _fm.launches = 0
     _g8.launches = 0
+    _fa.launches = 0
+    _rg.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {"fused_mlp_q8": _fm.launches, "gemm_int8": _g8.launches}
+    return {"fused_mlp_q8": _fm.launches, "gemm_int8": _g8.launches,
+            "flash_attention": _fa.launches, "linear_scan": _rg.launches}
 
 
 def fused_group(x: torch.Tensor, g: FusedGroup) -> torch.Tensor:
@@ -62,3 +67,23 @@ def gemm_int8(x, w, w_scale, x_scale: float = 1.0, *,
     return _g8.gemm_int8_cuda(x, w, w_scale, x_scale, block_m=block_m,
                               block_k=block_k, block_n=block_n,
                               out_dtype=out_dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
+                    softcap: float | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """Blocked attention, q ``(B, Hq, S, D)`` against k, v ``(B, Hkv, Sk,
+    D)``; the queries sit at positions ``0..S-1`` of the key timeline."""
+    if q.device.type == "cpu":
+        return _fa.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window, softcap=softcap,
+                                         scale=scale)
+    return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    softcap=softcap, scale=scale)
+
+
+def linear_scan(a, b) -> torch.Tensor:
+    """``h_t = a_t * h_{t-1} + b_t`` along axis 1 from ``h = 0``."""
+    if a.device.type == "cpu":
+        return _rg.linear_scan_plain(a, b)
+    return _rg.linear_scan_cuda(a, b)

@@ -1,1 +1,2 @@
-"""Model definitions of the port (the Table-I edge nets)."""
+"""Model definitions of the port: the Table-I edge nets (``edge``) and the
+Griffin language model (``griffin``, behind ``api``)."""

@@ -1,0 +1,58 @@
+"""Family-dispatching model API of the port's language models.
+
+  init(cfg, generator, device=None)              -> params
+  forward(params, cfg, batch)                    -> {"logits", "aux_loss"}
+  decode_state_specs(cfg, batch, max_len)        -> meta-tensor tree
+  init_decode_state(cfg, batch, max_len, device) -> zeroed state
+  decode_step(params, cfg, tokens, state, pos)   -> (logits, new_state)
+
+Port of the JAX package's ``models/api.py`` for ``family == "griffin"``;
+every other family raises.  Forward and decode run where the parameters
+lie.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import griffin, tree
+from repro_torch.models.config import ModelConfig
+
+
+def _griffin_only(cfg: ModelConfig) -> None:
+    if cfg.family != "griffin":
+        raise ValueError(f"model family {cfg.family!r} is not ported to "
+                         f"repro_torch (ported: griffin)")
+
+
+def init(cfg: ModelConfig, generator: torch.Generator, *,
+         device=None) -> dict:
+    _griffin_only(cfg)
+    return griffin.init_griffin(cfg, generator=generator, device=device)
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict) -> dict:
+    """batch: {"tokens": (B,S)}."""
+    _griffin_only(cfg)
+    return griffin.griffin_forward(params, cfg, batch["tokens"])
+
+
+def decode_state_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    _griffin_only(cfg)
+    return griffin.griffin_state_specs(
+        cfg, batch, min(cfg.griffin.local_window, max_len))
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
+                      device=None) -> dict:
+    device = resolve_device(device)
+    return tree.tree_map(
+        lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device),
+        decode_state_specs(cfg, batch, max_len))
+
+
+def decode_step(params: dict, cfg: ModelConfig, tokens, state: dict,
+                cache_pos):
+    _griffin_only(cfg)
+    return griffin.griffin_decode_step(params, cfg, tokens, state, cache_pos)

@@ -1,0 +1,278 @@
+"""Shared building blocks of the port's language models (plain tensors).
+
+Port of the parts of the JAX package's ``models/layers.py`` that the Griffin
+family runs: dense init, the padded-vocab mask, RMSNorm, RoPE, local GQA
+attention with its ring-buffer and cache branches, decode attention and the
+gated GELU MLP.
+Every block is a pair ``init_*(generator, cfg, ...) -> params`` and
+``*(params, x, ...) -> y``; params are nested dicts of tensors in the JAX
+tree layout, so a JAX parameter tree converts leaf by leaf.
+
+Compute conventions follow the reference: weights in ``cfg.dtype``, norms and
+softmax statistics in f32, matmul results in f32 (:func:`mm`).  Full-sequence
+attention (``q_offset == 0``) runs the ``flash_attention`` kernel through
+:func:`repro_torch.kernels.ops.flash_attention`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import NEG
+from repro_torch.models.config import ModelConfig
+
+F32 = torch.float32
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def dense_init(generator: torch.Generator, shape, dtype: torch.dtype,
+               scale: float | None = None, *, device) -> torch.Tensor:
+    """``N(0, scale^2)`` drawn on the generator's device, default scale
+    ``1/sqrt(shape[0])``, placed on ``device`` in ``dtype``."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    w = torch.randn(shape, generator=generator, dtype=F32,
+                    device=generator.device) * scale
+    return w.to(device=device, dtype=dtype)
+
+
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` as an f32 tensor, the reference's
+    ``preferred_element_type=F32``.  f32 operands multiply in f32; bf16
+    operands go to the bf16 GEMM, which accumulates in f32 and rounds its
+    output to bf16 once before the widening."""
+    return torch.matmul(x, w).float()
+
+
+def mask_padded_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """Columns ``vocab_size..padded_vocab`` set to ``-0.7 * f32max``; no-op
+    when nothing is padded."""
+    if cfg.padded_vocab == cfg.vocab_size:
+        return logits
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(col < cfg.vocab_size, logits,
+                       torch.tensor(NEG, dtype=logits.dtype,
+                                    device=logits.device))
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(d: int, dtype: torch.dtype, *, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    h = x.float()
+    var = torch.mean(h * h, dim=-1, keepdim=True)
+    h = h * torch.rsqrt(var + eps)
+    return (h * params["scale"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope_table(positions: torch.Tensor, dim: int, theta: float) -> tuple:
+    """positions (..., S) -> cos/sin tables (..., S, dim/2) in f32."""
+    exps = torch.arange(0, dim, 2, dtype=F32, device=positions.device) / dim
+    freqs = 1.0 / (theta ** exps)
+    ang = positions.to(F32)[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, H, S, D); cos/sin: (B, S, D/2)."""
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    cos_, sin_ = cos[:, None], sin[:, None]
+    return torch.cat([x1 * cos_ - x2 * sin_, x2 * cos_ + x1 * sin_],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, softcap, sliding window)
+# ---------------------------------------------------------------------------
+
+def init_attention(generator: torch.Generator, cfg: ModelConfig, *,
+                   device) -> dict:
+    d, dt = cfg.d_model, dtype_of(cfg)
+    return {
+        "wq": dense_init(generator, (d, cfg.q_dim), dt, device=device),
+        "wk": dense_init(generator, (d, cfg.kv_dim), dt, device=device),
+        "wv": dense_init(generator, (d, cfg.kv_dim), dt, device=device),
+        "wo": dense_init(generator, (cfg.q_dim, d), dt,
+                         scale=1.0 / math.sqrt(cfg.q_dim), device=device),
+    }
+
+
+def _slot_positions(cache_pos, b: int, device) -> torch.Tensor:
+    """The write position of each batch row as a (B,) int64 tensor: a
+    scalar position is shared, a (B,) tensor gives one per row (the
+    continuous batcher's slots)."""
+    if cache_pos is None:
+        return torch.zeros((b,), dtype=torch.long, device=device)
+    if torch.is_tensor(cache_pos):
+        return cache_pos.to(device=device, dtype=torch.long).reshape(-1) \
+            .expand(b)
+    return torch.full((b,), int(cache_pos), dtype=torch.long, device=device)
+
+
+def _prefill_at_zero(cache_pos) -> None:
+    """Multi-token steps run the flash kernel, whose queries start at key
+    position 0; a later start (chunked prefill) is not ported."""
+    if torch.is_tensor(cache_pos):
+        raise ValueError("a multi-token step takes one int start position, "
+                         "not a per-row tensor")
+    if cache_pos not in (None, 0):
+        raise NotImplementedError(
+            f"prefill starting at position {cache_pos}: chunked prefill "
+            f"needs a q_offset, which the flash_attention kernel (like the "
+            f"TPU kernel it ports) does not take")
+
+
+def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              cache: dict | None = None, cache_pos=None,
+              ring_window: int | None = None) -> tuple[torch.Tensor,
+                                                       dict | None]:
+    """Local (``cfg.window``) GQA self-attention with RoPE.  Returns
+    (output, updated_cache).
+
+    No ``cache``: full-sequence causal attention.  With ``cache`` = {"k",
+    "v"}: a multi-token step (prefill from position 0) or a one-token decode
+    step at ``cache_pos``, an int or a (B,) tensor of per-row positions.
+    ``ring_window``: the cache is a ring of the last ``ring_window`` keys.
+    Caches are never written in place: the updated cache is a new tensor.
+    """
+    b, s, _ = x.shape
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = mm(x, params["wq"]).to(x.dtype).reshape(b, s, h, dh).transpose(1, 2)
+    k = mm(x, params["wk"]).to(x.dtype).reshape(b, s, hkv, dh).transpose(1, 2)
+    v = mm(x, params["wv"]).to(x.dtype).reshape(b, s, hkv, dh).transpose(1, 2)
+    pos = _slot_positions(cache_pos, b, x.device)
+    positions = pos[:, None] + torch.arange(s, device=x.device)[None, :]
+    cos, sin = rope_table(positions, dh, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    window = cfg.window
+    softcap = cfg.attn_softcap
+    new_cache = None
+    if cache is None:
+        out = ops.flash_attention(q, k, v, causal=True, window=window,
+                                  softcap=softcap)
+    elif ring_window is not None and s > 1:
+        # Ring prefill: windowed attention over the prompt itself, then the
+        # last W keys published into the ring, rolled so token j sits at
+        # slot j % W as the decode writes expect.
+        _prefill_at_zero(cache_pos)
+        w_buf = cache["k"].shape[2]
+        out = ops.flash_attention(q, k, v, causal=True,
+                                  window=window or ring_window,
+                                  softcap=softcap)
+        keep = min(s, w_buf)
+        k_last, v_last = k[:, :, -keep:], v[:, :, -keep:]
+        if keep < w_buf:
+            k_buf, v_buf = cache["k"].clone(), cache["v"].clone()
+            k_buf[:, :, :keep] = k_last
+            v_buf[:, :, :keep] = v_last
+        else:
+            shift = s % w_buf          # first kept token's slot
+            k_buf = torch.roll(k_last, shift, dims=2)
+            v_buf = torch.roll(v_last, shift, dims=2)
+        new_cache = {"k": k_buf, "v": v_buf}
+    elif ring_window is not None:
+        # Ring decode: each row writes its token at pos % W and attends to
+        # every slot written so far; K was roped at its absolute position.
+        rows = torch.arange(b, device=x.device)
+        slot = torch.remainder(pos, ring_window)
+        k_buf, v_buf = cache["k"].clone(), cache["v"].clone()
+        k_buf[rows, :, slot] = k[:, :, 0]
+        v_buf[rows, :, slot] = v[:, :, 0]
+        new_cache = {"k": k_buf, "v": v_buf}
+        out = decode_attention(q, k_buf, v_buf,
+                               torch.clamp(pos, max=ring_window - 1),
+                               window=None, softcap=softcap)
+    else:
+        w_buf = cache["k"].shape[2]
+        k_buf, v_buf = cache["k"].clone(), cache["v"].clone()
+        if s == 1:
+            # Write at the position, clamped into the buffer as the
+            # reference's dynamic_update_slice clamps its start.
+            rows = torch.arange(b, device=x.device)
+            slot = torch.clamp(pos, 0, w_buf - 1)
+            k_buf[rows, :, slot] = k[:, :, 0]
+            v_buf[rows, :, slot] = v[:, :, 0]
+            out = decode_attention(q, k_buf, v_buf, pos, window=window,
+                                   softcap=softcap)
+        else:
+            _prefill_at_zero(cache_pos)
+            if s > w_buf:
+                raise ValueError(f"prompt of {s} tokens exceeds the "
+                                 f"{w_buf}-token cache")
+            k_buf[:, :, :s] = k
+            v_buf[:, :, :s] = v
+            out = ops.flash_attention(q, k_buf, v_buf, causal=True,
+                                      window=window, softcap=softcap)
+        new_cache = {"k": k_buf, "v": v_buf}
+    out = out.transpose(1, 2).reshape(b, s, h * dh)
+    return mm(out, params["wo"]).to(x.dtype), new_cache
+
+
+def decode_attention(q, k, v, last_pos, *, window=None,
+                     softcap=None) -> torch.Tensor:
+    """Few-token attention against a (possibly partly written) KV buffer.
+
+    q: (B, H, s, D) with small s; k/v: (B, Hkv, S_buf, D).  Key slots past
+    ``last_pos`` (None, or a (B,) tensor: one per row) are masked.
+    """
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    qg = q.reshape(b, hkv, group, sq, d).float() * (1.0 / math.sqrt(d))
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    if last_pos is None:
+        mask = torch.ones((1, sq, skv), dtype=torch.bool, device=q.device)
+    else:
+        k_pos = torch.arange(skv, device=q.device)
+        q_pos = last_pos.reshape(-1, 1) - (sq - 1) \
+            + torch.arange(sq, device=q.device)[None, :]
+        mask = k_pos[None, None, :] <= q_pos[:, :, None]
+        if window is not None:
+            mask &= k_pos[None, None, :] > q_pos[:, :, None] - window
+    mask = mask[:, None, None]
+    s = torch.where(mask, s, NEG)
+    p = torch.where(mask, torch.softmax(s, dim=-1), 0.0)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return out.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Gated GELU MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(generator: torch.Generator, cfg: ModelConfig, *,
+             device) -> dict:
+    d, f, dt = cfg.d_model, cfg.d_ff, dtype_of(cfg)
+    return {"w_up": dense_init(generator, (d, f), dt, device=device),
+            "w_down": dense_init(generator, (f, d), dt,
+                                 scale=1.0 / math.sqrt(f), device=device),
+            "w_gate": dense_init(generator, (d, f), dt, device=device)}
+
+
+def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """``w_down(gelu(x w_gate) * (x w_up))``, gelu in its tanh form (the
+    reference's ``jax.nn.gelu`` default)."""
+    up = mm(x, params["w_up"])
+    h = F.gelu(mm(x, params["w_gate"]), approximate="tanh") * up
+    return mm(h.to(x.dtype), params["w_down"]).to(x.dtype)

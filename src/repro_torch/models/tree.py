@@ -1,0 +1,36 @@
+"""The few pytree operations the port needs on nested dicts and lists of
+tensors (the JAX package's ``jax.tree.map`` and the stacked-layer layout)."""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` and of each tree in ``rest``,
+    which must share its structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def leaves(tree: Any) -> list:
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def index(tree: Any, i: int) -> Any:
+    """Layer ``i`` of a tree stacked along a leading layer axis (a view)."""
+    return tree_map(lambda t: t[i], tree)
+
+
+def stack(trees: list) -> Any:
+    """The inverse of :func:`index`: per-layer trees stacked on axis 0."""
+    return tree_map(lambda *ts: torch.stack(ts), trees[0], *trees[1:])

@@ -1,23 +1,36 @@
-"""EdgeEngine: executes an h100 :class:`DeploymentPlan` for an edge net.
+"""Serving engines: the edge-net executor and LM continuous batching.
 
-Port of the edge half of the JAX package's ``serve/engine.py``.  The engine
-owns the quantized weights and the planned forward, built once at
-construction (groups, tiles, packed weights and scales fixed), and times
-every request.  Its degradation ladder has two rungs: level 0 runs the
-plan's fused groups (``fused_mlp_q8``), level 1 the per-layer path
-(``gemm_int8``, ``fused=False``).  Both give the same answers to 1e-5, so
-degrading never changes a result.
+Port of the JAX package's ``serve/engine.py``, two surfaces:
+
+* **Edge serving** (:class:`EdgeEngine`) executes an h100
+  :class:`DeploymentPlan` for an edge net.  The engine owns the quantized
+  weights and the planned forward, built once at construction (groups,
+  tiles, packed weights and scales fixed), and times every request.  Its
+  degradation ladder has two rungs: level 0 runs the plan's fused groups
+  (``fused_mlp_q8``), level 1 the per-layer path (``gemm_int8``,
+  ``fused=False``).  Both give the same answers to 1e-5, so degrading never
+  changes a result.
+* **LM serving** (:func:`build_serve_steps`, :class:`ContinuousBatcher`):
+  whole-prompt prefill and decode steps of the Griffin family, and a
+  fixed-slot continuous batcher that advances every slot at its own
+  position in one batched decode step.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
+import queue
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import api
 from repro_torch.models import edge as edge_lib
+from repro_torch.models import tree
+from repro_torch.models.config import ModelConfig
 from repro_torch.obs import NULL_TRACER, summarize
 
 
@@ -135,3 +148,305 @@ class EdgeEngine:
         """Drop accumulated timings (e.g. after warmup)."""
         self.calls = 0
         self._latencies = collections.deque(maxlen=256)
+
+
+# ---------------------------------------------------------------------------
+# LM serving: step builders and the continuous batcher
+# ---------------------------------------------------------------------------
+
+def build_serve_steps(cfg: ModelConfig):
+    """Returns (prefill_fn, decode_fn) over a state from
+    :func:`~repro_torch.models.api.init_decode_state`.
+
+    prefill_fn(params, tokens, state)        -> (logits_last, state)
+    decode_fn(params, tokens, state, pos)    -> (logits, state)
+
+    Prefill takes the whole prompt in one step from position 0 (the
+    attention layers run the ``flash_attention`` kernel); chunked prefill
+    needs a query offset the kernel does not take and is not ported.
+    """
+    def prefill_fn(params, tokens, state):
+        logits, state = api.decode_step(params, cfg, tokens, state, 0)
+        return logits[:, -1:], state
+
+    def decode_fn(params, tokens, state, pos):
+        return api.decode_step(params, cfg, tokens, state, pos)
+
+    return prefill_fn, decode_fn
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray               # (S,) int32
+    max_new: int = 16
+    out: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    filled: int = 0                  # prompt tokens prefilled so far
+    # Trace bookkeeping (perf_counter clock); ``rid`` is the trace id of
+    # every span the request produces.
+    t_submit: float | None = None    # stamped by ContinuousBatcher.submit
+    t_admit: float | None = None     # stamped when a slot is assigned
+    t_done: float | None = None      # stamped when the request completes
+    # Set (e.g. "non_finite_output") when the request FAILED: done with
+    # error set means the slot was freed and ``out`` must not be trusted.
+    error: str | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchPolicy:
+    """Continuous-batching policy: the number of slots."""
+    slots: int = 4
+
+    def __post_init__(self):
+        if self.slots < 1:
+            raise ValueError(f"slots must be >= 1, got {self.slots}")
+
+
+def _batch_axes(cfg: ModelConfig, max_len: int):
+    """The batch axis of every state leaf (1 under the layer-stacked
+    ``blocks``, 0 in the ``tail``), found by diffing the specs at two batch
+    sizes."""
+    def axis(a, b):
+        for ax, (x, y) in enumerate(zip(a.shape, b.shape)):
+            if x != y:
+                return ax
+        return 0
+    return tree.tree_map(axis, api.decode_state_specs(cfg, 1, max_len),
+                         api.decode_state_specs(cfg, 2, max_len))
+
+
+class ContinuousBatcher:
+    """Fixed-slot continuous batching over one batched decode step.
+
+    Slots hold independent sequences, each at its own position; finished
+    slots admit queued requests (greedy sampling).  Prompts are prefilled
+    token by token through the decode step, the whole prompt in the tick
+    that admits it.  Every tick runs ONE decode step over all
+    slots with a per-slot position tensor; a ``live`` mask keeps the state
+    of idle slots byte-identical (``torch.where(live, new, old)``).  Runs on
+    the device the parameters lie on.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, *, slots: int | None = None,
+                 max_len: int = 256, policy: BatchPolicy | None = None,
+                 tracer=None):
+        self.cfg, self.params = cfg, params
+        policy = policy if policy is not None else BatchPolicy()
+        if slots is not None:           # explicit arg outranks the policy
+            policy = dataclasses.replace(policy, slots=slots)
+        self.policy = policy
+        self.slots, self.max_len = policy.slots, max_len
+        self.device = params["emb"].device
+        # Per-kind service-time windows are always kept (decode-step p50
+        # exists with tracing off); the tracer also gets per-request spans.
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.trace_label = cfg.name
+        self._windows: dict[str, collections.deque] = {}
+        self._span_totals: dict[str, int] = {}
+        self.state = api.init_decode_state(cfg, self.slots, max_len,
+                                           device=self.device)
+        self._axes = _batch_axes(cfg, max_len)
+        self.pos = np.zeros((self.slots,), np.int32)
+        self.active: list[Request | None] = [None] * self.slots
+        self.queue: "queue.Queue[Request]" = queue.Queue()
+        self._steps = 0
+        self.faults = 0
+
+    def submit(self, req: Request):
+        req.t_submit = time.perf_counter()
+        self.queue.put(req)
+
+    # -- span recording ----------------------------------------------------
+    def _record(self, kind: str, t0: float, t1: float, *, trace=None,
+                emit: bool = True, **attrs):
+        """One observed interval: window (always) + tracer (when enabled).
+        ``emit=False`` skips the tracer where the caller emits per-request
+        spans for the same interval."""
+        win = self._windows.get(kind)
+        if win is None:
+            win = self._windows[kind] = collections.deque(maxlen=512)
+            self._span_totals[kind] = 0
+        win.append(t1 - t0)
+        self._span_totals[kind] += 1
+        if emit and self.tracer.enabled:
+            self.tracer.add(kind, t0, t1, trace=trace,
+                            tenant=self.trace_label, **attrs)
+
+    def span_stats(self) -> dict:
+        """Windowed per-kind service-time aggregates (count/mean/p50/p95
+        over the recent window, plus the lifetime observation count)."""
+        out = {}
+        for kind, win in self._windows.items():
+            agg = summarize(win)
+            agg["total_count"] = self._span_totals[kind]
+            out[kind] = agg
+        return out
+
+    @property
+    def decode_steps_observed(self) -> int:
+        return self._span_totals.get("decode_step", 0)
+
+    # -- the batched step --------------------------------------------------
+    def _decode_masked(self, tok: np.ndarray,
+                       live: np.ndarray) -> torch.Tensor:
+        """One decode step of every slot at its own position; the state of
+        slots not ``live`` stays as it was.  Returns the logits (slots, 1,
+        padded_vocab) on the device."""
+        dev = self.device
+        tokens = torch.as_tensor(tok, dtype=torch.long).to(dev)
+        pos = torch.as_tensor(self.pos, dtype=torch.long).to(dev)
+        live_t = torch.as_tensor(live).to(dev)
+        logits, new_state = api.decode_step(self.params, self.cfg, tokens,
+                                            self.state, pos)
+
+        def keep_idle(old, new, ax):
+            mask = live_t.reshape((-1,) + (1,) * (old.dim() - ax - 1))
+            return torch.where(mask, new, old)
+
+        self.state = tree.tree_map(keep_idle, self.state, new_state,
+                                   self._axes)
+        return logits
+
+    @staticmethod
+    def _pick(logits: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+        """Per slot: whether its last logits row is finite, and its argmax.
+        Deliberate sync: sampled tokens and the finiteness guard must reach
+        the host; only two (slots,) vectors cross."""
+        last = logits[:, -1]
+        finite = torch.isfinite(last).all(dim=-1).cpu().numpy()
+        return finite, last.argmax(dim=-1).cpu().numpy()
+
+    def _reset_slot(self, i: int):
+        """Fresh state + position for a re-used slot (no stale KV); zeroed
+        in place."""
+        tree.tree_map(lambda v, ax: v.select(ax, i).zero_(), self.state,
+                      self._axes)
+        self.pos[i] = 0
+
+    @property
+    def n_active(self) -> int:
+        """Occupied slots."""
+        return sum(1 for r in self.active if r is not None)
+
+    def _prefill_tick(self, i: int, req: Request):
+        """Prefill slot ``i``'s whole prompt, one token per decode step,
+        and emit the first generated token."""
+        limit = len(req.prompt)
+        if req.filled >= limit:
+            return
+        t0 = time.perf_counter()
+        first = req.filled
+        tok = np.zeros((self.slots, 1), np.int32)
+        live = np.zeros((self.slots,), bool)
+        live[i] = True
+        logits = None
+        for t in req.prompt[req.filled:limit]:
+            tok[i, 0] = t
+            logits = self._decode_masked(tok, live)
+            self.pos[i] += 1
+        req.filled = limit
+        finite, best = self._pick(logits)
+        if not finite[i]:
+            self._fail_request(i, req, "non_finite_output")
+        else:
+            req.out.append(int(best[i]))
+        self._record("prefill_chunk", t0, time.perf_counter(), trace=req.rid,
+                     tokens=limit - first, slot=i)
+
+    def _admit(self):
+        """Fill free slots from the queue."""
+        for i in range(self.slots):
+            if self.active[i] is not None:
+                continue
+            try:
+                req = self.queue.get_nowait()
+            except queue.Empty:
+                break
+            now = time.perf_counter()
+            req.t_admit = now
+            if req.t_submit is not None:
+                self._record("queue", req.t_submit, now, trace=req.rid)
+            if len(req.prompt) == 0:     # nothing to prefill or decode
+                req.done = True
+                req.t_done = now
+                self._finish(req)
+                continue
+            self._reset_slot(i)
+            req.filled = 0
+            self.active[i] = req
+
+    def _finish(self, req: Request):
+        """Close a completed (or failed) request's trace span."""
+        if self.tracer.enabled and req.t_submit is not None:
+            extra = {"error": req.error} if req.error else {}
+            self.tracer.add("request", req.t_submit, req.t_done,
+                            trace=req.rid, tenant=self.trace_label,
+                            tokens_out=len(req.out), **extra)
+
+    def _fail_request(self, i: int, req: Request, kind: str):
+        """A poisoned output FAILS the request instead of emitting garbage:
+        the slot is freed and the fault counted."""
+        now = time.perf_counter()
+        self.faults += 1
+        req.error = kind
+        req.done = True
+        req.t_done = now
+        self.active[i] = None
+        if self.tracer.enabled:
+            self.tracer.add("fault/non_finite", now, now, trace=req.rid,
+                            tenant=self.trace_label, slot=i)
+        self._finish(req)
+
+    def step(self) -> int:
+        """One tick: admit, advance prefills, decode live slots.  Returns
+        #active."""
+        self._admit()
+        for i, req in enumerate(self.active):
+            if req is not None and req.filled < len(req.prompt):
+                self._prefill_tick(i, req)
+        if not any(self.active):
+            return 0
+        tok = np.zeros((self.slots, 1), np.int32)
+        live = np.zeros((self.slots,), bool)
+        for i, req in enumerate(self.active):
+            if req is not None and req.out and req.filled >= len(req.prompt):
+                tok[i, 0] = req.out[-1]
+                live[i] = True
+        if live.any():
+            t0 = time.perf_counter()
+            finite, best = self._pick(self._decode_masked(tok, live))
+            self._steps += 1
+            stepped = []                 # (slot, request) pairs that decoded
+            done_reqs = []
+            for i, req in enumerate(self.active):
+                if req is None or not live[i]:
+                    continue
+                self.pos[i] += 1
+                if not finite[i]:
+                    self._fail_request(i, req, "non_finite_output")
+                    continue
+                stepped.append((i, req))
+                req.out.append(int(best[i]))
+                if len(req.out) >= req.max_new:
+                    req.done = True
+                    done_reqs.append(req)
+                    self.active[i] = None
+            # _pick read the results back, so [t0, t1] is the whole
+            # batched service interval.
+            t1 = time.perf_counter()
+            self._record("decode_step", t0, t1, batch=len(stepped),
+                         emit=False)
+            if self.tracer.enabled:
+                for i, req in stepped:   # per-request view of the shared step
+                    self.tracer.add("decode_step", t0, t1, trace=req.rid,
+                                    tenant=self.trace_label, slot=i)
+            for req in done_reqs:
+                req.t_done = t1
+                self._finish(req)
+        return self.n_active
+
+    def run_until_drained(self, max_ticks: int = 10_000):
+        while (not self.queue.empty() or any(self.active)) \
+                and self._steps < max_ticks:
+            self.step()

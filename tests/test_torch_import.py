@@ -12,8 +12,8 @@ import sys
 import pytest
 import torch
 
-from repro_torch import resolve_device
-from repro_torch.models import edge
+from repro_torch import configs, resolve_device
+from repro_torch.models import api, edge
 from repro_torch.plan import plan_deployment, plan_fleet
 from repro_torch.serve import EdgeEngine, Router
 
@@ -67,7 +67,8 @@ def test_no_jax_or_reference_import_in_source(path):
 def test_kernel_build_is_lazy():
     """Importing the kernel modules compiles and loads nothing."""
     from repro_torch.kernels import build
-    assert build.SOURCES.keys() == {"fused_mlp_q8", "gemm_int8"}
+    assert build.SOURCES.keys() == {"fused_mlp_q8", "gemm_int8",
+                                    "flash_attention", "linear_scan"}
     for src in build.SOURCES.values():
         assert (build.CSRC / src).is_file()
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
@@ -81,9 +82,10 @@ def no_cuda(monkeypatch):
 
 @pytest.mark.parametrize("entry", [
     "resolve_device", "plan_deployment", "plan_fleet", "init_edge",
-    "EdgeEngine", "Router.from_fleet"])
+    "EdgeEngine", "Router.from_fleet", "api.init", "api.init_decode_state"])
 def test_entry_points_raise_without_gpu(no_cuda, entry):
     cfg = edge.edge_config("tau_select")
+    lm = configs.get("recurrentgemma-2b").smoke
     calls = {
         "resolve_device": lambda: resolve_device(None),
         "plan_deployment": lambda: plan_deployment(cfg),
@@ -93,6 +95,8 @@ def test_entry_points_raise_without_gpu(no_cuda, entry):
         "EdgeEngine": lambda: EdgeEngine(cfg),
         "Router.from_fleet": lambda: Router.from_fleet(
             plan_fleet([cfg], device="cpu")),
+        "api.init": lambda: api.init(lm, torch.Generator().manual_seed(0)),
+        "api.init_decode_state": lambda: api.init_decode_state(lm, 1, 16),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

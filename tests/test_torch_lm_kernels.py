@@ -1,0 +1,230 @@
+"""The port's LM kernels against the JAX package's Pallas kernels.
+
+On the CPU each port wrapper runs its plain PyTorch version; the JAX side
+runs the Pallas kernel in interpret mode, or the function the model path
+actually calls (``layers.chunked_attention``, ``griffin._rglru_assoc``).
+Both get the same seeded numpy inputs.  Tolerances are the reference's own
+(``tests/test_kernels.py``): attention 2e-3 in f32 and 3e-2 in bf16, the
+scan 1e-4.  The ``gpu`` tests hold the CUDA kernels to the plain versions on
+a card and skip without one.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref
+from repro.models import griffin as ref_griffin
+from repro.models import layers as ref_layers
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+from repro_torch.kernels import rglru as rg
+
+TOL = {"float32": 2e-3, "bfloat16": 3e-2}
+
+
+def _qkv(seed, b, hq, hkv, s, d, sk=None):
+    rng = np.random.default_rng(seed)
+    sk = s if sk is None else sk
+    return (rng.normal(size=(b, hq, s, d)).astype(np.float32),
+            rng.normal(size=(b, hkv, sk, d)).astype(np.float32),
+            rng.normal(size=(b, hkv, sk, d)).astype(np.float32))
+
+
+def _port(arrs, dtype):
+    return [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+
+
+def _jax(arrs, dtype):
+    return [jnp.asarray(a, getattr(jnp, dtype)) for a in arrs]
+
+
+FLASH_CASES = [
+    ("causal", dict(b=2, hq=4, hkv=4, s=128, d=32), dict(causal=True)),
+    ("window", dict(b=1, hq=2, hkv=2, s=128, d=32),
+     dict(causal=True, window=40)),
+    ("softcap", dict(b=1, hq=2, hkv=2, s=128, d=32),
+     dict(causal=True, softcap=30.0)),
+    ("gqa", dict(b=2, hq=4, hkv=2, s=128, d=32), dict(causal=True)),
+    ("gqa_window_softcap", dict(b=1, hq=8, hkv=2, s=128, d=64),
+     dict(causal=True, window=48, softcap=50.0)),
+    ("ragged_causal", dict(b=1, hq=2, hkv=1, s=100, d=32), dict(causal=True)),
+    ("mqa_ragged_window", dict(b=1, hq=10, hkv=1, s=70, d=16),
+     dict(causal=True, window=16)),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,shape,kw", FLASH_CASES,
+                         ids=[c[0] for c in FLASH_CASES])
+def test_flash_plain_matches_pallas(name, shape, kw, dtype):
+    arrs = _qkv(0, **shape)
+    want = ref_ops.flash_attention(*_jax(arrs, dtype), block_q=64,
+                                   block_kv=64, interpret=True, **kw)
+    got = ops.flash_attention(*_port(arrs, dtype), **kw)
+    assert got.dtype == getattr(torch, dtype) and got.shape == want.shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("name,shape,kw", FLASH_CASES,
+                         ids=[c[0] for c in FLASH_CASES])
+def test_flash_plain_matches_chunked_attention(name, shape, kw):
+    """The function the model path replaces: ``chunked_attention`` at
+    ``q_offset = 0``."""
+    arrs = _qkv(1, **shape)
+    want = ref_layers.chunked_attention(*_jax(arrs, "float32"), chunk=32,
+                                        **kw)
+    got = ops.flash_attention(*_port(arrs, "float32"), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
+                               atol=2e-3)
+
+
+def test_flash_plain_longer_keys_matches_chunked_attention():
+    """A cache prefill: queries at positions 0..S-1 against a longer,
+    partly written key buffer (Sk > S)."""
+    arrs = _qkv(2, b=2, hq=4, hkv=1, s=20, d=16, sk=32)
+    arrs[1][:, :, 20:] = 0.0
+    arrs[2][:, :, 20:] = 0.0
+    kw = dict(causal=True, window=8)
+    want = ref_layers.chunked_attention(*_jax(arrs, "float32"), chunk=16,
+                                        **kw)
+    got = ops.flash_attention(*_port(arrs, "float32"), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
+                               atol=2e-3)
+
+
+@pytest.mark.parametrize("s", [100, 77])
+def test_flash_plain_noncausal_ragged_matches_ref(s):
+    """Non-causal with a ragged S, against the quadratic oracle.  The Pallas
+    kernel is off here: it zero-pads K/V to its block and masks the pad only
+    through ``causal``, so padded keys carry mass (max err 0.082 at S=100,
+    blocks 64).  The port masks keys past Sk in every mode."""
+    arrs = _qkv(3, b=1, hq=2, hkv=1, s=s, d=32)
+    want = ref.attention(*_jax(arrs, "float32"), causal=False)
+    got = ops.flash_attention(*_port(arrs, "float32"), causal=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
+                               atol=2e-3)
+
+
+def test_flash_zero_mass_rows_are_zero():
+    """Rows whose window holds no key (queries past a short key buffer)
+    output 0, not NaN."""
+    q, k, v = _port(_qkv(4, b=1, hq=1, hkv=1, s=8, d=8), "float32")
+    # Three keys, window 2: rows 4.. see no key.
+    out = ops.flash_attention(q, k[:, :, :3], v[:, :, :3], causal=True,
+                              window=2)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out[0, 0, 4:], torch.zeros_like(out[0, 0, 4:]))
+    assert out[0, 0, :4].abs().sum() > 0
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(window=0), "window"),
+    (dict(softcap=0.0), "softcap"),
+])
+def test_flash_refuses_bad_options_on_every_device(kw, match):
+    q, k, v = _port(_qkv(5, b=1, hq=2, hkv=1, s=8, d=8), "float32")
+    with pytest.raises(ValueError, match=match):
+        ops.flash_attention(q, k, v, **kw)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """The kernel wrappers launch or raise; they never fall back."""
+    q, k, v = _port(_qkv(6, b=1, hq=2, hkv=1, s=8, d=8), "float32")
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_cuda(q, k, v)
+    a = torch.rand((1, 4, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        rg.linear_scan_cuda(a, a)
+
+
+# ---------------------------------------------------------------------------
+# linear_scan
+# ---------------------------------------------------------------------------
+
+def _ab(seed, shape):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0.4, 0.999, shape).astype(np.float32),
+            rng.normal(size=shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("t,block_t", [(64, 16), (100, 32), (1, 1)])
+def test_linear_scan_plain_matches_pallas(t, block_t):
+    a, b = _ab(7, (2, t, 128))
+    want = ref_ops.linear_scan(jnp.asarray(a), jnp.asarray(b),
+                               block_t=block_t, interpret=True)
+    got = ops.linear_scan(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("t", [1, 37])
+def test_linear_scan_with_fold_matches_rglru_assoc(t, with_h0):
+    """The model's use: ``_rglru_assoc``, the state folded into b[:, 0]
+    exactly as ``models/griffin.py::rglru`` does before the kernel."""
+    a, b = _ab(8, (3, t, 64))
+    h0 = np.random.default_rng(9).normal(size=(3, 64)).astype(np.float32)
+    want = ref_griffin._rglru_assoc(jnp.asarray(a), jnp.asarray(b),
+                                    h0=jnp.asarray(h0) if with_h0 else None)
+    bt = torch.from_numpy(b.copy())
+    if with_h0:
+        bt[:, 0] += torch.from_numpy(a[:, 0]) * torch.from_numpy(h0)
+    got = ops.linear_scan(torch.from_numpy(a), bt)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_linear_scan_at_one_step_is_b():
+    """A decode step (T = 1) from h = 0 returns b exactly."""
+    a, b = _ab(10, (4, 1, 32))
+    got = ops.linear_scan(torch.from_numpy(a), torch.from_numpy(b))
+    assert torch.equal(got, torch.from_numpy(b))
+
+
+# ---------------------------------------------------------------------------
+# On a card: each CUDA kernel against its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (run on the card: "
+                    "python -m pytest -m gpu tests/test_torch_lm_kernels.py)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,shape,kw", FLASH_CASES + [
+    ("noncausal_ragged", dict(b=1, hq=2, hkv=1, s=100, d=32),
+     dict(causal=False)),
+    ("d256_gqa", dict(b=1, hq=8, hkv=4, s=300, d=256),
+     dict(causal=True, window=128, softcap=50.0))],
+    ids=[c[0] for c in FLASH_CASES] + ["noncausal_ragged", "d256_gqa"])
+def test_flash_cuda_matches_plain_on_card(cuda_device, name, shape, kw,
+                                          dtype):
+    q, k, v = [t.to(cuda_device) for t in _port(_qkv(11, **shape), dtype)]
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 300, 2560), (4, 1, 2560), (2, 9, 33)])
+def test_linear_scan_cuda_matches_plain_on_card(cuda_device, shape, dtype):
+    a, b = _ab(12, shape)
+    a_t = torch.from_numpy(a).to(cuda_device, getattr(torch, dtype))
+    b_t = torch.from_numpy(b).to(cuda_device, getattr(torch, dtype))
+    got = rg.linear_scan_cuda(a_t, b_t)
+    want = rg.linear_scan_plain(a_t, b_t)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-4,
+                               atol=1e-4)

@@ -1,0 +1,201 @@
+"""The port's LM serving (``repro_torch.serve``) against the JAX package.
+
+Both sides serve the same JAX-initialised float32 smoke Griffin (window 16).
+Token ids are argmax over near-ties and are not compared: the tests compare
+logits and decode state at 2e-3 (float32: the algorithm), and copy the
+reference's sampled tokens into the port's requests after every tick so the
+two keep feeding the same inputs.
+"""
+
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as ref_configs
+from repro.models import api as ref_api
+from repro.serve import engine as ref_engine
+from repro_torch import configs
+from repro_torch.launch import serve as serve_cli
+from repro_torch.models import api, griffin, tree
+from repro_torch.serve import engine
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+TOL = dict(rtol=2e-3, atol=2e-3)
+
+
+@pytest.fixture(scope="module")
+def models():
+    ref_cfg = dataclasses.replace(ref_configs.get("recurrentgemma_2b").smoke,
+                                  num_layers=5, dtype="float32")
+    cfg = dataclasses.replace(configs.get("recurrentgemma-2b").smoke,
+                              num_layers=5, dtype="float32")
+    ref_params = ref_api.init(ref_cfg, jax.random.PRNGKey(0))
+    params = griffin.params_from_numpy(
+        cfg, jax.tree.map(np.asarray, ref_params), device="cpu")
+    return ref_cfg, ref_params, cfg, params
+
+
+def _assert_states_close(ref_state, state):
+    ref_leaves = jax.tree.leaves(ref_state)
+    leaves = tree.leaves(state)
+    assert len(ref_leaves) == len(leaves)
+    for want, got in zip(ref_leaves, leaves):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), **TOL)
+
+
+def _recorded(batcher):
+    """Wrap the batcher's decode step to keep every logits tensor it
+    returns."""
+    log = []
+    step = batcher._decode_masked
+
+    def rec(tok, live):
+        out = step(tok, live)
+        log.append(np.asarray(out, np.float32) if not torch.is_tensor(out)
+                   else out.float().numpy())
+        return out
+    batcher._decode_masked = rec
+    return log
+
+
+def _prompt(seed, n, vocab):
+    return np.random.default_rng(seed).integers(1, vocab, n).astype(np.int32)
+
+
+def test_batcher_matches_reference_with_staggered_admissions(models):
+    ref_cfg, ref_params, cfg, params = models
+    ref_b = ref_engine.ContinuousBatcher(ref_cfg, ref_params, slots=2,
+                                         max_len=32)
+    port_b = engine.ContinuousBatcher(cfg, params, slots=2, max_len=32)
+    ref_log, port_log = _recorded(ref_b), _recorded(port_b)
+    # (prompt length, max_new): A's prompt runs past the window; C arrives
+    # with both slots busy and reuses B's slot once B is done.
+    shapes = {"A": (20, 6), "B": (5, 3), "C": (3, 3)}
+    pairs = {}
+    for i, (name, (n, max_new)) in enumerate(shapes.items()):
+        prompt = _prompt(i, n, cfg.vocab_size)
+        pairs[name] = (
+            ref_engine.Request(rid=i, prompt=prompt, max_new=max_new),
+            engine.Request(rid=i, prompt=prompt.copy(), max_new=max_new))
+    arrivals = {0: ["A"], 2: ["B"], 3: ["C"]}
+    idle_checked = False
+    for tick in range(30):
+        for name in arrivals.get(tick, []):
+            ref_b.submit(pairs[name][0])
+            port_b.submit(pairs[name][1])
+        if tick == 0:
+            # Slot 1 stays idle through A's prefill and first decode.
+            idle_before = tree.tree_map(
+                lambda v, ax: v.select(ax, 1).clone(), port_b.state,
+                port_b._axes)
+        ref_b.step()
+        port_b.step()
+        if tick == 0:
+            idle_after = tree.tree_map(lambda v, ax: v.select(ax, 1),
+                                       port_b.state, port_b._axes)
+            for a, b in zip(tree.leaves(idle_before),
+                            tree.leaves(idle_after)):
+                assert torch.equal(a, b)
+            idle_checked = True
+        assert len(port_log) == len(ref_log)
+        for want, got in zip(ref_log, port_log):
+            np.testing.assert_allclose(got, want, **TOL)
+        ref_log.clear()
+        port_log.clear()
+        np.testing.assert_array_equal(port_b.pos, ref_b.pos)
+        assert [r is None for r in port_b.active] == \
+            [r is None for r in ref_b.active]
+        _assert_states_close(ref_b.state, port_b.state)
+        for ref_req, port_req in pairs.values():
+            assert len(port_req.out) == len(ref_req.out)
+            port_req.out[:] = ref_req.out
+        if tick > 3 and ref_b.queue.empty() and not any(ref_b.active):
+            break
+    assert idle_checked
+    assert all(p.done and len(p.out) == p.max_new for _, p in pairs.values())
+    assert port_b.span_stats()["decode_step"]["count"] == \
+        ref_b.span_stats()["decode_step"]["count"]
+    assert port_b.span_stats()["prefill_chunk"]["count"] == 3
+
+
+@pytest.mark.parametrize("max_len,prompt_len", [(32, 28), (12, 10)],
+                         ids=["ring_past_window", "short_cache"])
+def test_serve_steps_prefill_then_decode_match_reference(models, max_len,
+                                                         prompt_len):
+    """Whole-prompt prefill (the flash path) into a ring cache past the
+    window (the ring roll), or into a cache shorter than the window; then
+    four decode steps."""
+    ref_cfg, ref_params, cfg, params = models
+    ref_prefill, ref_decode = map(jax.jit, ref_engine.build_serve_steps(
+        ref_cfg, max_len=max_len))
+    prefill, decode = engine.build_serve_steps(cfg)
+    prompt = _prompt(7, prompt_len, cfg.vocab_size)[None]
+    ref_state = ref_api.init_decode_state(ref_cfg, 1, max_len)
+    state = api.init_decode_state(cfg, 1, max_len, device="cpu")
+    want, ref_state = ref_prefill(ref_params, jnp.asarray(prompt), ref_state)
+    got, state = prefill(params, prompt, state)
+    assert tuple(got.shape) == (1, 1, cfg.padded_vocab)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    _assert_states_close(ref_state, state)
+    for i, tok in enumerate((3, 17, 255, 4)):
+        pos = prompt_len + i
+        t = np.array([[tok]], np.int32)
+        want, ref_state = ref_decode(ref_params, jnp.asarray(t), ref_state,
+                                     pos)
+        got, state = decode(params, t, state, pos)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    _assert_states_close(ref_state, state)
+
+
+def test_policy_validation():
+    with pytest.raises(ValueError, match="slots"):
+        engine.BatchPolicy(slots=0)
+
+
+def test_batcher_drains_more_requests_than_slots(models):
+    """Three requests through two slots (the policy's): the third waits
+    for a free slot, and every request completes with its own max_new."""
+    _, _, cfg, params = models
+    b = engine.ContinuousBatcher(cfg, params, max_len=32,
+                                 policy=engine.BatchPolicy(slots=2))
+    assert b.slots == 2
+    reqs = [engine.Request(rid=i, prompt=_prompt(i, 3 + 2 * i,
+                                                 cfg.vocab_size),
+                           max_new=2 + i)
+            for i in range(3)]
+    for r in reqs:
+        b.submit(r)
+    b.run_until_drained(max_ticks=100)
+    assert all(r.done and r.error is None and len(r.out) == r.max_new
+               for r in reqs)
+    assert b.n_active == 0 and b.faults == 0
+    stats = b.span_stats()
+    assert stats["prefill_chunk"]["count"] == 3
+    assert stats["queue"]["count"] == 3
+
+
+def test_serve_cli_runs_on_cpu():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "recurrentgemma-2b", "--smoke", "--device", "cpu", "--requests",
+         "3", "--max-new", "4"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "3 requests, 12 tokens" in out.stdout
+
+
+def test_serve_cli_without_device_needs_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = serve_cli.main(["--arch", "recurrentgemma-2b", "--smoke"])
+    assert rc == 2
+    assert "no CUDA device" in capsys.readouterr().err
