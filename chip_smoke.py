@@ -6,7 +6,7 @@
 Phases, in order; any failure exits non-zero without the final ``ok`` line:
 
 1. the card, as ``nvidia-smi`` names it with its power limit;
-2. build all four CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
+2. build all five CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
    one process per source, started together);
 3. kernels: ``fused_mlp_q8`` on every edge net's fused group at batch 8 and
    on an odd shape, ``gemm_int8`` on every layer shape of the five nets and
@@ -47,7 +47,25 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
 9. LM kernel times: device ms per call (graph-replayed) and eager ms, the
    plain version's, ``F.scaled_dot_product_attention`` with the same band
    mask as the yardstick for flash (none exists for the scan), and the
-   bound max(bytes / 3.35 TB/s, flops / 989 TFLOP/s bf16).
+   bound max(bytes / 3.35 TB/s, flops / 989 TFLOP/s bf16).  The Griffin
+   model is freed here;
+10. ``rwkv6_scan`` against its plain version on the card: the forward shape
+   (64,4096,64) in bf16 and f32, a ragged T with per-head u, a non-zero
+   initial state and the final state, and the decode tick
+   (4*64,1,64) with the state in and out;
+11. the RWKV forward: ``api.init`` of full-width, full-depth ``rwkv6-7b``
+   (32 layers) from a seeded CUDA generator, ``api.forward`` on B=1,
+   S=4096: finite logits of the right shape and 32 ``rwkv6_scan``
+   launches.  Then its float32 copy, at full depth, decodes 64 tokens
+   against its forward's last row;
+12. RWKV serving, as in phase 8: the short and decode-heavy
+   ``ContinuousBatcher`` runs, a traced run of 5 ticks, and a 3000-token
+   ``build_serve_steps`` prefill (one launch per layer from the carried
+   state) held against the forward, then 8 decode steps.  Every step
+   launches ``rwkv6_scan`` 32 times and nothing else of the LM kernels;
+13. ``rwkv6_scan`` times at the forward and decode-tick shapes, beside the
+   bound max(bytes / 3.35 TB/s, flops / 67 TFLOP/s f32): the recurrence
+   is f32 arithmetic outside the tensor cores.
 
 It prints one ``{"kernels": [...]}`` line, the card line again, and last
 ``{"ok": true, "device": {...}}``.  It needs no network and one card.
@@ -55,6 +73,7 @@ It prints one ``{"kernels": [...]}`` line, the card line again, and last
 
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import statistics
@@ -110,6 +129,19 @@ TOL_FLASH_LIBRARY = 3e-2
 # bf16 prefill-vs-forward check the reference's bf16 rtol 3e-2 / atol 3e-1.
 TOL_SCAN = 1e-4
 TOL_LM_F32 = 2e-3
+# The RWKV path (rwkv6-7b), through the same entry points and lengths.
+RWKV_ARCH = "rwkv6-7b"
+# H100 SXM datasheet (not measured): f32 outside the tensor cores.
+PEAK_F32 = 67e12
+# rwkv6_scan against its plain version, as (rtol, atol).  Both do f32
+# arithmetic on the same inputs and differ in summation order and FMA use:
+# a few f32 ulps per step on outputs of magnitude 1-10, and the decay (w < 1)
+# keeps old errors from growing, so ~1e-6.  f32 outputs and the final state
+# are held to 1e-4, twenty times tighter than the reference's 2e-3; bf16
+# outputs round values that close to at most one bf16 ulp apart (2^-7 of the
+# value), plus 1e-4 near zero.
+TOL_RWKV = {"float32": (1e-4, 1e-4), "bfloat16": (2 ** -7, 1e-4)}
+LM_KERNELS = ("flash_attention", "linear_scan", "rwkv6_scan")
 
 KERNEL_META = {
     "fused_mlp_q8": {
@@ -128,6 +160,10 @@ KERNEL_META = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
         "replaces": "src/repro/kernels/rglru.py:49"},
+    "rwkv6_scan": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6.py:53"},
 }
 
 
@@ -581,16 +617,26 @@ def lm_kernel_phase(device) -> dict:
 # Phases 7 and 8: the LM forward and serving, through the user's entry points
 # ---------------------------------------------------------------------------
 
-def layer_counts(cfg) -> dict:
-    """Kernel launches one full-sequence step makes: flash per attention
-    layer, the scan per recurrent layer."""
+def layer_counts(cfg) -> tuple[dict, dict]:
+    """LM kernel launches of one full-sequence step and of one decode tick.
+    Griffin: flash per attention layer on the full sequence only, the scan
+    per recurrent layer on both; RWKV: ``rwkv6_scan`` per layer on both."""
+    zero = dict.fromkeys(LM_KERNELS, 0)
+    if cfg.family == "rwkv":
+        step = {**zero, "rwkv6_scan": cfg.num_layers}
+        return step, dict(step)
     pattern = cfg.griffin.pattern
     kinds = [pattern[i % len(pattern)] for i in range(cfg.num_layers)]
-    return {"flash_attention": kinds.count("attn"),
+    step = {**zero, "flash_attention": kinds.count("attn"),
             "linear_scan": kinds.count("rec")}
+    return step, {**step, "flash_attention": 0}
 
 
-def lm_forward_phase():
+def lm_counts(launches) -> dict:
+    return {k: launches[k] for k in LM_KERNELS}
+
+
+def lm_forward_phase(arch: str):
     import dataclasses
     import numpy as np
     import torch
@@ -600,8 +646,8 @@ def lm_forward_phase():
     # Float32 products stay float32 (the consistency check below).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = configs.get(LM_ARCH).config
-    per_step = layer_counts(cfg)
+    cfg = configs.get(arch).config
+    per_step, per_tick = layer_counts(cfg)
     t0 = time.perf_counter()
     params = api.init(cfg, torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
@@ -625,12 +671,11 @@ def lm_forward_phase():
                            f"{want_shape}")
     if not bool(torch.isfinite(logits).all()):
         raise SmokeFailure("forward logits are not finite")
-    for name, n in per_step.items():
-        if launches[name] != n:
-            raise SmokeFailure(f"forward launched {name} {launches[name]} "
-                               f"times, want {n}")
-    log(f"lm forward B=1 S={LM_SEQ}: {forward_s:.3f} s (first call, "
-        f"host clock), launches {json.dumps(launches)}, logits "
+    if lm_counts(launches) != per_step:
+        raise SmokeFailure(f"{cfg.name} forward launched {launches}, want "
+                           f"{per_step}")
+    log(f"lm {cfg.name} forward B=1 S={LM_SEQ}: {forward_s:.3f} s (first "
+        f"call, host clock), launches {json.dumps(launches)}, logits "
         f"|max| {float(logits.abs().max())}")
     del logits
 
@@ -644,16 +689,17 @@ def lm_forward_phase():
     for t in range(LM_CONSISTENCY_TOKENS):
         step_logits, state = api.decode_step(params32, cfg32,
                                              toks[:, t:t + 1], state, t)
-    err = check_close("float32 decode vs forward", step_logits[:, 0], full,
-                      tol=TOL_LM_F32)
-    log(f"lm float32 decode vs forward over {LM_CONSISTENCY_TOKENS} tokens: "
-        f"max_abs_err={err} tol={TOL_LM_F32}")
+    err = check_close(f"{cfg.name} float32 decode vs forward",
+                      step_logits[:, 0], full, tol=TOL_LM_F32)
+    log(f"lm {cfg.name} float32 ({cfg32.num_layers} layers) decode vs "
+        f"forward over {LM_CONSISTENCY_TOKENS} tokens: max_abs_err={err} "
+        f"tol={TOL_LM_F32}")
     del params32, state, full, step_logits
     torch.cuda.empty_cache()
-    return cfg, params, tokens, launches, per_step
+    return cfg, params, tokens, launches, per_step, per_tick
 
 
-def serve_run(cfg, params, prompts, max_new, per_step, label):
+def serve_run(cfg, params, prompts, max_new, per_tick, label):
     """Serve ``prompts`` through a fresh ``ContinuousBatcher`` until drained,
     counters zeroed just before and read just after.  Returns the batcher
     and a row of rates: overall, and prefill and decode apart from the
@@ -681,9 +727,8 @@ def serve_run(cfg, params, prompts, max_new, per_step, label):
                            f"failed, {batcher.faults} faults")
     prompt_tokens = sum(len(p) for p in prompts)
     steps = prompt_tokens + batcher.decode_steps_observed
-    want = {"flash_attention": 0,
-            "linear_scan": per_step["linear_scan"] * steps}
-    if {k: launches[k] for k in want} != want:
+    want = {k: n * steps for k, n in per_tick.items()}
+    if lm_counts(launches) != want:
         raise SmokeFailure(f"serve {label} launched {launches}, want {want} "
                            f"for {steps} decode steps")
     stats = batcher.span_stats()
@@ -706,8 +751,9 @@ def serve_run(cfg, params, prompts, max_new, per_step, label):
            "decode_tok_per_s": decode_tokens / dec["total_s"],
            "decode_p50_ms": dec["p50_s"] * 1e3,
            "decode_p95_ms": dec["p95_s"] * 1e3, "launches": launches}
-    log(f"lm serve {label} " + json.dumps(row, sort_keys=True))
-    log(f"lm serve {label} span_stats " + json.dumps(stats, sort_keys=True))
+    log(f"lm {cfg.name} serve {label} " + json.dumps(row, sort_keys=True))
+    log(f"lm {cfg.name} serve {label} span_stats "
+        + json.dumps(stats, sort_keys=True))
     return batcher, row
 
 
@@ -768,8 +814,8 @@ def decode_tick_trace(batcher, cfg, n_ticks: int) -> dict:
            "device_ops_per_tick": len(dev) / n_ticks}
     if not dev:
         out.update(device_busy_ms_per_tick=None, idle_share=None)
-        log("lm decode trace: the profiler recorded no device activity; "
-            "idle share not measured " + json.dumps(out))
+        log(f"lm {cfg.name} decode trace: the profiler recorded no device "
+            f"activity; idle share not measured " + json.dumps(out))
         return out
     busy_us = _union_us((max(e.time_range.start, t0),
                          min(e.time_range.end, t1)) for e in dev
@@ -782,11 +828,11 @@ def decode_tick_trace(batcher, cfg, n_ticks: int) -> dict:
     out.update(device_busy_ms_per_tick=busy_us / n_ticks / 1e3,
                idle_share=1.0 - busy_us / window_us,
                top_device_ms_per_tick={k: v / n_ticks / 1e3 for k, v in top})
-    log("lm decode trace " + json.dumps(out, sort_keys=True))
+    log(f"lm {cfg.name} decode trace " + json.dumps(out, sort_keys=True))
     return out
 
 
-def lm_serve_phase(cfg, params, tokens, per_step) -> dict:
+def lm_serve_phase(cfg, params, tokens, per_step, per_tick) -> dict:
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -797,13 +843,14 @@ def lm_serve_phase(cfg, params, tokens, per_step) -> dict:
                             int(rng.integers(16, 65))).astype(np.int32)
                for _ in range(LM_REQUESTS + LM_SLOTS)]
     _, short = serve_run(cfg, params, prompts[:LM_REQUESTS], LM_MAX_NEW,
-                         per_step, "short")
+                         per_tick, "short")
     batcher, heavy = serve_run(cfg, params, prompts[LM_REQUESTS:],
-                               LM_LONG_GEN, per_step, "decode-heavy")
+                               LM_LONG_GEN, per_tick, "decode-heavy")
     trace = decode_tick_trace(batcher, cfg, LM_TRACED_TICKS)
     del batcher
 
-    # Whole-prompt prefill past the window (the ring roll), then decode.
+    # Whole-prompt prefill (for Griffin past the window: the ring roll; for
+    # RWKV one launch per layer from the carried state), then decode.
     prefill, decode = engine.build_serve_steps(cfg)
     prompt = tokens[:, :LM_LONG_PROMPT]
     state = api.init_decode_state(cfg, 1, LM_SEQ)
@@ -823,15 +870,15 @@ def lm_serve_phase(cfg, params, tokens, per_step) -> dict:
     torch.cuda.synchronize()
     decode_s = (time.perf_counter() - t0) / LM_LONG_DECODE
     long_launches = ops.launch_counts()
-    want = {"flash_attention": per_step["flash_attention"],
-            "linear_scan": per_step["linear_scan"] * (1 + LM_LONG_DECODE)}
-    if {k: long_launches[k] for k in want} != want:
+    want = {k: per_step[k] + per_tick[k] * LM_LONG_DECODE
+            for k in LM_KERNELS}
+    if lm_counts(long_launches) != want:
         raise SmokeFailure(f"prefill + decode launched {long_launches}, "
                            f"want {want}")
     ref_last = api.forward(params, cfg, {"tokens": prompt})["logits"][:, -1:]
     err = check_close("prefill vs forward", last, ref_last, tol=3e-2,
                       atol=3e-1)
-    log(f"lm prefill {LM_LONG_PROMPT} tokens: {prefill_s:.3f} s; "
+    log(f"lm {cfg.name} prefill {LM_LONG_PROMPT} tokens: {prefill_s:.3f} s; "
         f"{LM_LONG_DECODE} decode steps {decode_s * 1e3:.3f} ms each (host "
         f"clock); prefill vs forward max_abs_err={err}; launches "
         f"{json.dumps(long_launches)}")
@@ -895,6 +942,106 @@ def lm_timing_phase(device) -> dict:
     return {"flash_attention": flash, "linear_scan": scan}
 
 
+# ---------------------------------------------------------------------------
+# Phases 10 and 13: rwkv6_scan against its plain version, and its times
+# ---------------------------------------------------------------------------
+
+# (label, BH, T, D, heads, dtype, with_state): the forward (B=1, 64 heads of
+# 64), a ragged T with per-head u and a carried state, the decode tick.
+RWKV_CASES = (
+    ("forward", 64, LM_SEQ, 64, 64, "bfloat16", False),
+    ("forward", 64, LM_SEQ, 64, 64, "float32", False),
+    ("ragged per-head u + state", 48, 1001, 64, 16, "float32", True),
+    ("decode tick", LM_SLOTS * 64, 1, 64, 64, "float32", True),
+)
+
+
+def _rwkv_inputs(gen, device, bh, t, d, heads, dtype, with_state):
+    """r, k, v (scale 0.5, in ``dtype``), w in (0.5, 0.99), u (heads, D)
+    (scale 0.3) and an optional state0, as the reference's kernel test
+    draws them."""
+    import torch
+    dt = getattr(torch, dtype)
+    r, k, v = [(torch.randn((bh, t, d), generator=gen, device=device)
+                * 0.5).to(dt) for _ in range(3)]
+    w = torch.rand((bh, t, d), generator=gen, device=device) * 0.49 + 0.5
+    u = torch.randn((heads, d), generator=gen, device=device) * 0.3
+    s0 = (torch.randn((bh, d, d), generator=gen, device=device)
+          if with_state else None)
+    return (r, k, v, w, u), s0
+
+
+def rwkv_kernel_phase(device) -> float:
+    import torch
+    from repro_torch.kernels import rwkv6 as rw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(5)
+    worst = 0.0
+    for label, bh, t, d, heads, dt, with_state in RWKV_CASES:
+        args, s0 = _rwkv_inputs(gen, device, bh, t, d, heads, dt,
+                                with_state)
+        got, got_s = rw.rwkv6_scan_cuda(*args, state0=s0, return_state=True)
+        want, want_s = rw.rwkv6_scan_plain(*args, state0=s0,
+                                           return_state=True)
+        rtol, atol = TOL_RWKV[dt]
+        err = check_close(f"rwkv6_scan {label} {dt}", got, want, tol=rtol,
+                          atol=atol)
+        err_s = check_close(f"rwkv6_scan {label} {dt} final state", got_s,
+                            want_s, tol=TOL_RWKV["float32"][0],
+                            atol=TOL_RWKV["float32"][1])
+        worst = max(worst, err, err_s)
+        rms = float(want.float().square().mean().sqrt())
+        log(f"kernel rwkv6_scan {label} r/k/v={[bh, t, d]} {dt} heads={heads} "
+            f"state0={with_state}: max_abs_err={err} rtol={rtol} atol={atol} "
+            f"out_rms={rms}; final state max_abs_err={err_s} "
+            f"tol={TOL_RWKV['float32']}")
+    torch.cuda.synchronize(device)
+    return worst
+
+
+def rwkv_scan_bound(bh, t, d, heads, io_bytes, with_state) -> dict:
+    """Each input read once and each output written once (r, k, v and the
+    output at ``io_bytes`` each, w f32, u, and the f32 state in and out when
+    carried); 5 D^2 + 5 D f32 flops per row and step (r.S, r.(u*k), the
+    bonus, the decay and the k v^T update) at the f32 rate."""
+    n = bh * t * d
+    nbytes = 4 * n * io_bytes + 4 * n + 4 * heads * d
+    if with_state:
+        nbytes += 2 * 4 * bh * d * d
+    return bound(nbytes, bh * t * (5.0 * d * d + 5.0 * d), PEAK_F32)
+
+
+def rwkv_timing_phase(device) -> dict:
+    import torch
+    from repro_torch.kernels import rwkv6 as rw
+    gen = torch.Generator(device=device).manual_seed(6)
+    rows = {}
+    for label, bh, t, d, heads, dt, with_state in (RWKV_CASES[0],
+                                                   RWKV_CASES[3]):
+        args, s0 = _rwkv_inputs(gen, device, bh, t, d, heads, dt,
+                                with_state)
+
+        def kernel():
+            return rw.rwkv6_scan_cuda(*args, state0=s0,
+                                      return_state=with_state)
+
+        def plain():
+            return rw.rwkv6_scan_plain(*args, state0=s0,
+                                       return_state=with_state)
+        inner = 5 if t > 1 else 20
+        row = {"shape": f"{label} r/k/v {[bh, t, d]} {dt}, w f32, heads "
+                        f"{heads}, state in/out {with_state}",
+               "ms": graph_ms(kernel, inner=inner, reps=11),
+               "eager_ms": event_ms(kernel, inner=inner, reps=11),
+               "plain_ms": graph_ms(plain, inner=1, reps=3),
+               "library_ms": None,
+               **rwkv_scan_bound(bh, t, d, heads, 2 if dt == "bfloat16"
+                                 else 4, with_state)}
+        log("timing rwkv6_scan " + json.dumps(row, sort_keys=True))
+        rows[label] = row
+    return rows
+
+
 def kernels_line(errs, launches, timing) -> dict:
     """One entry per kernel at the first served net's shapes: the fused
     group of one request, and the per-layer rung of one degraded request
@@ -927,15 +1074,19 @@ def kernels_line(errs, launches, timing) -> dict:
     return {"kernels": entries}
 
 
-def lm_kernel_entries(errs, launches_by_path, per_step, timing) -> list:
-    """One entry per LM kernel: flash at the served prefill shape, the scan
-    at the forward shape (its decode-tick row beside it).  ``launches`` sums
-    the LM paths' counts (forward, serve, prefill + decode)."""
+def lm_kernel_entries(errs, launches_by_path, per_step, per_tick,
+                      timing) -> list:
+    """One entry per LM kernel: flash at the served prefill shape, the scans
+    at the forward shape (their decode-tick rows beside them).
+    ``launches`` sums the LM paths' counts (each model's forward, serve
+    runs, prefill + decode); ``per_step`` and ``per_tick`` are the launches
+    of one forward and one decode tick of the model that runs the
+    kernel."""
     entries = []
-    for name in ("flash_attention", "linear_scan"):
+    for name in LM_KERNELS:
         row = timing[name]
         extra = {}
-        if name == "linear_scan":
+        if name != "flash_attention":
             extra["decode_tick"] = {k: row["decode tick"][k] for k in (
                 "shape", "ms", "eager_ms", "plain_ms", "bound_ms",
                 "bound_by")}
@@ -946,8 +1097,7 @@ def lm_kernel_entries(errs, launches_by_path, per_step, timing) -> list:
             "launches_by_path": {p: c[name]
                                  for p, c in launches_by_path.items()},
             "launches_per_forward": per_step[name],
-            "launches_per_decode_tick": (per_step[name]
-                                         if name == "linear_scan" else 0),
+            "launches_per_decode_tick": per_tick[name],
             "max_abs_err": errs[name],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -989,13 +1139,31 @@ def main() -> int:
         timing = timing_phase(dep, device)
         line = kernels_line(errs, launches, timing)
         lm_errs = lm_kernel_phase(device)
-        cfg, params, tokens, fwd_launches, per_step = lm_forward_phase()
-        served = lm_serve_phase(cfg, params, tokens, per_step)
+        cfg, params, tokens, fwd_launches, per_step, per_tick = \
+            lm_forward_phase(LM_ARCH)
+        served = lm_serve_phase(cfg, params, tokens, per_step, per_tick)
         del params
+        gc.collect()
+        torch.cuda.empty_cache()
         lm_timing = lm_timing_phase(device)
+        lm_errs["rwkv6_scan"] = rwkv_kernel_phase(device)
+        rcfg, rparams, rtokens, r_fwd_launches, r_step, r_tick = \
+            lm_forward_phase(RWKV_ARCH)
+        r_served = lm_serve_phase(rcfg, rparams, rtokens, r_step, r_tick)
+        del rparams
+        gc.collect()
+        torch.cuda.empty_cache()
+        lm_timing["rwkv6_scan"] = rwkv_timing_phase(device)
+        paths = {}
+        for arch, fwd, srv in ((LM_ARCH, fwd_launches, served),
+                               (RWKV_ARCH, r_fwd_launches, r_served)):
+            paths[f"{arch} forward"] = fwd
+            paths.update({f"{arch} {p}": c
+                          for p, c in srv["launches"].items()})
         line["kernels"] += lm_kernel_entries(
-            lm_errs, {"forward": fwd_launches, **served["launches"]},
-            per_step, lm_timing)
+            lm_errs, paths,
+            {**per_step, "rwkv6_scan": r_step["rwkv6_scan"]},
+            {**per_tick, "rwkv6_scan": r_tick["rwkv6_scan"]}, lm_timing)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -1,10 +1,13 @@
-"""PyTorch/CUDA port of the edge serving path, beside the JAX package.
+"""PyTorch/CUDA port of the JAX package, beside it.
 
 The layout mirrors the JAX package module for module (``hw``, ``core``,
-``plan``, ``models``, ``kernels``, ``obs``, ``serve``, ``deploy``), trimmed to
-what the Table-I edge nets need: plan for an NVIDIA H100, quantize, and serve
-int8 requests through two hand-written CUDA kernels (``fused_mlp_q8`` for a
-whole fusion group, ``gemm_int8`` for single layers and the degraded rung).
+``plan``, ``models``, ``configs``, ``kernels``, ``obs``, ``serve``,
+``deploy``, ``launch``), trimmed to the ported paths: the Table-I edge nets
+(plan for an NVIDIA H100, quantize, and serve int8 requests through
+``fused_mlp_q8`` and ``gemm_int8``), and the ``recurrentgemma-2b`` and
+``rwkv6-7b`` language models (forward and continuous-batching serving
+through ``flash_attention``, ``linear_scan`` and ``rwkv6_scan``), all
+hand-written CUDA kernels.
 
 This package imports ``torch`` and never ``jax`` or the JAX package.  Every
 entry point takes a ``device``: ``None`` means the GPU and raises when there

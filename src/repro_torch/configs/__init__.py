@@ -12,7 +12,7 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_NAMES = ["recurrentgemma_2b"]
+ARCH_NAMES = ["recurrentgemma_2b", "rwkv6_7b"]
 
 # Public --arch ids (hyphenated) -> module names.
 ALIASES = {n.replace("_", "-"): n for n in ARCH_NAMES}

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version: ``fused_mlp`` (``csrc/fused_mlp_q8.cu``), ``gemm_int8``
-(``csrc/gemm_int8.cu``), ``flash_attention`` (``csrc/flash_attention.cu``)
-and ``rglru`` (``csrc/linear_scan.cu``).  ``ops`` dispatches on the tensor's
-device; ``build`` compiles the sources at first use."""
+(``csrc/gemm_int8.cu``), ``flash_attention`` (``csrc/flash_attention.cu``),
+``rglru`` (``csrc/linear_scan.cu``) and ``rwkv6`` (``csrc/rwkv6_scan.cu``).
+``ops`` dispatches on the tensor's device; ``build`` compiles the sources at
+first use."""

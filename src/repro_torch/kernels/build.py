@@ -21,7 +21,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 SOURCES = {"fused_mlp_q8": "fused_mlp_q8.cu", "gemm_int8": "gemm_int8.cu",
            "flash_attention": "flash_attention.cu",
-           "linear_scan": "linear_scan.cu"}
+           "linear_scan": "linear_scan.cu", "rwkv6_scan": "rwkv6_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

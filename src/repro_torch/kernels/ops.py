@@ -14,6 +14,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_mlp as _fm
 from repro_torch.kernels import gemm_int8 as _g8
 from repro_torch.kernels import rglru as _rg
+from repro_torch.kernels import rwkv6 as _rw
 from repro_torch.kernels.fused_mlp import FusedGroup, pack_group
 
 
@@ -23,11 +24,13 @@ def reset_launches() -> None:
     _g8.launches = 0
     _fa.launches = 0
     _rg.launches = 0
+    _rw.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
     return {"fused_mlp_q8": _fm.launches, "gemm_int8": _g8.launches,
-            "flash_attention": _fa.launches, "linear_scan": _rg.launches}
+            "flash_attention": _fa.launches, "linear_scan": _rg.launches,
+            "rwkv6_scan": _rw.launches}
 
 
 def fused_group(x: torch.Tensor, g: FusedGroup) -> torch.Tensor:
@@ -87,3 +90,14 @@ def linear_scan(a, b) -> torch.Tensor:
     if a.device.type == "cpu":
         return _rg.linear_scan_plain(a, b)
     return _rg.linear_scan_cuda(a, b)
+
+
+def rwkv6_scan(r, k, v, w, u, *, state0=None, return_state: bool = False):
+    """The RWKV-6 recurrence over r, k, v, w ``(BH, T, D)`` with the bonus
+    u ``(H, D)``, from ``state0`` (or zeros); with ``return_state`` returns
+    (output, final f32 state)."""
+    if r.device.type == "cpu":
+        return _rw.rwkv6_scan_plain(r, k, v, w, u, state0=state0,
+                                    return_state=return_state)
+    return _rw.rwkv6_scan_cuda(r, k, v, w, u, state0=state0,
+                               return_state=return_state)

@@ -1,0 +1,141 @@
+"""The RWKV-6 ("Finch") recurrence with data-dependent decay.
+
+Per head of size D, along T, with a D x D f32 state S:
+
+    o_t = r_t . (S + diag(u) . k_t v_t^T)
+    S  <- diag(w_t) . S + k_t v_t^T
+
+Port of the JAX package's ``kernels/rwkv6.py::rwkv6_scan``, widened to the
+function the model needs (``models/rwkv.py::rwkv6_chunked``): a per-head
+``u`` of shape ``(H, D)`` (row ``bh % H`` serves row ``bh``; a ``(D,)`` u
+is ``H = 1``), an optional initial state and an optional final state.  At
+``state0=None`` and ``H = 1`` it is exactly the TPU kernel's function.
+
+Contract: r, k, v ``(BH, T, D)``, all f32 or all bf16; w ``(BH, T, D)`` f32;
+u f32; state0 ``(BH, D, D)`` f32 (``S[i][j]`` pairs key channel ``i`` with
+value channel ``j``) or None for zeros.  The output is ``(BH, T, D)`` in r's
+dtype, the final state f32.  The CUDA kernel is ``csrc/rwkv6_scan.cu``; it
+takes r, k, v, w as strided views (any batch-head and time strides, a
+contiguous last axis), so the model's head-transposed projections need no
+copy where they form a ``(BH, T, D)`` view.  :func:`rwkv6_scan_plain` is
+the same function in plain PyTorch, used for CPU tensors and as the
+kernel's oracle on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+launches = 0          # kernel launches since the last reset (plain int)
+
+HEAD_DIMS = (32, 64, 128)       # the head sizes the CUDA kernel is built for
+_DTYPES = (torch.float32, torch.bfloat16)
+F32 = torch.float32
+
+
+def _check(r, k, v, w, u, state0) -> int:
+    """Shape checks shared by both versions; returns H."""
+    if r.dim() != 3 or not (r.shape == k.shape == v.shape == w.shape):
+        raise ValueError(f"rwkv6_scan: want r, k, v, w of one shape (BH, T, "
+                         f"D), got {tuple(r.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}, {tuple(w.shape)}")
+    bh, t_len, d = r.shape
+    if bh == 0 or t_len == 0:
+        raise ValueError(f"rwkv6_scan: empty input {tuple(r.shape)}")
+    if u.dim() == 1:
+        u = u[None]
+    if u.dim() != 2 or u.shape[1] != d or u.shape[0] < 1 \
+            or bh % u.shape[0] != 0:
+        raise ValueError(f"rwkv6_scan: want u (D,) or (H, D) with H dividing "
+                         f"BH={bh}, D={d}; got {tuple(u.shape)}")
+    if state0 is not None and tuple(state0.shape) != (bh, d, d):
+        raise ValueError(f"rwkv6_scan: want state0 ({bh}, {d}, {d}), got "
+                         f"{tuple(state0.shape)}")
+    return u.shape[0]
+
+
+def rwkv6_scan_plain(r, k, v, w, u, *, state0=None,
+                     return_state: bool = False):
+    """A loop over T in f32.  Returns the output, or (output, final state)
+    when ``return_state``."""
+    h = _check(r, k, v, w, u, state0)
+    bh, t_len, d = r.shape
+    r32, k32, v32, w32 = r.float(), k.float(), v.float(), w.float()
+    u32 = u.float().reshape(h, d).repeat(bh // h, 1)        # (BH, D)
+    s = (torch.zeros((bh, d, d), dtype=F32, device=r.device)
+         if state0 is None else state0.float().clone())
+    out = torch.empty((bh, t_len, d), dtype=F32, device=r.device)
+    for t in range(t_len):
+        rt, kt, vt = r32[:, t], k32[:, t], v32[:, t]
+        bonus = (rt * u32 * kt).sum(-1, keepdim=True)       # (BH, 1)
+        out[:, t] = torch.bmm(rt[:, None], s)[:, 0] + bonus * vt
+        s = w32[:, t, :, None] * s + kt[:, :, None] * vt[:, None, :]
+    out = out.to(r.dtype)
+    return (out, s) if return_state else out
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.library("rwkv6_scan")
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.repro_rwkv6_scan.argtypes = (
+        [vp] * 8 + [ci] * 5 + [ll] * 8 + [vp])
+    lib.repro_rwkv6_scan.restype = ci
+    return lib
+
+
+def rwkv6_scan_cuda(r, k, v, w, u, *, state0=None,
+                    return_state: bool = False):
+    """Launch ``csrc/rwkv6_scan.cu`` on r's device and stream.  r, k, v, w
+    may be strided views with a contiguous last axis; u and state0 are made
+    contiguous (state0 also 16-byte aligned).  The output and the final
+    state are new contiguous tensors."""
+    global launches
+    h = _check(r, k, v, w, u, state0)
+    ts = (r, k, v, w, u) + (() if state0 is None else (state0,))
+    if not all(t.is_cuda and t.device == r.device for t in ts):
+        raise ValueError("rwkv6_scan_cuda: every input must lie on one CUDA "
+                         "device")
+    if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise ValueError(f"rwkv6_scan_cuda: want r, k, v all f32 or all "
+                         f"bf16, got {r.dtype}, {k.dtype}, {v.dtype}")
+    if w.dtype != F32 or u.dtype != F32 \
+            or (state0 is not None and state0.dtype != F32):
+        raise ValueError("rwkv6_scan_cuda: w, u and state0 must be f32")
+    bh, t_len, d = r.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"rwkv6_scan_cuda: head dim {d} is not one the "
+                         f"kernel takes {HEAD_DIMS}")
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
+        if t.stride(2) != 1:
+            raise ValueError(f"rwkv6_scan_cuda: {name} needs a contiguous "
+                             f"last axis, got strides {t.stride()}")
+    if bh > 2 ** 31 - 1:
+        raise ValueError(f"rwkv6_scan_cuda: BH={bh} exceeds the grid limit")
+    u = u.reshape(h, d).contiguous()
+    s0 = None
+    if state0 is not None:
+        # The kernel reads the state as 16-byte vectors.
+        s0 = state0.contiguous()
+        if s0.data_ptr() % 16:
+            s0 = s0.clone()
+    out = torch.empty((bh, t_len, d), dtype=r.dtype, device=r.device)
+    s_fin = (torch.empty((bh, d, d), dtype=F32, device=r.device)
+             if return_state else None)
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    err = _lib().repro_rwkv6_scan(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        0 if s0 is None else s0.data_ptr(), out.data_ptr(),
+        0 if s_fin is None else s_fin.data_ptr(),
+        int(r.dtype == torch.bfloat16), bh, h, t_len, d,
+        r.stride(0), r.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), w.stride(0), w.stride(1), stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan: CUDA error {err}")
+    launches += 1
+    return (out, s_fin) if return_state else out

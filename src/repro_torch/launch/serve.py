@@ -1,8 +1,13 @@
 """Serving launcher: continuous batching of a language model on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
       --smoke --device cpu
+
+``--arch`` takes any architecture the port registers (``repro_torch.configs``:
+``recurrentgemma-2b``, ``rwkv6-7b``); ``--smoke`` serves its reduced
+same-family configuration.
 
 Random weights from seed 0 (drawn on the serving device), requests with
 2-8 token prompts from numpy seed 0, greedy decoding.  ``--device`` left out

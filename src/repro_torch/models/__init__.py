@@ -1,2 +1,3 @@
 """Model definitions of the port: the Table-I edge nets (``edge``) and the
-Griffin language model (``griffin``, behind ``api``)."""
+Griffin and RWKV-6 language models (``griffin``, ``rwkv``, behind
+``api``)."""

@@ -6,9 +6,9 @@
   init_decode_state(cfg, batch, max_len, device) -> zeroed state
   decode_step(params, cfg, tokens, state, pos)   -> (logits, new_state)
 
-Port of the JAX package's ``models/api.py`` for ``family == "griffin"``;
-every other family raises.  Forward and decode run where the parameters
-lie.
+Port of the JAX package's ``models/api.py`` for ``family == "griffin"`` and
+``family == "rwkv"``; every other family raises.  Forward and decode run
+where the parameters lie.
 """
 
 from __future__ import annotations
@@ -16,30 +16,38 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import griffin, tree
+from repro_torch.models import griffin, rwkv, tree
 from repro_torch.models.config import ModelConfig
 
+PORTED = ("griffin", "rwkv")
 
-def _griffin_only(cfg: ModelConfig) -> None:
-    if cfg.family != "griffin":
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED:
         raise ValueError(f"model family {cfg.family!r} is not ported to "
-                         f"repro_torch (ported: griffin)")
+                         f"repro_torch (ported: {', '.join(PORTED)})")
 
 
 def init(cfg: ModelConfig, generator: torch.Generator, *,
          device=None) -> dict:
-    _griffin_only(cfg)
+    _check_family(cfg)
+    if cfg.family == "rwkv":
+        return rwkv.init_rwkv(cfg, generator=generator, device=device)
     return griffin.init_griffin(cfg, generator=generator, device=device)
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict) -> dict:
     """batch: {"tokens": (B,S)}."""
-    _griffin_only(cfg)
+    _check_family(cfg)
+    if cfg.family == "rwkv":
+        return rwkv.rwkv_forward(params, cfg, batch["tokens"])
     return griffin.griffin_forward(params, cfg, batch["tokens"])
 
 
 def decode_state_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    _griffin_only(cfg)
+    _check_family(cfg)
+    if cfg.family == "rwkv":
+        return rwkv.rwkv_state_specs(cfg, batch)
     return griffin.griffin_state_specs(
         cfg, batch, min(cfg.griffin.local_window, max_len))
 
@@ -54,5 +62,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def decode_step(params: dict, cfg: ModelConfig, tokens, state: dict,
                 cache_pos):
-    _griffin_only(cfg)
+    _check_family(cfg)
+    if cfg.family == "rwkv":
+        return rwkv.rwkv_decode_step(params, cfg, tokens, state, cache_pos)
     return griffin.griffin_decode_step(params, cfg, tokens, state, cache_pos)

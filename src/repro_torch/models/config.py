@@ -1,9 +1,11 @@
 """Model configuration schema of the port's language models.
 
 A copy of the JAX package's ``models/config.py`` (``GriffinConfig``,
-``ModelConfig``) with the fields the Griffin family reads; the dataclass and
-field names stay, so a configuration reads the same in both packages.  The
-Griffin family always ties and scales its embeddings.
+``ModelConfig``) with the fields the port's two families read: Griffin
+(``recurrentgemma``) and RWKV-6.  The dataclass, field names and defaults
+stay, so a configuration reads the same in both packages.  The Griffin
+family always ties and scales its embeddings; RWKV-6 reads
+``rwkv_head_dim`` and keeps a separate unembedding.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ class GriffinConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                       # griffin (the port's only LM family)
+    family: str                       # griffin | rwkv
     num_layers: int
     d_model: int
     num_heads: int
@@ -37,8 +39,13 @@ class ModelConfig:
     logit_softcap: Optional[float] = None
     rope_theta: float = 10000.0
     griffin: Optional[GriffinConfig] = None
+    # RWKV.
+    rwkv_head_dim: int = 64
+    tie_embeddings: bool = True
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
+    # Whether a 500k-token decode is sub-quadratic-feasible (SSM/hybrid only).
+    subquadratic: bool = False
 
     @property
     def padded_vocab(self) -> int:

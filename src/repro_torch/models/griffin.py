@@ -157,13 +157,6 @@ def init_griffin(cfg: ModelConfig, *, generator: torch.Generator,
     return params
 
 
-def _numpy_to_tensor(a) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":     # ml_dtypes' bfloat16 from JAX
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(np.array(a, copy=True))
-
-
 def params_from_numpy(cfg: ModelConfig, params, *, device=None) -> dict:
     """A JAX parameter tree of this family, its leaves as numpy arrays
     (bfloat16 included), as the port's parameters on ``device``.  Dtypes are
@@ -181,7 +174,7 @@ def params_from_numpy(cfg: ModelConfig, params, *, device=None) -> dict:
         if np.shape(tree.leaves(slot)[0])[0] != n_blocks:
             raise ValueError(f"stacked blocks of {cfg.name} need a leading "
                              f"axis of {n_blocks}")
-    return tree.tree_map(lambda a: _numpy_to_tensor(a).to(device), params)
+    return tree.tree_map(lambda a: tree.from_numpy(a).to(device), params)
 
 
 def _apply_layer(pl: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,

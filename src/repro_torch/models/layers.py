@@ -1,9 +1,9 @@
 """Shared building blocks of the port's language models (plain tensors).
 
 Port of the parts of the JAX package's ``models/layers.py`` that the Griffin
-family runs: dense init, the padded-vocab mask, RMSNorm, RoPE, local GQA
-attention with its ring-buffer and cache branches, decode attention and the
-gated GELU MLP.
+and RWKV-6 families run: dense init, the padded-vocab mask, RMSNorm,
+LayerNorm, RoPE, local GQA attention with its ring-buffer and cache
+branches, decode attention and the gated GELU MLP.
 Every block is a pair ``init_*(generator, cfg, ...) -> params`` and
 ``*(params, x, ...) -> y``; params are nested dicts of tensors in the JAX
 tree layout, so a JAX parameter tree converts leaf by leaf.
@@ -74,6 +74,22 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(h * h, dim=-1, keepdim=True)
     h = h * torch.rsqrt(var + eps)
     return (h * params["scale"].float()).to(x.dtype)
+
+
+def init_layernorm(d: int, dtype: torch.dtype, *, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(params: dict, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in f32, with the population variance
+    (``jnp.var``'s, hence ``correction=0``)."""
+    h = x.float()
+    var, mu = torch.var_mean(h, dim=-1, keepdim=True, correction=0)
+    h = (h - mu) * torch.rsqrt(var + eps)
+    return (h * params["scale"].float()
+            + params["bias"].float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

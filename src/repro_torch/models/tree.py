@@ -1,10 +1,12 @@
 """The few pytree operations the port needs on nested dicts and lists of
-tensors (the JAX package's ``jax.tree.map`` and the stacked-layer layout)."""
+tensors (the JAX package's ``jax.tree.map`` and the stacked-layer layout),
+and the leaf conversion that carries a JAX parameter tree across."""
 
 from __future__ import annotations
 
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 
@@ -34,3 +36,12 @@ def index(tree: Any, i: int) -> Any:
 def stack(trees: list) -> Any:
     """The inverse of :func:`index`: per-layer trees stacked on axis 0."""
     return tree_map(lambda *ts: torch.stack(ts), trees[0], *trees[1:])
+
+
+def from_numpy(a) -> torch.Tensor:
+    """A numpy array (JAX's bfloat16 included) as a CPU tensor of the same
+    dtype, copied."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":     # ml_dtypes' bfloat16 from JAX
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))

@@ -11,9 +11,9 @@ Port of the JAX package's ``serve/engine.py``, two surfaces:
   ``fused=False``).  Both give the same answers to 1e-5, so degrading never
   changes a result.
 * **LM serving** (:func:`build_serve_steps`, :class:`ContinuousBatcher`):
-  whole-prompt prefill and decode steps of the Griffin family, and a
-  fixed-slot continuous batcher that advances every slot at its own
-  position in one batched decode step.
+  whole-prompt prefill and decode steps of any ported LM family (Griffin,
+  RWKV-6), and a fixed-slot continuous batcher that advances every slot at
+  its own position in one batched decode step.
 """
 
 from __future__ import annotations
@@ -161,9 +161,12 @@ def build_serve_steps(cfg: ModelConfig):
     prefill_fn(params, tokens, state)        -> (logits_last, state)
     decode_fn(params, tokens, state, pos)    -> (logits, state)
 
-    Prefill takes the whole prompt in one step from position 0 (the
-    attention layers run the ``flash_attention`` kernel); chunked prefill
-    needs a query offset the kernel does not take and is not ported.
+    Prefill takes the whole prompt in one step from position 0.  A
+    Griffin model's attention layers run the ``flash_attention`` kernel
+    there; a multi-token Griffin step at a later position (chunked prefill)
+    needs a query offset the kernel does not take and raises
+    ``NotImplementedError``.  An RWKV-6 model carries all of its context in
+    the state, so a multi-token step at any position continues from it.
     """
     def prefill_fn(params, tokens, state):
         logits, state = api.decode_step(params, cfg, tokens, state, 0)
@@ -204,9 +207,9 @@ class BatchPolicy:
 
 
 def _batch_axes(cfg: ModelConfig, max_len: int):
-    """The batch axis of every state leaf (1 under the layer-stacked
-    ``blocks``, 0 in the ``tail``), found by diffing the specs at two batch
-    sizes."""
+    """The batch axis of every state leaf (1 where the leaf is stacked on a
+    leading layer axis, 0 in Griffin's unstacked ``tail``), found by diffing
+    the specs at two batch sizes."""
     def axis(a, b):
         for ax, (x, y) in enumerate(zip(a.shape, b.shape)):
             if x != y:
@@ -318,8 +321,8 @@ class ContinuousBatcher:
         return finite, last.argmax(dim=-1).cpu().numpy()
 
     def _reset_slot(self, i: int):
-        """Fresh state + position for a re-used slot (no stale KV); zeroed
-        in place."""
+        """Fresh state + position for a re-used slot (no stale cache or
+        recurrent state); zeroed in place."""
         tree.tree_map(lambda v, ax: v.select(ax, i).zero_(), self.state,
                       self._axes)
         self.pos[i] = 0

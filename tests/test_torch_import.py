@@ -68,7 +68,8 @@ def test_kernel_build_is_lazy():
     """Importing the kernel modules compiles and loads nothing."""
     from repro_torch.kernels import build
     assert build.SOURCES.keys() == {"fused_mlp_q8", "gemm_int8",
-                                    "flash_attention", "linear_scan"}
+                                    "flash_attention", "linear_scan",
+                                    "rwkv6_scan"}
     for src in build.SOURCES.values():
         assert (build.CSRC / src).is_file()
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
@@ -82,10 +83,12 @@ def no_cuda(monkeypatch):
 
 @pytest.mark.parametrize("entry", [
     "resolve_device", "plan_deployment", "plan_fleet", "init_edge",
-    "EdgeEngine", "Router.from_fleet", "api.init", "api.init_decode_state"])
+    "EdgeEngine", "Router.from_fleet", "api.init", "api.init_decode_state",
+    "api.init rwkv", "api.init_decode_state rwkv"])
 def test_entry_points_raise_without_gpu(no_cuda, entry):
     cfg = edge.edge_config("tau_select")
     lm = configs.get("recurrentgemma-2b").smoke
+    rwkv = configs.get("rwkv6-7b").smoke
     calls = {
         "resolve_device": lambda: resolve_device(None),
         "plan_deployment": lambda: plan_deployment(cfg),
@@ -97,6 +100,10 @@ def test_entry_points_raise_without_gpu(no_cuda, entry):
             plan_fleet([cfg], device="cpu")),
         "api.init": lambda: api.init(lm, torch.Generator().manual_seed(0)),
         "api.init_decode_state": lambda: api.init_decode_state(lm, 1, 16),
+        "api.init rwkv": lambda: api.init(rwkv,
+                                          torch.Generator().manual_seed(0)),
+        "api.init_decode_state rwkv": lambda: api.init_decode_state(
+            rwkv, 1, 16),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
