@@ -6,23 +6,36 @@
 Phases, in order; any failure exits non-zero without the final ``ok`` line:
 
 1. the card, as ``nvidia-smi`` names it with its power limit;
-2. build all five CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
+2. build all seven CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
    one process per source, started together);
 3. kernels: ``fused_mlp_q8`` on every edge net's fused group at batch 8 and
    on an odd shape, ``gemm_int8`` on every layer shape of the five nets and
    on 256 x 1024 x 1024, each held against its plain PyTorch version on the
-   same inputs on the card;
+   same inputs on the card; 3b: ``fused_dense`` with every activation, with
+   and without a residual, in f32 and bf16, at the five nets' layer shapes
+   and a ragged one, and ``tiled_gemm`` in int8 (bit-exact), f32 and bf16 at
+   ragged and large shapes, with the planner's block and three more;
 4. serve: ``Deployment.build(["jet_tagger", "tau_select"])`` on the default
-   device, ``serve()``, ``warmup()``, ``drive(iters=50)``; then every
-   engine degraded to the per-layer rung and driven again.  The launch
-   counters are zeroed just before and read just after: every served
-   request must have launched ``fused_mlp_q8``, the degraded rung
-   ``gemm_int8``.  The two rungs must agree, and the served outputs must
-   match the plain path on the CPU with the same weights;
+   device, its verify stage on: clean findings, one ``fused_dense`` launch
+   per layer (4 + 3) from the calibration pass and nothing else, and input
+   scales within 1e-5 relative of a CPU build of the same weights.  Then
+   ``serve()``, ``warmup()``, ``drive(iters=50)``; then every engine
+   degraded to the per-layer rung and driven again.  The launch counters
+   are zeroed just before and read just after: every served request must
+   have launched ``fused_mlp_q8``, the degraded rung ``gemm_int8``.  The
+   two rungs must agree, and the served outputs must match the plain path
+   on the CPU with the same weights; 4b: ``edge_forward`` of all five nets
+   on the card, one ``fused_dense`` per layer, against the plain path on
+   the CPU; 4c: ``python -m repro_torch check`` in a subprocess: exit 0,
+   no error finding, one launch of each kernel (``tiled_gemm`` among them)
+   in its library self-check;
 5. times with CUDA events at the served shapes: each kernel, its plain
    version and a library yardstick (``torch._int_mm`` plus the same
    epilogue), beside the least time the card could take and the time of an
-   empty launch;
+   empty launch; 5b: ``fused_dense`` at every served layer shape against
+   ``torch.addmm``, ``tiled_gemm`` at the check's case and (256, 4096, 4096)
+   in bf16 against ``torch.matmul`` and in int8 at 256 x 1024 x 1024
+   against ``torch._int_mm``;
 6. LM kernels: ``flash_attention`` at the served shape (1,10,4096,256) /
    (1,1,4096,256) causal window 2048 in bf16 and f32, a GQA + softcap +
    ragged case in f32 and bf16, and a non-causal ragged case;
@@ -67,8 +80,9 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    bound max(bytes / 3.35 TB/s, flops / 67 TFLOP/s f32): the recurrence
    is f32 arithmetic outside the tensor cores.
 
-It prints one ``{"kernels": [...]}`` line, the card line again, and last
-``{"ok": true, "device": {...}}``.  It needs no network and one card.
+It prints one ``{"kernels": [...]}`` line (all seven kernels), the card line
+again, and last ``{"ok": true, "device": {...}}``.  It needs no network and
+one card.
 """
 
 from __future__ import annotations
@@ -141,6 +155,19 @@ PEAK_F32 = 67e12
 # outputs round values that close to at most one bf16 ulp apart (2^-7 of the
 # value), plus 1e-4 near zero.
 TOL_RWKV = {"float32": (1e-4, 1e-4), "bfloat16": (2 ** -7, 1e-4)}
+# fused_dense and tiled_gemm against their plain versions, as (rtol, atol).
+# f32: both sum exact f32 products in f32 in another order (~1e-7 of
+# outputs of O(1) at K <= 1024), held to the reference's fused_dense
+# 1e-5 / 1e-4.  bf16: the same f32 values rounded once to bf16 differ by at
+# most one bf16 ulp (2^-7 of the value), plus 1e-3 near zero; far inside the
+# reference's 2e-2.
+TOL_DENSE = {"float32": (1e-5, 1e-4), "bfloat16": (2 ** -7, 1e-3)}
+# The calibrated input scales of a build on the card against a CPU build of
+# the same weights: max|h| over the same f32 layers summed in another order.
+TOL_XSCALE = 1e-5
+# Library yardsticks: torch.matmul in bf16 rounds and accumulates its own
+# way; the reference's bf16 tolerance (tests/test_kernels.py).
+TOL_GEMM_LIBRARY = (2e-2, 0.16)
 LM_KERNELS = ("flash_attention", "linear_scan", "rwkv6_scan")
 
 KERNEL_META = {
@@ -164,6 +191,14 @@ KERNEL_META = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6.py:53"},
+    "tiled_gemm": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/tiled_gemm.cu",
+        "replaces": "src/repro/kernels/tiled_gemm.py:61"},
+    "fused_dense": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_dense.cu",
+        "replaces": "src/repro/kernels/fused_dense.py:59"},
 }
 
 
@@ -299,6 +334,108 @@ def kernel_phase(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3b: fused_dense and tiled_gemm against their plain versions
+# ---------------------------------------------------------------------------
+
+# (M, K, N) of tiled_gemm's checks: the check's canonical case, ragged
+# shapes off every block multiple, one row, and a multi-wave grid.
+GEMM_CASES = ((64, 256, 512), (33, 100, 130), (1, 7, 5), (200, 300, 260),
+              (256, 1024, 1024))
+# Blocks held beside the planner's choice: the smallest, the largest, one
+# between.
+GEMM_BLOCKS = ((8, 16, 32), (64, 64, 128), (16, 32, 64))
+
+
+def _dense_args(gen, device, m, k, n, dtype, residual):
+    """x, w (scaled so outputs are O(1)), an f32 bias and an optional
+    residual, drawn on the CPU from ``gen``."""
+    import torch
+    dt = getattr(torch, dtype)
+    x = torch.randn((m, k), generator=gen).to(device, dt)
+    w = (torch.randn((k, n), generator=gen) * k ** -0.5).to(device, dt)
+    b = torch.randn((n,), generator=gen).to(device)
+    r = (torch.randn((m, n), generator=gen).to(device, dt) if residual
+         else None)
+    return x, w, b, r
+
+
+def dense_kernel_phase(device) -> dict:
+    import torch
+    from repro_torch.core import tiling
+    from repro_torch.kernels import fused_dense as fd
+    from repro_torch.kernels import tiled_gemm as tg
+    from repro_torch.models import edge
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(8)
+    errs = {"fused_dense": 0.0, "tiled_gemm": 0.0}
+    # fused_dense: every act, with and without a residual, f32 and bf16, at
+    # the five nets' layer shapes and a ragged one.
+    shapes = sorted({(8, k, n) for name in NETS
+                     for k, n in edge.edge_config(name).layer_shapes}
+                    | {(13, 100, 70)})
+    for dtype in ("float32", "bfloat16"):
+        rtol, atol = TOL_DENSE[dtype]
+        worst = 0.0
+        for m, k, n in shapes:
+            bm, bk, bn = tiling.plan_tiled(m, k, n, itemsize=4 if dtype ==
+                                           "float32" else 2).blocks
+            for residual in (False, True):
+                x, w, b, r = _dense_args(gen, device, m, k, n, dtype,
+                                         residual)
+                for act in fd.ACTS:
+                    got = fd.fused_dense_cuda(x, w, b, r, act=act, block_m=bm,
+                                              block_k=bk, block_n=bn)
+                    want = fd.fused_dense_plain(x, w, b, r, act=act)
+                    if got.dtype != want.dtype:
+                        raise SmokeFailure(f"fused_dense {dtype}: out dtype "
+                                           f"{got.dtype}")
+                    err = check_close(f"fused_dense ({m},{k},{n}) {dtype} "
+                                      f"{act} residual={residual}", got, want,
+                                      tol=rtol, atol=atol)
+                    worst = max(worst, err)
+        if dtype == "float32":
+            errs["fused_dense"] = worst
+        log(f"kernel fused_dense {dtype}: {len(shapes)} shapes x "
+            f"{len(fd.ACTS)} acts x residual on/off: max_abs_err={worst} "
+            f"rtol={rtol} atol={atol}")
+    # tiled_gemm: int8 -> int32 exactly, f32 and bf16, at the planner's
+    # blocks and three more.
+    for dtype in ("int8", "float32", "bfloat16"):
+        worst = 0.0
+        for m, k, n in GEMM_CASES:
+            if dtype == "int8":
+                x, w = (torch.randint(-127, 128, s, generator=gen,
+                                      dtype=torch.int8).to(device)
+                        for s in ((m, k), (k, n)))
+            else:
+                x, w, _, _ = _dense_args(gen, device, m, k, n, dtype, False)
+            want = tg.tiled_gemm_plain(x, w)
+            planned = tiling.plan_tiled(m, k, n,
+                                        itemsize=x.element_size()).blocks
+            for bm, bk, bn in dict.fromkeys((planned,) + GEMM_BLOCKS):
+                got = tg.tiled_gemm_cuda(x, w, block_m=bm, block_k=bk,
+                                         block_n=bn)
+                what = f"tiled_gemm ({m},{k},{n}) {dtype} {(bm, bk, bn)}"
+                if dtype == "int8":
+                    if got.dtype != torch.int32 or not torch.equal(got, want):
+                        raise SmokeFailure(f"{what}: not bit-exact")
+                    continue
+                rtol, atol = TOL_DENSE[dtype]
+                if got.dtype != want.dtype:
+                    raise SmokeFailure(f"{what}: out dtype {got.dtype}")
+                worst = max(worst, check_close(what, got, want, tol=rtol,
+                                               atol=atol))
+        if dtype == "float32":
+            errs["tiled_gemm"] = worst
+        tol = ("exact" if dtype == "int8"
+               else "rtol={} atol={}".format(*TOL_DENSE[dtype]))
+        log(f"kernel tiled_gemm {dtype}: {len(GEMM_CASES)} shapes x "
+            f"planned + {len(GEMM_BLOCKS)} blocks: max_abs_err={worst} {tol}")
+    torch.cuda.synchronize(device)
+    return errs
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: the main path, through the entry points a user calls
 # ---------------------------------------------------------------------------
 
@@ -310,8 +447,10 @@ def serve_phase():
 
     ops.reset_launches()
     dep = Deployment.build(list(SERVED))
+    build_launches = ops.launch_counts()
     if dep.device.type != "cuda":
         raise SmokeFailure(f"default device is {dep.device}, not cuda")
+    check_build(dep, build_launches)
     router = dep.serve()
     inputs = router.warmup()
     report = router.drive(inputs, iters=DRIVE_ITERS)
@@ -366,7 +505,114 @@ def serve_phase():
         err = check_close(f"{nid} card vs CPU plain path", y.cpu(), y_cpu)
         log(f"serve {nid}: card vs CPU plain path max_abs_err={err} "
             f"tol={TOL}")
-    return dep, launches
+    return dep, launches, build_launches
+
+
+def check_build(dep, build_launches) -> None:
+    """The build on the card: the verify stage ran and found nothing, the
+    calibration pass launched ``fused_dense`` once per layer of the fleet
+    and nothing else, and its input scales match a CPU build of the same
+    seeded weights (the plain version) to ``TOL_XSCALE`` relative."""
+    from repro_torch.deploy import Deployment
+    layers = sum(len(t.plan.layers) for t in dep.fleet.tenants)
+    want = {k: 0 for k in build_launches}
+    want["fused_dense"] = layers
+    if dep.verify != "clean" or dep.findings:
+        raise SmokeFailure(f"verify stage: {dep.verify} {dep.findings}")
+    if build_launches != want:
+        raise SmokeFailure(f"Deployment.build launched {build_launches}, "
+                           f"want {want} (calibration: one fused_dense per "
+                           f"layer)")
+    cpu = Deployment.build(list(SERVED), device="cpu")
+    worst = 0.0
+    for nid, eng in dep.engines.items():
+        for i, (q, q_cpu) in enumerate(zip(eng.qparams,
+                                           cpu.engines[nid].qparams)):
+            if not bool((q["w_q"].cpu() == q_cpu["w_q"]).all()):
+                raise SmokeFailure(f"{nid} layer {i}: w_q differs from the "
+                                   f"CPU build")
+            rel = abs(q["x_scale"] - q_cpu["x_scale"]) / q_cpu["x_scale"]
+            if rel > TOL_XSCALE:
+                raise SmokeFailure(f"{nid} layer {i}: x_scale "
+                                   f"{q['x_scale']} vs CPU {q_cpu['x_scale']}"
+                                   f" ({rel} relative > {TOL_XSCALE})")
+            worst = max(worst, rel)
+    log(f"build: verify {dep.verify}; launches {json.dumps(build_launches)}; "
+        f"x_scale vs CPU build max rel err {worst} (tol {TOL_XSCALE})")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: the float edge forward, one fused_dense per layer
+# ---------------------------------------------------------------------------
+
+def edge_forward_phase(device) -> dict:
+    """``edge_forward`` of all five nets on the card, held against the plain
+    path on the CPU with the same weights and input.  Returns the launches of
+    the run and the worst error."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import edge
+    gen = torch.Generator().manual_seed(7)
+    runs = []
+    for name in NETS:
+        cfg = edge.edge_config(name)
+        params = edge.init_edge(cfg, generator=gen, device=device)
+        for p in params:                      # non-zero biases
+            p["b"] = torch.randn(p["b"].shape, generator=gen).to(device) * 0.1
+        x = torch.randn((cfg.batch, cfg.dims[0]), generator=gen)
+        runs.append((cfg, params, x))
+    ops.reset_launches()
+    outs = [edge.edge_forward(params, cfg, x.to(device))
+            for cfg, params, x in runs]
+    torch.cuda.synchronize(device)
+    launches = ops.launch_counts()
+    layers = sum(len(cfg.layer_shapes) for cfg, _, _ in runs)
+    if launches["fused_dense"] != layers or sum(launches.values()) != layers:
+        raise SmokeFailure(f"edge_forward launched {launches}, want "
+                           f"{layers} fused_dense")
+    worst = 0.0
+    rtol, atol = TOL_DENSE["float32"]
+    for (cfg, params, x), y in zip(runs, outs):
+        on_card(y, f"{cfg.name} edge_forward")
+        cpu = [{k: v.cpu() for k, v in p.items()} for p in params]
+        err = check_close(f"{cfg.name} edge_forward card vs CPU plain",
+                          y.cpu(), edge.edge_forward(cpu, cfg, x), tol=rtol,
+                          atol=atol)
+        worst = max(worst, err)
+        log(f"edge_forward {cfg.name} dims={list(cfg.dims)} M={cfg.batch}: "
+            f"card vs CPU plain max_abs_err={err} rtol={rtol} atol={atol}")
+    log(f"edge_forward launches {json.dumps(launches)} for {layers} layers")
+    return {"launches": launches["fused_dense"], "max_abs_err": worst}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4c: ``python -m repro_torch check`` in a subprocess
+# ---------------------------------------------------------------------------
+
+def check_cli_phase() -> dict:
+    """The check entry point as a user runs it: it plans and verifies the
+    Table-I fleet, then launches every kernel once in its library
+    self-check.  It must exit 0 and report a ``tiled_gemm`` launch."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch", "check",
+                           "--json"], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SmokeFailure(f"python -m repro_torch check exited "
+                           f"{proc.returncode}:\n{proc.stdout}\n"
+                           f"{proc.stderr}")
+    report = json.loads(proc.stdout)
+    if report["counts"]["error"] or report["launches"]["tiled_gemm"] < 1:
+        raise SmokeFailure(f"check report: {report}")
+    if any(n != 1 for n in report["launches"].values()):
+        raise SmokeFailure(f"check self-check launches: {report['launches']}")
+    log(f"check: rc 0 in {wall_s:.1f} s; checked {report['checked']}; "
+        f"counts {report['counts']}; launches "
+        f"{json.dumps(report['launches'], sort_keys=True)}")
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -547,6 +793,123 @@ def gemm_row(what, xq, w, sw, x_scale, tile) -> dict:
                 xq, w, sw, x_scale, out_dtype=torch.float32)),
             "library_ms": graph_ms(library),
             **bound(m * k + k * n + 4 * n + 4 * m * n, 2.0 * m * k * n)}
+
+# ---------------------------------------------------------------------------
+# Phase 5b: fused_dense and tiled_gemm times
+# ---------------------------------------------------------------------------
+
+def dense_timing_phase(dep, device) -> dict:
+    """Device ms per call (graph-replayed) and eager ms of ``fused_dense`` at
+    every served layer shape (act none, no residual: the function
+    ``torch.addmm`` computes) and of ``tiled_gemm`` at the check's canonical
+    case, at (256, 4096, 4096) bf16 (both against ``torch.matmul``) and in
+    int8 at 256 x 1024 x 1024 (against ``torch._int_mm``), each beside its
+    plain version and its bound."""
+    import torch
+    from repro_torch.core import tiling
+    from repro_torch.kernels import fused_dense as fd
+    from repro_torch.kernels import tiled_gemm as tg
+    gen = torch.Generator().manual_seed(9)
+    rows = {"fused_dense": [], "tiled_gemm": []}
+    for nid in SERVED:
+        cfg = dep.engines[nid].cfg
+        for i, (k, n) in enumerate(cfg.layer_shapes):
+            m = cfg.batch
+            x, w, b, _ = _dense_args(gen, device, m, k, n, "float32", False)
+            blocks = tiling.plan_tiled(m, k, n, itemsize=4).blocks
+
+            def kernel():
+                return fd.fused_dense_cuda(x, w, b, act="none",
+                                           block_m=blocks[0],
+                                           block_k=blocks[1],
+                                           block_n=blocks[2])
+
+            def library():
+                return torch.addmm(b, x, w)
+            rtol, atol = TOL_DENSE["float32"]
+            check_close(f"fused_dense {nid}.dense{i} library vs kernel",
+                        library(), kernel(), tol=rtol, atol=atol)
+            rows["fused_dense"].append({
+                "shape": f"{nid}.dense{i} ({m},{k},{n}) f32 act none",
+                "blocks": list(blocks),
+                "ms": graph_ms(kernel), "eager_ms": event_ms(kernel),
+                "plain_ms": graph_ms(lambda: fd.fused_dense_plain(
+                    x, w, b, act="none")),
+                "library_ms": graph_ms(library),
+                **bound(4 * (m * k + k * n + n + m * n), 2.0 * m * k * n,
+                        PEAK_F32)})
+    for m, k, n, dtype in ((64, 256, 512, "bfloat16"),
+                           (256, 4096, 4096, "bfloat16"),
+                           (256, 1024, 1024, "int8")):
+        if dtype == "int8":
+            x, w = (torch.randint(-127, 128, s, generator=gen,
+                                  dtype=torch.int8).to(device)
+                    for s in ((m, k), (k, n)))
+            nbytes, peak = m * k + k * n + 4 * m * n, PEAK_INT8
+        else:
+            x, w, _, _ = _dense_args(gen, device, m, k, n, dtype, False)
+            nbytes, peak = 2 * (m * k + k * n + m * n), PEAK_BF16
+        blocks = tiling.plan_tiled(m, k, n, itemsize=x.element_size()).blocks
+
+        def kernel():
+            return tg.tiled_gemm_cuda(x, w, block_m=blocks[0],
+                                      block_k=blocks[1], block_n=blocks[2])
+
+        def library():
+            return torch._int_mm(x, w) if dtype == "int8" \
+                else torch.matmul(x, w)
+        got, lib_out = kernel(), library()
+        if dtype == "int8":
+            if not torch.equal(got, lib_out):
+                raise SmokeFailure("tiled_gemm int8 differs from _int_mm")
+        else:
+            check_close(f"tiled_gemm ({m},{k},{n}) library vs kernel",
+                        lib_out, got, tol=TOL_GEMM_LIBRARY[0],
+                        atol=TOL_GEMM_LIBRARY[1])
+        reps = {"inner": 5, "reps": 11} if k >= 4096 else {}
+        rows["tiled_gemm"].append({
+            "shape": f"({m},{k},{n}) {dtype}", "blocks": list(blocks),
+            "ms": graph_ms(kernel, **reps),
+            "eager_ms": event_ms(kernel, **reps),
+            "plain_ms": graph_ms(lambda: tg.tiled_gemm_plain(x, w), **reps),
+            "library_ms": graph_ms(library, **reps),
+            **bound(nbytes, 2.0 * m * k * n, peak)})
+    for name, rs in rows.items():
+        for r in rs:
+            log(f"timing {name} " + json.dumps(r, sort_keys=True))
+    return rows
+
+
+def dense_kernel_entries(errs, launches, timing) -> list:
+    """``fused_dense`` at the first served net's calibration (its layers'
+    times summed, one launch each), ``tiled_gemm`` at the check's canonical
+    case; their other rows beside them."""
+    first = SERVED[0]
+    layers = [r for r in timing["fused_dense"]
+              if r["shape"].startswith(first + ".")]
+    calib = {key: sum(r[key] for r in layers)
+             for key in ("ms", "eager_ms", "plain_ms", "library_ms")}
+    calib.update(bound(sum(r["bytes"] for r in layers),
+                       sum(r["ops"] for r in layers), PEAK_F32))
+    calib["shape"] = (f"{first} calibration, {len(layers)} launches: "
+                      + ", ".join(r["shape"].split(" ", 1)[1]
+                                  for r in layers))
+    keys = ("shape", "ms", "eager_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
+    entries = []
+    for name, row, others in (
+            ("fused_dense", calib, timing["fused_dense"]),
+            ("tiled_gemm", timing["tiled_gemm"][0],
+             timing["tiled_gemm"][1:])):
+        entries.append({
+            "name": name, **KERNEL_META[name],
+            "launches": launches[name]["main"],
+            "launches_by_path": launches[name],
+            "max_abs_err": errs[name],
+            **{k: row[k] for k in keys},
+            "rows": [{k: r[k] for k in keys} for r in others]})
+    return entries
+
 
 # ---------------------------------------------------------------------------
 # Phase 6: the LM kernels against their plain versions on the card
@@ -1120,6 +1483,7 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    t_all = time.perf_counter()
     try:
         card = card_line()
         log(card)
@@ -1135,9 +1499,22 @@ def main() -> int:
             log(f"build {name}: ptxas {regs}")
         device = torch.device("cuda", torch.cuda.current_device())
         errs = kernel_phase(device)
-        dep, launches = serve_phase()
+        errs.update(dense_kernel_phase(device))
+        dep, launches, build_launches = serve_phase()
+        forward = edge_forward_phase(device)
+        report = check_cli_phase()
         timing = timing_phase(dep, device)
+        dense_timing = dense_timing_phase(dep, device)
         line = kernels_line(errs, launches, timing)
+        line["kernels"] += dense_kernel_entries(errs, {
+            "fused_dense": {"main": build_launches["fused_dense"],
+                            "Deployment.build calibration":
+                                build_launches["fused_dense"],
+                            "edge_forward, five nets": forward["launches"]},
+            "tiled_gemm": {"main": report["launches"]["tiled_gemm"],
+                           "check library self-check":
+                               report["launches"]["tiled_gemm"]}},
+            dense_timing)
         lm_errs = lm_kernel_phase(device)
         cfg, params, tokens, fwd_launches, per_step, per_tick = \
             lm_forward_phase(LM_ARCH)
@@ -1168,6 +1545,7 @@ def main() -> int:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    log(f"chip_smoke: all phases in {time.perf_counter() - t_all:.1f} s")
     log(json.dumps(line, sort_keys=True))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

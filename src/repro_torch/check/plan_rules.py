@@ -1,0 +1,352 @@
+"""Layer 1: the plan verifier, with zero execution.
+
+Port of the JAX package's ``check/plan_rules.py`` for the fields the h100
+plans carry (``plan/artifact.py``: layers, boundaries, fusion groups,
+totals, serve; ``plan/multinet.py``: tenant budgets):
+
+=======================  ==================================================
+rule                     invariant
+=======================  ==================================================
+plan.unknown-key         no unrecognized top-level artifact keys (info)
+plan.layer-chain         indices ascending; edge layers chain n_out -> n_in
+plan.tile-legal          each layer's tile is one ``gemm_int8`` takes
+                         (``core/tiling.tile_ok``)
+plan.fusion-groups       groups consecutive, uniform, partition the layers
+plan.vmem-budget         each group's working set fits one block's shared
+                         memory (``hw.smem_bytes``)
+plan.boundary-structure  a boundary exactly where the fuse group changes
+plan.latency-invariant   est == sum(parts) + crossings + overhead >= 0
+plan.serve-keys          the serve keys the planner writes are legal
+fleet.budget             budgets cover planned latency + crossing
+=======================  ==================================================
+
+The AIE rules (tile shapes of the array, column budgets) wait for the AIE
+target of the port's planner.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import pathlib
+
+from repro_torch import hw as hwlib
+from repro_torch.check import ArtifactError, Finding
+from repro_torch.core import tiling
+
+# Relative slack for float identities that calibration rescales under.
+_REL_TOL = 5e-3
+
+_SERVE_KEYS = {"decode_regime", "quantize_weights", "prefill_chunk"}
+_DECODE_REGIMES = ("pipeline", "tiled")
+
+# The artifact's top-level keys (``plan/artifact.py``, ``plan/multinet.py``).
+_PLAN_KEYS = {"schema", "kind", "network", "target", "batch", "key",
+              "layers", "boundaries", "fusion_groups", "totals", "serve"}
+_FLEET_KEYS = {"schema", "kind", "name", "target", "key", "tenants",
+               "totals"}
+_TENANT_KEYS = {"net_id", "crossing_s", "latency_budget_s", "plan"}
+
+
+def _close(a: float, b: float, *, rel: float = _REL_TOL,
+           abs_tol: float = 1e-9) -> bool:
+    return math.isclose(a, b, rel_tol=rel, abs_tol=abs_tol)
+
+
+def as_fleet(fleet_or_plan):
+    """A ``FleetPlan`` as is; a ``DeploymentPlan`` as a one-tenant fleet."""
+    from repro_torch.plan.multinet import FleetPlan
+    if isinstance(fleet_or_plan, FleetPlan):
+        return fleet_or_plan
+    return FleetPlan.from_plan(fleet_or_plan)
+
+
+def unknown_key_findings(d: dict, known: set, *, what: str,
+                         tenant: str | None = None) -> list:
+    """Info findings for top-level keys the schema does not define: the
+    loader ignores them, so a misspelt section would silently do nothing."""
+    return [Finding(rule="plan.unknown-key", severity="info", tenant=tenant,
+                    detail=f"{what} artifact carries unknown top-level key "
+                           f"{k!r} (ignored by the loader)")
+            for k in sorted(set(d) - known)]
+
+
+def load_artifact(path):
+    """Decode a plan or fleet artifact into a ``FleetPlan`` and its
+    load-time findings, without executing it.  Undecodable input raises
+    :class:`ArtifactError`."""
+    from repro_torch.plan.artifact import DeploymentPlan
+    from repro_torch.plan.multinet import FleetPlan
+    p = pathlib.Path(path)
+    try:
+        text = p.read_text()
+    except OSError as e:
+        raise ArtifactError(f"{p}: {e.strerror or e}") from None
+    try:
+        d = json.loads(text)
+    except json.JSONDecodeError as e:
+        raise ArtifactError(f"{p}: malformed plan JSON "
+                            f"({e.msg} at line {e.lineno})") from None
+    if not isinstance(d, dict):
+        raise ArtifactError(f"{p}: plan artifact must be a JSON object, "
+                            f"got {type(d).__name__}")
+    findings = []
+    try:
+        if "tenants" in d:
+            findings += unknown_key_findings(d, _FLEET_KEYS, what="fleet",
+                                             tenant=d.get("name"))
+            for t in d["tenants"]:
+                findings += unknown_key_findings(
+                    t, _TENANT_KEYS, what="tenant", tenant=t.get("net_id"))
+                findings += unknown_key_findings(
+                    t["plan"], _PLAN_KEYS, what="plan",
+                    tenant=t.get("net_id"))
+            fleet = FleetPlan.from_dict(d)
+        else:
+            findings += unknown_key_findings(d, _PLAN_KEYS, what="plan",
+                                             tenant=d.get("network"))
+            fleet = FleetPlan.from_plan(DeploymentPlan.from_dict(d))
+    except (KeyError, TypeError, ValueError, AttributeError) as e:
+        raise ArtifactError(f"{p}: undecodable plan artifact "
+                            f"({e.__class__.__name__}: {e})") from None
+    return fleet, findings
+
+
+# ---------------------------------------------------------------------------
+# Single-plan rules
+# ---------------------------------------------------------------------------
+
+def verify_plan(plan, *, tenant: str | None = None, hw=None) -> list:
+    """All layer-1 findings for one ``DeploymentPlan``."""
+    hw = hw if hw is not None else hwlib.H100_SXM
+    tenant = tenant if tenant is not None else plan.network
+    return (_rule_layer_chain(plan, tenant) + _rule_tiles(plan, tenant)
+            + _rule_fusion_groups(plan, tenant, hw)
+            + _rule_boundaries(plan, tenant)
+            + _rule_latency_invariant(plan, tenant)
+            + _rule_serve_section(plan, tenant))
+
+
+def _rule_layer_chain(plan, tenant) -> list:
+    fs = []
+    idx = [l.index for l in plan.layers]
+    if idx != sorted(set(idx)):
+        fs.append(Finding(
+            rule="plan.layer-chain", severity="error", tenant=tenant,
+            detail=f"layer indices must be unique and ascending, got {idx}"))
+    if plan.kind == "edge":
+        for prev, nxt in zip(plan.layers, plan.layers[1:]):
+            if prev.n_out != nxt.n_in:
+                fs.append(Finding(
+                    rule="plan.layer-chain", severity="error", tenant=tenant,
+                    layer=nxt.index,
+                    detail=f"layer {nxt.name!r} consumes n_in={nxt.n_in} but "
+                           f"{prev.name!r} produces n_out={prev.n_out}"))
+    return fs
+
+
+def _rule_tiles(plan, tenant) -> list:
+    """Every layer's tile runs ``gemm_int8`` (its singleton group, or the
+    per-layer rung), which takes only the tiles it was built for."""
+    return [Finding(
+        rule="plan.tile-legal", severity="error", tenant=tenant,
+        layer=l.index,
+        detail=f"tile {tuple(l.api_tile)} on {l.name!r} is not one "
+               f"gemm_int8 takes (block_m in {tiling.BLOCK_M}, block_k in "
+               f"{tiling.BLOCK_K}, block_n in {tiling.BLOCK_N})")
+        for l in plan.layers
+        if len(l.api_tile) != 3 or not tiling.tile_ok(*l.api_tile)]
+
+
+def _rule_fusion_groups(plan, tenant, hw) -> list:
+    """DR7' structure: groups partition the layers into consecutive runs,
+    each repeat- and regime-uniform, matching the per-layer fuse_group ids;
+    every group's working set fits one block's shared memory."""
+    fs = []
+    by_index = {l.index: l for l in plan.layers}
+    seen: list = []
+    for g in plan.fusion_groups:
+        members = list(g.layers)
+        if not members or members != list(range(members[0],
+                                                 members[-1] + 1)):
+            fs.append(Finding(
+                rule="plan.fusion-groups", severity="error", tenant=tenant,
+                layer=members[0] if members else None,
+                detail=f"group {g.id} layers {members} are not consecutive"))
+        missing = [i for i in members if i not in by_index]
+        if missing:
+            fs.append(Finding(
+                rule="plan.fusion-groups", severity="error", tenant=tenant,
+                detail=f"group {g.id} names layer indices {missing} the "
+                       f"plan does not have"))
+            continue
+        ls = [by_index[i] for i in members]
+        if len({l.repeat for l in ls}) > 1 or len({l.regime for l in ls}) > 1:
+            fs.append(Finding(
+                rule="plan.fusion-groups", severity="error", tenant=tenant,
+                layer=members[0],
+                detail=f"group {g.id} mixes repeats/regimes "
+                       f"({[(l.repeat, l.regime) for l in ls]}) - a fused "
+                       f"launch executes all members together"))
+        bad_ids = [l.index for l in ls if l.fuse_group != g.id]
+        if bad_ids:
+            fs.append(Finding(
+                rule="plan.fusion-groups", severity="error", tenant=tenant,
+                layer=bad_ids[0],
+                detail=f"layers {bad_ids} carry fuse_group != group id "
+                       f"{g.id}"))
+        seen += members
+        if g.vmem_bytes > hw.smem_bytes:
+            fs.append(Finding(
+                rule="plan.vmem-budget", severity="error", tenant=tenant,
+                layer=members[0] if members else None,
+                detail=f"group {g.id} working set {g.vmem_bytes} B exceeds "
+                       f"one block's shared memory {hw.smem_bytes} B"))
+    if plan.fusion_groups and sorted(seen) != sorted(by_index):
+        fs.append(Finding(
+            rule="plan.fusion-groups", severity="error", tenant=tenant,
+            detail=f"fusion groups cover layers {sorted(seen)} but the plan "
+                   f"has {sorted(by_index)} (must partition exactly)"))
+    return fs
+
+
+def _rule_boundaries(plan, tenant) -> list:
+    """DR7 structure: a boundary charge exists exactly where the fuse group
+    or the regime changes, and its regimes match the adjacent layers."""
+    fs = []
+    by_after = {b.after_layer: b for b in plan.boundaries}
+    if len(by_after) != len(plan.boundaries):
+        fs.append(Finding(
+            rule="plan.boundary-structure", severity="error", tenant=tenant,
+            detail="duplicate boundary after_layer entries"))
+    expected = {prev.index: (prev, nxt)
+                for prev, nxt in zip(plan.layers, plan.layers[1:])
+                if prev.fuse_group != nxt.fuse_group
+                or prev.regime != nxt.regime}
+    for after, (prev, nxt) in expected.items():
+        b = by_after.get(after)
+        if b is None:
+            fs.append(Finding(
+                rule="plan.boundary-structure", severity="error",
+                tenant=tenant, layer=after,
+                detail=f"missing boundary after layer {after} "
+                       f"({prev.name!r} -> {nxt.name!r} crosses a "
+                       f"group/regime edge but charges nothing)"))
+            continue
+        if b.from_regime != prev.regime or b.to_regime != nxt.regime:
+            fs.append(Finding(
+                rule="plan.boundary-structure", severity="error",
+                tenant=tenant, layer=after,
+                detail=f"boundary after layer {after} says "
+                       f"{b.from_regime}->{b.to_regime} but the layers are "
+                       f"{prev.regime}->{nxt.regime}"))
+        if b.crossing_s < 0:
+            fs.append(Finding(
+                rule="plan.boundary-structure", severity="error",
+                tenant=tenant, layer=after,
+                detail=f"negative crossing charge {b.crossing_s} after "
+                       f"layer {after}"))
+    for after in sorted(set(by_after) - set(expected)):
+        fs.append(Finding(
+            rule="plan.boundary-structure", severity="error", tenant=tenant,
+            layer=after,
+            detail=f"boundary after layer {after} charges a crossing no "
+                   f"group/regime change justifies"))
+    return fs
+
+
+def _rule_latency_invariant(plan, tenant) -> list:
+    """``est_latency == sum(layer est x repeat) + sum(crossings) +
+    overhead`` with ``overhead >= 0``, and the fusion-group estimates sum to
+    the per-layer parts (each layer carries its share of its group)."""
+    fs = []
+    parts = sum(l.est_latency_s * l.repeat for l in plan.layers)
+    crossings = sum(b.crossing_s for b in plan.boundaries)
+    overhead = plan.est_latency_s - parts - crossings
+    tol = _REL_TOL * max(plan.est_latency_s, 1e-12)
+    if overhead < -tol:
+        fs.append(Finding(
+            rule="plan.latency-invariant", severity="error", tenant=tenant,
+            detail=f"est_latency_s={plan.est_latency_s:.3e} is less than "
+                   f"its parts (layers {parts:.3e} + crossings "
+                   f"{crossings:.3e}): overhead {overhead:.3e} < 0"))
+    if plan.est_latency_s <= 0 or plan.est_interval_s <= 0:
+        fs.append(Finding(
+            rule="plan.latency-invariant", severity="error", tenant=tenant,
+            detail=f"totals must be positive (est_latency_s="
+                   f"{plan.est_latency_s}, est_interval_s="
+                   f"{plan.est_interval_s})"))
+    if plan.fusion_groups:
+        group_sum = sum(g.est_latency_s for g in plan.fusion_groups)
+        if not _close(group_sum, parts, abs_tol=tol):
+            fs.append(Finding(
+                rule="plan.latency-invariant", severity="error",
+                tenant=tenant,
+                detail=f"fusion-group estimates sum to {group_sum:.3e} but "
+                       f"the per-layer parts sum to {parts:.3e} (shares no "
+                       f"longer decompose the group costs)"))
+    return fs
+
+
+def _rule_serve_section(plan, tenant) -> list:
+    """Serve-section vocabulary: the keys the port's planner writes
+    (``decode_regime``, ``quantize_weights``, ``prefill_chunk``) must be
+    legal; any other key is one warning, since nothing in the port reads
+    it."""
+    fs = []
+    serve = plan.serve
+
+    def bad(detail, severity="error"):
+        fs.append(Finding(rule="plan.serve-keys", severity=severity,
+                          tenant=tenant, detail=detail))
+
+    if not isinstance(serve, dict):
+        bad(f"serve section must be an object, got {type(serve).__name__}")
+        return fs
+    for k in sorted(set(serve) - _SERVE_KEYS):
+        bad(f"serve section carries unknown key {k!r} (the port reads "
+            f"{sorted(_SERVE_KEYS)})", severity="warning")
+    dr = serve.get("decode_regime")
+    if dr is not None and dr not in _DECODE_REGIMES:
+        bad(f"serve.decode_regime={dr!r} is not one of {_DECODE_REGIMES}")
+    qw = serve.get("quantize_weights")
+    if qw is not None and not isinstance(qw, bool):
+        bad(f"serve.quantize_weights must be a bool, got {qw!r}")
+    pc = serve.get("prefill_chunk")
+    if pc is not None and (not isinstance(pc, int) or isinstance(pc, bool)
+                           or pc < 1):
+        bad(f"serve.prefill_chunk={pc!r} must be an int >= 1 (or null)")
+    return fs
+
+
+# ---------------------------------------------------------------------------
+# Fleet rules
+# ---------------------------------------------------------------------------
+
+def verify_fleet(fleet, *, hw=None) -> list:
+    """All layer-1 findings for a ``FleetPlan``: each tenant's plan rules
+    and the fleet's latency budgets."""
+    fs: list = []
+    for t in fleet.tenants:
+        fs += verify_plan(t.plan, tenant=t.net_id, hw=hw)
+        if t.crossing_s < 0:
+            fs.append(Finding(
+                rule="fleet.budget", severity="error", tenant=t.net_id,
+                detail=f"negative crossing charge {t.crossing_s}"))
+        planned = t.plan.est_latency_s + t.crossing_s
+        if t.latency_budget_s < planned * (1 - _REL_TOL):
+            fs.append(Finding(
+                rule="fleet.budget", severity="warning", tenant=t.net_id,
+                detail=f"latency budget {t.latency_budget_s:.3e}s is below "
+                       f"the planned latency {planned:.3e}s - every request "
+                       f"starts in violation"))
+    if fleet.tenants:
+        worst = max(t.total_latency_s for t in fleet.tenants)
+        if not _close(fleet.est_latency_s, worst,
+                      abs_tol=_REL_TOL * max(worst, 1e-12)):
+            fs.append(Finding(
+                rule="fleet.budget", severity="error", tenant=fleet.name,
+                detail=f"fleet est_latency_s={fleet.est_latency_s:.3e} != "
+                       f"worst tenant total {worst:.3e} (nets sharing the "
+                       f"card are judged by the slowest)"))
+    return fs

@@ -1,4 +1,5 @@
-"""``Deployment``: the one-call facade over plan -> engines -> serve.
+"""``Deployment``: the one-call facade over plan -> verify -> engines ->
+serve.
 
     from repro_torch.deploy import Deployment
     dep = Deployment.build(["jet_tagger", "tau_select"])   # plans + engines
@@ -6,18 +7,22 @@
     router.drive(iters=20)                                 # measured traffic
     rows = dep.bench()                                     # planned-vs-measured
 
-Port of the JAX package's ``deploy/deployment.py``, trimmed to its plan and
-engine stages; characterization and the design-rule verify stage are not
-ported yet.  Everything runs on ``device`` (``None``: the GPU, raising when
-there is none).
+Port of the JAX package's ``deploy/deployment.py``, trimmed to its plan,
+verify and engine stages; characterization is not ported yet.  The verify
+stage is the fail-closed design-rule gate (``repro_torch.check``): error
+findings raise :class:`PlanVerificationError` before any engine is built.
+Everything runs on ``device`` (``None``: the GPU, raising when there is
+none).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import torch
 
+from repro_torch.check import PlanVerificationError, check_fleet
 from repro_torch.device import resolve_device
 from repro_torch.models import edge as edge_lib
 from repro_torch.obs import NULL_TRACER, Tracer
@@ -61,35 +66,48 @@ def resolve_configs(specs) -> list:
 
 
 class Deployment:
-    """A built deployment: the fleet plan, one engine per tenant, and the
-    serving router.  Construct with :meth:`build`."""
+    """A built deployment: the fleet plan, the verify stage's findings and
+    outcome, one engine per tenant, and the serving router.  Construct with
+    :meth:`build`."""
 
-    def __init__(self, fleet, engines: dict, device: torch.device, tracer):
+    def __init__(self, fleet, engines: dict, device: torch.device, tracer,
+                 findings: list, verify: str):
         self.fleet = fleet
         self.engines = engines
         self.device = device
         self.tracer = tracer
+        self.findings = findings   # the warnings and info of the gate
+        self.verify = verify       # "clean", "1 info, 2 warning", "skipped"
         self._router = None
 
     @classmethod
     def build(cls, configs, *, target: str = "h100", device=None,
               seed: int = 0, params: dict | None = None,
               qparams: dict | None = None, calib_x: dict | None = None,
-              trace=False) -> "Deployment":
-        """Plan ``configs`` as one fleet for ``target`` and build one
-        :class:`EdgeEngine` per tenant.
+              trace=False, check: bool = True) -> "Deployment":
+        """Plan ``configs`` as one fleet for ``target``, verify the plan, and
+        build one :class:`EdgeEngine` per tenant.
 
         ``params`` / ``qparams`` / ``calib_x`` map a net id to the float
         params, quantized params or calibration batch its engine uses (see
         :class:`EdgeEngine`); nets without an entry draw weights from
         ``seed``.  ``trace`` is ``True`` (a fresh :class:`Tracer`) or a
-        tracer to fill."""
+        tracer to fill.  ``check=False`` skips the verify stage and records
+        it as skipped; otherwise an error finding raises
+        :class:`PlanVerificationError` before any engine is built."""
         device = resolve_device(device)
         tracer = (trace if isinstance(trace, Tracer)
                   else Tracer() if trace else NULL_TRACER)
         cfgs = resolve_configs(configs)
         with tracer.span("stage/plan", tenant="deploy"):
             fleet = plan_fleet(cfgs, target=target, device=device)
+        with tracer.span("stage/verify", tenant="deploy", skipped=not check):
+            findings = check_fleet(fleet) if check else []
+        counts = collections.Counter(f.severity for f in findings)
+        if counts["error"]:
+            raise PlanVerificationError(findings)
+        verify = "skipped" if not check else (", ".join(
+            f"{n} {s}" for s, n in sorted(counts.items())) or "clean")
         by_name = {c.name: c for c in cfgs}
         params, qparams, calib_x = params or {}, qparams or {}, calib_x or {}
         engines = {}
@@ -101,7 +119,7 @@ class Deployment:
                     plan=tp.plan, seed=seed,
                     qparams=qparams.get(tp.net_id),
                     calib_x=calib_x.get(tp.net_id), device=device)
-        return cls(fleet, engines, device, tracer)
+        return cls(fleet, engines, device, tracer, findings, verify)
 
     @property
     def plans(self) -> dict:

@@ -1,11 +1,11 @@
 """Build the CUDA kernels at first use and load them with ``ctypes``.
 
-Each source under ``csrc/`` compiles with ``nvcc`` into its own shared
-library with a plain C interface, for ``sm_90a`` and without fast math (the
-kernels rely on IEEE division and rounding).  All sources compile together,
-one ``nvcc`` process each.  Libraries land in ``_build/`` beside this file,
-named by a hash of their source and flags, so an edit rebuilds and an
-unchanged source is not compiled twice.  Nothing here runs at import.
+Each ``.cu`` source under ``csrc/`` compiles with ``nvcc`` into its own
+shared library with a plain C interface, for ``sm_90a`` and without fast
+math (the kernels rely on IEEE division and rounding).  All sources compile
+together, one ``nvcc`` process each.  Libraries land in ``_build/`` beside
+this file, named by a hash of their source, the ``.cuh`` headers and the
+flags, so an edit rebuilds and an unchanged source is not compiled twice.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 SOURCES = {"fused_mlp_q8": "fused_mlp_q8.cu", "gemm_int8": "gemm_int8.cu",
            "flash_attention": "flash_attention.cu",
-           "linear_scan": "linear_scan.cu", "rwkv6_scan": "rwkv6_scan.cu"}
+           "linear_scan": "linear_scan.cu", "rwkv6_scan": "rwkv6_scan.cu",
+           "tiled_gemm": "tiled_gemm.cu", "fused_dense": "fused_dense.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,7 +40,9 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    # Every header counts for every source: an edit to one rebuilds all.
+    src = b"".join(p.read_bytes() for p in [CSRC / SOURCES[name]]
+                   + sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

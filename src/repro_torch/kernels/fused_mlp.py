@@ -161,19 +161,31 @@ def _check(err: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
+def fused_mlp_q8_contract(x: torch.Tensor, dims):
+    """The kernel's argument checks on the input and the group's widths
+    ``dims`` (input first) alone (meta tensors do): returns the output's
+    ``(shape, dtype)`` or raises ``ValueError``."""
+    if not 1 <= len(dims) - 1 <= MAX_LAYERS:
+        raise ValueError(f"fused_mlp_q8: a fused group holds 1..{MAX_LAYERS} "
+                         f"layers, got {len(dims) - 1}")
+    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != dims[0]:
+        raise ValueError(f"fused_mlp_q8: want f32 (M, {dims[0]}), got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    return (x.shape[0], dims[-1]), torch.float32
+
+
 def fused_mlp_q8_cuda(x: torch.Tensor, g: FusedGroup) -> torch.Tensor:
     """Launch ``csrc/fused_mlp_q8.cu`` on ``x``'s device and stream."""
     global launches
+    shape, dtype = fused_mlp_q8_contract(x, g.dims)
     tensors = (x, g.wt, g.s, g.b, g.xs)
     if not all(t.is_cuda and t.device == x.device for t in tensors):
         raise ValueError("fused_mlp_q8_cuda: every tensor must lie on one "
                          "CUDA device")
-    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != g.dims[0] \
-            or not x.is_contiguous():
-        raise ValueError(f"fused_mlp_q8_cuda: want contiguous f32 (M, "
-                         f"{g.dims[0]}), got {x.dtype} {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("fused_mlp_q8_cuda: x must be contiguous")
     m = x.shape[0]
-    out = torch.empty((m, g.dims[-1]), dtype=torch.float32, device=x.device)
+    out = torch.empty(shape, dtype=dtype, device=x.device)
     if m == 0:
         return out
     dims = (ctypes.c_int * len(g.dims))(*g.dims)

@@ -44,35 +44,48 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def gemm_int8_contract(x: torch.Tensor, w: torch.Tensor,
+                       w_scale: torch.Tensor, *, block_m: int, block_k: int,
+                       block_n: int, out_dtype: torch.dtype = torch.bfloat16):
+    """The kernel's argument checks on shapes, dtypes and the tile alone
+    (meta tensors do): returns the output's ``(shape, dtype)`` or raises
+    ``ValueError``.  A float activation is refused, never up-cast."""
+    if not tiling.tile_ok(block_m, block_k, block_n):
+        raise ValueError(f"gemm_int8: tile {(block_m, block_k, block_n)} is "
+                         f"not one the kernel takes (block_m in "
+                         f"{tiling.BLOCK_M}, block_k in {tiling.BLOCK_K}, "
+                         f"block_n in {tiling.BLOCK_N})")
+    if x.dtype != torch.int8 or w.dtype != torch.int8 or x.dim() != 2 \
+            or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"gemm_int8: want int8 (M, K) @ (K, N), got "
+                         f"{x.dtype} {tuple(x.shape)} @ {w.dtype} "
+                         f"{tuple(w.shape)}")
+    n = w.shape[1]
+    if w_scale.dtype != torch.float32 or tuple(w_scale.shape) != (n,):
+        raise ValueError("gemm_int8: w_scale must be f32 (N,)")
+    if out_dtype not in _OUT_DTYPES:
+        raise ValueError(f"gemm_int8: out_dtype must be one of {_OUT_DTYPES}")
+    return (x.shape[0], n), out_dtype
+
+
 def gemm_int8_cuda(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
                    x_scale: float = 1.0, *, block_m: int, block_k: int,
                    block_n: int,
                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Launch ``csrc/gemm_int8.cu`` on ``x``'s device and stream."""
     global launches
-    if not tiling.tile_ok(block_m, block_k, block_n):
-        raise ValueError(f"gemm_int8: tile {(block_m, block_k, block_n)} is "
-                         f"not one the kernel takes (block_m in "
-                         f"{tiling.BLOCK_M}, block_k in {tiling.BLOCK_K}, "
-                         f"block_n in {tiling.BLOCK_N})")
+    shape, out_dtype = gemm_int8_contract(
+        x, w, w_scale, block_m=block_m, block_k=block_k, block_n=block_n,
+        out_dtype=out_dtype)
     if not all(t.is_cuda and t.device == x.device for t in (x, w, w_scale)):
         raise ValueError("gemm_int8_cuda: every tensor must lie on one CUDA "
                          "device")
-    if x.dtype != torch.int8 or w.dtype != torch.int8 or x.dim() != 2 \
-            or w.dim() != 2 or x.shape[1] != w.shape[0] \
-            or not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError(f"gemm_int8_cuda: want contiguous int8 (M, K) @ "
-                         f"(K, N), got {x.dtype} {tuple(x.shape)} @ "
-                         f"{w.dtype} {tuple(w.shape)}")
+    if not all(t.is_contiguous() for t in (x, w, w_scale)):
+        raise ValueError("gemm_int8_cuda: x, w and w_scale must be "
+                         "contiguous")
     m, k = x.shape
-    n = w.shape[1]
-    if w_scale.dtype != torch.float32 or tuple(w_scale.shape) != (n,) \
-            or not w_scale.is_contiguous():
-        raise ValueError("gemm_int8_cuda: w_scale must be contiguous f32 (N,)")
-    if out_dtype not in _OUT_DTYPES:
-        raise ValueError(f"gemm_int8_cuda: out_dtype must be one of "
-                         f"{_OUT_DTYPES}")
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    n = shape[1]
+    out = torch.empty(shape, dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
     if k == 0:

@@ -11,10 +11,12 @@ import torch
 
 from repro_torch.core import tiling
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import fused_dense as _fd
 from repro_torch.kernels import fused_mlp as _fm
 from repro_torch.kernels import gemm_int8 as _g8
 from repro_torch.kernels import rglru as _rg
 from repro_torch.kernels import rwkv6 as _rw
+from repro_torch.kernels import tiled_gemm as _tg
 from repro_torch.kernels.fused_mlp import FusedGroup, pack_group
 
 
@@ -25,12 +27,15 @@ def reset_launches() -> None:
     _fa.launches = 0
     _rg.launches = 0
     _rw.launches = 0
+    _tg.launches = 0
+    _fd.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
     return {"fused_mlp_q8": _fm.launches, "gemm_int8": _g8.launches,
             "flash_attention": _fa.launches, "linear_scan": _rg.launches,
-            "rwkv6_scan": _rw.launches}
+            "rwkv6_scan": _rw.launches, "tiled_gemm": _tg.launches,
+            "fused_dense": _fd.launches}
 
 
 def fused_group(x: torch.Tensor, g: FusedGroup) -> torch.Tensor:
@@ -48,22 +53,32 @@ def fused_mlp_q8(x, weights, w_scales, biases, x_scales, *,
                                      act=act, act_last=act_last))
 
 
+def _blocks(what: str, plan, tile_ok, block_m, block_k, block_n):
+    """The caller's blocks, the rest from ``plan()`` (a tile planner of
+    :mod:`tiling`); a tile the kernel does not take (``tile_ok``) is
+    refused on every device, so a plan cannot pass on the CPU and fail on
+    the card."""
+    if block_m is None or block_k is None or block_n is None:
+        api = plan()
+        block_m = block_m if block_m is not None else api.block_m
+        block_k = block_k if block_k is not None else api.block_k
+        block_n = block_n if block_n is not None else api.block_n
+    if not tile_ok(block_m, block_k, block_n):
+        raise ValueError(f"{what}: tile {(block_m, block_k, block_n)} is not "
+                         f"one the kernel takes")
+    return block_m, block_k, block_n
+
+
 def gemm_int8(x, w, w_scale, x_scale: float = 1.0, *,
               block_m: int | None = None, block_k: int | None = None,
               block_n: int | None = None,
               out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """int8 GEMM with the dequantizing flush.  Blocks the caller leaves out
-    come from the port's tile planner; a tile the kernel does not take is
-    refused on every device, so a plan cannot pass on the CPU and fail on
-    the card."""
-    if block_m is None or block_k is None or block_n is None:
-        api = tiling.plan_api(x.shape[0], x.shape[1], w.shape[1])
-        block_m = block_m if block_m is not None else api.block_m
-        block_k = block_k if block_k is not None else api.block_k
-        block_n = block_n if block_n is not None else api.block_n
-    if not tiling.tile_ok(block_m, block_k, block_n):
-        raise ValueError(f"gemm_int8: tile {(block_m, block_k, block_n)} is "
-                         f"not one the kernel takes")
+    """int8 GEMM with the dequantizing flush, over the caller's blocks or
+    those of :func:`tiling.plan_api`."""
+    block_m, block_k, block_n = _blocks(
+        "gemm_int8", lambda: tiling.plan_api(x.shape[0], x.shape[1],
+                                             w.shape[1]),
+        tiling.tile_ok, block_m, block_k, block_n)
     if x.device.type == "cpu":
         return _g8.gemm_int8_plain(x, w, w_scale, x_scale,
                                    out_dtype=out_dtype)
@@ -101,3 +116,36 @@ def rwkv6_scan(r, k, v, w, u, *, state0=None, return_state: bool = False):
                                     return_state=return_state)
     return _rw.rwkv6_scan_cuda(r, k, v, w, u, state0=state0,
                                return_state=return_state)
+
+
+def _plan_tiled(x, w):
+    return lambda: tiling.plan_tiled(x.shape[0], x.shape[1], w.shape[1],
+                                     itemsize=x.element_size())
+
+
+def tiled_gemm(x, w, *, block_m: int | None = None,
+               block_k: int | None = None,
+               block_n: int | None = None) -> torch.Tensor:
+    """``x @ w`` over the caller's blocks or those of
+    :func:`tiling.plan_tiled`: int8 -> int32 exactly, f32/bf16 keep their
+    dtype."""
+    bm, bk, bn = _blocks("tiled_gemm", _plan_tiled(x, w),
+                         tiling.tiled_tile_ok, block_m, block_k, block_n)
+    if x.device.type == "cpu":
+        return _tg.tiled_gemm_plain(x, w)
+    return _tg.tiled_gemm_cuda(x, w, block_m=bm, block_k=bk, block_n=bn)
+
+
+def fused_dense(x, w, b, residual=None, *, act: str = "relu",
+                block_m: int | None = None, block_k: int | None = None,
+                block_n: int | None = None,
+                out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``act(x @ w + b) (+ residual)`` in one launch, f32 accumulation,
+    over the caller's blocks or those of :func:`tiling.plan_tiled`."""
+    bm, bk, bn = _blocks("fused_dense", _plan_tiled(x, w),
+                         tiling.tiled_tile_ok, block_m, block_k, block_n)
+    if x.device.type == "cpu":
+        return _fd.fused_dense_plain(x, w, b, residual, act=act,
+                                     out_dtype=out_dtype)
+    return _fd.fused_dense_cuda(x, w, b, residual, act=act, block_m=bm,
+                                block_k=bk, block_n=bn, out_dtype=out_dtype)

@@ -1,10 +1,11 @@
 """The paper's extreme-edge workloads (Section V / Table I) in PyTorch.
 
 Port of the JAX package's ``models/edge.py``.  ``edge_forward`` is the float
-reference; ``edge_forward_q8`` is the int8 serving path, one kernel launch
-per DR7' fusion group read from the plan: ``fused_mlp_q8`` for multi-layer
-groups and ``gemm_int8`` (with the plan's block shape) for singletons or
-when the caller forces the per-layer path.
+reference, one ``fused_dense`` launch per layer (the calibration pass of
+``quantize_edge`` runs the same launches); ``edge_forward_q8`` is the int8
+serving path, one kernel launch per DR7' fusion group read from the plan:
+``fused_mlp_q8`` for multi-layer groups and ``gemm_int8`` (with the plan's
+block shape) for singletons or when the caller forces the per-layer path.
 
 ``params_from_numpy`` / ``qparams_from_numpy`` carry weights made elsewhere
 (for example by the JAX package, converted with ``np.asarray``) into the
@@ -88,15 +89,20 @@ def qparams_from_numpy(qparams, *, device=None) -> list[dict]:
     return out
 
 
+def _dense_act(i: int, last: int, act: str) -> str:
+    """A layer's ``fused_dense`` activation: ReLU on all but the last."""
+    return "relu" if i != last and act == "relu" else "none"
+
+
 def edge_forward(params: list[dict], cfg: EdgeConfig,
                  x: torch.Tensor) -> torch.Tensor:
-    """Float reference forward ``(B, dims[0]) -> (B, dims[-1])``."""
-    h = x.to(F32)
+    """Float reference forward ``(B, dims[0]) -> (B, dims[-1])``: one
+    ``fused_dense`` launch per layer."""
+    h = x.to(F32).contiguous()
     last = len(params) - 1
     for i, p in enumerate(params):
-        h = h @ p["w"] + p["b"]
-        if i != last and cfg.act == "relu":
-            h = torch.clamp_min(h, 0.0)
+        h = ops.fused_dense(h, p["w"], p["b"], act=_dense_act(i, last,
+                                                              cfg.act))
     return h
 
 
@@ -104,10 +110,11 @@ def quantize_edge(params: list[dict], *, calib_x: torch.Tensor | None = None,
                   act: str = "relu") -> list[dict]:
     """Per-output-channel symmetric int8 weights; with ``calib_x``, each layer
     also gets its calibrated input scale ``max|h_i| / 127`` from one float
-    forward.  Runs on the params' device; every division by a constant is by
-    a 0-d tensor, which is a true IEEE division on every device."""
+    forward, one ``fused_dense`` launch per layer as in :func:`edge_forward`.
+    Runs on the params' device; every division by a constant is by a 0-d
+    tensor, which is a true IEEE division on every device."""
     qparams = []
-    h = None if calib_x is None else calib_x.to(F32)
+    h = None if calib_x is None else calib_x.to(F32).contiguous()
     last = len(params) - 1
     for i, p in enumerate(params):
         w = p["w"]
@@ -117,9 +124,7 @@ def quantize_edge(params: list[dict], *, calib_x: torch.Tensor | None = None,
         q = {"w_q": qw.to(torch.int8), "w_scale": scale, "b": p["b"]}
         if h is not None:
             q["x_scale"] = max(float(h.abs().max()) / 127.0, 1e-8)
-            h = h @ w + p["b"]
-            if i != last and act == "relu":
-                h = torch.clamp_min(h, 0.0)
+            h = ops.fused_dense(h, w, p["b"], act=_dense_act(i, last, act))
         qparams.append(q)
     return qparams
 

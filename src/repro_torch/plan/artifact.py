@@ -169,9 +169,12 @@ class DeploymentPlan:
 
 
 def _hw_fingerprint(hw_obj) -> dict:
+    """The machine model's fields, less those the planner never reads
+    (marked ``plan_key: False``)."""
     out = {"class": type(hw_obj).__name__}
     for f in dataclasses.fields(hw_obj):
-        out[f.name] = getattr(hw_obj, f.name)
+        if f.metadata.get("plan_key", True):
+            out[f.name] = getattr(hw_obj, f.name)
     return out
 
 

@@ -88,6 +88,18 @@ class FleetPlan:
     def from_json(cls, s: str) -> "FleetPlan":
         return cls.from_dict(json.loads(s))
 
+    @classmethod
+    def from_plan(cls, plan: DeploymentPlan, *,
+                  budget_factor: float = DEFAULT_BUDGET_FACTOR
+                  ) -> "FleetPlan":
+        """Wrap a single-net :class:`DeploymentPlan` as a one-tenant fleet."""
+        tenant = TenantPlan(net_id=plan.network, plan=plan, crossing_s=0.0,
+                            latency_budget_s=budget_factor
+                            * plan.est_latency_s)
+        return cls(name=plan.network, target=plan.target,
+                   key=f"fleet:{plan.key}", tenants=(tenant,),
+                   est_latency_s=plan.est_latency_s)
+
 
 def _net_ids(graphs) -> list[str]:
     """Unique tenant ids (duplicate nets get an #index suffix)."""

@@ -1,0 +1,503 @@
+"""The port's design-rule verifier, its verify stage and its ``check``
+command.
+
+The Table-I fleet planned for the h100 target passes every plan rule and
+kernel contract; a plan with one fault yields the named error finding, and
+``Deployment.build`` refuses it before any engine exists.  The CLI is run
+in-process, and once as ``python -m repro_torch check --device cpu``.
+Artifacts are written under pytest's ``tmp_path`` only.
+"""
+
+import dataclasses
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch import check as checklib
+from repro_torch import cli, hw
+from repro_torch.check import kernel_contracts, plan_rules
+from repro_torch.deploy import Deployment
+from repro_torch.deploy import deployment as deployment_mod
+from repro_torch.kernels import flash_attention, fused_dense, fused_mlp
+from repro_torch.kernels import gemm_int8, ops, rglru, rwkv6, tiled_gemm
+from repro_torch.models import edge
+from repro_torch.plan import FleetPlan, plan_deployment, plan_fleet
+from repro_torch.serve import engine as engine_mod
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+NETS = list(edge.EDGE_NETS)
+
+
+def _fleet(names=NETS):
+    return plan_fleet([edge.edge_config(n) for n in names], device="cpu")
+
+
+def _rules(findings, severity="error"):
+    return {f.rule for f in findings if f.severity == severity}
+
+
+def _with_plan(fleet, net_id, **changes):
+    """``fleet`` with one tenant's plan replaced field by field."""
+    tenants = tuple(
+        dataclasses.replace(t, plan=dataclasses.replace(t.plan, **changes))
+        if t.net_id == net_id else t for t in fleet.tenants)
+    return dataclasses.replace(fleet, tenants=tenants)
+
+
+def _with_layer(plan, index, **changes):
+    return tuple(dataclasses.replace(l, **changes) if l.index == index else l
+                 for l in plan.layers)
+
+
+# ---------------------------------------------------------------------------
+# Clean plans
+# ---------------------------------------------------------------------------
+
+def test_table1_fleet_is_clean():
+    assert checklib.check_fleet(_fleet()) == []
+
+
+@pytest.mark.parametrize("name", NETS)
+def test_each_net_plan_is_clean(name):
+    plan = plan_deployment(edge.edge_config(name), device="cpu")
+    assert checklib.check_fleet(plan) == []
+    assert plan_rules.verify_plan(plan) == []
+    assert kernel_contracts.verify_plan_kernels(plan) == []
+
+
+# ---------------------------------------------------------------------------
+# One fault, one named finding
+# ---------------------------------------------------------------------------
+
+def test_illegal_tile_is_an_error():
+    fleet = _fleet(["jet_tagger"])
+    plan = fleet.tenants[0].plan
+    bad = _with_plan(fleet, "jet_tagger",
+                     layers=_with_layer(plan, 1, api_tile=(8, 128, 256)))
+    findings = checklib.check_fleet(bad)
+    assert _rules(findings) == {"plan.tile-legal", "kernel.contract"}
+    assert all(f.layer == 1 for f in findings)
+    assert _rules(checklib.check_fleet(bad, kernels=False)) \
+        == {"plan.tile-legal"}
+
+
+def test_fusion_group_over_shared_memory_is_an_error():
+    fleet = _fleet(["vae"])
+    small = dataclasses.replace(hw.H100_SXM, smem_bytes=1000)
+    findings = checklib.check_fleet(fleet, hw=small)
+    assert _rules(findings) == {"plan.vmem-budget", "kernel.smem-scratch"}
+    plan = fleet.tenants[0].plan
+    group = dataclasses.replace(plan.fusion_groups[0],
+                                vmem_bytes=hw.H100_SXM.smem_bytes + 1)
+    findings = checklib.check_fleet(
+        _with_plan(fleet, "vae", fusion_groups=(group,)))
+    assert _rules(findings) == {"plan.vmem-budget"}
+
+
+def test_undercharged_fusion_group_is_a_warning():
+    fleet = _fleet(["qubit"])
+    plan = fleet.tenants[0].plan
+    group = dataclasses.replace(plan.fusion_groups[0], vmem_bytes=64)
+    findings = checklib.check_fleet(
+        _with_plan(fleet, "qubit", fusion_groups=(group,)))
+    assert _rules(findings) == set()
+    assert _rules(findings, "warning") == {"kernel.smem-scratch"}
+
+
+def _broken_chain(plan):
+    return {"layers": _with_layer(plan, 2, n_in=plan.layers[2].n_in + 1)}
+
+
+def _split_group(plan):
+    g = plan.fusion_groups[0]
+    return {"fusion_groups": (dataclasses.replace(g, layers=g.layers[:-1]),)}
+
+
+def _extra_boundary(plan):
+    from repro_torch.plan import BoundaryPlan
+    return {"boundaries": (BoundaryPlan(0, "tiled", "tiled", 1e-7),)}
+
+
+def _negative_overhead(plan):
+    return {"est_latency_s": plan.est_latency_s * 0.5}
+
+
+def _bad_serve(plan):
+    return {"serve": {**plan.serve, "decode_regime": "warp",
+                      "quantize_weights": "yes"}}
+
+
+@pytest.mark.parametrize("fault,rules", [
+    (_broken_chain, {"plan.layer-chain"}),
+    (_split_group, {"plan.fusion-groups"}),
+    (_extra_boundary, {"plan.boundary-structure"}),
+    (_negative_overhead, {"plan.latency-invariant", "fleet.budget"}),
+    (_bad_serve, {"plan.serve-keys"}),
+], ids=lambda v: getattr(v, "__name__", ""))
+def test_plan_faults_are_named(fault, rules):
+    fleet = _fleet(["jet_tagger"])
+    bad = _with_plan(fleet, "jet_tagger", **fault(fleet.tenants[0].plan))
+    assert _rules(checklib.check_fleet(bad)) == rules
+
+
+# ---------------------------------------------------------------------------
+# Parity with the JAX package's plan rules
+# ---------------------------------------------------------------------------
+
+# Rules whose invariant depends on the target: each package reads its own
+# machine (the port: ``tiling.tile_ok`` and shared memory; the reference:
+# the TPU's lane/sublane multiples and VMEM).
+TARGET_RULES = {"plan.tile-legal", "plan.tile-divides", "plan.vmem-budget"}
+
+# Reference rules the port leaves out on purpose, with the reason.
+NOT_PORTED = {
+    "plan.schema": "no finding in either package: an unsupported schema is "
+                   "undecodable, an ArtifactError and exit code 2",
+    "plan.tile-divides": "the port's kernels mask ragged edges, so a block "
+                         "need not divide the padded layer",
+    "plan.spatial-budget": "AIE splits and bands: waits for the AIE target",
+    "plan.column-budget": "AIE columns: waits for the AIE target",
+    "fleet.columns-overlap": "AIE columns: waits for the AIE target",
+}
+
+# Parts of plan.serve-keys the port leaves out: it checks only the keys its
+# planner writes and warns on any other, since nothing in the port reads
+# them.  They come back with the plan-driven LM serving path.
+SERVE_KEYS_NOT_PORTED = {
+    "slo": "the SLO checks and the LM 'SLO but no slots' warning",
+    "priority": "the router's priority classes",
+    "resilience": "the supervisor's breaker and retry knobs",
+    "slots": "the LM batch policy",
+    "admit_per_tick": "the LM batch policy",
+    "max_queue_depth": "the LM batch policy",
+}
+
+
+def _rule_ids(doc):
+    return {line.split()[0] for line in doc.splitlines()
+            if line.startswith(("plan.", "fleet."))}
+
+
+def test_every_reference_rule_is_ported_or_named():
+    from repro.check import plan_rules as ref_rules
+    ref_ids, ids = _rule_ids(ref_rules.__doc__), _rule_ids(plan_rules.__doc__)
+    assert ref_ids == ids | set(NOT_PORTED)
+    assert not ids & set(NOT_PORTED)
+
+
+def _both_findings(d):
+    """One fleet dict decoded and verified by both packages: the findings
+    of the rules that do not depend on the target, as comparable tuples.
+
+    The reference decodes it as a TPU plan, whose rules carry the same
+    amortised fusion-group structure the h100 plans have; its tenants get
+    the AIE column fields as zeros, since the card has no columns."""
+    from repro.check import plan_rules as ref_rules
+    from repro.plan.multinet import FleetPlan as RefFleetPlan
+    ref = json.loads(json.dumps(d))
+    ref["target"] = "tpu"
+    for t in ref["tenants"]:
+        t.update(col_offset=0, cols=0)
+        t["plan"]["target"] = "tpu"
+
+    def key(fs):
+        return sorted((f.rule, f.severity, f.tenant, f.layer) for f in fs
+                      if f.rule not in TARGET_RULES)
+    return (key(plan_rules.verify_fleet(FleetPlan.from_dict(d))),
+            key(ref_rules.verify_fleet(RefFleetPlan.from_dict(ref))))
+
+
+def _plan_of(d, net_id="jet_tagger"):
+    return next(t for t in d["tenants"] if t["net_id"] == net_id)["plan"]
+
+
+def _d_broken_chain(d):
+    _plan_of(d)["layers"][2]["n_in"] += 1
+
+
+def _d_split_group(d):
+    _plan_of(d)["fusion_groups"][0]["layers"].pop()
+
+
+def _d_extra_boundary(d):
+    _plan_of(d)["boundaries"].append({"after_layer": 0, "from_regime": "tiled",
+                                      "to_regime": "tiled",
+                                      "crossing_s": 1e-7})
+
+
+def _d_negative_overhead(d):
+    _plan_of(d)["totals"]["est_latency_s"] *= 0.5
+
+
+def _d_group_estimate_off(d):
+    _plan_of(d)["fusion_groups"][0]["est_latency_s"] *= 2.0
+
+
+def _d_bad_serve(d):
+    _plan_of(d)["serve"].update(decode_regime="warp", quantize_weights="yes",
+                                prefill_chunk=0)
+
+
+def _d_budget_below_plan(d):
+    d["tenants"][0]["latency_budget_s"] = 1e-9
+
+
+def _d_negative_crossing(d):
+    d["tenants"][1]["crossing_s"] = -1e-6
+
+
+def _d_fleet_total_off(d):
+    d["totals"]["est_latency_s"] *= 3.0
+
+
+@pytest.mark.parametrize("fault", [
+    None, _d_broken_chain, _d_split_group, _d_extra_boundary,
+    _d_negative_overhead, _d_group_estimate_off, _d_bad_serve,
+    _d_budget_below_plan, _d_negative_crossing, _d_fleet_total_off],
+    ids=lambda f: f.__name__[3:] if f else "clean")
+def test_plan_rules_agree_with_the_reference(fault):
+    """The same fleet artifact, with one fault, gets the same rule ids,
+    severities, tenants and layers from both packages."""
+    d = json.loads(_fleet(["jet_tagger", "tau_select"]).to_json())
+    if fault is not None:
+        fault(d)
+    got, want = _both_findings(d)
+    assert got == want
+    assert (got == []) == (fault is None)
+
+
+def test_clean_table1_fleet_agrees_with_the_reference():
+    got, want = _both_findings(json.loads(_fleet().to_json()))
+    assert got == want == []
+
+
+def test_serve_keys_the_port_does_not_read_are_one_warning_each():
+    fleet = _fleet(["tau_select"])
+    plan = fleet.tenants[0].plan
+    serve = {**plan.serve, "slo": {"p95_s": -1.0}, "priority": "urgent",
+             "resilience": {"retries": -1}, "slots": 0,
+             "admit_per_tick": 0, "max_queue_depth": 0}
+    findings = checklib.check_fleet(_with_plan(fleet, "tau_select",
+                                               serve=serve))
+    assert _rules(findings) == set()
+    warned = [f.detail for f in findings if f.rule == "plan.serve-keys"]
+    assert len(warned) == len(SERVE_KEYS_NOT_PORTED)
+    assert all(any(repr(k) in w for w in warned)
+               for k in SERVE_KEYS_NOT_PORTED)
+
+
+def test_unknown_artifact_keys_are_info_findings(tmp_path):
+    d = json.loads(_fleet(["qubit"]).to_json())
+    d["serv"] = {}
+    d["tenants"][0]["plan"]["extra"] = 1
+    p = tmp_path / "fleet.json"
+    p.write_text(json.dumps(d))
+    findings = checklib.check_artifact(p)
+    assert [(f.rule, f.severity, f.tenant) for f in findings] == [
+        ("plan.unknown-key", "info", "qubit"),
+        ("plan.unknown-key", "info", "qubit")]
+    assert "'serv'" in findings[0].detail and "'extra'" in findings[1].detail
+
+
+def test_fleet_budget_below_plan_is_a_warning():
+    fleet = _fleet(["tau_select"])
+    t = dataclasses.replace(fleet.tenants[0], latency_budget_s=1e-9)
+    findings = checklib.check_fleet(dataclasses.replace(fleet, tenants=(t,)))
+    assert _rules(findings, "warning") == {"fleet.budget"}
+    assert _rules(findings) == set()
+
+
+def test_int8_path_must_refuse_float_activations(monkeypatch):
+    def permissive(x, w, w_scale, **kw):
+        return (x.shape[0], w.shape[1]), kw["out_dtype"]
+    monkeypatch.setattr(kernel_contracts, "gemm_int8_contract", permissive)
+    plan = plan_deployment(edge.edge_config("tau_select"), device="cpu")
+    findings = kernel_contracts.verify_plan_kernels(plan)
+    assert [f.rule for f in findings] == ["kernel.dtype-contract"]
+
+
+def test_report_exit_codes_and_json():
+    report = checklib.CheckReport()
+    assert report.exit_code == checklib.EXIT_CLEAN
+    assert str(report) == "check: clean (no findings)"
+    report.extend([checklib.Finding("plan.tile-legal", "warning", "w")])
+    assert report.exit_code == checklib.EXIT_CLEAN
+    report.extend([checklib.Finding("plan.tile-legal", "error", "e",
+                                    tenant="t", layer=3)])
+    assert report.exit_code == checklib.EXIT_FINDINGS
+    d = json.loads(report.to_json())
+    assert d["counts"] == {"error": 1, "warning": 1, "info": 0}
+    assert "t:3" in str(report)
+    with pytest.raises(ValueError, match="severity"):
+        checklib.Finding("x", "fatal", "d")
+
+
+# ---------------------------------------------------------------------------
+# The verify stage of Deployment.build
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def engines_built(monkeypatch):
+    """Record every EdgeEngine construction."""
+    built = []
+    real = engine_mod.EdgeEngine
+
+    def record(*a, **kw):
+        built.append(a[0].name)
+        return real(*a, **kw)
+    monkeypatch.setattr(engine_mod, "EdgeEngine", record)
+    return built
+
+
+def test_clean_build_records_the_verify_stage(engines_built):
+    dep = Deployment.build(["jet_tagger", "tau_select"], device="cpu",
+                           trace=True)
+    assert dep.verify == "clean" and dep.findings == []
+    assert [s.name for s in dep.tracer.spans] == [
+        "stage/plan", "stage/verify", "stage/engines"]
+    assert engines_built == ["jet_tagger", "tau_select"]
+
+
+@pytest.mark.parametrize("fault", ["tile", "smem"])
+def test_build_refuses_a_faulty_plan_before_any_engine(monkeypatch,
+                                                       engines_built, fault):
+    fleet = _fleet(["jet_tagger", "tau_select"])
+    plan = fleet.tenants[1].plan
+    if fault == "tile":
+        bad = _with_plan(fleet, "tau_select",
+                         layers=_with_layer(plan, 0, api_tile=(12, 32, 32)))
+        want = {"plan.tile-legal", "kernel.contract"}
+    else:
+        group = dataclasses.replace(plan.fusion_groups[0],
+                                    vmem_bytes=10 ** 6)
+        bad = _with_plan(fleet, "tau_select", fusion_groups=(group,))
+        want = {"plan.vmem-budget"}
+    monkeypatch.setattr(deployment_mod, "plan_fleet", lambda *a, **k: bad)
+    with pytest.raises(checklib.PlanVerificationError) as info:
+        Deployment.build(["jet_tagger", "tau_select"], device="cpu")
+    assert _rules(info.value.findings) == want
+    assert engines_built == []
+
+
+def test_check_false_records_the_stage_as_skipped(monkeypatch,
+                                                  engines_built):
+    fleet = _fleet(["tau_select"])
+    plan = fleet.tenants[0].plan
+    bad = _with_plan(fleet, "tau_select",
+                     layers=_with_layer(plan, 0, api_tile=(12, 32, 32)))
+    monkeypatch.setattr(deployment_mod, "plan_fleet", lambda *a, **k: bad)
+    dep = Deployment.build(["tau_select"], device="cpu", check=False,
+                           trace=True)
+    assert dep.verify == "skipped" and dep.findings == []
+    verify = dep.tracer.by_name("stage/verify")
+    assert len(verify) == 1 and verify[0].attrs["skipped"] is True
+    assert engines_built == ["tau_select"]
+
+
+# ---------------------------------------------------------------------------
+# python -m repro_torch check
+# ---------------------------------------------------------------------------
+
+def test_cli_check_on_cpu_exits_clean():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch", "check",
+                          "--device", "cpu", "--json"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout)
+    assert report["counts"]["error"] == 0
+    assert report["checked"] == [
+        "fleet:jet_tagger+tau_select+vae+qubit+autoencoder",
+        "kernels:library self-check on cpu"]
+    assert set(report["launches"]) == set(ops.launch_counts())
+
+
+def test_cli_check_verifies_artifacts(tmp_path, capsys):
+    plan = plan_deployment(edge.edge_config("vae"), device="cpu")
+    good = plan.save(tmp_path / "vae.json")
+    fleet_path = tmp_path / "fleet.json"
+    fleet_path.write_text(_fleet(["jet_tagger", "qubit"]).to_json())
+    assert cli.main(["check", str(good), str(fleet_path), "--no-kernels",
+                     "--device", "cpu"]) == 0
+    assert "clean" in capsys.readouterr().out
+    d = json.loads(plan.to_json())
+    d["layers"][0]["api_tile"] = [8, 128, 256]
+    bad = tmp_path / "bad.json"
+    bad.write_text(json.dumps(d))
+    assert cli.main(["check", str(bad), "--device", "cpu", "--json"]) == 1
+    report = json.loads(capsys.readouterr().out)
+    assert {f["rule"] for f in report["findings"]} == {
+        "plan.tile-legal", "kernel.contract"}
+
+
+@pytest.mark.parametrize("text", [
+    '{"schema": 3, "network": ', "[1, 2]", '{"schema": 2, "layers": []}',
+    '{"schema": 3, "network": "x"}'])
+def test_cli_check_undecodable_artifact_exits_2(tmp_path, capsys, text):
+    p = tmp_path / "corrupt.json"
+    p.write_text(text)
+    assert cli.main(["check", str(p), "--device", "cpu"]) == 2
+    err = capsys.readouterr().err
+    assert err.startswith("check: ") and len(err.strip().splitlines()) == 1
+    with pytest.raises(checklib.ArtifactError):
+        checklib.check_artifact(p)
+
+
+def test_cli_check_without_a_card_fails(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main(["check", "--no-kernels"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    assert cli.main(["nonesuch"]) == 2
+
+
+def test_library_self_check_on_cpu_runs_all_seven_plain_versions(
+        monkeypatch):
+    calls = {}
+    for mod, name in ((fused_mlp, "fused_mlp_q8_plain"),
+                      (gemm_int8, "gemm_int8_plain"),
+                      (flash_attention, "flash_attention_plain"),
+                      (rglru, "linear_scan_plain"),
+                      (rwkv6, "rwkv6_scan_plain"),
+                      (tiled_gemm, "tiled_gemm_plain"),
+                      (fused_dense, "fused_dense_plain")):
+        real = getattr(mod, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _real(*a, **k)
+        monkeypatch.setattr(mod, name, counted)
+    ops.reset_launches()
+    assert kernel_contracts.verify_kernel_library("cpu") == []
+    assert len(calls) == 7 and set(calls.values()) == {1}
+    assert set(ops.launch_counts().values()) == {0}
+
+
+def test_library_self_check_reports_a_wrong_shape(monkeypatch):
+    monkeypatch.setattr(ops, "tiled_gemm", lambda x, w: x)
+    findings = kernel_contracts.verify_kernel_library("cpu")
+    assert [f.rule for f in findings] == ["kernel.library"]
+    assert "tiled_gemm" in findings[0].detail
+
+
+def test_fleet_from_plan_wraps_one_tenant():
+    plan = plan_deployment(edge.edge_config("qubit"), device="cpu")
+    fleet = FleetPlan.from_plan(plan)
+    assert fleet.net_ids == ["qubit"] and fleet.est_latency_s \
+        == plan.est_latency_s
+    assert plan_rules.as_fleet(fleet) is fleet
+
+
+@pytest.mark.gpu
+def test_library_self_check_launches_every_kernel_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: "
+                    "python -m pytest -m gpu tests/test_torch_check.py)")
+    before = ops.launch_counts()
+    assert kernel_contracts.verify_kernel_library() == []
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == dict.fromkeys(after, 1)

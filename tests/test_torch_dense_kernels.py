@@ -1,0 +1,305 @@
+"""The port's ``tiled_gemm`` and ``fused_dense`` against the JAX package.
+
+On the CPU each port wrapper runs its plain PyTorch version; the JAX side
+runs the Pallas kernel in interpret mode (``repro.kernels.ops``), as
+``tests/test_kernels.py`` does, and its ``ref.py`` oracle.  Both get the
+same seeded numpy inputs.  Tolerances are the reference's own:
+``tiled_gemm`` exact for int8, rtol 1e-5 (atol 8e-5) for f32 and 2e-2
+(atol 0.16) for bf16; ``fused_dense`` rtol 1e-5 / atol 1e-4 for f32.  The
+bf16 ``fused_dense`` cases, which the reference does not test, are held to
+its bf16 ``tiled_gemm`` tolerance.  The ``gpu`` tests hold each CUDA kernel
+to its plain version on a card and skip without one.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref
+from repro_torch.core import tiling
+from repro_torch.kernels import fused_dense as fd
+from repro_torch.kernels import ops
+from repro_torch.kernels import tiled_gemm as tg
+
+ACTS = ["none", "relu", "gelu", "silu", "tanh", "sigmoid"]
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _randn(rng, shape, scale=1.0):
+    return (rng.normal(size=shape) * scale).astype(np.float32)
+
+
+def _pair(a, dtype):
+    """One numpy array as (jax, torch) arrays of ``dtype``."""
+    return jnp.asarray(a, getattr(jnp, dtype)), \
+        torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+def _np(t):
+    return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+# ---------------------------------------------------------------------------
+# tiled_gemm
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n", [
+    (8, 64, 64), (8, 192, 256), (16, 128, 384), (33, 100, 130),  # ragged
+    (8, 512, 512), (1, 128, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiled_gemm_matches_pallas(m, k, n, dtype):
+    rng = np.random.default_rng(42)
+    (xj, xt), (wj, wt) = (_pair(_randn(rng, s), dtype)
+                          for s in ((m, k), (k, n)))
+    want = ref_ops.tiled_gemm(xj, wj, block_m=8, block_k=64, block_n=128)
+    got = ops.tiled_gemm(xt, wt)
+    assert got.dtype == xt.dtype and got.shape == (m, n)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol * 8)
+    np.testing.assert_allclose(_np(got),
+                               np.asarray(ref.tiled_gemm(xj, wj), np.float32),
+                               rtol=tol, atol=tol * 8)
+
+
+# The reference sweeps its TPU tiles; the port sweeps its own (the plain
+# version takes any, the kernel only these).
+@pytest.mark.parametrize("ref_blocks,blocks", [
+    ((8, 128, 128), (8, 16, 32)), ((16, 64, 256), (16, 64, 128)),
+    ((32, 256, 128), (32, 32, 64))])
+def test_tiled_gemm_block_sweep(ref_blocks, blocks):
+    rng = np.random.default_rng(43)
+    (xj, xt), (wj, wt) = (_pair(_randn(rng, s), "float32")
+                          for s in ((32, 256), (256, 512)))
+    bm, bk, bn = ref_blocks
+    want = ref_ops.tiled_gemm(xj, wj, block_m=bm, block_k=bk, block_n=bn)
+    got = ops.tiled_gemm(xt, wt, block_m=blocks[0], block_k=blocks[1],
+                         block_n=blocks[2])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-4)
+
+
+def test_tiled_gemm_int8_accumulates_exactly():
+    rng = np.random.default_rng(44)
+    x = rng.integers(-127, 127, (8, 256)).astype(np.int8)
+    w = rng.integers(-127, 127, (256, 128)).astype(np.int8)
+    want = ref_ops.tiled_gemm(jnp.asarray(x), jnp.asarray(w), block_m=32,
+                              block_k=128, block_n=128)
+    got = ops.tiled_gemm(torch.from_numpy(x), torch.from_numpy(w))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(),
+                                  x.astype(np.int64) @ w.astype(np.int64))
+
+
+def test_tiled_gemm_refuses_what_the_kernel_does_not_take():
+    x = torch.zeros((8, 16))
+    with pytest.raises(ValueError, match="not one the kernel takes"):
+        ops.tiled_gemm(x, torch.zeros((16, 8)), block_m=8, block_k=128,
+                       block_n=128)
+    with pytest.raises(ValueError, match="one dtype"):
+        tg.tiled_gemm_contract(x, torch.zeros((16, 8), dtype=torch.int8),
+                               block_m=8, block_k=16, block_n=32)
+    assert tg.tiled_gemm_contract(
+        x.to(torch.int8), torch.zeros((16, 8), dtype=torch.int8), block_m=8,
+        block_k=16, block_n=32) == ((8, 8), torch.int32)
+
+
+@pytest.mark.parametrize("itemsize", [1, 2, 4])
+def test_tiled_planner_picks_legal_tiles(itemsize):
+    for m, k, n in [(64, 256, 512), (8, 16, 64), (33, 100, 130),
+                    (256, 4096, 4096), (8, 320, 320)]:
+        api = tiling.plan_tiled(m, k, n, itemsize=itemsize)
+        assert tiling.tiled_tile_ok(*api.blocks)
+        assert api.smem_bytes == tiling.tiled_smem_bytes(*api.blocks,
+                                                         itemsize)
+        assert api.smem_bytes <= 48 * 1024     # no opt-in needed
+    with pytest.raises(ValueError, match="8-byte"):
+        tiling.plan_tiled(8, 8, 8, itemsize=8)
+
+
+@pytest.mark.parametrize("itemsize,rate", [(1, "dp4a_ops"),
+                                           (2, "f32_fma_ops"),
+                                           (4, "f32_fma_ops")])
+def test_tiled_planner_charges_the_given_cards_rate(itemsize, rate):
+    """The planner charges the rate of the instructions the kernel issues,
+    read from the machine model it is given: at a thousandth of it a large
+    GEMM is bound by operations, and the estimate follows the rate."""
+    from repro_torch import hw
+    m, k, n = 256, 4096, 4096
+    slow = dataclasses.replace(hw.H100_SXM,
+                               **{rate: getattr(hw.H100_SXM, rate) / 1000})
+    fast_est = tiling.plan_tiled(m, k, n, itemsize=itemsize).est_s
+    slow_est = tiling.plan_tiled(m, k, n, itemsize=itemsize, hw=slow).est_s
+    ops_s = 2.0 * m * k * n / getattr(slow, rate)
+    assert slow_est >= ops_s > 10 * fast_est
+
+
+def test_planner_rates_stay_out_of_the_edge_plan_keys():
+    """The tiled planner's rates enter no edge plan's key; the rate the
+    edge planner reads does."""
+    from repro_torch import hw
+    from repro_torch.models import edge
+    from repro_torch.plan import plan_deployment
+    cfg = edge.edge_config("jet_tagger")
+    key = plan_deployment(cfg, device="cpu").key
+    assert plan_deployment(cfg, device="cpu", hw=dataclasses.replace(
+        hw.H100_SXM, dp4a_ops=1.0, f32_fma_ops=1.0)).key == key
+    assert plan_deployment(cfg, device="cpu", hw=dataclasses.replace(
+        hw.H100_SXM, peak_int8_ops=1.0)).key != key
+
+
+# ---------------------------------------------------------------------------
+# fused_dense
+# ---------------------------------------------------------------------------
+
+def _dense_inputs(seed, m, k, n, residual):
+    rng = np.random.default_rng(seed)
+    return (_randn(rng, (m, k)), _randn(rng, (k, n)), _randn(rng, (n,)),
+            _randn(rng, (m, n)) if residual else None)
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("residual", [False, True])
+def test_fused_dense_matches_pallas(act, residual):
+    x, w, b, r = _dense_inputs(45, 8, 192, 256, residual)
+    j = [None if a is None else jnp.asarray(a) for a in (x, w, b, r)]
+    want = ref_ops.fused_dense(*j, act=act, block_m=8, block_k=64,
+                               block_n=128)
+    got = ops.fused_dense(*(None if a is None else torch.from_numpy(a)
+                            for a in (x, w, b, r)), act=act)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-4)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(ref.fused_dense(*j, act=act)),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("act", ["relu", "gelu"])
+def test_fused_dense_ragged_bf16_matches_reference(act):
+    """Ragged M/K/N with bf16 operands and a bf16 residual: the bias in f32
+    before the activation, the residual after it, the cast last."""
+    x, w, b, r = _dense_inputs(46, 13, 100, 70, True)
+    xj, xt = _pair(x, "bfloat16")
+    wj, wt = _pair(w, "bfloat16")
+    rj, rt = _pair(r, "bfloat16")
+    want = ref.fused_dense(xj, wj, jnp.asarray(b), rj, act=act)
+    got = ops.fused_dense(xt, wt, torch.from_numpy(b), rt, act=act)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               rtol=2e-2, atol=0.16)
+
+
+def test_fused_dense_gelu_is_the_tanh_approximation():
+    y = torch.linspace(-4, 4, 33)
+    x, w = y[:, None], torch.ones((1, 1))
+    got = ops.fused_dense(x, w, torch.zeros(1), act="gelu")[:, 0]
+    torch.testing.assert_close(
+        got, torch.nn.functional.gelu(y, approximate="tanh"))
+    assert (got - torch.nn.functional.gelu(y)).abs().max() > 1e-4
+
+
+def test_fused_dense_refuses_what_the_kernel_does_not_take():
+    x, w, b = torch.zeros((8, 16)), torch.zeros((16, 32)), torch.zeros(32)
+    with pytest.raises(ValueError, match="act"):
+        ops.fused_dense(x, w, b, act="elu")
+    with pytest.raises(ValueError, match="not one the kernel takes"):
+        ops.fused_dense(x, w, b, block_m=12)
+    with pytest.raises(ValueError, match="bias"):
+        fd.fused_dense_contract(x, w, b.double(), act="relu", block_m=8,
+                                block_k=16, block_n=32)
+    for r in (torch.zeros((8, 31)), torch.zeros((8, 32),
+                                                dtype=torch.bfloat16)):
+        with pytest.raises(ValueError, match="residual"):
+            fd.fused_dense_contract(x, w, b, r, act="relu", block_m=8,
+                                    block_k=16, block_n=32)
+    assert fd.fused_dense_contract(
+        x, w, b, act="relu", block_m=8, block_k=16, block_n=32,
+        out_dtype=torch.bfloat16) == ((8, 32), torch.bfloat16)
+
+
+def test_non_cpu_tensors_never_reach_plain(monkeypatch):
+    def forbidden(*a, **k):
+        raise AssertionError("plain version reached")
+    monkeypatch.setattr(tg, "tiled_gemm_plain", forbidden)
+    monkeypatch.setattr(fd, "fused_dense_plain", forbidden)
+    ops.reset_launches()
+    x = torch.zeros((8, 16), device="meta")
+    w = torch.zeros((16, 32), device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.tiled_gemm(x, w)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.fused_dense(x, w, torch.zeros(32, device="meta"))
+    counts = ops.launch_counts()
+    assert counts["tiled_gemm"] == counts["fused_dense"] == 0
+
+
+# ---------------------------------------------------------------------------
+# On a card: the CUDA kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (run on the card: python "
+                    "-m pytest -m gpu tests/test_torch_dense_kernels.py)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+GEMM_CASES = [(8, 64, 64), (33, 100, 130), (64, 256, 512), (1, 7, 5),
+              (200, 300, 260)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", GEMM_CASES)
+@pytest.mark.parametrize("dtype", ["int8", "float32", "bfloat16"])
+def test_tiled_gemm_cuda_matches_plain_on_card(cuda_device, m, k, n, dtype):
+    rng = np.random.default_rng(47)
+    if dtype == "int8":
+        x, w = (torch.from_numpy(rng.integers(-127, 128, s).astype(np.int8))
+                for s in ((m, k), (k, n)))
+    else:
+        x, w = (torch.from_numpy(_randn(rng, s)).to(getattr(torch, dtype))
+                for s in ((m, k), (k, n)))
+    x, w = x.to(cuda_device), w.to(cuda_device)
+    for bm, bk, bn in {tiling.plan_tiled(m, k, n,
+                                         itemsize=x.element_size()).blocks,
+                       (8, 16, 32), (64, 64, 128), (16, 32, 64)}:
+        got = tg.tiled_gemm_cuda(x, w, block_m=bm, block_k=bk, block_n=bn)
+        want = tg.tiled_gemm_plain(x, w)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype
+        if dtype == "int8":
+            assert torch.equal(got, want)
+        else:
+            tol = TOL[dtype]
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol * 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("residual", [False, True])
+def test_fused_dense_cuda_matches_plain_on_card(cuda_device, act, dtype,
+                                                residual):
+    for m, k, n in ((8, 16, 64), (13, 100, 70), (8, 320, 320)):
+        x, w, b, r = _dense_inputs(48, m, k, n, residual)
+        dt = getattr(torch, dtype)
+        args = [torch.from_numpy(x).to(cuda_device, dt),
+                torch.from_numpy(w * k ** -0.5).to(cuda_device, dt),
+                torch.from_numpy(b).to(cuda_device),
+                None if r is None else torch.from_numpy(r).to(cuda_device,
+                                                              dt)]
+        got = ops.fused_dense(*args, act=act)
+        want = fd.fused_dense_plain(*args, act=act)
+        torch.cuda.synchronize()
+        assert got.dtype == dt
+        rtol, atol = (1e-5, 1e-4) if dtype == "float32" else (2 ** -7, 1e-2)
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)

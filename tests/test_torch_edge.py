@@ -202,3 +202,107 @@ def test_stage_defaults_are_dataclass_fields():
     assert s.in_group_compute_s == 1.0
     assert dataclasses.replace(s, fused_compute_s=0.5).in_group_compute_s \
         == 0.5
+
+
+# The five nets' h100 plans as they stood before the float edge forward and
+# the tiled_gemm tiles entered the port: plan key, per-layer gemm_int8 tile,
+# fusion groups.  Adding kernels and a second tile set must change none.
+H100_PLANS = {
+    "jet_tagger": (
+        "e4a1a050feed2ebc9977ff2ae751804bb8b58e872e507b42b44c3627cb3691cd",
+        [(8, 32, 32), (8, 64, 32), (8, 32, 32), (8, 32, 32)],
+        [[0, 1, 2, 3]]),
+    "tau_select": (
+        "78e2342be8cbb945a0b9ac05abe860af73a0d04ad3f85cdd9a506c13aae4aab0",
+        [(8, 32, 32)] * 3, [[0, 1, 2]]),
+    "vae": (
+        "abac5702541e6ff656f02a0863d7f5213f11ec7559322c0a8d49fc77c51959f3",
+        [(8, 64, 32), (8, 128, 32), (8, 128, 32), (8, 128, 32),
+         (8, 64, 32)], [[0, 1, 2, 3, 4]]),
+    "qubit": (
+        "b2d4a37452049887681794ec97449ae3e8aca42808778eddbcb340d4c856f6f2",
+        [(8, 128, 32), (8, 32, 32), (8, 128, 32), (8, 128, 32),
+         (8, 128, 32), (8, 32, 32)], [[0, 1, 2, 3, 4, 5]]),
+    "autoencoder": (
+        "6d6cd18914a5801b9383c7724be0aa800e6ba0f2f507d97573703410f46e62d5",
+        [(8, 32, 32)] * 8, [list(range(8))]),
+}
+
+
+@pytest.mark.parametrize("name", NETS)
+def test_h100_plan_keys_and_tiles_unchanged(name):
+    key, tiles, groups = H100_PLANS[name]
+    plan = plan_deployment(edge.edge_config(name), device="cpu")
+    assert plan.key == key
+    assert [l.api_tile for l in plan.layers] == tiles
+    assert plan.groups() == groups
+
+
+@pytest.fixture
+def dense_calls(monkeypatch):
+    """Count the ``ops.fused_dense`` calls (a CPU tensor launches nothing,
+    so the kernel's counter stays at 0 here)."""
+    from repro_torch.kernels import ops
+    calls = []
+    real = ops.fused_dense
+
+    def counted(x, w, b, residual=None, **kw):
+        calls.append(kw.get("act"))
+        return real(x, w, b, residual, **kw)
+    monkeypatch.setattr(ops, "fused_dense", counted)
+    return calls
+
+
+@pytest.mark.parametrize("name", NETS)
+def test_forward_and_calibration_run_one_fused_dense_per_layer(name,
+                                                               dense_calls):
+    """``edge_forward`` and the calibration pass of ``quantize_edge`` each
+    run one ``fused_dense`` per layer, ReLU on all but the last, and their
+    results equal the JAX package's on the same weights."""
+    cfg, params, calib = _params(name)
+    n = len(cfg.layer_shapes)
+    acts = ["relu"] * (n - 1) + ["none"]
+    got = edge.quantize_edge(edge.params_from_numpy(params, device="cpu"),
+                             calib_x=torch.from_numpy(calib), act=cfg.act)
+    assert dense_calls == acts
+    for g, w in zip(got, _ref_qparams(name)):
+        assert g["x_scale"] == pytest.approx(w["x_scale"], rel=1e-6)
+    dense_calls.clear()
+    y = edge.edge_forward(edge.params_from_numpy(params, device="cpu"),
+                          edge.edge_config(name), torch.from_numpy(calib))
+    assert dense_calls == acts
+    want = ref_edge.edge_forward(_jnp(params), cfg, jnp.asarray(calib))
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_engine_build_calibrates_through_fused_dense(dense_calls):
+    """Every engine build runs the calibration pass: one ``fused_dense``
+    per layer of each tenant."""
+    from repro_torch.deploy import Deployment
+    dep = Deployment.build(["jet_tagger", "tau_select"], device="cpu")
+    assert len(dense_calls) == 4 + 3
+    assert all("x_scale" in q for e in dep.engines.values()
+               for q in e.qparams)
+
+
+@pytest.mark.gpu
+def test_edge_forward_on_card_launches_fused_dense_per_layer():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: "
+                    "python -m pytest -m gpu tests/test_torch_edge.py)")
+    from repro_torch.kernels import ops
+    for name in NETS:
+        cfg, params, calib = _params(name)
+        cpu = edge.params_from_numpy(params, device="cpu")
+        card = edge.params_from_numpy(params, device="cuda")
+        ops.reset_launches()
+        y = edge.edge_forward(card, cfg, torch.from_numpy(calib).cuda())
+        q = edge.quantize_edge(card, calib_x=torch.from_numpy(calib).cuda())
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["fused_dense"] == 2 * len(params)
+        torch.testing.assert_close(y.cpu(), edge.edge_forward(
+            cpu, cfg, torch.from_numpy(calib)), rtol=1e-5, atol=1e-4)
+        for a, b in zip(q, edge.quantize_edge(
+                cpu, calib_x=torch.from_numpy(calib))):
+            assert a["x_scale"] == pytest.approx(b["x_scale"], rel=1e-5)

@@ -188,7 +188,8 @@ def test_cpu_dispatch_runs_plain_and_counts_no_launch():
                      [torch.zeros(8)], [0.1])
     assert ops.launch_counts() == {"fused_mlp_q8": 0, "gemm_int8": 0,
                                    "flash_attention": 0, "linear_scan": 0,
-                                   "rwkv6_scan": 0}
+                                   "rwkv6_scan": 0, "tiled_gemm": 0,
+                                   "fused_dense": 0}
 
 
 def test_non_cpu_tensor_never_reaches_plain(monkeypatch):
@@ -209,7 +210,8 @@ def test_non_cpu_tensor_never_reaches_plain(monkeypatch):
         ops.fused_group(torch.zeros((8, 16), device="meta"), g)
     assert ops.launch_counts() == {"fused_mlp_q8": 0, "gemm_int8": 0,
                                    "flash_attention": 0, "linear_scan": 0,
-                                   "rwkv6_scan": 0}
+                                   "rwkv6_scan": 0, "tiled_gemm": 0,
+                                   "fused_dense": 0}
 
 
 @pytest.mark.gpu
