@@ -7,14 +7,19 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
 
 1. the card, as ``nvidia-smi`` names it with its power limit;
 2. build all seven CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-   one process per source, started together);
+   one process per source, started together); 2b: ``cuobjdump -sass`` of
+   the ``flash_attention`` and ``tiled_gemm`` libraries: every bf16 flash
+   and bf16 GEMM instance must issue HGMMA (bf16 wgmma), every int8 GEMM
+   instance IGMMA, each printed beside ptxas's registers, spills and
+   shared memory;
 3. kernels: ``fused_mlp_q8`` on every edge net's fused group at batch 8 and
    on an odd shape, ``gemm_int8`` on every layer shape of the five nets and
    on 256 x 1024 x 1024, each held against its plain PyTorch version on the
    same inputs on the card; 3b: ``fused_dense`` with every activation, with
    and without a residual, in f32 and bf16, at the five nets' layer shapes
    and a ragged one, and ``tiled_gemm`` in int8 (bit-exact), f32 and bf16 at
-   ragged and large shapes, with the planner's block and three more;
+   ragged and large shapes, with the planner's block and three more of its
+   dtype's tile set (tensor cores for int8 and bf16, CUDA cores for f32);
 4. serve: ``Deployment.build(["jet_tagger", "tau_select"])`` on the default
    device, its verify stage on: clean findings, one ``fused_dense`` launch
    per layer (4 + 3) from the calibration pass and nothing else, and input
@@ -59,8 +64,9 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    that runs it;
 9. LM kernel times: device ms per call (graph-replayed) and eager ms, the
    plain version's, ``F.scaled_dot_product_attention`` with the same band
-   mask as the yardstick for flash (none exists for the scan), and the
-   bound max(bytes / 3.35 TB/s, flops / 989 TFLOP/s bf16).  The Griffin
+   mask as the yardstick for flash (none exists for the scan) and, beside
+   it, causal SDPA without a mask (its flash backend, 1.33x the work), and
+   the bound max(bytes / 3.35 TB/s, flops / 989 TFLOP/s bf16).  The Griffin
    model is freed here;
 10. ``rwkv6_scan`` against its plain version on the card: the forward shape
    (64,4096,64) in bf16 and f32, a ragged T with per-head u, a non-zero
@@ -244,6 +250,88 @@ def check_close(what: str, got, want, *, tol: float = TOL,
 
 
 # ---------------------------------------------------------------------------
+# Phase 2b: the tensor-core instances issue tensor-core instructions
+# ---------------------------------------------------------------------------
+
+# (library, mark in the instance's mangled name, the instruction it must
+# issue, instances): bf16 flash and GEMM issue HGMMA (bf16 wgmma), int8 GEMM
+# IGMMA (int8 wgmma).
+TC_INSTANCES = (
+    ("flash_attention", "flash_tc_kernel", "HGMMA", 3),
+    ("tiled_gemm", "tc_gemm_kernelI13__nv_bfloat16", "HGMMA", 6),
+    ("tiled_gemm", "tc_gemm_kernelIa", "IGMMA", 6),
+)
+SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA")
+
+
+def sass_counts(lib: pathlib.Path) -> dict:
+    """Tensor-core instructions per kernel function of one library, read
+    with ``cuobjdump -sass`` from the toolkit that built it."""
+    import re
+    from repro_torch.kernels import build
+    tool = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, func = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            func = line.split("Function : ", 1)[1].strip()
+            counts[func] = dict.fromkeys(SASS_OPS, 0)
+        elif func is not None:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    counts[func][op] += 1
+    return counts
+
+
+def ptxas_rows(report: str) -> dict:
+    """Registers, spill bytes and static shared memory per entry function,
+    from nvcc's ``-Xptxas -v`` output."""
+    import re
+    rows, func = {}, None
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            func = entry.group(1)
+            rows[func] = {}
+        elif func is not None and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            rows[func].update(spill_stores=int(st), spill_loads=int(ld))
+        elif func is not None and "Used" in line and "registers" in line:
+            rows[func]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[func]["static_smem"] = int(smem.group(1)) if smem else 0
+    return rows
+
+
+def tensor_core_phase(libs: dict) -> None:
+    """Counts of HGMMA/IGMMA (HMMA/IMMA) in every tensor-core instance of
+    ``flash_attention`` and ``tiled_gemm``, beside ptxas's registers,
+    spills and shared memory, and ptxas's notes on wgmma serialization or
+    setmaxnreg; fails if an instance issues none of its instruction, or if
+    an instance is missing."""
+    from repro_torch.kernels import build
+    for lib, mark, op, want in TC_INSTANCES:
+        counts = sass_counts(libs[lib])
+        ptxas = ptxas_rows(build.ptxas_report.get(lib, ""))
+        found = {f: c for f, c in counts.items() if mark in f}
+        if len(found) != want:
+            raise SmokeFailure(f"{lib}: {len(found)} instances marked {mark}, "
+                               f"want {want}")
+        for func, c in sorted(found.items()):
+            row = {**c, **ptxas.get(func, {})}
+            log(f"tensor cores {lib} {func}: " + json.dumps(row,
+                                                          sort_keys=True))
+            if c[op] == 0:
+                raise SmokeFailure(f"{lib} {func} issues no {op}")
+    for lib in sorted({t[0] for t in TC_INSTANCES}):
+        for line in build.ptxas_report.get(lib, "").splitlines():
+            if "(C75" in line:
+                log(f"tensor cores {lib} ptxas: {line.strip()}")
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: each kernel against its plain version on the card
 # ---------------------------------------------------------------------------
 
@@ -341,9 +429,12 @@ def kernel_phase(device) -> dict:
 # shapes off every block multiple, one row, and a multi-wave grid.
 GEMM_CASES = ((64, 256, 512), (33, 100, 130), (1, 7, 5), (200, 300, 260),
               (256, 1024, 1024))
-# Blocks held beside the planner's choice: the smallest, the largest, one
-# between.
-GEMM_BLOCKS = ((8, 16, 32), (64, 64, 128), (16, 32, 64))
+# Blocks held beside the planner's choice, per operand size (core/tiling.py:
+# the tensor-core set for int8 and bf16, the CUDA-core set for f32): the
+# smallest, the largest, one between.
+GEMM_BLOCKS = {1: ((64, 128, 64), (128, 128, 256), (64, 128, 128)),
+               2: ((64, 64, 64), (128, 64, 256), (128, 64, 128)),
+               4: ((8, 16, 32), (64, 64, 128), (16, 32, 64))}
 
 
 def _dense_args(gen, device, m, k, n, dtype, residual):
@@ -377,7 +468,7 @@ def dense_kernel_phase(device) -> dict:
         rtol, atol = TOL_DENSE[dtype]
         worst = 0.0
         for m, k, n in shapes:
-            bm, bk, bn = tiling.plan_tiled(m, k, n, itemsize=4 if dtype ==
+            bm, bk, bn = tiling.plan_dense(m, k, n, itemsize=4 if dtype ==
                                            "float32" else 2).blocks
             for residual in (False, True):
                 x, w, b, r = _dense_args(gen, device, m, k, n, dtype,
@@ -410,9 +501,9 @@ def dense_kernel_phase(device) -> dict:
             else:
                 x, w, _, _ = _dense_args(gen, device, m, k, n, dtype, False)
             want = tg.tiled_gemm_plain(x, w)
-            planned = tiling.plan_tiled(m, k, n,
-                                        itemsize=x.element_size()).blocks
-            for bm, bk, bn in dict.fromkeys((planned,) + GEMM_BLOCKS):
+            size = x.element_size()
+            planned = tiling.plan_tiled(m, k, n, itemsize=size).blocks
+            for bm, bk, bn in dict.fromkeys((planned,) + GEMM_BLOCKS[size]):
                 got = tg.tiled_gemm_cuda(x, w, block_m=bm, block_k=bk,
                                          block_n=bn)
                 what = f"tiled_gemm ({m},{k},{n}) {dtype} {(bm, bk, bn)}"
@@ -430,7 +521,8 @@ def dense_kernel_phase(device) -> dict:
         tol = ("exact" if dtype == "int8"
                else "rtol={} atol={}".format(*TOL_DENSE[dtype]))
         log(f"kernel tiled_gemm {dtype}: {len(GEMM_CASES)} shapes x "
-            f"planned + {len(GEMM_BLOCKS)} blocks: max_abs_err={worst} {tol}")
+            f"planned + {len(GEMM_BLOCKS[1])} blocks: max_abs_err={worst} "
+            f"{tol}")
     torch.cuda.synchronize(device)
     return errs
 
@@ -816,7 +908,7 @@ def dense_timing_phase(dep, device) -> dict:
         for i, (k, n) in enumerate(cfg.layer_shapes):
             m = cfg.batch
             x, w, b, _ = _dense_args(gen, device, m, k, n, "float32", False)
-            blocks = tiling.plan_tiled(m, k, n, itemsize=4).blocks
+            blocks = tiling.plan_dense(m, k, n, itemsize=4).blocks
 
             def kernel():
                 return fd.fused_dense_cuda(x, w, b, act="none",
@@ -1275,8 +1367,15 @@ def lm_timing_phase(device) -> dict:
     def library():
         return F.scaled_dot_product_attention(q, kx, vx, attn_mask=band)
 
+    def library_causal():
+        # Causal over the whole sequence, no mask tensor: SDPA's flash
+        # backend takes it, at 1.33x the band's work (no window).
+        return F.scaled_dot_product_attention(q, kx, vx, is_causal=True)
+
     check_close("flash library vs kernel", library(), kernel(),
                 tol=TOL_FLASH_LIBRARY)
+    if not bool(torch.isfinite(library_causal()).all()):
+        raise SmokeFailure("causal SDPA output is not finite")
     pairs = int(band.sum()) * b * hq
     flash = {"shape": f"q {list(q.shape)} k/v {list(k.shape)} {dt} {kw}",
              "ms": graph_ms(kernel, inner=5, reps=11),
@@ -1284,6 +1383,7 @@ def lm_timing_phase(device) -> dict:
              "plain_ms": graph_ms(lambda: fa.flash_attention_plain(
                  q, k, v, **kw), inner=2, reps=5),
              "library_ms": graph_ms(library, inner=5, reps=11),
+             "library_causal_ms": graph_ms(library_causal, inner=5, reps=11),
              **bound(2 * (2 * q.numel() + k.numel() + v.numel()),
                      4.0 * d * pairs, PEAK_BF16)}
     log("timing flash_attention " + json.dumps(flash, sort_keys=True))
@@ -1449,7 +1549,9 @@ def lm_kernel_entries(errs, launches_by_path, per_step, per_tick,
     for name in LM_KERNELS:
         row = timing[name]
         extra = {}
-        if name != "flash_attention":
+        if name == "flash_attention":
+            extra["library_causal_ms"] = row["library_causal_ms"]
+        else:
             extra["decode_tick"] = {k: row["decode tick"][k] for k in (
                 "shape", "ms", "eager_ms", "plain_ms", "bound_ms",
                 "bound_by")}
@@ -1489,7 +1591,7 @@ def main() -> int:
         log(card)
         from repro_torch.kernels import build
         t0 = time.perf_counter()
-        build.build_all()
+        libs = build.build_all()
         log(f"build: {time.perf_counter() - t0:.1f} s for "
             f"{sorted(build.SOURCES)}")
         for name, report in sorted(build.ptxas_report.items()):
@@ -1497,6 +1599,7 @@ def main() -> int:
                            for line in report.splitlines()
                            if "registers" in line})
             log(f"build {name}: ptxas {regs}")
+        tensor_core_phase(libs)
         device = torch.device("cuda", torch.cuda.current_device())
         errs = kernel_phase(device)
         errs.update(dense_kernel_phase(device))

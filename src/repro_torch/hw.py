@@ -4,10 +4,11 @@ The fusion DP (``core/boundary.py``) and the tile planner
 (``core/tiling.py``) read it under the same attribute names the JAX
 package's TPU model carries: ``hbm_bw``, ``kernel_overhead_s`` and
 ``fused_epilogue_s``.  ``smem_bytes`` (shared memory one block may use)
-plays the role the TPU model's VMEM size plays.  ``f32_fma_ops`` and
-``dp4a_ops`` are the rates of the CUDA-core instructions the ``tiled_gemm``
-and ``fused_dense`` kernels issue; only their tile planner reads them, so
-they stay out of the edge plans' keys (``plan_key: False``).
+plays the role the TPU model's VMEM size plays.  ``peak_bf16_ops`` (the
+tensor cores, which bf16 ``tiled_gemm`` runs on) and ``f32_fma_ops`` (the
+CUDA cores, which f32 ``tiled_gemm`` and ``fused_dense`` run on) are read
+only by their tile planner, so they stay out of the edge plans' keys
+(``plan_key: False``).
 
 Rates and sizes are the H100 SXM datasheet's (not measured on a card).  The
 two launch-cost terms are placeholders until a characterization slice fits
@@ -34,14 +35,12 @@ class H100:
     # kernel (requantize through shared memory instead of a new launch).
     kernel_overhead_s: float = 4e-6
     fused_epilogue_s: float = 3e-7
-    # CUDA-core rates, derived from the datasheet (132 SMs at 1.98 GHz), not
-    # measured: f32 FMAs at 128 lanes per SM per clock (the datasheet's 67
-    # TFLOP/s; bf16 operands are widened to f32), and __dp4a at the int32
-    # rate of 64 lanes per SM per clock, 8 operations each.
+    # Dense bf16 on the tensor cores, and f32 FMAs on the CUDA cores (128
+    # lanes per SM per clock), both the datasheet's, not measured.
+    peak_bf16_ops: float = dataclasses.field(default=989e12,
+                                             metadata=_NOT_IN_PLAN_KEY)
     f32_fma_ops: float = dataclasses.field(default=67e12,
                                            metadata=_NOT_IN_PLAN_KEY)
-    dp4a_ops: float = dataclasses.field(default=132 * 64 * 8 * 1.98e9,
-                                        metadata=_NOT_IN_PLAN_KEY)
 
 
 H100_SXM = H100()

@@ -9,7 +9,7 @@
 // and applies the epilogue to its register accumulators in the reference's
 // order (_flush): bias in f32, then the activation, then the residual in
 // f32, then the cast.  The block shape comes from core/tiling.py's
-// plan_tiled, as the TPU wrapper took plan_api's.
+// plan_dense, as the TPU wrapper took plan_api's.
 //
 // What bounds it on this card: on the float edge forward (M = 8, widths up
 // to 320) a layer moves a few KiB and does ~10^6 FLOPs, so the launch binds;

@@ -10,7 +10,7 @@ share one dtype, f32 or bf16; the bias is f32; M, K and N may be
 ragged.
 
 The CUDA kernel is ``csrc/fused_dense.cu``, with the block shape from
-``core/tiling.py``'s :func:`plan_tiled`; :func:`fused_dense_plain` is the
+``core/tiling.py``'s :func:`plan_dense`; :func:`fused_dense_plain` is the
 same function in plain PyTorch, used for CPU tensors and as the kernel's
 oracle on the card.
 """
@@ -54,7 +54,7 @@ def fused_dense_contract(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     alone (meta tensors do): returns the output's ``(shape, dtype)`` or
     raises ``ValueError``."""
     _check_act(act)
-    if not tiling.tiled_tile_ok(block_m, block_k, block_n):
+    if not tiling.dense_tile_ok(block_m, block_k, block_n):
         raise ValueError(f"fused_dense: tile {(block_m, block_k, block_n)} "
                          f"is not one the kernel takes")
     if x.dtype not in _DTYPES or w.dtype != x.dtype or x.dim() != 2 \

@@ -118,19 +118,19 @@ def rwkv6_scan(r, k, v, w, u, *, state0=None, return_state: bool = False):
                                return_state=return_state)
 
 
-def _plan_tiled(x, w):
-    return lambda: tiling.plan_tiled(x.shape[0], x.shape[1], w.shape[1],
-                                     itemsize=x.element_size())
-
-
 def tiled_gemm(x, w, *, block_m: int | None = None,
                block_k: int | None = None,
                block_n: int | None = None) -> torch.Tensor:
     """``x @ w`` over the caller's blocks or those of
-    :func:`tiling.plan_tiled`: int8 -> int32 exactly, f32/bf16 keep their
+    :func:`tiling.plan_tiled` (the tensor-core tile set for int8 and bf16,
+    the CUDA-core one for f32): int8 -> int32 exactly, f32/bf16 keep their
     dtype."""
-    bm, bk, bn = _blocks("tiled_gemm", _plan_tiled(x, w),
-                         tiling.tiled_tile_ok, block_m, block_k, block_n)
+    size = x.element_size()
+    bm, bk, bn = _blocks(
+        "tiled_gemm",
+        lambda: tiling.plan_tiled(x.shape[0], x.shape[1], w.shape[1],
+                                  itemsize=size),
+        lambda *t: tiling.tiled_tile_ok(*t, size), block_m, block_k, block_n)
     if x.device.type == "cpu":
         return _tg.tiled_gemm_plain(x, w)
     return _tg.tiled_gemm_cuda(x, w, block_m=bm, block_k=bk, block_n=bn)
@@ -141,9 +141,12 @@ def fused_dense(x, w, b, residual=None, *, act: str = "relu",
                 block_n: int | None = None,
                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``act(x @ w + b) (+ residual)`` in one launch, f32 accumulation,
-    over the caller's blocks or those of :func:`tiling.plan_tiled`."""
-    bm, bk, bn = _blocks("fused_dense", _plan_tiled(x, w),
-                         tiling.tiled_tile_ok, block_m, block_k, block_n)
+    over the caller's blocks or those of :func:`tiling.plan_dense`."""
+    bm, bk, bn = _blocks(
+        "fused_dense",
+        lambda: tiling.plan_dense(x.shape[0], x.shape[1], w.shape[1],
+                                  itemsize=x.element_size()),
+        tiling.dense_tile_ok, block_m, block_k, block_n)
     if x.device.type == "cpu":
         return _fd.fused_dense_plain(x, w, b, residual, act=act,
                                      out_dtype=out_dtype)

@@ -3,8 +3,9 @@
 Port of the JAX package's ``kernels/tiled_gemm.py::tiled_gemm``: ``x @ w``
 over an (M/bm, N/bn, K/bk) grid of blocks with K innermost.  int8 operands
 accumulate in int32 and give int32, exactly; f32 and bf16 operands
-accumulate in f32 and keep their dtype in the output.  The CUDA kernel is ``csrc/tiled_gemm.cu``, with
-the block shape from ``core/tiling.py``'s :func:`plan_tiled`;
+accumulate in f32 and keep their dtype in the output.  The CUDA kernel is
+``csrc/tiled_gemm.cu`` (tensor cores for int8 and bf16, CUDA cores for f32),
+with the block shape from ``core/tiling.py``'s :func:`plan_tiled`;
 :func:`tiled_gemm_plain` is the same function in plain PyTorch, used for CPU
 tensors and as the kernel's oracle on the card.
 """
@@ -33,18 +34,22 @@ def tiled_gemm_contract(x: torch.Tensor, w: torch.Tensor, *, block_m: int,
                         block_k: int, block_n: int):
     """The kernel's argument checks on shapes, dtypes and the tile alone
     (meta tensors do): returns the output's ``(shape, dtype)`` or raises
-    ``ValueError``."""
-    if not tiling.tiled_tile_ok(block_m, block_k, block_n):
-        raise ValueError(f"tiled_gemm: tile {(block_m, block_k, block_n)} is "
-                         f"not one the kernel takes (block_m in "
-                         f"{tiling.TILED_BLOCK_M}, block_k in "
-                         f"{tiling.TILED_BLOCK_K}, block_n in "
-                         f"{tiling.TILED_BLOCK_N})")
+    ``ValueError``.  The tile must be one of the set for x's dtype: the
+    tensor-core set for int8 and bf16, the CUDA-core set for f32."""
     if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype or x.dim() != 2 \
             or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"tiled_gemm: want (M, K) @ (K, N) of one dtype in "
                          f"{tuple(_DTYPE_CODE)}, got {x.dtype} "
                          f"{tuple(x.shape)} @ {w.dtype} {tuple(w.shape)}")
+    size = x.element_size()
+    if not tiling.tiled_tile_ok(block_m, block_k, block_n, size):
+        want = (f"block_m in {tiling.TILED_BLOCK_M}, block_k in "
+                f"{tiling.TILED_BLOCK_K}, block_n in {tiling.TILED_BLOCK_N}"
+                if size == 4 else
+                f"block_m in {tiling.TC_BLOCK_M}, block_k "
+                f"{tiling.tc_block_k(size)}, block_n in {tiling.TC_BLOCK_N}")
+        raise ValueError(f"tiled_gemm: tile {(block_m, block_k, block_n)} is "
+                         f"not one the kernel takes for {x.dtype} ({want})")
     return (x.shape[0], w.shape[1]), out_dtype(x.dtype)
 
 

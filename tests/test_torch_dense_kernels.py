@@ -105,25 +105,60 @@ def test_tiled_gemm_refuses_what_the_kernel_does_not_take():
         tg.tiled_gemm_contract(x, torch.zeros((16, 8), dtype=torch.int8),
                                block_m=8, block_k=16, block_n=32)
     assert tg.tiled_gemm_contract(
-        x.to(torch.int8), torch.zeros((16, 8), dtype=torch.int8), block_m=8,
-        block_k=16, block_n=32) == ((8, 8), torch.int32)
+        x.to(torch.int8), torch.zeros((16, 8), dtype=torch.int8), block_m=64,
+        block_k=128, block_n=64) == ((8, 8), torch.int32)
+
+
+# The tensor-core set (int8, bf16) and the CUDA-core set (f32) share no
+# tile: each dtype takes its own and refuses the other's.
+@pytest.mark.parametrize("dtype,takes,refuses", [
+    (torch.int8, [(64, 128, 64), (128, 128, 256), (64, 128, 128)],
+     [(8, 16, 32), (64, 64, 128), (64, 64, 64), (32, 128, 64)]),
+    (torch.bfloat16, [(64, 64, 64), (128, 64, 256), (128, 64, 128)],
+     [(8, 16, 32), (64, 64, 32), (64, 128, 64), (16, 64, 64)]),
+    (torch.float32, [(8, 16, 32), (64, 64, 128), (16, 32, 64)],
+     [(64, 64, 256), (128, 64, 64), (64, 128, 64)]),
+])
+def test_tiled_gemm_contract_takes_each_dtypes_tile_set(dtype, takes,
+                                                        refuses):
+    x = torch.zeros((8, 16), dtype=dtype, device="meta")
+    w = torch.zeros((16, 8), dtype=dtype, device="meta")
+    for blocks in takes:
+        assert tg.tiled_gemm_contract(
+            x, w, block_m=blocks[0], block_k=blocks[1],
+            block_n=blocks[2]) == ((8, 8), tg.out_dtype(dtype))
+    for blocks in refuses:
+        with pytest.raises(ValueError, match="not one the kernel takes"):
+            tg.tiled_gemm_contract(x, w, block_m=blocks[0],
+                                   block_k=blocks[1], block_n=blocks[2])
+        with pytest.raises(ValueError, match="not one the kernel takes"):
+            ops.tiled_gemm(x, w, block_m=blocks[0], block_k=blocks[1],
+                           block_n=blocks[2])
 
 
 @pytest.mark.parametrize("itemsize", [1, 2, 4])
 def test_tiled_planner_picks_legal_tiles(itemsize):
+    from repro_torch import hw
     for m, k, n in [(64, 256, 512), (8, 16, 64), (33, 100, 130),
                     (256, 4096, 4096), (8, 320, 320)]:
         api = tiling.plan_tiled(m, k, n, itemsize=itemsize)
-        assert tiling.tiled_tile_ok(*api.blocks)
+        assert tiling.tiled_tile_ok(*api.blocks, itemsize)
         assert api.smem_bytes == tiling.tiled_smem_bytes(*api.blocks,
                                                          itemsize)
-        assert api.smem_bytes <= 48 * 1024     # no opt-in needed
+        if itemsize == 4:
+            assert tiling.dense_tile_ok(*api.blocks)
+            assert api.smem_bytes <= 48 * 1024     # no opt-in needed
+        else:
+            assert api.block_m in tiling.TC_BLOCK_M
+            assert api.block_n in tiling.TC_BLOCK_N
+            assert api.block_k * itemsize == tiling.TC_ROW_BYTES
+            assert api.smem_bytes <= hw.H100_SXM.smem_bytes
     with pytest.raises(ValueError, match="8-byte"):
         tiling.plan_tiled(8, 8, 8, itemsize=8)
 
 
-@pytest.mark.parametrize("itemsize,rate", [(1, "dp4a_ops"),
-                                           (2, "f32_fma_ops"),
+@pytest.mark.parametrize("itemsize,rate", [(1, "peak_int8_ops"),
+                                           (2, "peak_bf16_ops"),
                                            (4, "f32_fma_ops")])
 def test_tiled_planner_charges_the_given_cards_rate(itemsize, rate):
     """The planner charges the rate of the instructions the kernel issues,
@@ -148,7 +183,7 @@ def test_planner_rates_stay_out_of_the_edge_plan_keys():
     cfg = edge.edge_config("jet_tagger")
     key = plan_deployment(cfg, device="cpu").key
     assert plan_deployment(cfg, device="cpu", hw=dataclasses.replace(
-        hw.H100_SXM, dp4a_ops=1.0, f32_fma_ops=1.0)).key == key
+        hw.H100_SXM, peak_bf16_ops=1.0, f32_fma_ops=1.0)).key == key
     assert plan_deployment(cfg, device="cpu", hw=dataclasses.replace(
         hw.H100_SXM, peak_int8_ops=1.0)).key != key
 
@@ -253,6 +288,11 @@ def cuda_device():
 
 GEMM_CASES = [(8, 64, 64), (33, 100, 130), (64, 256, 512), (1, 7, 5),
               (200, 300, 260)]
+# Blocks held beside the planner's choice, per operand size: the smallest,
+# the largest and one between of each set.
+GEMM_BLOCKS = {1: [(64, 128, 64), (128, 128, 256), (64, 128, 128)],
+               2: [(64, 64, 64), (128, 64, 256), (128, 64, 128)],
+               4: [(8, 16, 32), (64, 64, 128), (16, 32, 64)]}
 
 
 @pytest.mark.gpu
@@ -267,9 +307,9 @@ def test_tiled_gemm_cuda_matches_plain_on_card(cuda_device, m, k, n, dtype):
         x, w = (torch.from_numpy(_randn(rng, s)).to(getattr(torch, dtype))
                 for s in ((m, k), (k, n)))
     x, w = x.to(cuda_device), w.to(cuda_device)
-    for bm, bk, bn in {tiling.plan_tiled(m, k, n,
-                                         itemsize=x.element_size()).blocks,
-                       (8, 16, 32), (64, 64, 128), (16, 32, 64)}:
+    size = x.element_size()
+    for bm, bk, bn in {tiling.plan_tiled(m, k, n, itemsize=size).blocks,
+                       *GEMM_BLOCKS[size]}:
         got = tg.tiled_gemm_cuda(x, w, block_m=bm, block_k=bk, block_n=bn)
         want = tg.tiled_gemm_plain(x, w)
         torch.cuda.synchronize()

@@ -143,6 +143,82 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 # ---------------------------------------------------------------------------
+# The bf16 kernel's arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def _load_chip_smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# The card's bf16 limit against the plain version (chip_smoke.TOL_FLASH).
+TOL_FLASH_CARD = _load_chip_smoke().TOL_FLASH["bfloat16"]
+
+
+def _flash_tc_emulated(q, k, v, *, causal=True, window=None, softcap=None,
+                       block_kv=64):
+    """``csrc/flash_attention.cu``'s bf16 tensor-core arithmetic in torch:
+    f32 logits, the online softmax over 64-key tiles, P rounded to bf16
+    before P V (f32 accumulation), l summing the unrounded P."""
+    b, hq, s_q, d = q.shape
+    s_k = k.shape[2]
+    group = hq // k.shape[1]
+    scale = 1.0 / np.sqrt(d)
+    kx = k.float().repeat_interleave(group, dim=1)
+    vx = v.float().repeat_interleave(group, dim=1)
+    qf = q.float()
+    m = torch.full((b, hq, s_q, 1), fa.NEG)
+    l = torch.zeros((b, hq, s_q, 1))
+    o = torch.zeros((b, hq, s_q, d))
+    q_pos = torch.arange(s_q)[:, None]
+    for k_lo in range(0, s_k, block_kv):
+        k_pos = torch.arange(k_lo, min(k_lo + block_kv, s_k))[None, :]
+        x = qf @ kx[:, :, k_lo:k_lo + block_kv].transpose(-1, -2) * scale
+        if softcap is not None:
+            x = softcap * torch.tanh(x / softcap)
+        ok = torch.ones_like(x, dtype=torch.bool)
+        if causal:
+            ok &= k_pos <= q_pos
+        if window is not None:
+            ok &= k_pos > q_pos - window
+        x = torch.where(ok, x, -torch.inf)
+        m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True).clamp_min(
+            fa.NEG))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(x - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        o = o * alpha + p.to(torch.bfloat16).float() @ vx[
+            :, :, k_lo:k_lo + block_kv]
+        m = m_new
+    return (o / torch.where(l == 0, 1.0, l)).to(q.dtype)
+
+
+@pytest.mark.parametrize("name,shape,kw", FLASH_CASES + [
+    ("served_cut", dict(b=1, hq=10, hkv=1, s=512, d=256),
+     dict(causal=True, window=256))],
+    ids=[c[0] for c in FLASH_CASES] + ["served_cut"])
+def test_flash_bf16_p_rounding_holds_the_card_tolerance(name, shape, kw):
+    """The bf16 kernel rounds P to bf16 before P V, as every tensor-core
+    flash does.  Its arithmetic, emulated here, stays within the card's
+    bf16 limit of the plain version and within the reference's 3e-2 of the
+    JAX oracle."""
+    arrs = _qkv(13, **shape)
+    q, k, v = _port(arrs, "bfloat16")
+    got = _flash_tc_emulated(q, k, v, **kw).float()
+    want = fa.flash_attention_plain(q, k, v, **kw).float()
+    rtol, atol = TOL_FLASH_CARD
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    oracle = ref.attention(*_jax(arrs, "bfloat16"), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle, np.float32),
+                               rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+
+
+# ---------------------------------------------------------------------------
 # linear_scan
 # ---------------------------------------------------------------------------
 
@@ -214,6 +290,26 @@ def test_flash_cuda_matches_plain_on_card(cuda_device, name, shape, kw,
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [dict(causal=True, window=100),
+                                dict(causal=True, softcap=30.0)])
+def test_flash_cuda_takes_head_transposed_views_on_card(cuda_device, kw):
+    """bf16 q, k, v as the model passes them: (B, S, H, D) projections
+    viewed as (B, H, S, D), read in place through the kernel's tensor
+    maps."""
+    b, s, hq, hkv, d = 2, 200, 8, 2, 128
+    rng = np.random.default_rng(14)
+    q, k, v = [torch.from_numpy(rng.normal(size=(b, s, h, d)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16).transpose(1, 2)
+        for h in (hq, hkv, hkv)]
+    assert not q.is_contiguous()
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
 
 
 @pytest.mark.gpu
