@@ -11,7 +11,9 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    the ``flash_attention`` and ``tiled_gemm`` libraries: every bf16 flash
    and bf16 GEMM instance must issue HGMMA (bf16 wgmma), every int8 GEMM
    instance IGMMA, each printed beside ptxas's registers, spills and
-   shared memory;
+   shared memory; ptxas's registers and spills of every instance of the
+   chunked scans (``rwkv6_chunk_kernel``, ``chunk_aggregate_kernel``,
+   ``chunk_scan_kernel``), printed only;
 3. kernels: ``fused_mlp_q8`` on every edge net's fused group at batch 8 and
    on an odd shape, ``gemm_int8`` on every layer shape of the five nets and
    on 256 x 1024 x 1024, each held against its plain PyTorch version on the
@@ -44,8 +46,9 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
 6. LM kernels: ``flash_attention`` at the served shape (1,10,4096,256) /
    (1,1,4096,256) causal window 2048 in bf16 and f32, a GQA + softcap +
    ragged case in f32 and bf16, and a non-causal ragged case;
-   ``linear_scan`` at the forward shape (1,4096,2560) and the decode
-   shape (4,1,2560); each held against its plain version on the card;
+   ``linear_scan`` at the forward shape (1,4096,2560), the decode shape
+   (4,1,2560) and the ragged 3000-step prefill (2,3000,2560); each held
+   against its plain version on the card;
 7. LM forward: ``api.init`` of full-width, full-depth ``recurrentgemma-2b``
    (26 layers) on the card from a seeded CUDA generator, ``api.forward`` on
    B=1, S=4096 tokens: finite logits of the right shape, 8
@@ -66,12 +69,15 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    plain version's, ``F.scaled_dot_product_attention`` with the same band
    mask as the yardstick for flash (none exists for the scan) and, beside
    it, causal SDPA without a mask (its flash backend, 1.33x the work), and
-   the bound max(bytes / 3.35 TB/s, flops / 989 TFLOP/s bf16).  The Griffin
-   model is freed here;
+   the bound max(bytes / 3.35 TB/s, flops / 989 TFLOP/s bf16); each scan
+   row keeps the step-by-step kernel's time as ``was_ms``, and a sweep of
+   T times both scan kernels at B = 1 (the measurement behind
+   ``rglru.CHUNKED_MIN_T``).  The Griffin model is freed here;
 10. ``rwkv6_scan`` against its plain version on the card: the forward shape
    (64,4096,64) in bf16 and f32, a ragged T with per-head u, a non-zero
-   initial state and the final state, and the decode tick
-   (4*64,1,64) with the state in and out;
+   initial state and the final state, the decode tick (4*64,1,64) with
+   the state in and out, the model's fastest decay (w = exp(-e^4) for 300
+   steps, in f32 and bf16) and w with exact zeros and ones;
 11. the RWKV forward: ``api.init`` of full-width, full-depth ``rwkv6-7b``
    (32 layers) from a seeded CUDA generator, ``api.forward`` on B=1,
    S=4096: finite logits of the right shape and 32 ``rwkv6_scan``
@@ -84,7 +90,9 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    launches ``rwkv6_scan`` 32 times and nothing else of the LM kernels;
 13. ``rwkv6_scan`` times at the forward and decode-tick shapes, beside the
    bound max(bytes / 3.35 TB/s, flops / 67 TFLOP/s f32): the recurrence
-   is f32 arithmetic outside the tensor cores.
+   is f32 arithmetic outside the tensor cores; the step-by-step kernel's
+   time as ``was_ms``, and the sweep of T behind
+   ``rwkv6.CHUNKED_MIN_T`` (B = 1, 64 heads of 64, bf16).
 
 It prints one ``{"kernels": [...]}`` line (all seven kernels), the card line
 again, and last ``{"ok": true, "device": {...}}``.  It needs no network and
@@ -93,6 +101,7 @@ one card.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import pathlib
@@ -329,6 +338,29 @@ def tensor_core_phase(libs: dict) -> None:
         for line in build.ptxas_report.get(lib, "").splitlines():
             if "(C75" in line:
                 log(f"tensor cores {lib} ptxas: {line.strip()}")
+
+
+# The chunked scans' instances (kernels/csrc/rwkv6_scan.cu, linear_scan.cu):
+# their registers and spills are printed, not held to a rule.
+CHUNKED_INSTANCES = (("rwkv6_scan", "rwkv6_chunk_kernel"),
+                     ("linear_scan", "chunk_aggregate_kernel"),
+                     ("linear_scan", "chunk_scan_kernel"))
+
+
+def chunked_ptxas_phase() -> None:
+    """ptxas's registers, spills and shared memory for every instance of
+    the chunked scans; fails if a source built in this run has none."""
+    from repro_torch.kernels import build
+    for lib, mark in CHUNKED_INSTANCES:
+        if not build.ptxas_report.get(lib):
+            log(f"ptxas {lib}: library not rebuilt in this run")
+            continue
+        rows = {f: r for f, r in ptxas_rows(build.ptxas_report[lib]).items()
+                if mark in f}
+        if not rows:
+            raise SmokeFailure(f"{lib}: ptxas reports no {mark} instance")
+        for func, row in sorted(rows.items()):
+            log(f"ptxas {lib} {func}: " + json.dumps(row, sort_keys=True))
 
 
 # ---------------------------------------------------------------------------
@@ -1020,7 +1052,11 @@ FLASH_CASES = (
     ("non-causal ragged", 1, 2, 1, 1000, 256, "float32", {"causal": False}),
 )
 SCAN_CASES = (("forward", (1, LM_SEQ, 2560)),
-              ("decode tick", (LM_SLOTS, 1, 2560)))
+              ("decode tick", (LM_SLOTS, 1, 2560)),
+              ("ragged prefill", (2, LM_LONG_PROMPT, 2560)))
+# T of the sweep that sets each scan's CHUNKED_MIN_T: the sequential and the
+# chunked kernel at each, at B = 1 (a multi-token step is one prompt).
+THRESHOLD_TS = (2, 8, 16, 32, 64, 128, 256, 512)
 
 
 def _qkv(gen, device, b, hq, hkv, s, d, dtype):
@@ -1394,6 +1430,8 @@ def lm_timing_phase(device) -> dict:
         row = {"shape": f"{label} a/b {list(shape)} float32",
                "ms": graph_ms(lambda: rg.linear_scan_cuda(a, bb), inner=20,
                               reps=11),
+               "was_ms": sequential_ms(rg, lambda: rg.linear_scan_cuda(
+                   a, bb), inner=20),
                "eager_ms": event_ms(lambda: rg.linear_scan_cuda(a, bb),
                                     inner=20, reps=11),
                "plain_ms": graph_ms(lambda: rg.linear_scan_plain(a, bb),
@@ -1402,7 +1440,47 @@ def lm_timing_phase(device) -> dict:
                **bound(3 * 4 * n, 2.0 * n, PEAK_BF16)}
         log("timing linear_scan " + json.dumps(row, sort_keys=True))
         scan[label] = row
+
+    def make(t):
+        a, bb = _scan_inputs(gen, device, (1, t, 2560))
+        return lambda: rg.linear_scan_cuda(a, bb)
+    threshold_sweep("linear_scan", rg, make)
     return {"flash_attention": flash, "linear_scan": scan}
+
+
+@contextlib.contextmanager
+def chunked_from(module, t: int):
+    """Send ``module``'s launches of T >= ``t`` to its chunked kernel (and
+    shorter ones to the sequential kernel) inside the block."""
+    keep = module.CHUNKED_MIN_T
+    module.CHUNKED_MIN_T = t
+    try:
+        yield
+    finally:
+        module.CHUNKED_MIN_T = keep
+
+
+def sequential_ms(module, fn, *, inner: int) -> float:
+    """Graph-replayed ms of ``fn`` on ``module``'s sequential kernel (the
+    kernel the chunked one replaced)."""
+    with chunked_from(module, 2 ** 31):
+        return graph_ms(fn, inner=inner, reps=11)
+
+
+def threshold_sweep(name, module, make) -> dict:
+    """The sequential and the chunked kernel at each T of ``THRESHOLD_TS``
+    (``make(t)`` returns the call), graph-replayed: the measurement behind
+    ``module.CHUNKED_MIN_T``."""
+    rows = {}
+    for t in THRESHOLD_TS:
+        fn = make(t)
+        with chunked_from(module, 2):
+            chunked = graph_ms(fn, inner=20, reps=11)
+        rows[t] = {"chunked_ms": chunked,
+                   "sequential_ms": sequential_ms(module, fn, inner=20)}
+    log(f"threshold {name} (CHUNKED_MIN_T={module.CHUNKED_MIN_T}): "
+        + json.dumps(rows, sort_keys=True))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1416,6 +1494,9 @@ RWKV_CASES = (
     ("forward", 64, LM_SEQ, 64, 64, "float32", False),
     ("ragged per-head u + state", 48, 1001, 64, 16, "float32", True),
     ("decode tick", LM_SLOTS * 64, 1, 64, 64, "float32", True),
+    ("fast decay", 64, 1001, 64, 64, "float32", True),
+    ("fast decay", 64, 1001, 64, 64, "bfloat16", True),
+    ("w with exact zeros", 64, 1001, 64, 64, "float32", True),
 )
 
 
@@ -1434,6 +1515,24 @@ def _rwkv_inputs(gen, device, bh, t, d, heads, dtype, with_state):
     return (r, k, v, w, u), s0
 
 
+def _rwkv_case_inputs(gen, device, label, bh, t, d, heads, dtype,
+                      with_state):
+    """As ``_rwkv_inputs``, with w of the cases that do not draw it from
+    (0.5, 0.99): the model's fastest decay, exp(-e^4) (a log-decay of -54.6
+    a step), for the first 300 steps and 0.99 after; or every 7th step
+    w = 0 and every 11th (from 3) w = 1 exactly."""
+    import math
+    (r, k, v, w, u), s0 = _rwkv_inputs(gen, device, bh, t, d, heads, dtype,
+                                       with_state)
+    if label == "fast decay":
+        w.fill_(0.99)
+        w[:, :300] = math.exp(-math.exp(4.0))
+    elif label == "w with exact zeros":
+        w[:, ::7] = 0.0
+        w[:, 3::11] = 1.0
+    return (r, k, v, w, u), s0
+
+
 def rwkv_kernel_phase(device) -> float:
     import torch
     from repro_torch.kernels import rwkv6 as rw
@@ -1441,8 +1540,8 @@ def rwkv_kernel_phase(device) -> float:
     gen = torch.Generator(device=device).manual_seed(5)
     worst = 0.0
     for label, bh, t, d, heads, dt, with_state in RWKV_CASES:
-        args, s0 = _rwkv_inputs(gen, device, bh, t, d, heads, dt,
-                                with_state)
+        args, s0 = _rwkv_case_inputs(gen, device, label, bh, t, d, heads, dt,
+                                     with_state)
         got, got_s = rw.rwkv6_scan_cuda(*args, state0=s0, return_state=True)
         want, want_s = rw.rwkv6_scan_plain(*args, state0=s0,
                                            return_state=True)
@@ -1495,13 +1594,24 @@ def rwkv_timing_phase(device) -> dict:
         row = {"shape": f"{label} r/k/v {[bh, t, d]} {dt}, w f32, heads "
                         f"{heads}, state in/out {with_state}",
                "ms": graph_ms(kernel, inner=inner, reps=11),
+               "was_ms": sequential_ms(rw, kernel, inner=inner),
                "eager_ms": event_ms(kernel, inner=inner, reps=11),
                "plain_ms": graph_ms(plain, inner=1, reps=3),
                "library_ms": None,
                **rwkv_scan_bound(bh, t, d, heads, 2 if dt == "bfloat16"
                                  else 4, with_state)}
+        if bh == 64 and dt == "bfloat16":
+            # The f32 bound of the recurrent form binds the row; the bytes
+            # alone, beside it.
+            row["bytes_bound_ms"] = row["bytes"] / HBM_BW * 1e3
         log("timing rwkv6_scan " + json.dumps(row, sort_keys=True))
         rows[label] = row
+
+    def make(t):
+        args, s0 = _rwkv_inputs(gen, device, 64, t, 64, 64, "bfloat16", True)
+        return lambda: rw.rwkv6_scan_cuda(*args, state0=s0,
+                                          return_state=True)
+    threshold_sweep("rwkv6_scan", rw, make)
     return rows
 
 
@@ -1556,6 +1666,7 @@ def lm_kernel_entries(errs, launches_by_path, per_step, per_tick,
                 "shape", "ms", "eager_ms", "plain_ms", "bound_ms",
                 "bound_by")}
             row = row["forward"]
+            extra["was_ms"] = row["was_ms"]
         entries.append({
             "name": name, **KERNEL_META[name],
             "launches": sum(c[name] for c in launches_by_path.values()),
@@ -1600,6 +1711,7 @@ def main() -> int:
                            if "registers" in line})
             log(f"build {name}: ptxas {regs}")
         tensor_core_phase(libs)
+        chunked_ptxas_phase()
         device = torch.device("cuda", torch.cuda.current_device())
         errs = kernel_phase(device)
         errs.update(dense_kernel_phase(device))

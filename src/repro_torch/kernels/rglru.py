@@ -3,9 +3,13 @@
 Port of the JAX package's ``kernels/rglru.py::linear_scan``: a, b
 ``(B, T, D)``, the scan along T from ``h = 0`` with an f32 state, the result
 in a's dtype.  There is no initial-state argument, as in the reference: a
-caller with a state folds it into ``b[:, 0]``.  The CUDA kernel is
-``csrc/linear_scan.cu``; :func:`linear_scan_plain` is the same function in
-plain PyTorch, used for CPU tensors and as the kernel's oracle on the card.
+caller with a state folds it into ``b[:, 0]``.  The CUDA kernels are in
+``csrc/linear_scan.cu``: the sequential scan for short T (the decode tick)
+and the two-pass chunked scan for longer T, which no longer matches the
+sequential walk bit for bit after its second chunk (each chunk's carry is
+rounded along another path; see the source).  :func:`linear_scan_plain` is
+the same function in plain PyTorch, used for CPU tensors and as the
+kernels' oracle on the card.
 """
 
 from __future__ import annotations
@@ -20,6 +24,11 @@ from repro_torch.kernels import build
 launches = 0          # kernel launches since the last reset (plain int)
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# T from which a launch takes the two-pass chunked scan.  Shorter T (the
+# decode tick) keeps the sequential kernel: at B = 1, D = 2560 it is as fast
+# up to T = 128, where a second chunk costs the chunked scan a second walk
+# (chip_smoke.py's threshold sweep; PERF.md).
+CHUNKED_MIN_T = 256
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -29,8 +38,9 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
 
 
 def linear_scan_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """A loop over T in f32; each step multiplies, then adds, as the kernel
-    does."""
+    """A loop over T in f32; each step multiplies, then adds, as the
+    kernels do.  The sequential kernel equals it bit for bit; the chunked
+    scan equals it to f32 rounding of the carried state."""
     _check(a, b)
     a32, b32 = a.float(), b.float()
     h = torch.zeros_like(a32[:, 0])
@@ -47,11 +57,18 @@ def _lib() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.repro_linear_scan.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
     lib.repro_linear_scan.restype = ci
+    lib.repro_linear_scan_chunked.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
+                                              vp]
+    lib.repro_linear_scan_chunked.restype = ci
+    lib.repro_linear_scan_workspace.argtypes = [ci, ci, ci]
+    lib.repro_linear_scan_workspace.restype = ctypes.c_longlong
     return lib
 
 
 def linear_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/linear_scan.cu`` on a's device and stream."""
+    """Launch ``csrc/linear_scan.cu`` on a's device and stream: the
+    two-pass chunked scan when T >= ``CHUNKED_MIN_T`` (its workspace from
+    the caching allocator, no host sync), else the sequential kernel."""
     global launches
     _check(a, b)
     if not (a.is_cuda and b.device == a.device):
@@ -70,9 +87,18 @@ def linear_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = _lib().repro_linear_scan(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                   int(a.dtype == torch.bfloat16), bsz, t, d,
-                                   stream)
+    lib = _lib()
+    is_bf16 = int(a.dtype == torch.bfloat16)
+    if t >= CHUNKED_MIN_T:
+        ws = torch.empty(lib.repro_linear_scan_workspace(bsz, t, d),
+                         dtype=torch.float32, device=a.device)
+        err = lib.repro_linear_scan_chunked(a.data_ptr(), b.data_ptr(),
+                                            ws.data_ptr(), out.data_ptr(),
+                                            is_bf16, bsz, t, d, stream)
+    else:
+        err = lib.repro_linear_scan(a.data_ptr(), b.data_ptr(),
+                                    out.data_ptr(), is_bf16, bsz, t, d,
+                                    stream)
     if err != 0:
         raise RuntimeError(f"linear_scan: CUDA error {err}")
     launches += 1

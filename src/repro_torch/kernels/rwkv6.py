@@ -14,12 +14,14 @@ is ``H = 1``), an optional initial state and an optional final state.  At
 Contract: r, k, v ``(BH, T, D)``, all f32 or all bf16; w ``(BH, T, D)`` f32;
 u f32; state0 ``(BH, D, D)`` f32 (``S[i][j]`` pairs key channel ``i`` with
 value channel ``j``) or None for zeros.  The output is ``(BH, T, D)`` in r's
-dtype, the final state f32.  The CUDA kernel is ``csrc/rwkv6_scan.cu``; it
-takes r, k, v, w as strided views (any batch-head and time strides, a
-contiguous last axis), so the model's head-transposed projections need no
-copy where they form a ``(BH, T, D)`` view.  :func:`rwkv6_scan_plain` is
-the same function in plain PyTorch, used for CPU tensors and as the
-kernel's oracle on the card.
+dtype, the final state f32.  The CUDA kernels are in ``csrc/rwkv6_scan.cu``:
+the sequential recurrence for short T (the decode tick) and the chunked
+form for longer T (the forward, a prefill, a later chunk from a carried
+state), chosen by ``CHUNKED_MIN_T``.  Both take r, k, v, w as strided views
+(any batch-head and time strides, a contiguous last axis), so the model's
+head-transposed projections need no copy where they form a ``(BH, T, D)``
+view.  :func:`rwkv6_scan_plain` is the same function in plain PyTorch, used
+for CPU tensors and as the kernels' oracle on the card.
 """
 
 from __future__ import annotations
@@ -36,6 +38,13 @@ launches = 0          # kernel launches since the last reset (plain int)
 HEAD_DIMS = (32, 64, 128)       # the head sizes the CUDA kernel is built for
 _DTYPES = (torch.float32, torch.bfloat16)
 F32 = torch.float32
+# T from which a launch takes the chunked kernel, and its chunk length per
+# head size (D = 128 has shared memory for 32 steps only).  Shorter T (the
+# decode tick) keeps the sequential kernel: at B = 1, 64 heads of 64, bf16,
+# it is the faster one up to T = 16 and the chunked one from T = 32
+# (chip_smoke.py's threshold sweep; PERF.md).
+CHUNKED_MIN_T = 32
+CHUNK = {32: 64, 64: 64, 128: 32}
 
 
 def _check(r, k, v, w, u, state0) -> int:
@@ -79,6 +88,13 @@ def rwkv6_scan_plain(r, k, v, w, u, *, state0=None,
     return (out, s) if return_state else out
 
 
+def _aligned16(t: torch.Tensor) -> bool:
+    """Whether every row of t starts on a 16-byte boundary."""
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        (t.stride(i) * es) % 16 == 0 for i in (0, 1))
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.library("rwkv6_scan")
@@ -86,15 +102,20 @@ def _lib() -> ctypes.CDLL:
     lib.repro_rwkv6_scan.argtypes = (
         [vp] * 8 + [ci] * 5 + [ll] * 8 + [vp])
     lib.repro_rwkv6_scan.restype = ci
+    lib.repro_rwkv6_scan_chunked.argtypes = (
+        [vp] * 8 + [ci] * 6 + [ll] * 8 + [vp])
+    lib.repro_rwkv6_scan_chunked.restype = ci
     return lib
 
 
 def rwkv6_scan_cuda(r, k, v, w, u, *, state0=None,
                     return_state: bool = False):
-    """Launch ``csrc/rwkv6_scan.cu`` on r's device and stream.  r, k, v, w
-    may be strided views with a contiguous last axis; u and state0 are made
-    contiguous (state0 also 16-byte aligned).  The output and the final
-    state are new contiguous tensors."""
+    """Launch ``csrc/rwkv6_scan.cu`` on r's device and stream: the chunked
+    kernel when T >= ``CHUNKED_MIN_T``, else the sequential one; one launch
+    either way, no workspace, no host sync.  r, k, v, w may be strided
+    views with a contiguous last axis; u and state0 are made contiguous
+    (state0 also 16-byte aligned).  The output and the final state are new
+    contiguous tensors."""
     global launches
     h = _check(r, k, v, w, u, state0)
     ts = (r, k, v, w, u) + (() if state0 is None else (state0,))
@@ -127,14 +148,25 @@ def rwkv6_scan_cuda(r, k, v, w, u, *, state0=None,
     out = torch.empty((bh, t_len, d), dtype=r.dtype, device=r.device)
     s_fin = (torch.empty((bh, d, d), dtype=F32, device=r.device)
              if return_state else None)
+    chunked = t_len >= CHUNKED_MIN_T
+    if chunked:
+        # The chunked kernel copies rows in 16-byte pieces: a view whose
+        # rows are not so aligned is copied (the model's views are).
+        r, k, v, w = (t if _aligned16(t)
+                      else t.clone(memory_format=torch.contiguous_format)
+                      for t in (r, k, v, w))
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    err = _lib().repro_rwkv6_scan(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-        0 if s0 is None else s0.data_ptr(), out.data_ptr(),
-        0 if s_fin is None else s_fin.data_ptr(),
-        int(r.dtype == torch.bfloat16), bh, h, t_len, d,
-        r.stride(0), r.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), w.stride(0), w.stride(1), stream)
+    ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), 0 if s0 is None else s0.data_ptr(), out.data_ptr(),
+            0 if s_fin is None else s_fin.data_ptr(),
+            int(r.dtype == torch.bfloat16), bh, h, t_len, d)
+    strides = (r.stride(0), r.stride(1), k.stride(0), k.stride(1),
+               v.stride(0), v.stride(1), w.stride(0), w.stride(1))
+    if chunked:
+        err = _lib().repro_rwkv6_scan_chunked(*ptrs, CHUNK[d], *strides,
+                                              stream)
+    else:
+        err = _lib().repro_rwkv6_scan(*ptrs, *strides, stream)
     if err != 0:
         raise RuntimeError(f"rwkv6_scan: CUDA error {err}")
     launches += 1

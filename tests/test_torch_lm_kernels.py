@@ -255,6 +255,65 @@ def test_linear_scan_with_fold_matches_rglru_assoc(t, with_h0):
                                atol=1e-4)
 
 
+def _two_pass_emulated(a, b, chunk=64):
+    """``csrc/linear_scan.cu``'s two-pass chunked scan in f32 torch, in the
+    kernel's order: pass 1 walks every chunk but the last from h = 0 and
+    keeps (prod a, h at its end); pass 2 folds the earlier chunks'
+    aggregates into the carry, h = A h + B in chunk order, then walks its
+    chunk from the carry.  Every step multiplies, then adds."""
+    a32, b32 = a.float(), b.float()
+    bsz, t_len, d = a.shape
+    n_chunks = -(-t_len // chunk)
+    agg = []
+    for c in range(n_chunks - 1):
+        prod, h = torch.ones(bsz, d), torch.zeros(bsz, d)
+        for t in range(c * chunk, (c + 1) * chunk):
+            prod = a32[:, t] * prod
+            h = a32[:, t] * h + b32[:, t]
+        agg.append((prod, h))
+    out = torch.empty_like(a32)
+    for c in range(n_chunks):
+        h = torch.zeros(bsz, d)
+        for prod, end in agg[:c]:
+            h = prod * h + end
+        for t in range(c * chunk, min((c + 1) * chunk, t_len)):
+            h = a32[:, t] * h + b32[:, t]
+            out[:, t] = h
+    return out.to(a.dtype)
+
+
+@pytest.mark.parametrize("b,t", [(3, 63), (3, 64), (3, 65), (2, 3000)])
+def test_linear_scan_two_pass_matches_pallas(b, t):
+    """B > 1 and T below, equal to and one past the chunk, and the ragged
+    3000-step prefill: the kernel's carries against the Pallas kernel
+    (interpret mode) and the sequential plain version, to the reference's
+    1e-4.  The first two chunks equal the sequential walk bit for bit."""
+    a, bb = _ab(15, (b, t, 128))
+    got = _two_pass_emulated(torch.from_numpy(a), torch.from_numpy(bb))
+    want = ref_ops.linear_scan(jnp.asarray(a), jnp.asarray(bb),
+                               block_t=min(t, 256), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    plain = rg.linear_scan_plain(torch.from_numpy(a), torch.from_numpy(bb))
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got[:, :128], plain[:, :128])
+
+
+@pytest.mark.parametrize("t", [65, 3000])
+def test_linear_scan_two_pass_with_fold_matches_rglru_assoc(t):
+    """The model's use, a state folded into b[:, 0], against
+    ``griffin._rglru_assoc`` with that state as h0."""
+    a, b = _ab(16, (2, t, 64))
+    h0 = np.random.default_rng(17).normal(size=(2, 64)).astype(np.float32)
+    want = ref_griffin._rglru_assoc(jnp.asarray(a), jnp.asarray(b),
+                                    h0=jnp.asarray(h0))
+    bt = torch.from_numpy(b.copy())
+    bt[:, 0] += torch.from_numpy(a[:, 0]) * torch.from_numpy(h0)
+    got = _two_pass_emulated(torch.from_numpy(a), bt)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
 def test_linear_scan_at_one_step_is_b():
     """A decode step (T = 1) from h = 0 returns b exactly."""
     a, b = _ab(10, (4, 1, 32))
@@ -313,8 +372,27 @@ def test_flash_cuda_takes_head_transposed_views_on_card(cuda_device, kw):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("t", [63, 64, 65, 129, rg.CHUNKED_MIN_T - 1,
+                               rg.CHUNKED_MIN_T])
+def test_linear_scan_chunked_borders_on_card(cuda_device, t, monkeypatch):
+    """The two-pass scan at T below, at and one past its 64-step chunk and
+    at two chunks and one step, forced below its dispatch threshold, and
+    the dispatch itself on each side of ``CHUNKED_MIN_T``."""
+    if t < rg.CHUNKED_MIN_T - 1:
+        monkeypatch.setattr(rg, "CHUNKED_MIN_T", 2)
+    a, b = _ab(18, (2, t, 2560))
+    a_t, b_t = (torch.from_numpy(x).to(cuda_device) for x in (a, b))
+    got = rg.linear_scan_cuda(a_t, b_t)
+    want = rg.linear_scan_plain(a_t, b_t)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(1, 300, 2560), (4, 1, 2560), (2, 9, 33)])
+@pytest.mark.parametrize("shape", [(1, 300, 2560), (4, 1, 2560), (2, 9, 33),
+                                   (1, 4096, 2560), (3, 3000, 2560),
+                                   (2, 65, 2560)])
 def test_linear_scan_cuda_matches_plain_on_card(cuda_device, shape, dtype):
     a, b = _ab(12, shape)
     a_t = torch.from_numpy(a).to(cuda_device, getattr(torch, dtype))

@@ -5,7 +5,9 @@ runs the Pallas kernel in interpret mode (shared ``u``, zero state), the
 sequential oracle ``ref.rwkv6_scan``, the chunk-recurrent form the model
 calls (``models/rwkv.py::rwkv6_chunked``: per-head ``u``, an initial and a
 final state) and the model's one-token decode step written out in jnp.  All
-get the same seeded numpy inputs.  Tolerance: the reference's own 2e-3
+get the same seeded numpy inputs.  ``_chunk_emulated`` writes the CUDA
+kernel's chunked arithmetic (anchored sub-chunk factors) in torch and is
+held to the same references.  Tolerance: the reference's own 2e-3
 (``tests/test_kernels.py``), 3e-2 where outputs are bf16.  The ``gpu``
 tests hold the CUDA kernel to the plain version on a card and skip without
 one.
@@ -135,6 +137,191 @@ def test_fast_decay_stays_finite_where_chunked_form_overflows():
     assert np.isnan(_np(chunked)).any()
 
 
+# ---------------------------------------------------------------------------
+# The chunked kernel's arithmetic (csrc/rwkv6_scan.cu, rwkv6_chunk_kernel)
+# ---------------------------------------------------------------------------
+
+def _chunk_emulated(r, k, v, w, u, *, state0=None, sub=16):
+    """The CUDA chunked form in f32 torch, step for step: per sub-chunk J
+    the factors r_i P_{n,i} (forward from the anchor n) and k_j P_{j+1,e_J}
+    (backward from the sub-chunk's end) and its product gam_J; diagonal
+    blocks with P_{j+1,i} carried along i; off-diagonal blocks as products
+    times the whole sub-chunks between; r_i P_{0,i}, k_j P_{j+1,C} and
+    P_{0,C} as running products from the chunk's ends.  Steps past T pad
+    with r = k = v = 0, w = 1.  Returns (output in r's dtype, final
+    state)."""
+    bh, t_len, d = r.shape
+    chunk = rw.CHUNK[d]
+    h = 1 if u.dim() == 1 else u.shape[0]
+    r32, k32, v32, w32 = (x.float() for x in (r, k, v, w))
+    u32 = u.float().reshape(h, d).repeat(bh // h, 1)
+    s = (torch.zeros(bh, d, d) if state0 is None
+         else state0.float().clone())
+    n_chunks = -(-t_len // chunk)
+    pad = n_chunks * chunk - t_len
+
+    def padded(x, val):
+        return torch.cat([x, torch.full((bh, pad, d), val)], 1) if pad else x
+    r32, k32, v32, w32 = (padded(x, val) for x, val in (
+        (r32, 0.0), (k32, 0.0), (v32, 0.0), (w32, 1.0)))
+    ns = chunk // sub
+    out = torch.empty(bh, n_chunks * chunk, d)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        rc, kc, vc, wc = r32[:, sl], k32[:, sl], v32[:, sl], w32[:, sl]
+        rt, kb = torch.empty_like(rc), torch.empty_like(kc)
+        gam = torch.empty(bh, ns, d)
+        a = torch.zeros(bh, chunk, chunk)
+        for big_j in range(ns):
+            n = big_j * sub
+            p = torch.ones(bh, d)
+            for x in range(sub):
+                rt[:, n + x] = rc[:, n + x] * p
+                p = p * wc[:, n + x]
+            gam[:, big_j] = p
+            q = torch.ones(bh, d)
+            for x in reversed(range(sub)):
+                kb[:, n + x] = kc[:, n + x] * q
+                q = q * wc[:, n + x]
+            for j in range(sub):           # the diagonal block, i >= j
+                p = torch.zeros(bh, d)
+                for i in range(sub):
+                    f = u32 * kc[:, n + j] if i == j else kc[:, n + j] * p
+                    a[:, n + i, n + j] = (rc[:, n + i] * f).sum(-1)
+                    p = torch.ones(bh, d) if i == j else p * wc[:, n + i]
+
+        def gprod(lo, hi):
+            g = torch.ones(bh, d)
+            for m in range(lo, hi):
+                g = g * gam[:, m]
+            return g
+        for big_i in range(1, ns):
+            rows = slice(big_i * sub, (big_i + 1) * sub)
+            for big_j in range(big_i):
+                cols = slice(big_j * sub, (big_j + 1) * sub)
+                kg = kb[:, cols] * gprod(big_j + 1, big_i)[:, None]
+                a[:, rows, cols] = torch.bmm(rt[:, rows], kg.transpose(1, 2))
+        rh, kh = torch.empty_like(rc), torch.empty_like(kc)
+        p, q = torch.ones(bh, d), torch.ones(bh, d)
+        for x in range(chunk):
+            rh[:, x] = rc[:, x] * p
+            p = p * wc[:, x]
+            y = chunk - 1 - x
+            kh[:, y] = kc[:, y] * q
+            q = q * wc[:, y]
+        out[:, sl] = torch.bmm(rh, s) + torch.bmm(a, vc)
+        s = p[:, :, None] * s + torch.bmm(kh.transpose(1, 2), vc)
+    return out[:, :t_len].to(r.dtype), s
+
+
+def _fast_decay_w(shape, *, fast_steps):
+    """w = exp(-e^4), the model's fastest decay, for the first steps, then
+    0.99."""
+    w = np.full(shape, 0.99, np.float32)
+    w[..., :fast_steps, :] = np.float32(np.exp(-np.exp(4.0)))
+    return w
+
+
+def _exact_0_1_w(w):
+    """Every 7th step w = 0 exactly and every 11th (from 3) w = 1."""
+    w = w.copy()
+    w[..., ::7, :] = 0.0
+    w[..., 3::11, :] = 1.0
+    return w
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [rw.CHUNK[32] - 1, rw.CHUNK[32],
+                               rw.CHUNK[32] + 1, 37, 1001])
+def test_chunk_emulation_matches_pallas_and_ref(t, dtype):
+    """T below, equal to and one past the chunk, and ragged T: the kernel's
+    chunked arithmetic against the Pallas kernel (interpret mode) and the
+    sequential oracle, shared u and zero state."""
+    r, k, v, w, u, _ = _inputs(20, (2, t, 32))
+    jr, jk, jv = (jnp.asarray(a, getattr(jnp, dtype)) for a in (r, k, v))
+    got, _ = _chunk_emulated(_t(r, dtype), _t(k, dtype), _t(v, dtype), _t(w),
+                             _t(u[0]))
+    assert got.dtype == getattr(torch, dtype)
+    oracle = ref.rwkv6_scan(jr, jk, jv, jnp.asarray(w), jnp.asarray(u[0]))
+    refs = [oracle]
+    if t <= 128:                      # interpret mode is slow at long T
+        refs.append(ref_ops.rwkv6_scan(jr, jk, jv, jnp.asarray(w),
+                                       jnp.asarray(u[0]), block_t=16,
+                                       interpret=True))
+    for want in refs:
+        np.testing.assert_allclose(got.float().numpy(), _np(want),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("t", [rw.CHUNK[32] + 1, 100, 1001])
+def test_chunk_emulation_matches_rwkv6_chunked_with_state(t):
+    """Per-head u, a carried state0 and the final state, against the
+    model's chunk-recurrent form (at decays where it stays finite)."""
+    b, h, d = 1, 3, 32
+    r, k, v, w, u, s0 = _inputs(21, (b, h, t, d), heads=h,
+                                w_range=(0.3, 0.999), with_state=True)
+    want, want_s = ref_rwkv.rwkv6_chunked(
+        *(jnp.asarray(a) for a in (r, k, v, w, u)), chunk=32,
+        state0=jnp.asarray(s0))
+    got, got_s = _chunk_emulated(
+        *(_t(a.reshape(b * h, t, d)) for a in (r, k, v, w)), _t(u),
+        state0=_t(s0.reshape(b * h, d, d)))
+    np.testing.assert_allclose(got.reshape(b, h, t, d).numpy(), _np(want),
+                               rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(got_s.reshape(b, h, d, d).numpy(),
+                               _np(want_s), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunk_emulation_stays_finite_at_the_fastest_decay(dtype):
+    """First steps at w = exp(-e^4) (a step's log-decay -54.6, the model's
+    floor), later steps at 0.99: the anchored factors never exceed 1, so
+    the output and state stay finite and hold the oracle's tolerance, where
+    the model's chunk-recurrent form (exp(-cumsum log w) on k) gives NaN."""
+    t = 2 * rw.CHUNK[32] + 5
+    r, k, v, _, u, s0 = _inputs(22, (2, t, 32), heads=2, with_state=True)
+    w = _fast_decay_w(r.shape, fast_steps=40)
+    got, got_s = _chunk_emulated(_t(r, dtype), _t(k, dtype), _t(v, dtype),
+                                 _t(w), _t(u), state0=_t(s0))
+    assert torch.isfinite(got.float()).all() and torch.isfinite(got_s).all()
+    want, want_s = rw.rwkv6_scan_plain(_t(r, dtype), _t(k, dtype),
+                                       _t(v, dtype), _t(w), _t(u),
+                                       state0=_t(s0), return_state=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    torch.testing.assert_close(got_s, want_s, rtol=2e-3, atol=2e-3)
+    jr, jk, jv = (jnp.asarray(a, getattr(jnp, dtype)) for a in (r, k, v))
+    oracle = ref.rwkv6_scan(jr, jk, jv, jnp.asarray(w), jnp.asarray(u[0]))
+    shared, _ = _chunk_emulated(_t(r, dtype), _t(k, dtype), _t(v, dtype),
+                                _t(w), _t(u[0]))
+    np.testing.assert_allclose(shared.float().numpy(), _np(oracle),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    chunked, _ = ref_rwkv.rwkv6_chunked(
+        *(jnp.asarray(a[None]) for a in (r, k, v, w)), jnp.asarray(u),
+        chunk=32)
+    assert np.isnan(_np(chunked)).any()
+
+
+def test_chunk_emulation_takes_exact_zero_and_one_decays():
+    """w = 0 (log-decay -inf) and w = 1 steps: products from the anchor
+    give 0 and 1 exactly, with no -inf - (-inf)."""
+    r, k, v, w, u, s0 = _inputs(23, (3, 2 * rw.CHUNK[32] + 9, 32), heads=3,
+                                with_state=True)
+    w = _exact_0_1_w(w)
+    got, got_s = _chunk_emulated(*(_t(a) for a in (r, k, v, w, u)),
+                                 state0=_t(s0))
+    assert torch.isfinite(got).all()
+    want, want_s = rw.rwkv6_scan_plain(*(_t(a) for a in (r, k, v, w, u)),
+                                       state0=_t(s0), return_state=True)
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(got_s, want_s, rtol=2e-3, atol=2e-3)
+    oracle = ref.rwkv6_scan(*(jnp.asarray(a) for a in (r, k, v, w)),
+                            jnp.asarray(u[0]))
+    shared, _ = _chunk_emulated(*(_t(a) for a in (r, k, v, w)), _t(u[0]))
+    np.testing.assert_allclose(shared.numpy(), _np(oracle), rtol=2e-3,
+                               atol=2e-3)
+
+
 @pytest.mark.parametrize("kw,match", [
     (dict(r_shape=(2, 8, 16), u_shape=(16,)), "one shape"),
     (dict(u_shape=(3, 16)), "H dividing"),
@@ -184,7 +371,9 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# (label, BH, T, D, heads, dtype, with_state)
+# (label, BH, T, D, heads, dtype, with_state).  T = CHUNK and CHUNK + 1
+# border the chunk; the two "threshold" cases sit on each side of
+# rw.CHUNKED_MIN_T (the sequential kernel below it, the chunked one from it).
 CUDA_CASES = [
     ("forward_bf16", 8, 300, 64, 8, "bfloat16", False),
     ("forward_f32", 8, 300, 64, 8, "float32", False),
@@ -192,7 +381,20 @@ CUDA_CASES = [
     ("decode_tick", 16, 1, 64, 4, "float32", True),
     ("d32", 4, 50, 32, 2, "float32", True),
     ("d128_bf16", 2, 70, 128, 1, "bfloat16", True),
+    ("fast_decay", 8, 300, 64, 4, "float32", True),
+    ("fast_decay_bf16", 8, 300, 64, 4, "bfloat16", True),
+    ("exact_0_1", 8, 300, 64, 4, "float32", True),
+    ("t_chunk", 6, rw.CHUNK[64], 64, 3, "float32", True),
+    ("t_chunk_plus_1", 6, rw.CHUNK[64] + 1, 64, 3, "float32", True),
+    ("below_threshold", 16, rw.CHUNKED_MIN_T - 1, 64, 4, "float32", True),
+    ("at_threshold", 16, rw.CHUNKED_MIN_T, 64, 4, "float32", True),
+    ("d128_ragged_f32", 4, 1001, 128, 2, "float32", True),
 ]
+# The decays of the cases that do not draw w from (0.5, 0.99).
+_CUDA_W = {"fast_decay": lambda w: _fast_decay_w(w.shape, fast_steps=100),
+           "fast_decay_bf16": lambda w: _fast_decay_w(w.shape,
+                                                      fast_steps=100),
+           "exact_0_1": _exact_0_1_w}
 
 
 @pytest.mark.gpu
@@ -202,6 +404,7 @@ def test_cuda_matches_plain_on_card(cuda_device, label, bh, t, d, heads,
                                     dtype, with_state):
     r, k, v, w, u, s0 = _inputs(6, (bh, t, d), heads=heads,
                                 with_state=with_state)
+    w = _CUDA_W.get(label, lambda x: x)(w)
     dev = cuda_device
     args = [_t(a, dtype).to(dev) for a in (r, k, v)] + [_t(w).to(dev),
                                                         _t(u).to(dev)]
