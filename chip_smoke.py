@@ -2,22 +2,28 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --edge-kernel-times SRC   # phase 5's rows only,
+                                                    # from the port in SRC
 
 Phases, in order; any failure exits non-zero without the final ``ok`` line:
 
 1. the card, as ``nvidia-smi`` names it with its power limit;
 2. build all seven CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
    one process per source, started together); 2b: ``cuobjdump -sass`` of
-   the ``flash_attention`` and ``tiled_gemm`` libraries: every bf16 flash
-   and bf16 GEMM instance must issue HGMMA (bf16 wgmma), every int8 GEMM
-   instance IGMMA, each printed beside ptxas's registers, spills and
-   shared memory; ptxas's registers and spills of every instance of the
-   chunked scans (``rwkv6_chunk_kernel``, ``chunk_aggregate_kernel``,
-   ``chunk_scan_kernel``), printed only;
-3. kernels: ``fused_mlp_q8`` on every edge net's fused group at batch 8 and
-   on an odd shape, ``gemm_int8`` on every layer shape of the five nets and
-   on 256 x 1024 x 1024, each held against its plain PyTorch version on the
-   same inputs on the card; 3b: ``fused_dense`` with every activation, with
+   the ``flash_attention``, ``tiled_gemm``, ``fused_mlp_q8`` and
+   ``gemm_int8`` libraries: every bf16 flash and bf16 GEMM instance must
+   issue HGMMA (bf16 wgmma), every int8 ``tiled_gemm`` instance IGMMA, the
+   fused kernel and all 36 ``gemm_int8`` instances IMMA (int8 mma.sync),
+   each printed beside ptxas's registers, spills and shared memory (the
+   two edge kernels must not spill); ptxas's registers and spills of every
+   instance of the chunked scans (``rwkv6_chunk_kernel``,
+   ``chunk_aggregate_kernel``, ``chunk_scan_kernel``), printed only;
+3. kernels: ``fused_mlp_q8`` on every edge net's fused group at M = 1, 8,
+   13 and 40 and on an odd shape, ``gemm_int8`` on every layer shape of the
+   five nets, on 256 x 1024 x 1024 and with all 36 tiles on two ragged
+   shapes, each held against its plain PyTorch version on the same inputs
+   on the card (f32 outputs exactly); 3b: ``fused_dense`` with every
+   activation, with
    and without a residual, in f32 and bf16, at the five nets' layer shapes
    and a ragged one, and ``tiled_gemm`` in int8 (bit-exact), f32 and bf16 at
    ragged and large shapes, with the planner's block and three more of its
@@ -36,10 +42,12 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    the CPU; 4c: ``python -m repro_torch check`` in a subprocess: exit 0,
    no error finding, one launch of each kernel (``tiled_gemm`` among them)
    in its library self-check;
-5. times with CUDA events at the served shapes: each kernel, its plain
-   version and a library yardstick (``torch._int_mm`` plus the same
-   epilogue), beside the least time the card could take and the time of an
-   empty launch; 5b: ``fused_dense`` at every served layer shape against
+5. times with CUDA events: ``fused_mlp_q8`` on the five nets at batch 8
+   and ``gemm_int8`` at every layer shape of the five and at 256 x 1024 x
+   1024, each beside its plain version, a library yardstick
+   (``torch._int_mm`` plus the same epilogue), the least time the card
+   could take and the time of an empty launch; 5b: ``fused_dense`` at
+   every served layer shape against
    ``torch.addmm``, ``tiled_gemm`` at the check's case and (256, 4096, 4096)
    in bf16 against ``torch.matmul`` and in int8 at 256 x 1024 x 1024
    against ``torch._int_mm``;
@@ -103,6 +111,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import itertools
 import json
 import pathlib
 import statistics
@@ -123,9 +132,15 @@ HBM_BW = 3.35e12
 PEAK_INT8 = 1979e12
 PEAK_BF16 = 989e12
 # The int8 side is exact and the f32 epilogue repeats the plain version's
-# arithmetic in the same order, so kernel and plain agree bit for bit; the
-# tolerance is the reference's own fused-vs-per-layer 1e-5.
+# arithmetic in the same order, so kernel and plain agree bit for bit:
+# f32 outputs of fused_mlp_q8 and gemm_int8 are held to exactly 0.  Across
+# paths (the two rungs, card and CPU) the tolerance is the reference's own
+# fused-vs-per-layer 1e-5.
+TOL_EXACT = 0.0
 TOL = 1e-5
+# Batch rows of the fused kernel's checks: one row, the served 8, a ragged
+# two-CTA 13 and five CTAs.
+FUSED_ROWS = (1, 8, 13, 40)
 # bf16 outputs: both sides round the same f32 value; allow one bf16 ulp.
 TOL_BF16 = 2 ** -8
 
@@ -264,12 +279,17 @@ def check_close(what: str, got, want, *, tol: float = TOL,
 
 # (library, mark in the instance's mangled name, the instruction it must
 # issue, instances): bf16 flash and GEMM issue HGMMA (bf16 wgmma), int8 GEMM
-# IGMMA (int8 wgmma).
+# IGMMA (int8 wgmma), the edge kernels IMMA (int8 mma.sync): the fused group
+# and every one of gemm_int8's 36 tiles.
 TC_INSTANCES = (
     ("flash_attention", "flash_tc_kernel", "HGMMA", 3),
     ("tiled_gemm", "tc_gemm_kernelI13__nv_bfloat16", "HGMMA", 6),
     ("tiled_gemm", "tc_gemm_kernelIa", "IGMMA", 6),
+    ("fused_mlp_q8", "fused_mlp_q8_kernel", "IMMA", 1),
+    ("gemm_int8", "gemm_int8_kernel", "IMMA", 36),
 )
+# Libraries whose instances must not spill (ptxas -v).
+NO_SPILL = ("fused_mlp_q8", "gemm_int8")
 SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA")
 
 
@@ -316,14 +336,18 @@ def ptxas_rows(report: str) -> dict:
 
 def tensor_core_phase(libs: dict) -> None:
     """Counts of HGMMA/IGMMA (HMMA/IMMA) in every tensor-core instance of
-    ``flash_attention`` and ``tiled_gemm``, beside ptxas's registers,
-    spills and shared memory, and ptxas's notes on wgmma serialization or
-    setmaxnreg; fails if an instance issues none of its instruction, or if
-    an instance is missing."""
+    ``flash_attention``, ``tiled_gemm``, ``fused_mlp_q8`` and
+    ``gemm_int8``, beside ptxas's registers, spills and shared memory, and
+    ptxas's notes on wgmma serialization or setmaxnreg; fails if an
+    instance issues none of its instruction, if an instance is missing, or
+    if an edge kernel's instance spills."""
     from repro_torch.kernels import build
     for lib, mark, op, want in TC_INSTANCES:
         counts = sass_counts(libs[lib])
         ptxas = ptxas_rows(build.ptxas_report.get(lib, ""))
+        if not ptxas:
+            log(f"tensor cores {lib}: library not rebuilt in this run, "
+                f"no ptxas registers or spills to check")
         found = {f: c for f, c in counts.items() if mark in f}
         if len(found) != want:
             raise SmokeFailure(f"{lib}: {len(found)} instances marked {mark}, "
@@ -334,6 +358,9 @@ def tensor_core_phase(libs: dict) -> None:
                                                           sort_keys=True))
             if c[op] == 0:
                 raise SmokeFailure(f"{lib} {func} issues no {op}")
+            if lib in NO_SPILL and (row.get("spill_stores", 0)
+                                    or row.get("spill_loads", 0)):
+                raise SmokeFailure(f"{lib} {func} spills: {row}")
     for lib in sorted({t[0] for t in TC_INSTANCES}):
         for line in build.ptxas_report.get(lib, "").splitlines():
             if "(C75" in line:
@@ -395,28 +422,32 @@ def kernel_phase(device) -> dict:
 
     def fused_case(what, x, g):
         err = check_close(what, fm.fused_mlp_q8_cuda(x, g),
-                          fm.fused_mlp_q8_plain(x, g))
+                          fm.fused_mlp_q8_plain(x, g), tol=TOL_EXACT)
         errs["fused_mlp_q8"] = max(errs["fused_mlp_q8"], err)
-        log(f"kernel fused_mlp_q8 {what}: max_abs_err={err} tol={TOL}")
+        log(f"kernel fused_mlp_q8 {what}: max_abs_err={err} "
+            f"tol={TOL_EXACT}")
 
-    def gemm_case(what, x, w, sw, xs, blocks, out_dtype):
+    def gemm_case(what, x, w, sw, xs, blocks, out_dtype, quiet=False):
         got = g8.gemm_int8_cuda(x, w, sw, xs, block_m=blocks[0],
                                 block_k=blocks[1], block_n=blocks[2],
                                 out_dtype=out_dtype)
         want = g8.gemm_int8_plain(x, w, sw, xs, out_dtype=out_dtype)
-        tol = TOL_BF16 if out_dtype == torch.bfloat16 else TOL
+        tol = TOL_BF16 if out_dtype == torch.bfloat16 else TOL_EXACT
         err = check_close(what, got, want, tol=tol)
         if out_dtype == torch.float32:
             errs["gemm_int8"] = max(errs["gemm_int8"], err)
-        log(f"kernel gemm_int8 {what} {str(out_dtype)[6:]} "
-            f"blocks={blocks}: max_abs_err={err} tol={tol}")
+        if not quiet:
+            log(f"kernel gemm_int8 {what} {str(out_dtype)[6:]} "
+                f"blocks={blocks}: max_abs_err={err} tol={tol}")
+        return err
 
     for name in NETS:
         cfg = edge.edge_config(name)
         qp = random_qparams(cfg, gen, device)
-        x = torch.randn((cfg.batch, cfg.dims[0]), generator=gen).to(device)
-        fused_case(f"{name} dims={list(cfg.dims)} M={cfg.batch}", x,
-                   pack_net(qp))
+        g = pack_net(qp)
+        for m in FUSED_ROWS:
+            x = torch.randn((m, cfg.dims[0]), generator=gen).to(device)
+            fused_case(f"{name} dims={list(cfg.dims)} M={m}", x, g)
         plan = plan_deployment(cfg, device=device)
         for i, (k, n) in enumerate(cfg.layer_shapes):
             xq = torch.randint(-127, 128, (cfg.batch, k), generator=gen,
@@ -449,6 +480,24 @@ def kernel_phase(device) -> dict:
     for out_dtype in (torch.float32, torch.bfloat16):
         gemm_case(f"multi-CTA ({m},{k},{n})", xq, w, sw, 0.02, blocks,
                   out_dtype)
+    # Every tile the kernel instantiates, on a shape ragged in M, K and N
+    # (the masked byte staging) and on one with aligned rows (cp.async and
+    # word staging).
+    for m, k, n in ((33, 100, 130), (70, 160, 196)):
+        xq = torch.randint(-127, 128, (m, k), generator=gen,
+                           dtype=torch.int8).to(device)
+        w = torch.randint(-127, 128, (k, n), generator=gen,
+                          dtype=torch.int8).to(device)
+        sw = (torch.rand((n,), generator=gen) * 0.01).to(device)
+        worst = {}
+        for blocks in itertools.product(tiling.BLOCK_M, tiling.BLOCK_K,
+                                        tiling.BLOCK_N):
+            for out_dtype in (torch.float32, torch.bfloat16):
+                err = gemm_case(f"({m},{k},{n})", xq, w, sw, 0.02, blocks,
+                                out_dtype, quiet=True)
+                worst[out_dtype] = max(worst.get(out_dtype, 0.0), err)
+        log(f"kernel gemm_int8 ({m},{k},{n}) every tile: max_abs_err "
+            f"f32={worst[torch.float32]} bf16={worst[torch.bfloat16]}")
     torch.cuda.synchronize(device)
     return errs
 
@@ -835,19 +884,28 @@ def library_chain(qp, act_last=False):
     return run
 
 
-def timing_phase(dep, device) -> dict:
+def timing_phase(device) -> dict:
+    """Device ms per call (graph-replayed), eager ms, the plain version's
+    ms, a library yardstick and the bound of ``fused_mlp_q8`` on every edge
+    net's fused group at batch 8 and of ``gemm_int8`` at every layer shape
+    of the five nets (the planner's tile) and at 256 x 1024 x 1024; each row
+    beside the time of one graph-replayed empty launch (``launch_floor_ms``).
+    Weights are random from a seed; the times do not depend on them."""
     import torch
     from repro_torch.core import tiling
     from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.models import edge
+    from repro_torch.plan import plan_deployment
     rows = {"fused_mlp_q8": [], "gemm_int8": []}
     empty_graph = graph_ms(lambda: fm.empty_launch(device))
     empty_eager = event_ms(lambda: fm.empty_launch(device))
     log(f"timing empty kernel: graph_ms={empty_graph} "
         f"eager_ms={empty_eager}")
     gen = torch.Generator().manual_seed(2)
-    for nid in SERVED:
-        eng = dep.engines[nid]
-        cfg, qp = eng.cfg, eng.qparams
+    for nid in NETS:
+        cfg = edge.edge_config(nid)
+        qp = random_qparams(cfg, gen, device)
+        plan = plan_deployment(cfg, device=device)
         g = pack_net(qp)
         x = torch.randn((cfg.batch, cfg.dims[0]), generator=gen).to(device)
         lib = library_chain(qp)
@@ -865,25 +923,27 @@ def timing_phase(dep, device) -> dict:
             "eager_ms": event_ms(lambda: fm.fused_mlp_q8_cuda(x, g)),
             "plain_ms": graph_ms(lambda: fm.fused_mlp_q8_plain(x, g)),
             "library_ms": graph_ms(lambda: lib(x_pad)),
+            "launch_floor_ms": empty_graph,
             **bound(nbytes, 2.0 * cfg.batch * macs)})
-        for i, ((k, n), tile) in enumerate(
-                zip(cfg.layer_shapes,
-                    [eng.plan.layer(j).api_tile
-                     for j in range(len(cfg.layer_shapes))])):
+        for i, (k, n) in enumerate(cfg.layer_shapes):
             p = qp[i]
             xq = torch.randint(-127, 128, (cfg.batch, k), generator=gen,
                                dtype=torch.int8).to(device)
-            rows["gemm_int8"].append(gemm_row(
-                f"{nid}.dense{i} ({cfg.batch},{k},{n})", xq, p["w_q"],
-                p["w_scale"], p["x_scale"], tile))
+            rows["gemm_int8"].append({
+                **gemm_row(f"{nid}.dense{i} ({cfg.batch},{k},{n})", xq,
+                           p["w_q"], p["w_scale"], p["x_scale"],
+                           plan.layer(i).api_tile),
+                "launch_floor_ms": empty_graph})
     m, k, n = 256, 1024, 1024
     xq = torch.randint(-127, 128, (m, k), generator=gen,
                        dtype=torch.int8).to(device)
     w = torch.randint(-127, 128, (k, n), generator=gen,
                       dtype=torch.int8).to(device)
     sw = (torch.rand((n,), generator=gen) * 0.01).to(device)
-    rows["gemm_int8"].append(gemm_row(f"({m},{k},{n})", xq, w, sw, 0.02,
-                                      tiling.plan_api(m, k, n).blocks))
+    rows["gemm_int8"].append({
+        **gemm_row(f"({m},{k},{n})", xq, w, sw, 0.02,
+                   tiling.plan_api(m, k, n).blocks),
+        "launch_floor_ms": empty_graph})
     for name, rs in rows.items():
         for r in rs:
             log(f"timing {name} " + json.dumps(r, sort_keys=True))
@@ -1682,7 +1742,32 @@ def lm_kernel_entries(errs, launches_by_path, per_step, per_tick,
     return entries
 
 
-def main() -> int:
+def edge_times_main(src: pathlib.Path) -> int:
+    """``--edge-kernel-times SRC``: phase 5's rows alone (``fused_mlp_q8``
+    on the five nets, ``gemm_int8`` at their layer shapes and at 256 x 1024
+    x 1024), built from and run through the port under ``SRC``, so that
+    another tree's kernels (a parent commit unpacked beside this one) are
+    timed by the same code in the same call.  Prints one JSON line of the
+    rows; no ``ok`` line."""
+    import torch
+    sys.path.insert(0, str(src))
+    try:
+        log(card_line())
+        from repro_torch.kernels import build
+        build.build_all()
+        timing = timing_phase(torch.device("cuda",
+                                           torch.cuda.current_device()))
+    except Exception:
+        traceback.print_exc()
+        print("chip_smoke: FAILED", file=sys.stderr)
+        return 1
+    log(json.dumps({"edge_kernel_times": str(src), **timing},
+                   sort_keys=True))
+    log(card_line())
+    return 0
+
+
+def main(argv: list) -> int:
     try:
         import torch
     except ImportError as exc:
@@ -1691,10 +1776,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch").is_dir():
-        print(f"chip_smoke: {SRC / 'repro_torch'} is missing; run from a "
+    src = SRC
+    if argv:
+        if argv[0] != "--edge-kernel-times" or len(argv) != 2:
+            print("usage: chip_smoke.py [--edge-kernel-times SRC]",
+                  file=sys.stderr)
+            return 2
+        src = pathlib.Path(argv[1]).resolve()
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} is missing; run from a "
               f"checkout of the repository", file=sys.stderr)
         return 2
+    if argv:
+        return edge_times_main(src)
     sys.path.insert(0, str(SRC))
     t_all = time.perf_counter()
     try:
@@ -1718,7 +1812,7 @@ def main() -> int:
         dep, launches, build_launches = serve_phase()
         forward = edge_forward_phase(device)
         report = check_cli_phase()
-        timing = timing_phase(dep, device)
+        timing = timing_phase(device)
         dense_timing = dense_timing_phase(dep, device)
         line = kernels_line(errs, launches, timing)
         line["kernels"] += dense_kernel_entries(errs, {
@@ -1770,4 +1864,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -5,7 +5,8 @@ Three tile sets, each instantiated by its kernels and no other tile taken:
 * ``gemm_int8`` (``kernels/csrc/gemm_int8.cu``): ``BLOCK_M x BLOCK_K x
   BLOCK_N``, chosen by :func:`plan_api`.  The edge plans' tiles.  One CTA
   of 256 threads owns a ``(block_m, block_n)`` output tile and steps over K
-  in ``block_k`` chunks staged through shared memory.
+  in ``block_k`` chunks through a three-stage ring in shared memory, with
+  the products on the int8 tensor cores (``mma.sync``).
 * ``fused_dense`` and f32 ``tiled_gemm`` (``kernels/csrc/gemm_tile.cuh``,
   CUDA cores): ``TILED_BLOCK_M x TILED_BLOCK_K x TILED_BLOCK_N``, the same
   shape of CTA, chosen by :func:`plan_dense`.
@@ -29,12 +30,14 @@ import math
 
 from repro_torch import hw as hwlib
 
-# The tiles gemm_int8.cu instantiates.  Every block_m * block_n is a multiple
-# of the kernel's 256 threads and every block_k a multiple of 4 (__dp4a).
+# The tiles gemm_int8.cu instantiates.  Every block_m is a multiple of 8 and
+# every block_n of 16 (the int8 mma.sync's n and m sides: the kernel
+# computes the transposed tile) and every block_k of 32 (its k).
 BLOCK_M = (8, 16, 32, 64)
 BLOCK_K = (32, 64, 128)
 BLOCK_N = (32, 64, 128)
-THREADS = 256
+STAGES = 3            # gemm_int8.cu's ring of x and w tiles
+SKEW = 16             # bytes added to each tile row against bank conflicts
 
 
 def tile_ok(block_m: int, block_k: int, block_n: int) -> bool:
@@ -42,9 +45,9 @@ def tile_ok(block_m: int, block_k: int, block_n: int) -> bool:
 
 
 def smem_bytes(block_m: int, block_k: int, block_n: int) -> int:
-    """Shared memory of one CTA: the x tile and the transposed w tile, whose
-    rows are padded by 4 bytes against bank conflicts."""
-    return block_m * block_k + block_n * (block_k + 4)
+    """Shared memory of one CTA, as the kernel launches it: ``STAGES`` x
+    tiles and transposed w tiles, every row padded by ``SKEW`` bytes."""
+    return STAGES * (block_m + block_n) * (block_k + SKEW)
 
 
 # The tiles gemm_tile.cuh instantiates (GEMM_TILE_FOR_ALL).  Warps own rows,

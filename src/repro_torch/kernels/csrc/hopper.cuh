@@ -2,7 +2,9 @@
 // kernels, written once as raw PTX: TMA descriptors and loads, mbarriers,
 // the wgmma shared-memory matrix descriptor, wgmma's fence / commit / wait,
 // setmaxnreg, and the wgmma shapes tiled_gemm.cu and flash_attention.cu
-// issue.
+// issue; and the pieces of the int8 mma.sync kernels (fused_mlp_q8.cu,
+// gemm_int8.cu): 1-D bulk copies, 16-byte cp.async, ldmatrix, the s8
+// m16n8k32 product and a 4 x 4 byte transpose.
 //
 // Layout convention.  Every operand tile lives in shared memory as rows of
 // 128 bytes (64 bf16 or 128 int8 values) in the 128-byte swizzle TMA writes:
@@ -177,6 +179,91 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Copies `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// global to shared memory in one bulk copy that reports its bytes to `bar`
+// (arm it first with mbar_arrive_expect_tx).
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Device: cp.async, ldmatrix and the int8 mma.sync
+// ---------------------------------------------------------------------------
+
+// 16 bytes from global to shared memory; only the first `src_bytes` (0 or
+// 16) are read, the rest written as zeros.  Both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four (two) 8 x 16-byte matrices from shared memory: lane 8j + r gives the
+// address of row r of matrix j, and register j of lane l receives bytes
+// 4 (l % 4) .. + 3 of row l / 4 of matrix j.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += A (16 x 32, s8, K-contiguous rows) . B (32 x 8, s8, K-contiguous
+// columns) in s32.  With g = lane / 4, t = lane % 4: a = rows g, g + 8 at
+// k 4t.. and 16 + 4t.. (a0: g, 4t; a1: g + 8, 4t; a2: g, 16 + 4t; a3:
+// g + 8, 16 + 4t), b = column g at k 4t.. and 16 + 4t.., and d[2h + e]
+// is row g + 8h, column 2t + e.  ldmatrix_x4 of rows 0-7 / 8-15 at k 0 /
+// 16 gives a; ldmatrix_x2 of the 8 columns at k 0 / 16 gives b.
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four bytes (k, k+1, k+2, k+3) of column c of a 4 x 4 byte block whose row
+// i is word a_i (byte c = column c).
+__device__ __forceinline__ void transpose4(uint32_t a0, uint32_t a1,
+                                           uint32_t a2, uint32_t a3,
+                                           uint32_t (&o)[4]) {
+  const uint32_t t0 = __byte_perm(a0, a1, 0x5140);
+  const uint32_t t1 = __byte_perm(a2, a3, 0x5140);
+  const uint32_t t2 = __byte_perm(a0, a1, 0x7362);
+  const uint32_t t3 = __byte_perm(a2, a3, 0x7362);
+  o[0] = __byte_perm(t0, t1, 0x5410);
+  o[1] = __byte_perm(t0, t1, 0x7632);
+  o[2] = __byte_perm(t2, t3, 0x5410);
+  o[3] = __byte_perm(t2, t3, 0x7632);
 }
 
 // ---------------------------------------------------------------------------

@@ -181,21 +181,6 @@ __device__ void stage_w_bf16(const TcArgs& a, int n0, int k0, uint8_t* dst,
   }
 }
 
-// Four bytes (k, k+1, k+2, k+3) of column c of a 4 x 4 byte block whose row
-// i is word a_i (byte c = column c).
-__device__ __forceinline__ void transpose4(uint32_t a0, uint32_t a1,
-                                           uint32_t a2, uint32_t a3,
-                                           uint32_t (&o)[4]) {
-  const uint32_t t0 = __byte_perm(a0, a1, 0x5140);
-  const uint32_t t1 = __byte_perm(a2, a3, 0x5140);
-  const uint32_t t2 = __byte_perm(a0, a1, 0x7362);
-  const uint32_t t3 = __byte_perm(a2, a3, 0x7362);
-  o[0] = __byte_perm(t0, t1, 0x5410);
-  o[1] = __byte_perm(t0, t1, 0x7632);
-  o[2] = __byte_perm(t2, t3, 0x5410);
-  o[3] = __byte_perm(t2, t3, 0x7632);
-}
-
 // int8 w tile rows [k0, k0 + 128), columns [n0, n0 + BN) into [BN][128 k]
 // (K-major).  Unit u: k chunk u % 8 (16 rows) x columns 4 (u / 8) .. + 3:
 // 16 4-byte loads, four 4 x 4 byte transposes, four 16-byte stores.  The
@@ -228,7 +213,8 @@ __device__ void stage_w_int8(const TcArgs& a, int n0, int k0, uint8_t* dst,
     uint32_t o[4][4];                   // o[g][c]: k 4 g .. 4 g + 3 of column c
 #pragma unroll
     for (int g = 0; g < 4; ++g)
-      transpose4(r[4 * g], r[4 * g + 1], r[4 * g + 2], r[4 * g + 3], o[g]);
+      hopper::transpose4(r[4 * g], r[4 * g + 1], r[4 * g + 2],
+                         r[4 * g + 3], o[g]);
 #pragma unroll
     for (int c = 0; c < 4; ++c)
       *reinterpret_cast<uint4*>(dst + hopper::sw128_offset(4 * ng + c, kb)) =

@@ -6,15 +6,20 @@ Port of the JAX package's ``kernels/fused_mlp.py::fused_mlp_q8``.  Per layer
     h = act(clip(round(h / xs_i), -127, 127) @ w_i * (ws_i * xs_i) + b_i)
 
 with the activation on every layer but the last unless ``act_last``.  The
-CUDA kernel (``csrc/fused_mlp_q8.cu``) keeps the int8 activations in shared
-memory between layers; :func:`fused_mlp_q8_plain` is the same function in
-plain PyTorch, used for CPU tensors and as the kernel's oracle on the card.
+CUDA kernel (``csrc/fused_mlp_q8.cu``) copies every layer's weights into
+shared memory at entry and keeps the int8 activations there between layers;
+:func:`fused_mlp_q8_plain` is the same function in plain PyTorch, used for
+CPU tensors and as the kernel's oracle on the card.
 
 A group is packed once (:func:`pack_group`) into the layout the kernel
-reads: every layer's weights transposed to ``(N_i, kp_i)`` with ``kp_i`` the
-input width padded to a multiple of 4 with zeros (exact), concatenated; the
-folded scale rows ``s_i = ws_i * xs_i`` (f32, folded on the host as the
-reference does) and the bias rows concatenated the same way.
+reads (:func:`layer_layout`): one int8 ``pack`` holding, per layer, one
+contiguous 16-byte-aligned block of the weights transposed to ``(np_i,
+kp_i)`` rows of ``kp_i + SKEW`` bytes (``kp_i`` the input width padded to
+``K_MULTIPLE``, ``np_i`` the output width padded to ``N_MULTIPLE``, all
+padding zero, which is exact), then the folded scale row ``s_i = ws_i *
+xs_i`` (f32, folded on the host as the reference does), then the bias row
+(``np_i`` f32 each, zero past the true width).  The kernel copies each
+block into shared memory with one bulk copy.
 """
 
 from __future__ import annotations
@@ -29,7 +34,11 @@ from repro_torch.kernels import build
 
 ROWS = 8              # rows of M per CTA; csrc/fused_mlp_q8.cu's kRows
 MAX_LAYERS = 16       # csrc/fused_mlp_q8.cu's kMaxLayers
-K_MULTIPLE = 4        # __dp4a consumes 4 int8 values at a time
+K_MULTIPLE = 32       # the int8 mma's k: input widths pad to this
+N_MULTIPLE = 16       # the int8 mma's m: output widths pad to this
+SKEW = 16             # bytes added to each int8 row against bank conflicts
+HEAD_BYTES = 36 * MAX_LAYERS   # per layer: mbarrier, input scale, record
+MAX_SMEM = 232_448    # dynamic shared memory one block may use (H100)
 
 launches = 0          # kernel launches since the last reset (plain int)
 
@@ -38,48 +47,87 @@ def _ceil_to(x: int, q: int) -> int:
     return -(-x // q) * q
 
 
-def padded_widths(dims) -> list[int]:
-    return [_ceil_to(d, K_MULTIPLE) for d in dims]
+@dataclasses.dataclass(frozen=True)
+class LayerBlock:
+    """Where one layer lies in the pack (and in the kernel's shared
+    memory): ``np`` weight rows of ``stride`` bytes at ``offset``, then
+    ``np`` f32 scales, then ``np`` f32 biases; ``nbytes`` in all."""
+    n: int            # true output width
+    kp: int           # input width padded to K_MULTIPLE
+    np: int           # output width padded to N_MULTIPLE
+    stride: int       # weight row stride in bytes, kp + SKEW
+    offset: int
+    nbytes: int
+
+    @property
+    def scale_offset(self) -> int:
+        return self.offset + self.np * self.stride
+
+    @property
+    def bias_offset(self) -> int:
+        return self.scale_offset + 4 * self.np
+
+
+def layer_layout(dims) -> list[LayerBlock]:
+    """The pack's blocks for a group with layer widths ``dims`` (input
+    first); ``csrc/fused_mlp_q8.cu``'s ``layout`` computes the same."""
+    blocks, offset = [], 0
+    for k, n in zip(dims[:-1], dims[1:]):
+        kp, np_ = _ceil_to(k, K_MULTIPLE), _ceil_to(n, N_MULTIPLE)
+        stride = kp + SKEW
+        nbytes = np_ * (stride + 8)
+        blocks.append(LayerBlock(n, kp, np_, stride, offset, nbytes))
+        offset += nbytes
+    return blocks
 
 
 def buffer_stride(dims) -> int:
-    """Row stride of each int8 activation buffer: the widest layer input."""
-    return max(padded_widths(dims[:-1]))
+    """Row stride of each int8 activation buffer: the widest padded layer
+    input plus the skew."""
+    return max(_ceil_to(d, K_MULTIPLE) for d in dims[:-1]) + SKEW
 
 
 def fused_smem_bytes(dims, rows: int = ROWS) -> int:
-    """Shared memory the kernel holds for a group with layer widths ``dims``
-    (input first): two int8 activation buffers of ``rows`` rows, read by one
-    layer while the next layer's input is written.  The planner prices a
-    fusion group with this same function."""
-    return 2 * rows * buffer_stride(dims)
+    """Shared memory the kernel holds for a group with layer widths
+    ``dims`` (input first), and launches with: the head (per layer a
+    barrier, an input scale and its block's record), two int8 activation
+    buffers of ``rows`` rows, read by one layer while the next layer's input
+    is written, and every layer's block of the pack.  The planner prices a
+    fusion group with this same function, and the verify stage checks it."""
+    return _smem_bytes(tuple(dims), rows)
+
+
+@functools.lru_cache(maxsize=1024)
+def _smem_bytes(dims: tuple, rows: int) -> int:
+    return (HEAD_BYTES + 2 * rows * buffer_stride(dims)
+            + sum(b.nbytes for b in layer_layout(dims)))
 
 
 @dataclasses.dataclass(frozen=True)
 class FusedGroup:
     """One fusion group, packed for the kernel (see the module doc)."""
     dims: tuple[int, ...]          # true widths, input first
-    wt: torch.Tensor               # int8, concatenated (N_i, kp_i) blocks
-    s: torch.Tensor                # f32, concatenated ws_i * xs_i
-    b: torch.Tensor                # f32, concatenated biases
+    pack: torch.Tensor             # int8, the layers' blocks back to back
     xs: torch.Tensor               # f32 (L,), per-layer input scales
     relu: bool
     act_last: bool
+    smem_bytes: int                # fused_smem_bytes(dims)
+    c_dims: ctypes.Array = dataclasses.field(repr=False, compare=False)
 
     @property
     def n_layers(self) -> int:
         return len(self.dims) - 1
 
     def layer_views(self):
-        """Per layer ``(wt_i (N_i, kp_i), s_i, b_i)`` views into the pack."""
-        kp = padded_widths(self.dims)
-        w_off = s_off = 0
-        for i in range(self.n_layers):
-            n = self.dims[i + 1]
-            wt_i = self.wt[w_off:w_off + n * kp[i]].view(n, kp[i])
-            yield wt_i, self.s[s_off:s_off + n], self.b[s_off:s_off + n]
-            w_off += n * kp[i]
-            s_off += n
+        """Per layer ``(wt_i (np_i, kp_i), s_i (np_i,), b_i (np_i,))``
+        views into the pack, padding included."""
+        for blk in layer_layout(self.dims):
+            w = self.pack[blk.offset:blk.scale_offset]
+            wt = w.view(blk.np, blk.stride)[:, :blk.kp]
+            s = self.pack[blk.scale_offset:blk.bias_offset].view(torch.float32)
+            b = self.pack[blk.bias_offset:blk.offset + blk.nbytes] \
+                .view(torch.float32)
+            yield wt, s, b
 
 
 def pack_group(weights, w_scales, biases, x_scales, *, act: str = "relu",
@@ -98,21 +146,24 @@ def pack_group(weights, w_scales, biases, x_scales, *, act: str = "relu",
     xs = torch.as_tensor(x_scales, dtype=torch.float32).to(device)
     xs = xs.reshape(n_layers)
     dims = [weights[0].shape[0]] + [w.shape[1] for w in weights]
-    kp = padded_widths(dims)
-    wts, ss, bs = [], [], []
-    for i, (w, ws, b) in enumerate(zip(weights, w_scales, biases)):
+    layout = layer_layout(dims)
+    pack = torch.zeros(layout[-1].offset + layout[-1].nbytes,
+                       dtype=torch.int8, device=device)
+    for i, (w, ws, b, blk) in enumerate(zip(weights, w_scales, biases,
+                                            layout)):
         if w.dtype != torch.int8 or w.shape[0] != dims[i]:
             raise ValueError(f"layer {i}: want int8 ({dims[i]}, N), got "
                              f"{w.dtype} {tuple(w.shape)}")
-        wt = torch.zeros((dims[i + 1], kp[i]), dtype=torch.int8,
-                         device=device)
-        wt[:, :dims[i]] = w.t()
-        wts.append(wt.reshape(-1))
-        ss.append(ws.to(torch.float32) * xs[i])
-        bs.append(b.to(torch.float32))
-    return FusedGroup(dims=tuple(dims), wt=torch.cat(wts), s=torch.cat(ss),
-                      b=torch.cat(bs), xs=xs, relu=act == "relu",
-                      act_last=act_last)
+        rows = pack[blk.offset:blk.scale_offset].view(blk.np, blk.stride)
+        rows[:blk.n, :dims[i]] = w.t()
+        s = pack[blk.scale_offset:blk.bias_offset].view(torch.float32)
+        s[:blk.n] = ws.to(torch.float32) * xs[i]
+        pack[blk.bias_offset:blk.offset + blk.nbytes].view(
+            torch.float32)[:blk.n] = b.to(torch.float32)
+    return FusedGroup(dims=tuple(dims), pack=pack, xs=xs,
+                      relu=act == "relu", act_last=act_last,
+                      smem_bytes=fused_smem_bytes(dims),
+                      c_dims=(ctypes.c_int * len(dims))(*dims))
 
 
 def _quantize(h: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -129,9 +180,10 @@ def fused_mlp_q8_plain(x: torch.Tensor, g: FusedGroup) -> torch.Tensor:
     h = x.to(torch.float32)
     last = g.n_layers - 1
     for i, (wt_i, s_i, b_i) in enumerate(g.layer_views()):
+        k, n = g.dims[i], g.dims[i + 1]
         hq = _quantize(h, g.xs[i])
-        acc = (hq.double() @ wt_i[:, :g.dims[i]].t().double()).float()
-        h = acc * s_i + b_i
+        acc = (hq.double() @ wt_i[:n, :k].t().double()).float()
+        h = acc * s_i[:n] + b_i[:n]
         if g.relu and (i != last or g.act_last):
             h = torch.clamp_min(h, 0.0)
     return h
@@ -142,7 +194,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.library("fused_mlp_q8")
     vp = ctypes.c_void_p
     lib.repro_fused_mlp_q8.argtypes = [
-        vp, vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
+        vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
         ctypes.c_int, vp]
     lib.repro_fused_mlp_q8.restype = ctypes.c_int
@@ -171,6 +223,10 @@ def fused_mlp_q8_contract(x: torch.Tensor, dims):
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != dims[0]:
         raise ValueError(f"fused_mlp_q8: want f32 (M, {dims[0]}), got "
                          f"{x.dtype} {tuple(x.shape)}")
+    smem = fused_smem_bytes(dims)
+    if smem > MAX_SMEM:
+        raise ValueError(f"fused_mlp_q8: the group holds {smem} B of shared "
+                         f"memory, over one block's {MAX_SMEM} B")
     return (x.shape[0], dims[-1]), torch.float32
 
 
@@ -178,7 +234,7 @@ def fused_mlp_q8_cuda(x: torch.Tensor, g: FusedGroup) -> torch.Tensor:
     """Launch ``csrc/fused_mlp_q8.cu`` on ``x``'s device and stream."""
     global launches
     shape, dtype = fused_mlp_q8_contract(x, g.dims)
-    tensors = (x, g.wt, g.s, g.b, g.xs)
+    tensors = (x, g.pack, g.xs)
     if not all(t.is_cuda and t.device == x.device for t in tensors):
         raise ValueError("fused_mlp_q8_cuda: every tensor must lie on one "
                          "CUDA device")
@@ -188,12 +244,11 @@ def fused_mlp_q8_cuda(x: torch.Tensor, g: FusedGroup) -> torch.Tensor:
     out = torch.empty(shape, dtype=dtype, device=x.device)
     if m == 0:
         return out
-    dims = (ctypes.c_int * len(g.dims))(*g.dims)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib().repro_fused_mlp_q8(
-        x.data_ptr(), g.wt.data_ptr(), g.s.data_ptr(), g.b.data_ptr(),
-        g.xs.data_ptr(), out.data_ptr(), m, g.n_layers, dims,
-        buffer_stride(g.dims), int(g.relu), int(g.act_last), stream)
+        x.data_ptr(), g.pack.data_ptr(), g.xs.data_ptr(), out.data_ptr(), m,
+        g.n_layers, g.c_dims, g.smem_bytes, int(g.relu), int(g.act_last),
+        stream)
     _check(err, "fused_mlp_q8")
     launches += 1
     return out
