@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --edge-kernel-times SRC   # phase 5's rows only,
+    python3 chip_smoke.py --edge-kernel-times SRC   # phase 5's rows and
+                                                    # 5b's fused_dense ones,
                                                     # from the port in SRC
 
 Phases, in order; any failure exits non-zero without the final ``ok`` line:
@@ -15,17 +16,20 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    issue HGMMA (bf16 wgmma), every int8 ``tiled_gemm`` instance IGMMA, the
    fused kernel and all 36 ``gemm_int8`` instances IMMA (int8 mma.sync),
    each printed beside ptxas's registers, spills and shared memory (the
-   two edge kernels must not spill); ptxas's registers and spills of every
-   instance of the chunked scans (``rwkv6_chunk_kernel``,
+   two edge kernels must not spill); ptxas's registers, spills and shared
+   memory of all 14 ``fused_dense_kernel`` instances (none may spill) and
+   of every instance of the chunked scans (``rwkv6_chunk_kernel``,
    ``chunk_aggregate_kernel``, ``chunk_scan_kernel``), printed only;
 3. kernels: ``fused_mlp_q8`` on every edge net's fused group at M = 1, 8,
    13 and 40 and on an odd shape, ``gemm_int8`` on every layer shape of the
    five nets, on 256 x 1024 x 1024 and with all 36 tiles on two ragged
    shapes, each held against its plain PyTorch version on the same inputs
    on the card (f32 outputs exactly); 3b: ``fused_dense`` with every
-   activation, with
-   and without a residual, in f32 and bf16, at the five nets' layer shapes
-   and a ragged one, and ``tiled_gemm`` in int8 (bit-exact), f32 and bf16 at
+   activation, with and without a residual, in f32 and bf16, at the
+   planner's tile on the five nets' layer shapes (unaligned rows among
+   them), one row, M = 13 and 200 and K = 0, then every strip of its tile
+   set in a ring of 16- and 64-wide K chunks and with operands one element
+   off a 16-byte boundary; and ``tiled_gemm`` in int8 (bit-exact), f32 and bf16 at
    ragged and large shapes, with the planner's block and three more of its
    dtype's tile set (tensor cores for int8 and bf16, CUDA cores for f32);
 4. serve: ``Deployment.build(["jet_tagger", "tau_select"])`` on the default
@@ -47,8 +51,10 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    1024, each beside its plain version, a library yardstick
    (``torch._int_mm`` plus the same epilogue), the least time the card
    could take and the time of an empty launch; 5b: ``fused_dense`` at
-   every served layer shape against
-   ``torch.addmm``, ``tiled_gemm`` at the check's case and (256, 4096, 4096)
+   all 26 layer shapes of the five nets (each beside its time with every
+   ``block_n`` of the set), at M = 13 and 200, and each net's whole
+   ``edge_forward``, against ``torch.addmm`` (plus ReLU per layer for a
+   forward), ``tiled_gemm`` at the check's case and (256, 4096, 4096)
    in bf16 against ``torch.matmul`` and in int8 at 256 x 1024 x 1024
    against ``torch._int_mm``;
 6. LM kernels: ``flash_attention`` at the served shape (1,10,4096,256) /
@@ -367,27 +373,36 @@ def tensor_core_phase(libs: dict) -> None:
                 log(f"tensor cores {lib} ptxas: {line.strip()}")
 
 
-# The chunked scans' instances (kernels/csrc/rwkv6_scan.cu, linear_scan.cu):
-# their registers and spills are printed, not held to a rule.
-CHUNKED_INSTANCES = (("rwkv6_scan", "rwkv6_chunk_kernel"),
-                     ("linear_scan", "chunk_aggregate_kernel"),
-                     ("linear_scan", "chunk_scan_kernel"))
+# CUDA-core instances whose registers, spills and shared memory are printed:
+# (library, mark, instances or None, must not spill).  fused_dense.cu's two
+# dtypes x seven strips must not spill; the chunked scans
+# (kernels/csrc/rwkv6_scan.cu, linear_scan.cu) are held to no rule.
+PTXAS_INSTANCES = (("fused_dense", "fused_dense_kernel", 14, True),
+                   ("rwkv6_scan", "rwkv6_chunk_kernel", None, False),
+                   ("linear_scan", "chunk_aggregate_kernel", None, False),
+                   ("linear_scan", "chunk_scan_kernel", None, False))
 
 
-def chunked_ptxas_phase() -> None:
+def ptxas_phase() -> None:
     """ptxas's registers, spills and shared memory for every instance of
-    the chunked scans; fails if a source built in this run has none."""
+    ``fused_dense`` and the chunked scans; fails if a source built in this
+    run has none or the wrong number of them, or if a ``fused_dense``
+    instance spills."""
     from repro_torch.kernels import build
-    for lib, mark in CHUNKED_INSTANCES:
+    for lib, mark, want, no_spill in PTXAS_INSTANCES:
         if not build.ptxas_report.get(lib):
             log(f"ptxas {lib}: library not rebuilt in this run")
             continue
         rows = {f: r for f, r in ptxas_rows(build.ptxas_report[lib]).items()
                 if mark in f}
-        if not rows:
-            raise SmokeFailure(f"{lib}: ptxas reports no {mark} instance")
+        if not rows or (want is not None and len(rows) != want):
+            raise SmokeFailure(f"{lib}: ptxas reports {len(rows)} {mark} "
+                               f"instances, want {want or 'some'}")
         for func, row in sorted(rows.items()):
             log(f"ptxas {lib} {func}: " + json.dumps(row, sort_keys=True))
+            if no_spill and (row.get("spill_stores", 0)
+                             or row.get("spill_loads", 0)):
+                raise SmokeFailure(f"{lib} {func} spills: {row}")
 
 
 # ---------------------------------------------------------------------------
@@ -518,13 +533,38 @@ GEMM_BLOCKS = {1: ((64, 128, 64), (128, 128, 256), (64, 128, 128)),
                4: ((8, 16, 32), (64, 64, 128), (16, 32, 64))}
 
 
+# fused_dense's cases: every distinct layer shape of the five nets at M = 8
+# (x rows of K = 27 and 250 and w rows of N = 2 and 5 are not 16-byte
+# multiples), one row, a ragged M = 13, a multi-strip M = 200 and K = 0.
+def dense_cases() -> list:
+    from repro_torch.models import edge
+    return sorted({(8, k, n) for name in NETS
+                   for k, n in edge.edge_config(name).layer_shapes}
+                  | {(13, 100, 70), (1, 27, 2), (1, 250, 5),
+                     (200, 300, 260), (8, 0, 16)})
+
+
+DENSE_RING_CASES = ((13, 100, 70), (200, 300, 260), (17, 250, 5))
+
+
+def _off_by_one(t):
+    """A contiguous copy of ``t`` whose base lies one element past an
+    allocation's (16-byte aligned) start."""
+    import torch
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def _dense_args(gen, device, m, k, n, dtype, residual):
     """x, w (scaled so outputs are O(1)), an f32 bias and an optional
     residual, drawn on the CPU from ``gen``."""
     import torch
     dt = getattr(torch, dtype)
     x = torch.randn((m, k), generator=gen).to(device, dt)
-    w = (torch.randn((k, n), generator=gen) * k ** -0.5).to(device, dt)
+    w = (torch.randn((k, n), generator=gen) * max(k, 1) ** -0.5).to(device,
+                                                                    dt)
     b = torch.randn((n,), generator=gen).to(device)
     r = (torch.randn((m, n), generator=gen).to(device, dt) if residual
          else None)
@@ -535,22 +575,20 @@ def dense_kernel_phase(device) -> dict:
     import torch
     from repro_torch.core import tiling
     from repro_torch.kernels import fused_dense as fd
+    from repro_torch.kernels import ops
     from repro_torch.kernels import tiled_gemm as tg
-    from repro_torch.models import edge
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(8)
     errs = {"fused_dense": 0.0, "tiled_gemm": 0.0}
     # fused_dense: every act, with and without a residual, f32 and bf16, at
-    # the five nets' layer shapes and a ragged one.
-    shapes = sorted({(8, k, n) for name in NETS
-                     for k, n in edge.edge_config(name).layer_shapes}
-                    | {(13, 100, 70)})
+    # the planner's tile; then every strip of the set at block_k 16 and 64
+    # (rings of chunks) and operands one element off a 16-byte boundary.
     for dtype in ("float32", "bfloat16"):
         rtol, atol = TOL_DENSE[dtype]
         worst = 0.0
-        for m, k, n in shapes:
-            bm, bk, bn = tiling.plan_dense(m, k, n, itemsize=4 if dtype ==
-                                           "float32" else 2).blocks
+        for m, k, n in dense_cases():
+            bm, bk, bn = tiling.plan_fused_dense(
+                m, k, n, itemsize=4 if dtype == "float32" else 2).blocks
             for residual in (False, True):
                 x, w, b, r = _dense_args(gen, device, m, k, n, dtype,
                                          residual)
@@ -565,11 +603,34 @@ def dense_kernel_phase(device) -> dict:
                                       f"{act} residual={residual}", got, want,
                                       tol=rtol, atol=atol)
                     worst = max(worst, err)
+        n_tiles = 0
+        for m, k, n in DENSE_RING_CASES:
+            x, w, b, r = _dense_args(gen, device, m, k, n, dtype, True)
+            want = fd.fused_dense_plain(x, w, b, r, act="gelu")
+            for bm, bn in itertools.product(tiling.FD_BLOCK_M,
+                                            tiling.FD_BLOCK_N):
+                for bk in (16, 64):
+                    if not tiling.fused_dense_tile_ok(bm, bk, bn):
+                        continue
+                    got = fd.fused_dense_cuda(x, w, b, r, act="gelu",
+                                              block_m=bm, block_k=bk,
+                                              block_n=bn)
+                    worst = max(worst, check_close(
+                        f"fused_dense ({m},{k},{n}) {dtype} tile "
+                        f"{(bm, bk, bn)}", got, want, tol=rtol, atol=atol))
+                    n_tiles += 1
+            off = [_off_by_one(t) for t in (x, w, r)]
+            worst = max(worst, check_close(
+                f"fused_dense ({m},{k},{n}) {dtype} offset operands",
+                ops.fused_dense(off[0], off[1], b, off[2], act="gelu"), want,
+                tol=rtol, atol=atol))
         if dtype == "float32":
             errs["fused_dense"] = worst
-        log(f"kernel fused_dense {dtype}: {len(shapes)} shapes x "
-            f"{len(fd.ACTS)} acts x residual on/off: max_abs_err={worst} "
-            f"rtol={rtol} atol={atol}")
+        log(f"kernel fused_dense {dtype}: {len(dense_cases())} shapes x "
+            f"{len(fd.ACTS)} acts x residual on/off at the planned tile, "
+            f"{n_tiles} ring tiles and offset operands on "
+            f"{list(DENSE_RING_CASES)}: max_abs_err={worst} rtol={rtol} "
+            f"atol={atol}")
     # tiled_gemm: int8 -> int32 exactly, f32 and bf16, at the planner's
     # blocks and three more.
     for dtype in ("int8", "float32", "bfloat16"):
@@ -982,46 +1043,110 @@ def gemm_row(what, xq, w, sw, x_scale, tile) -> dict:
 # Phase 5b: fused_dense and tiled_gemm times
 # ---------------------------------------------------------------------------
 
-def dense_timing_phase(dep, device) -> dict:
-    """Device ms per call (graph-replayed) and eager ms of ``fused_dense`` at
-    every served layer shape (act none, no residual: the function
-    ``torch.addmm`` computes) and of ``tiled_gemm`` at the check's canonical
-    case, at (256, 4096, 4096) bf16 (both against ``torch.matmul``) and in
-    int8 at 256 x 1024 x 1024 (against ``torch._int_mm``), each beside its
-    plain version and its bound."""
+def fused_dense_timing(device, empty_ms: float, *, sweep: bool) -> dict:
+    """Device ms per call (graph-replayed) and eager ms of ``fused_dense``
+    through ``ops.fused_dense`` (the tree's own planner) at all 26 layer
+    shapes of the five nets and at M = 13 and 200 (act none, no residual:
+    the function ``torch.addmm`` computes), and of each net's whole
+    ``edge_forward`` (against ``torch.addmm`` and ReLU per layer), each
+    beside its plain version, its bound and the launch floor (``empty_ms``,
+    phase 5's graph-replayed empty launch, once a layer).  With ``sweep``,
+    each shape's planned tile and its time
+    at every ``block_n`` of the set with the same ``block_m`` and
+    ``block_k``.  Weights are random from a seed."""
+    import torch
+    from repro_torch.kernels import fused_dense as fd
+    from repro_torch.kernels import ops
+    from repro_torch.models import edge
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(9)
+    rtol, atol = TOL_DENSE["float32"]
+    cases = [(f"{nid}.dense{i}", 8, k, n) for nid in NETS
+             for i, (k, n) in enumerate(edge.edge_config(nid).layer_shapes)]
+    cases += [("ragged", 13, 100, 70), ("multi-strip", 200, 300, 260)]
+    layers, forwards = [], []
+    for what, m, k, n in cases:
+        x, w, b, _ = _dense_args(gen, device, m, k, n, "float32", False)
+
+        def kernel():
+            return ops.fused_dense(x, w, b, act="none")
+
+        def library():
+            return torch.addmm(b, x, w)
+        check_close(f"fused_dense {what} library vs kernel", library(),
+                    kernel(), tol=rtol, atol=atol)
+        row = {"shape": f"{what} ({m},{k},{n}) f32 act none",
+               "ms": graph_ms(kernel), "eager_ms": event_ms(kernel),
+               "plain_ms": graph_ms(lambda: fd.fused_dense_plain(
+                   x, w, b, act="none")),
+               "library_ms": graph_ms(library), "launch_floor_ms": empty_ms,
+               **bound(4 * (m * k + k * n + n + m * n), 2.0 * m * k * n,
+                       PEAK_F32)}
+        if sweep:
+            from repro_torch.core import tiling
+            row["blocks"] = list(tiling.plan_fused_dense(m, k, n).blocks)
+            bm, bk = row["blocks"][:2]
+            row["block_n_ms"] = {
+                bn: graph_ms(lambda bn=bn: fd.fused_dense_cuda(
+                    x, w, b, act="none", block_m=bm, block_k=bk,
+                    block_n=bn))
+                for bn in tiling.FD_BLOCK_N
+                if tiling.fused_dense_tile_ok(bm, bk, bn)}
+        layers.append(row)
+    for nid in NETS:
+        cfg = edge.edge_config(nid)
+        params = edge.init_edge(cfg, generator=gen, device=device)
+        for p in params:
+            p["b"] = torch.randn(p["b"].shape, generator=gen).to(device) * 0.1
+        x = torch.randn((cfg.batch, cfg.dims[0]), generator=gen).to(device)
+        last = len(params) - 1
+        acts = [edge._dense_act(i, last, cfg.act) for i in range(len(params))]
+
+        def forward():
+            return edge.edge_forward(params, cfg, x)
+
+        def plain():
+            h = x
+            for p, act in zip(params, acts):
+                h = fd.fused_dense_plain(h, p["w"], p["b"], act=act)
+            return h
+
+        def library():
+            h = x
+            for p, act in zip(params, acts):
+                h = torch.addmm(p["b"], h, p["w"])
+                if act == "relu":
+                    h = torch.relu(h)
+            return h
+        check_close(f"{nid} edge_forward library vs kernels", library(),
+                    forward(), tol=rtol, atol=atol)
+        m, shapes = cfg.batch, cfg.layer_shapes
+        forwards.append({
+            "shape": f"{nid} edge_forward M={m} dims={list(cfg.dims)}",
+            "launches": len(params),
+            "ms": graph_ms(forward), "eager_ms": event_ms(forward),
+            "plain_ms": graph_ms(plain), "library_ms": graph_ms(library),
+            "launch_floor_ms": len(params) * empty_ms,
+            **bound(sum(4 * (m * k + k * n + n + m * n) for k, n in shapes),
+                    sum(2.0 * m * k * n for k, n in shapes), PEAK_F32)})
+    for r in layers + forwards:
+        log("timing fused_dense " + json.dumps(r, sort_keys=True))
+    return {"fused_dense": layers, "edge_forward": forwards}
+
+
+def dense_timing_phase(device, empty_ms: float) -> dict:
+    """``fused_dense``'s rows (:func:`fused_dense_timing`, with the block_n
+    sweep), and device ms per call (graph-replayed) and eager ms of
+    ``tiled_gemm`` at the check's canonical case, at (256, 4096, 4096) bf16
+    (both against ``torch.matmul``) and in int8 at 256 x 1024 x 1024
+    (against ``torch._int_mm``), each beside its plain version and its
+    bound."""
     import torch
     from repro_torch.core import tiling
-    from repro_torch.kernels import fused_dense as fd
     from repro_torch.kernels import tiled_gemm as tg
-    gen = torch.Generator().manual_seed(9)
-    rows = {"fused_dense": [], "tiled_gemm": []}
-    for nid in SERVED:
-        cfg = dep.engines[nid].cfg
-        for i, (k, n) in enumerate(cfg.layer_shapes):
-            m = cfg.batch
-            x, w, b, _ = _dense_args(gen, device, m, k, n, "float32", False)
-            blocks = tiling.plan_dense(m, k, n, itemsize=4).blocks
-
-            def kernel():
-                return fd.fused_dense_cuda(x, w, b, act="none",
-                                           block_m=blocks[0],
-                                           block_k=blocks[1],
-                                           block_n=blocks[2])
-
-            def library():
-                return torch.addmm(b, x, w)
-            rtol, atol = TOL_DENSE["float32"]
-            check_close(f"fused_dense {nid}.dense{i} library vs kernel",
-                        library(), kernel(), tol=rtol, atol=atol)
-            rows["fused_dense"].append({
-                "shape": f"{nid}.dense{i} ({m},{k},{n}) f32 act none",
-                "blocks": list(blocks),
-                "ms": graph_ms(kernel), "eager_ms": event_ms(kernel),
-                "plain_ms": graph_ms(lambda: fd.fused_dense_plain(
-                    x, w, b, act="none")),
-                "library_ms": graph_ms(library),
-                **bound(4 * (m * k + k * n + n + m * n), 2.0 * m * k * n,
-                        PEAK_F32)})
+    rows = {**fused_dense_timing(device, empty_ms, sweep=True),
+            "tiled_gemm": []}
+    gen = torch.Generator().manual_seed(10)
     for m, k, n, dtype in ((64, 256, 512, "bfloat16"),
                            (256, 4096, 4096, "bfloat16"),
                            (256, 1024, 1024, "int8")):
@@ -1058,31 +1183,36 @@ def dense_timing_phase(dep, device) -> dict:
             "plain_ms": graph_ms(lambda: tg.tiled_gemm_plain(x, w), **reps),
             "library_ms": graph_ms(library, **reps),
             **bound(nbytes, 2.0 * m * k * n, peak)})
-    for name, rs in rows.items():
-        for r in rs:
-            log(f"timing {name} " + json.dumps(r, sort_keys=True))
+    for r in rows["tiled_gemm"]:
+        log("timing tiled_gemm " + json.dumps(r, sort_keys=True))
     return rows
 
 
 def dense_kernel_entries(errs, launches, timing) -> list:
     """``fused_dense`` at the first served net's calibration (its layers'
     times summed, one launch each), ``tiled_gemm`` at the check's canonical
-    case; their other rows beside them."""
+    case; their other rows (and the five ``edge_forward`` rows) beside
+    them."""
     first = SERVED[0]
     layers = [r for r in timing["fused_dense"]
               if r["shape"].startswith(first + ".")]
     calib = {key: sum(r[key] for r in layers)
-             for key in ("ms", "eager_ms", "plain_ms", "library_ms")}
+             for key in ("ms", "eager_ms", "plain_ms", "library_ms",
+                         "launch_floor_ms")}
     calib.update(bound(sum(r["bytes"] for r in layers),
                        sum(r["ops"] for r in layers), PEAK_F32))
     calib["shape"] = (f"{first} calibration, {len(layers)} launches: "
                       + ", ".join(r["shape"].split(" ", 1)[1]
                                   for r in layers))
     keys = ("shape", "ms", "eager_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by")
+            "bound_by", "launch_floor_ms")
+
+    def pick(r):
+        return {k: r[k] for k in keys if k in r}
     entries = []
     for name, row, others in (
-            ("fused_dense", calib, timing["fused_dense"]),
+            ("fused_dense", calib, timing["fused_dense"]
+             + timing["edge_forward"]),
             ("tiled_gemm", timing["tiled_gemm"][0],
              timing["tiled_gemm"][1:])):
         entries.append({
@@ -1090,8 +1220,7 @@ def dense_kernel_entries(errs, launches, timing) -> list:
             "launches": launches[name]["main"],
             "launches_by_path": launches[name],
             "max_abs_err": errs[name],
-            **{k: row[k] for k in keys},
-            "rows": [{k: r[k] for k in keys} for r in others]})
+            **pick(row), "rows": [pick(r) for r in others]})
     return entries
 
 
@@ -1745,7 +1874,9 @@ def lm_kernel_entries(errs, launches_by_path, per_step, per_tick,
 def edge_times_main(src: pathlib.Path) -> int:
     """``--edge-kernel-times SRC``: phase 5's rows alone (``fused_mlp_q8``
     on the five nets, ``gemm_int8`` at their layer shapes and at 256 x 1024
-    x 1024), built from and run through the port under ``SRC``, so that
+    x 1024) and phase 5b's ``fused_dense`` and ``edge_forward`` rows
+    (without the block_n sweep), built from and run through the port under
+    ``SRC``, so that
     another tree's kernels (a parent commit unpacked beside this one) are
     timed by the same code in the same call.  Prints one JSON line of the
     rows; no ``ok`` line."""
@@ -1755,13 +1886,17 @@ def edge_times_main(src: pathlib.Path) -> int:
         log(card_line())
         from repro_torch.kernels import build
         build.build_all()
-        timing = timing_phase(torch.device("cuda",
-                                           torch.cuda.current_device()))
+        device = torch.device("cuda", torch.cuda.current_device())
+        timing = timing_phase(device)
+        dense = fused_dense_timing(device, timing["empty_graph_ms"],
+                                   sweep=False)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    log(json.dumps({"edge_kernel_times": str(src), **timing},
+    log(json.dumps({"edge_kernel_times": str(src), **timing,
+                    "fused_dense": dense["fused_dense"],
+                    "edge_forward": dense["edge_forward"]},
                    sort_keys=True))
     log(card_line())
     return 0
@@ -1805,7 +1940,7 @@ def main(argv: list) -> int:
                            if "registers" in line})
             log(f"build {name}: ptxas {regs}")
         tensor_core_phase(libs)
-        chunked_ptxas_phase()
+        ptxas_phase()
         device = torch.device("cuda", torch.cuda.current_device())
         errs = kernel_phase(device)
         errs.update(dense_kernel_phase(device))
@@ -1813,7 +1948,7 @@ def main(argv: list) -> int:
         forward = edge_forward_phase(device)
         report = check_cli_phase()
         timing = timing_phase(device)
-        dense_timing = dense_timing_phase(dep, device)
+        dense_timing = dense_timing_phase(device, timing["empty_graph_ms"])
         line = kernels_line(errs, launches, timing)
         line["kernels"] += dense_kernel_entries(errs, {
             "fused_dense": {"main": build_launches["fused_dense"],

@@ -86,7 +86,9 @@ def verify_plan_kernels(plan, *, tenant: str | None = None,
                       _meta(l.n_in, l.n_out, dtype=torch.int8),
                       _meta(l.n_out), block_m=bm, block_k=bk, block_n=bn,
                       out_dtype=F32)
-        api = tiling.plan_dense(m, l.n_in, l.n_out, itemsize=4, hw=hw)
+        # The tile ops.fused_dense launches: planned for the card the
+        # kernel is built for, whatever machine model the plan was given.
+        api = tiling.plan_fused_dense(m, l.n_in, l.n_out, itemsize=4)
         _contract(fs, f"fused_dense (calibration) on {l.name!r}", tenant,
                   l.index, want, fused_dense_contract, _meta(m, l.n_in),
                   _meta(l.n_in, l.n_out), _meta(l.n_out),

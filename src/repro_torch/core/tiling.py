@@ -7,18 +7,27 @@ Three tile sets, each instantiated by its kernels and no other tile taken:
   of 256 threads owns a ``(block_m, block_n)`` output tile and steps over K
   in ``block_k`` chunks through a three-stage ring in shared memory, with
   the products on the int8 tensor cores (``mma.sync``).
-* ``fused_dense`` and f32 ``tiled_gemm`` (``kernels/csrc/gemm_tile.cuh``,
-  CUDA cores): ``TILED_BLOCK_M x TILED_BLOCK_K x TILED_BLOCK_N``, the same
-  shape of CTA, chosen by :func:`plan_dense`.
+* f32 ``tiled_gemm`` (``kernels/csrc/gemm_tile.cuh``, CUDA cores):
+  ``TILED_BLOCK_M x TILED_BLOCK_K x TILED_BLOCK_N``, the same shape of
+  CTA, chosen by :func:`plan_dense`.
+* ``fused_dense`` (``kernels/csrc/fused_dense.cu``, CUDA cores):
+  ``FD_BLOCK_M x FD_BLOCK_K x FD_BLOCK_N``, chosen by
+  :func:`plan_fused_dense`.  One CTA of ``FD_WARPS`` warps owns a
+  ``(block_m, block_n)`` output strip and stages its whole K strip of x
+  and w in shared memory by asynchronous copies issued at entry, or, where
+  K passes ``block_k``, a ring of two ``block_k`` chunks; the warps split
+  K and reduce their partial sums through shared memory.
 * bf16 and int8 ``tiled_gemm`` (``kernels/csrc/tiled_gemm.cu``, tensor
   cores): ``TC_BLOCK_M x TC_BLOCK_N`` with a ``block_k`` of 128 bytes, one
   consumer warpgroup per 64 rows fed by a ``TC_STAGES``-deep ring, chosen
   by :func:`plan_tiled` for the operand size, as the JAX package's
   ``plan_api(m, k, n, itemsize=...)`` chooses.
 
-The planners are one search (:func:`_search`) that scores every tile of a
-set with a roofline model of this card and keeps the cheapest; it is
-memoised, since the kernel wrappers plan on every call.
+The GEMM planners are one search (:func:`_search`) that scores every tile
+of a set with a roofline model of this card and keeps the cheapest;
+:func:`plan_fused_dense` adds to that model a device-memory round trip per
+K stage.  All are memoised, since the kernel wrappers plan on every
+call.
 """
 
 from __future__ import annotations
@@ -50,24 +59,65 @@ def smem_bytes(block_m: int, block_k: int, block_n: int) -> int:
     return STAGES * (block_m + block_n) * (block_k + SKEW)
 
 
-# The tiles gemm_tile.cuh instantiates (GEMM_TILE_FOR_ALL).  Warps own rows,
-# lanes own columns, so block_m is a multiple of the 8 warps and block_n of
-# the 32 lanes.
+# The tiles gemm_tile.cuh instantiates (GEMM_TILE_FOR_ALL) for f32
+# tiled_gemm.  Warps own rows, lanes own columns, so block_m is a multiple of
+# the 8 warps and block_n of the 32 lanes.
 TILED_BLOCK_M = (8, 16, 32, 64)
 TILED_BLOCK_K = (16, 32, 64)
 TILED_BLOCK_N = (32, 64, 128)
 
 
 def dense_tile_ok(block_m: int, block_k: int, block_n: int) -> bool:
-    """A tile of the CUDA-core set (``fused_dense``, f32 ``tiled_gemm``)."""
+    """A tile of f32 ``tiled_gemm``'s CUDA-core set."""
     return (block_m in TILED_BLOCK_M and block_k in TILED_BLOCK_K
             and block_n in TILED_BLOCK_N)
 
 
 def dense_smem_bytes(block_m: int, block_k: int, block_n: int) -> int:
-    """Shared memory of one CUDA-core CTA: f32 and bf16 tiles are staged as
-    f32."""
+    """Shared memory of one f32 ``tiled_gemm`` CUDA-core CTA."""
     return 4 * (block_m * block_k + block_k * block_n)
+
+
+# The tiles fused_dense.cu instantiates (FD_FOR_ALL): block_m x block_n
+# output strips of at most 512 outputs (16 a lane), instantiated per
+# (block_m, block_n); block_k is the K chunk of one stage, a run-time value,
+# a multiple of 16 so every chunk starts on a 16-byte boundary in both
+# dtypes.
+FD_BLOCK_M = (8, 16)
+FD_BLOCK_K = (16, 32, 64, 128, 256, 512, 1024, 2048)
+FD_BLOCK_N = (8, 16, 32, 64)
+FD_MAX_OUTPUTS = 512
+FD_WARPS = 8          # fused_dense.cu's kWarps: the split of K
+
+
+def fused_dense_tile_ok(block_m: int, block_k: int, block_n: int) -> bool:
+    """A tile of ``fused_dense``'s set."""
+    return (block_m in FD_BLOCK_M and block_k in FD_BLOCK_K
+            and block_n in FD_BLOCK_N
+            and block_m * block_n <= FD_MAX_OUTPUTS)
+
+
+def fused_dense_stages(k: int, block_k: int) -> int:
+    """K stages of one ``fused_dense`` CTA: device-memory round trips."""
+    return -(-k // block_k)
+
+
+def fused_dense_smem_bytes(block_m: int, block_k: int, block_n: int, k: int,
+                           itemsize: int) -> int:
+    """Shared memory of one ``fused_dense`` CTA at depth ``k``, as
+    ``fused_dense.cu``'s ``layout()`` computes it (the launch is refused
+    otherwise): one buffer of a chunk of ``min(k, block_k)`` K values, two
+    when K takes more than one chunk, plus the warps' partial sums (f32).
+    A chunk holds the x rows, each padded to an odd number of 16-byte
+    units (a warp's two row groups then read distinct banks), and the w
+    rows of the chunk rounded up to 4, ``block_n`` wide."""
+    chunk = min(k, block_k)
+    x_row = -(-chunk * itemsize // 16) * 16
+    if x_row // 16 % 2 == 0:
+        x_row += 16
+    stage = block_m * x_row + -(-chunk // 4) * 4 * block_n * itemsize
+    buffers = 1 if k <= block_k else 2
+    return buffers * stage + FD_WARPS * block_m * block_n * 4
 
 
 # The tiles tiled_gemm.cu's tensor-core kernel instantiates for bf16 and
@@ -161,15 +211,48 @@ def plan_api(m: int, k: int, n: int, *,
                    hw.peak_int8_ops, hw, smem_bytes)
 
 
-def plan_dense(m: int, k: int, n: int, *, itemsize: int = 4,
+def plan_dense(m: int, k: int, n: int, *,
                hw: hwlib.H100 = hwlib.H100_SXM) -> ApiPlan:
-    """Cheapest CUDA-core tile for an (m, k, n) ``fused_dense`` (f32 or
-    bf16 operands, widened to f32) or f32 ``tiled_gemm``, charged at
-    ``hw.f32_fma_ops``."""
+    """Cheapest CUDA-core tile for an (m, k, n) f32 ``tiled_gemm``, charged
+    at ``hw.f32_fma_ops``."""
+    return _search(m, k, n, (TILED_BLOCK_M, TILED_BLOCK_K, TILED_BLOCK_N),
+                   4, hw.f32_fma_ops, hw, dense_smem_bytes)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_fused_dense(m: int, k: int, n: int, *, itemsize: int = 4,
+                     hw: hwlib.H100 = hwlib.H100_SXM) -> ApiPlan:
+    """Cheapest ``fused_dense`` tile for an (m, k, n) layer with f32 or
+    bf16 operands: the launch, a device-memory round trip
+    (``hw.dram_round_trip_s``) per K stage, then the larger of the CTAs'
+    f32 FMAs (waves over the SMs, the K padding included) and the HBM
+    traffic (x once per N strip, w once per M strip).  A tile whose shared
+    memory passes ``hw.smem_bytes`` is never taken.  A round trip outweighs
+    what a narrower strip saves at the widths the port runs, so the plan
+    makes the fewest K stages that budget allows; ties go to the smaller
+    ``block_k``."""
     if itemsize not in (2, 4):
         raise ValueError(f"no fused_dense tiles for {itemsize}-byte operands")
-    return _search(m, k, n, (TILED_BLOCK_M, TILED_BLOCK_K, TILED_BLOCK_N),
-                   itemsize, hw.f32_fma_ops, hw, dense_smem_bytes)
+    per_sm_ops = hw.f32_fma_ops / hw.sms
+    best: tuple | None = None
+    for bm, bk, bn in itertools.product(FD_BLOCK_M, FD_BLOCK_K, FD_BLOCK_N):
+        smem = fused_dense_smem_bytes(bm, bk, bn, k, itemsize)
+        if not fused_dense_tile_ok(bm, bk, bn) or smem > hw.smem_bytes:
+            continue
+        r_m, r_n = math.ceil(m / bm), math.ceil(n / bn)
+        stages = fused_dense_stages(k, bk)
+        waves = math.ceil(r_m * r_n / hw.sms)
+        t_compute = waves * 2.0 * bm * bn * (-(-k // 4) * 4) / per_sm_ops
+        traffic = itemsize * (m * k * r_n + k * n * r_m) + 4 * m * n
+        est = (hw.kernel_overhead_s + stages * hw.dram_round_trip_s
+               + max(t_compute, traffic / hw.hbm_bw))
+        score = (est, stages, bk, -bn)
+        if best is None or score < best[0]:
+            best = (score, ApiPlan(bm, bk, bn, smem, est))
+    if best is None:
+        raise ValueError(f"fused_dense: no tile fits ({m}, {k}, {n}) in "
+                         f"{hw.smem_bytes} bytes of shared memory")
+    return best[1]
 
 
 def plan_tiled(m: int, k: int, n: int, *, itemsize: int = 2,
@@ -182,7 +265,7 @@ def plan_tiled(m: int, k: int, n: int, *, itemsize: int = 2,
     and w are charged to the 50 MB L2, not to HBM: each operand is read
     from HBM once."""
     if itemsize == 4:
-        return plan_dense(m, k, n, itemsize=4, hw=hw)
+        return plan_dense(m, k, n, hw=hw)
     rates = {1: hw.peak_int8_ops, 2: hw.peak_bf16_ops}
     if itemsize not in rates:
         raise ValueError(f"no tiled_gemm tiles for {itemsize}-byte operands")

@@ -7,8 +7,10 @@ package's TPU model carries: ``hbm_bw``, ``kernel_overhead_s`` and
 plays the role the TPU model's VMEM size plays.  ``peak_bf16_ops`` (the
 tensor cores, which bf16 ``tiled_gemm`` runs on) and ``f32_fma_ops`` (the
 CUDA cores, which f32 ``tiled_gemm`` and ``fused_dense`` run on) are read
-only by their tile planner, so they stay out of the edge plans' keys
-(``plan_key: False``).
+only by their tile planner, and ``dram_round_trip_s`` (one round trip to
+device memory, which ``fused_dense``'s planner charges per K stage) only by
+that planner, so they stay out of the edge plans' keys (``plan_key:
+False``).
 
 Rates and sizes are the H100 SXM datasheet's (not measured on a card).  The
 two launch-cost terms are placeholders until a characterization slice fits
@@ -41,6 +43,10 @@ class H100:
                                              metadata=_NOT_IN_PLAN_KEY)
     f32_fma_ops: float = dataclasses.field(default=67e12,
                                            metadata=_NOT_IN_PLAN_KEY)
+    # Placeholder, not measured: one dependent round trip from an SM to
+    # device memory and back.
+    dram_round_trip_s: float = dataclasses.field(default=6e-7,
+                                                 metadata=_NOT_IN_PLAN_KEY)
 
 
 H100_SXM = H100()

@@ -1,5 +1,5 @@
-// gemm_tile.cuh: the K loop of one (BM, BN) output tile, shared by
-// tiled_gemm.cu and fused_dense.cu.
+// gemm_tile.cuh: the K loop of one (BM, BN) output tile of f32 tiled_gemm
+// (tiled_gemm.cu's CUDA-core path; no other kernel includes it).
 //
 // One CTA of 256 threads (8 warps) owns the tile.  Warp ty computes rows
 // ty, ty + 8, ... (BM / 8 of them) and lane tx the columns tx, tx + 32, ...
@@ -7,118 +7,64 @@
 // accumulators.  K is stepped in BK chunks staged through shared memory,
 // zero-filled past the ragged edges of M, K and N, so the caller pads
 // nothing.  In the inner loop a warp reads one x value per row (a broadcast)
-// and 32 consecutive w values per column group (one per bank).
-//
-// int8 operands accumulate exactly in int32 with __dp4a: the x tile is
-// [BM][BK] and the w tile is stored transposed, [BN][BK + 4], so each
-// __dp4a reads four consecutive K values of both operands; the 4-byte row
-// padding keeps a warp's 32 column reads on distinct banks.  f32 and bf16
-// operands are widened to f32 as they are staged (a bf16 product is exact
-// in f32) and accumulate in f32 by FMA in K order.
+// and 32 consecutive w values per column group (one per bank).  Products
+// accumulate in f32 by FMA in K order.
 
 #pragma once
 
-#include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <type_traits>
 
 namespace gemm_tile {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T, int BM, int BN, int BK>
+template <int BM, int BN, int BK>
 struct Tile {
-  static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
-  using Acc = typename std::conditional<kInt8, int, float>::type;
   static constexpr int RM = BM / 8;    // rows per thread
   static constexpr int RN = BN / 32;   // columns per thread
-  static constexpr int kWStride = BK + 4;   // int8: transposed w row
   static_assert(BM % 8 == 0 && BN % 32 == 0, "tile must cover the warps");
-  static_assert(BK % 4 == 0, "__dp4a takes 4 values");
 
   static constexpr size_t smem_bytes() {
-    return kInt8 ? static_cast<size_t>(BM * BK + BN * kWStride)
-                 : sizeof(float) * static_cast<size_t>(BM * BK + BK * BN);
+    return sizeof(float) * static_cast<size_t>(BM * BK + BK * BN);
   }
 
   // acc[i][j] += sum_k x[m0 + ty + 8 i][k] * w[k][n0 + tx + 32 j].
-  __device__ static void run(const T* __restrict__ x, const T* __restrict__ w,
+  __device__ static void run(const float* __restrict__ x,
+                             const float* __restrict__ w,
                              int m, int k, int n, int m0, int n0,
-                             unsigned char* smem, Acc (&acc)[RM][RN]) {
+                             unsigned char* smem, float (&acc)[RM][RN]) {
     const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
 #pragma unroll
     for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < RN; ++j) acc[i][j] = 0;
+      for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
 
+    float* xs = reinterpret_cast<float*>(smem);     // [BM][BK]
+    float* ws = xs + BM * BK;                       // [BK][BN]
     for (int k0 = 0; k0 < k; k0 += BK) {
-      if constexpr (kInt8) {
-        int8_t* xt = reinterpret_cast<int8_t*>(smem);   // [BM][BK]
-        int8_t* wt = xt + BM * BK;                      // [BN][BK + 4]
-        for (int idx = tid; idx < BM * BK; idx += kThreads) {
-          const int r = idx / BK, kk = idx - r * BK;
-          const int row = m0 + r, col = k0 + kk;
-          xt[idx] = (row < m && col < k) ? x[(size_t)row * k + col] : 0;
-        }
-        for (int idx = tid; idx < BK * BN; idx += kThreads) {
-          const int kk = idx / BN, c = idx - kk * BN;
-          const int row = k0 + kk, col = n0 + c;
-          wt[c * kWStride + kk] =
-              (row < k && col < n) ? w[(size_t)row * n + col] : 0;
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int k4 = 0; k4 < BK / 4; ++k4) {
-          int a[RM], b[RN];
+      for (int idx = tid; idx < BM * BK; idx += kThreads) {
+        const int r = idx / BK, kk = idx - r * BK;
+        const int row = m0 + r, col = k0 + kk;
+        xs[idx] = (row < m && col < k) ? x[(size_t)row * k + col] : 0.f;
+      }
+      for (int idx = tid; idx < BK * BN; idx += kThreads) {
+        const int kk = idx / BN, c = idx - kk * BN;
+        const int row = k0 + kk, col = n0 + c;
+        ws[idx] = (row < k && col < n) ? w[(size_t)row * n + col] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int kk = 0; kk < BK; ++kk) {
+        float a[RM], b[RN];
 #pragma unroll
-          for (int i = 0; i < RM; ++i)
-            a[i] = *reinterpret_cast<const int*>(xt + (ty + 8 * i) * BK +
-                                                 4 * k4);
+        for (int i = 0; i < RM; ++i) a[i] = xs[(ty + 8 * i) * BK + kk];
+#pragma unroll
+        for (int j = 0; j < RN; ++j) b[j] = ws[kk * BN + tx + 32 * j];
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
 #pragma unroll
           for (int j = 0; j < RN; ++j)
-            b[j] = *reinterpret_cast<const int*>(
-                wt + (tx + 32 * j) * kWStride + 4 * k4);
-#pragma unroll
-          for (int i = 0; i < RM; ++i)
-#pragma unroll
-            for (int j = 0; j < RN; ++j)
-              acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-        }
-      } else {
-        float* xs = reinterpret_cast<float*>(smem);     // [BM][BK]
-        float* ws = xs + BM * BK;                       // [BK][BN]
-        for (int idx = tid; idx < BM * BK; idx += kThreads) {
-          const int r = idx / BK, kk = idx - r * BK;
-          const int row = m0 + r, col = k0 + kk;
-          xs[idx] = (row < m && col < k) ? to_f32(x[(size_t)row * k + col])
-                                         : 0.f;
-        }
-        for (int idx = tid; idx < BK * BN; idx += kThreads) {
-          const int kk = idx / BN, c = idx - kk * BN;
-          const int row = k0 + kk, col = n0 + c;
-          ws[idx] = (row < k && col < n) ? to_f32(w[(size_t)row * n + col])
-                                         : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int kk = 0; kk < BK; ++kk) {
-          float a[RM], b[RN];
-#pragma unroll
-          for (int i = 0; i < RM; ++i) a[i] = xs[(ty + 8 * i) * BK + kk];
-#pragma unroll
-          for (int j = 0; j < RN; ++j) b[j] = ws[kk * BN + tx + 32 * j];
-#pragma unroll
-          for (int i = 0; i < RM; ++i)
-#pragma unroll
-            for (int j = 0; j < RN; ++j)
-              acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
+            acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
       }
       __syncthreads();
     }

@@ -39,10 +39,12 @@
 // * The epilogue rounds once (bf16 round to nearest even) and masks ragged
 //   stores.
 //
-// f32 stays on CUDA cores (gemm_tile.cuh, shared with fused_dense.cu): the
+// f32 stays on CUDA cores (gemm_tile.cuh, included by no other kernel): the
 // tensor cores take f32 only as TF32, a 10-bit mantissa, which would break
 // the reference's 1e-5.
 
+#include <cstdint>
+#include <cuda_bf16.h>
 #include <type_traits>
 
 #include "gemm_tile.cuh"
@@ -61,10 +63,10 @@ __global__ void __launch_bounds__(gemm_tile::kThreads)
 tiled_gemm_f32_kernel(const float* __restrict__ x,
                       const float* __restrict__ w, float* __restrict__ out,
                       int m, int k, int n) {
-  using G = Tile<float, BM, BN, BK>;
+  using G = Tile<BM, BN, BK>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  typename G::Acc acc[G::RM][G::RN];
+  float acc[G::RM][G::RN];
   G::run(x, w, m, k, n, m0, n0, smem, acc);
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
 #pragma unroll
@@ -84,7 +86,7 @@ int launch_f32(const void* x, const void* w, void* out, int m, int k, int n,
                cudaStream_t stream) {
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
   tiled_gemm_f32_kernel<BM, BN, BK>
-      <<<grid, gemm_tile::kThreads, Tile<float, BM, BN, BK>::smem_bytes(),
+      <<<grid, gemm_tile::kThreads, Tile<BM, BN, BK>::smem_bytes(),
          stream>>>(static_cast<const float*>(x),
                    static_cast<const float*>(w), static_cast<float*>(out), m,
                    k, n);

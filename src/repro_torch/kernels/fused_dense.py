@@ -10,9 +10,10 @@ share one dtype, f32 or bf16; the bias is f32; M, K and N may be
 ragged.
 
 The CUDA kernel is ``csrc/fused_dense.cu``, with the block shape from
-``core/tiling.py``'s :func:`plan_dense`; :func:`fused_dense_plain` is the
-same function in plain PyTorch, used for CPU tensors and as the kernel's
-oracle on the card.
+``core/tiling.py``'s :func:`plan_fused_dense`: a ``(block_m, block_n)``
+output strip per CTA, its K strip staged in ``block_k`` chunks and split
+over the warps.  :func:`fused_dense_plain` is the same function in plain
+PyTorch, used for CPU tensors and as the kernel's oracle on the card.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch import hw as hwlib
 from repro_torch.core import tiling
 from repro_torch.kernels import build
 
@@ -52,17 +54,30 @@ def fused_dense_contract(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                          out_dtype: torch.dtype | None = None):
     """The kernel's argument checks on shapes, dtypes, ``act`` and the tile
     alone (meta tensors do): returns the output's ``(shape, dtype)`` or
-    raises ``ValueError``."""
+    raises ``ValueError``.  The tile must be one of
+    :func:`tiling.fused_dense_tile_ok`'s set and fit one block's shared
+    memory at this depth."""
     _check_act(act)
-    if not tiling.dense_tile_ok(block_m, block_k, block_n):
+    if not tiling.fused_dense_tile_ok(block_m, block_k, block_n):
         raise ValueError(f"fused_dense: tile {(block_m, block_k, block_n)} "
-                         f"is not one the kernel takes")
+                         f"is not one the kernel takes (block_m in "
+                         f"{tiling.FD_BLOCK_M}, block_k in "
+                         f"{tiling.FD_BLOCK_K}, block_n in "
+                         f"{tiling.FD_BLOCK_N}, at most "
+                         f"{tiling.FD_MAX_OUTPUTS} outputs)")
     if x.dtype not in _DTYPES or w.dtype != x.dtype or x.dim() != 2 \
             or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"fused_dense: want (M, K) @ (K, N), both f32 or "
                          f"both bf16, got {x.dtype} {tuple(x.shape)} @ "
                          f"{w.dtype} {tuple(w.shape)}")
     m, n = x.shape[0], w.shape[1]
+    smem = tiling.fused_dense_smem_bytes(block_m, block_k, block_n,
+                                         x.shape[1], x.element_size())
+    if smem > hwlib.H100_SXM.smem_bytes:
+        raise ValueError(f"fused_dense: tile {(block_m, block_k, block_n)} "
+                         f"at K = {x.shape[1]} needs {smem} bytes of shared "
+                         f"memory, over one block's "
+                         f"{hwlib.H100_SXM.smem_bytes}")
     if b.dtype != torch.float32 or tuple(b.shape) != (n,):
         raise ValueError(f"fused_dense: want an f32 bias ({n},), got "
                          f"{b.dtype} {tuple(b.shape)}")
@@ -95,7 +110,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.library("fused_dense")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.repro_fused_dense.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                      ci, ci, ci, ci, vp]
+                                      ci, ci, ci, ci, ci, vp]
     lib.repro_fused_dense.restype = ci
     return lib
 
@@ -126,7 +141,9 @@ def fused_dense_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         x.data_ptr(), w.data_ptr(), b.data_ptr(),
         None if residual is None else residual.data_ptr(), out.data_ptr(),
         int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-        ACTS.index(act), m, k, n, block_m, block_k, block_n, stream)
+        ACTS.index(act), m, k, n, block_m, block_k, block_n,
+        tiling.fused_dense_smem_bytes(block_m, block_k, block_n, k,
+                                      x.element_size()), stream)
     if err != 0:
         raise RuntimeError(f"fused_dense: CUDA error {err}")
     launches += 1

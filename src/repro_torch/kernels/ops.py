@@ -141,12 +141,12 @@ def fused_dense(x, w, b, residual=None, *, act: str = "relu",
                 block_n: int | None = None,
                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``act(x @ w + b) (+ residual)`` in one launch, f32 accumulation,
-    over the caller's blocks or those of :func:`tiling.plan_dense`."""
+    over the caller's blocks or those of :func:`tiling.plan_fused_dense`."""
     bm, bk, bn = _blocks(
         "fused_dense",
-        lambda: tiling.plan_dense(x.shape[0], x.shape[1], w.shape[1],
-                                  itemsize=x.element_size()),
-        tiling.dense_tile_ok, block_m, block_k, block_n)
+        lambda: tiling.plan_fused_dense(x.shape[0], x.shape[1], w.shape[1],
+                                        itemsize=x.element_size()),
+        tiling.fused_dense_tile_ok, block_m, block_k, block_n)
     if x.device.type == "cpu":
         return _fd.fused_dense_plain(x, w, b, residual, act=act,
                                      out_dtype=out_dtype)

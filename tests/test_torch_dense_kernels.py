@@ -7,11 +7,15 @@ same seeded numpy inputs.  Tolerances are the reference's own:
 ``tiled_gemm`` exact for int8, rtol 1e-5 (atol 8e-5) for f32 and 2e-2
 (atol 0.16) for bf16; ``fused_dense`` rtol 1e-5 / atol 1e-4 for f32.  The
 bf16 ``fused_dense`` cases, which the reference does not test, are held to
-its bf16 ``tiled_gemm`` tolerance.  The ``gpu`` tests hold each CUDA kernel
-to its plain version on a card and skip without one.
+its bf16 ``tiled_gemm`` tolerance.  ``_split_k_emulated`` writes
+``fused_dense.cu``'s summation order (K chunks, the warps' slices, the
+partials in warp order) in torch and is held to the same references.  The
+``gpu`` tests hold each CUDA kernel to its plain version on a card and skip
+without one.
 """
 
 import dataclasses
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +24,7 @@ import torch
 
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref
+from repro_torch import hw
 from repro_torch.core import tiling
 from repro_torch.kernels import fused_dense as fd
 from repro_torch.kernels import ops
@@ -27,6 +32,20 @@ from repro_torch.kernels import tiled_gemm as tg
 
 ACTS = ["none", "relu", "gelu", "silu", "tanh", "sigmoid"]
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+EDGE_NETS = ("jet_tagger", "tau_select", "vae", "qubit", "autoencoder")
+
+
+def _edge_layer_shapes():
+    from repro_torch.models import edge
+    return [(8, k, n) for name in EDGE_NETS
+            for k, n in edge.edge_config(name).layer_shapes]
+
+
+# fused_dense's planner and order cases: the 26 edge layers at M = 8 (19
+# distinct shapes; x rows of K = 27 and 250 and w rows of N = 2 and 5 are
+# not 16-byte multiples), a ragged M = 13 and a multi-strip M = 200.
+DENSE_SHAPES = sorted(set(_edge_layer_shapes())) + [(13, 100, 70),
+                                                    (200, 300, 260)]
 
 
 def _randn(rng, shape, scale=1.0):
@@ -157,6 +176,20 @@ def test_tiled_planner_picks_legal_tiles(itemsize):
         tiling.plan_tiled(8, 8, 8, itemsize=8)
 
 
+def test_tiled_gemm_f32_tiles_are_unchanged():
+    """f32 tiled_gemm keeps gemm_tile.cuh's set and its planner's choices;
+    fused_dense's own tiles do not reach it."""
+    assert (tiling.TILED_BLOCK_M, tiling.TILED_BLOCK_K,
+            tiling.TILED_BLOCK_N) == ((8, 16, 32, 64), (16, 32, 64),
+                                      (32, 64, 128))
+    for m, k, n in [(64, 256, 512), (33, 100, 130), (1, 7, 5),
+                    (200, 300, 260), (8, 250, 96)]:
+        assert tiling.plan_tiled(m, k, n, itemsize=4) == \
+            tiling.plan_dense(m, k, n)
+    assert not tiling.tiled_tile_ok(8, 256, 16, 4)
+    assert not tiling.dense_tile_ok(8, 256, 16)
+
+
 @pytest.mark.parametrize("itemsize,rate", [(1, "peak_int8_ops"),
                                            (2, "peak_bf16_ops"),
                                            (4, "f32_fma_ops")])
@@ -175,15 +208,15 @@ def test_tiled_planner_charges_the_given_cards_rate(itemsize, rate):
 
 
 def test_planner_rates_stay_out_of_the_edge_plan_keys():
-    """The tiled planner's rates enter no edge plan's key; the rate the
-    edge planner reads does."""
-    from repro_torch import hw
+    """The tiled and fused_dense planners' rates enter no edge plan's key;
+    the rate the edge planner reads does."""
     from repro_torch.models import edge
     from repro_torch.plan import plan_deployment
     cfg = edge.edge_config("jet_tagger")
     key = plan_deployment(cfg, device="cpu").key
     assert plan_deployment(cfg, device="cpu", hw=dataclasses.replace(
-        hw.H100_SXM, peak_bf16_ops=1.0, f32_fma_ops=1.0)).key == key
+        hw.H100_SXM, peak_bf16_ops=1.0, f32_fma_ops=1.0,
+        dram_round_trip_s=1.0)).key == key
     assert plan_deployment(cfg, device="cpu", hw=dataclasses.replace(
         hw.H100_SXM, peak_int8_ops=1.0)).key != key
 
@@ -257,6 +290,154 @@ def test_fused_dense_refuses_what_the_kernel_does_not_take():
         out_dtype=torch.bfloat16) == ((8, 32), torch.bfloat16)
 
 
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _fd_tiles():
+    return [t for t in itertools.product(tiling.FD_BLOCK_M, tiling.FD_BLOCK_K,
+                                         tiling.FD_BLOCK_N)
+            if tiling.fused_dense_tile_ok(*t)]
+
+
+@pytest.mark.parametrize("m,k,n", DENSE_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_dense_planner_takes_the_fewest_stages(m, k, n, dtype):
+    """The planner's tile is one the contract takes, within one block's
+    shared memory, sized as the kernel sizes it, and makes the fewest K
+    stages (device-memory round trips) any tile of the set that fits
+    makes."""
+    dt = getattr(torch, dtype)
+    isz = dt.itemsize
+    api = tiling.plan_fused_dense(m, k, n, itemsize=isz)
+    assert fd.fused_dense_contract(
+        _meta((m, k), dt), _meta((k, n), dt), _meta((n,), torch.float32),
+        act="relu", block_m=api.block_m, block_k=api.block_k,
+        block_n=api.block_n) == ((m, n), dt)
+    assert api.smem_bytes == tiling.fused_dense_smem_bytes(*api.blocks, k,
+                                                           isz)
+    assert api.smem_bytes <= hw.H100_SXM.smem_bytes == 232_448
+    fewest = min(tiling.fused_dense_stages(k, bk) for bm, bk, bn
+                 in _fd_tiles() if tiling.fused_dense_smem_bytes(
+                     bm, bk, bn, k, isz) <= hw.H100_SXM.smem_bytes)
+    assert tiling.fused_dense_stages(k, api.block_k) == fewest == 1
+
+
+def test_fused_dense_planner_charges_each_round_trip():
+    """With less shared memory the strip takes more K stages, and the
+    estimate grows by one round trip (``dram_round_trip_s``) for each."""
+    m, k, n = 8, 2000, 64
+    one = tiling.plan_fused_dense(m, k, n)
+    assert tiling.fused_dense_stages(k, one.block_k) == 1
+    small = dataclasses.replace(hw.H100_SXM, smem_bytes=48 * 1024)
+    ring = tiling.plan_fused_dense(m, k, n, hw=small)
+    stages = tiling.fused_dense_stages(k, ring.block_k)
+    assert stages > 1 and ring.smem_bytes <= 48 * 1024
+    slow = dataclasses.replace(small, dram_round_trip_s=1e-3)
+    assert tiling.plan_fused_dense(m, k, n, hw=slow).est_s - ring.est_s == \
+        pytest.approx(stages * (1e-3 - hw.H100_SXM.dram_round_trip_s))
+    with pytest.raises(ValueError, match="no tile fits"):
+        tiling.plan_fused_dense(m, k, n, hw=dataclasses.replace(
+            hw.H100_SXM, smem_bytes=1024))
+
+
+@pytest.mark.parametrize("blocks", [
+    (8, 16, 128), (16, 64, 64), (32, 64, 16), (8, 8, 16), (8, 48, 16),
+    (8, 4096, 16), (64, 64, 128)])
+def test_fused_dense_contract_refuses_tiles_outside_its_set(blocks):
+    """The contract and ``ops.fused_dense`` refuse a tile outside
+    ``fused_dense``'s set (``block_n`` 128, 1024 outputs, ``block_m`` 32,
+    ``block_k`` 8, 48 or 4096, the f32 ``tiled_gemm`` tile (64, 64, 128))."""
+    x, w = _meta((8, 64), torch.float32), _meta((64, 32), torch.float32)
+    b = _meta((32,), torch.float32)
+    assert not tiling.fused_dense_tile_ok(*blocks)
+    with pytest.raises(ValueError, match="not one the kernel takes"):
+        fd.fused_dense_contract(x, w, b, act="relu", block_m=blocks[0],
+                                block_k=blocks[1], block_n=blocks[2])
+    with pytest.raises(ValueError, match="not one the kernel takes"):
+        ops.fused_dense(x, w, b, block_m=blocks[0], block_k=blocks[1],
+                        block_n=blocks[2])
+
+
+def test_fused_dense_contract_refuses_a_strip_over_shared_memory():
+    k = 4096
+    x, w = _meta((16, k), torch.float32), _meta((k, 32), torch.float32)
+    b = _meta((32,), torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        fd.fused_dense_contract(x, w, b, act="relu", block_m=16,
+                                block_k=2048, block_n=32)
+    assert fd.fused_dense_contract(x, w, b, act="relu", block_m=16,
+                                   block_k=512, block_n=32) == \
+        ((16, 32), torch.float32)
+
+
+def _split_k_emulated(x, w, b, residual=None, *, act, block_k,
+                      out_dtype=None):
+    """``csrc/fused_dense.cu``'s arithmetic in torch, step for step: K in
+    chunks of ``block_k``; in each, its length rounded up to 4 and cut into
+    ``FD_WARPS`` slices of a multiple of 4, each warp adding its slice in K
+    order onto its running partial by FMA (an f64 sum of the exact f64
+    product, rounded to f32); the partials added in warp order; then the
+    bias, the activation, the residual and the cast."""
+    m, k = x.shape
+    warps = tiling.FD_WARPS
+    # Zero rows and columns past K stand for the kernel's zero-filled pad.
+    x64 = torch.cat([x.double(), torch.zeros((m, block_k + 4))], 1)
+    w64 = torch.cat([w.double(), torch.zeros((block_k + 4, w.shape[1]))])
+    part = torch.zeros((warps, m, w.shape[1]), dtype=torch.float32)
+    lanes = torch.arange(warps)
+    for k0 in range(0, k, block_k):
+        kq = -(-min(block_k, k - k0) // 4) * 4
+        step = -(-kq // (4 * warps)) * 4
+        for i in range(step):           # every warp's i-th K of its slice
+            off = lanes * step + i
+            kk = torch.where(off < kq, k0 + off, k + 1)
+            prod = x64[:, kk].T[:, :, None] * w64[kk][:, None, :]
+            part = (part.double() + prod).float()
+    s = part[0]
+    for q in range(1, warps):
+        s = s + part[q]
+    y = fd._ACTIVATE[act](s + b.float())
+    if residual is not None:
+        y = y + residual.float()
+    return y.to(out_dtype or x.dtype)
+
+
+@pytest.mark.parametrize("m,k,n", DENSE_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_dense_split_k_order_matches_pallas(m, k, n, dtype):
+    """The kernel's order at the planner's ``block_k`` (one stage) and at
+    ``block_k`` 16 (a ring of chunks), every activation with and without a
+    residual, against ``ref.fused_dense`` and the Pallas kernel in
+    interpret mode (the kernel for every f32 case and for one bf16 case a
+    shape, ``ref.fused_dense`` for all)."""
+    rtol, atol = (1e-5, 1e-4) if dtype == "float32" else (2e-2, 0.16)
+    planned = tiling.plan_fused_dense(m, k, n, itemsize=2 if dtype ==
+                                      "bfloat16" else 4).block_k
+    for residual in (False, True):
+        x, w, b, r = _dense_inputs(49, m, k, n, residual)
+        w = w * np.float32(k ** -0.5)
+        j = [None if a is None else jnp.asarray(a, getattr(jnp, dtype))
+             for a in (x, w)] + [jnp.asarray(b)] + \
+            [None if r is None else jnp.asarray(r, getattr(jnp, dtype))]
+        t = [None if a is None else torch.from_numpy(a).to(
+            getattr(torch, dtype)) for a in (x, w)] + \
+            [torch.from_numpy(b)] + \
+            [None if r is None else torch.from_numpy(r).to(
+                getattr(torch, dtype))]
+        for act in ACTS:
+            wants = [ref.fused_dense(*j, act=act)]
+            if dtype == "float32" or (residual and act == "relu"):
+                wants.append(ref_ops.fused_dense(*j, act=act))
+            for block_k in dict.fromkeys((planned, 16)):
+                got = _split_k_emulated(*t, act=act, block_k=block_k)
+                assert got.dtype == getattr(torch, dtype)
+                for want in wants:
+                    np.testing.assert_allclose(
+                        _np(got), np.asarray(want, np.float32), rtol=rtol,
+                        atol=atol)
+
+
 def test_non_cpu_tensors_never_reach_plain(monkeypatch):
     def forbidden(*a, **k):
         raise AssertionError("plain version reached")
@@ -328,11 +509,15 @@ def test_tiled_gemm_cuda_matches_plain_on_card(cuda_device, m, k, n, dtype):
 @pytest.mark.parametrize("residual", [False, True])
 def test_fused_dense_cuda_matches_plain_on_card(cuda_device, act, dtype,
                                                 residual):
-    for m, k, n in ((8, 16, 64), (13, 100, 70), (8, 320, 320)):
+    """Every edge layer shape (the unaligned rows among them), one row,
+    M = 13 and 200, K = 0 and a wide (8, 320, 320), at the planner's
+    tile."""
+    for m, k, n in DENSE_SHAPES + [(1, 27, 2), (1, 250, 5), (8, 0, 16),
+                                   (13, 0, 5), (8, 320, 320)]:
         x, w, b, r = _dense_inputs(48, m, k, n, residual)
         dt = getattr(torch, dtype)
         args = [torch.from_numpy(x).to(cuda_device, dt),
-                torch.from_numpy(w * k ** -0.5).to(cuda_device, dt),
+                torch.from_numpy(w * max(k, 1) ** -0.5).to(cuda_device, dt),
                 torch.from_numpy(b).to(cuda_device),
                 None if r is None else torch.from_numpy(r).to(cuda_device,
                                                               dt)]
@@ -341,5 +526,44 @@ def test_fused_dense_cuda_matches_plain_on_card(cuda_device, act, dtype,
         torch.cuda.synchronize()
         assert got.dtype == dt
         rtol, atol = (1e-5, 1e-4) if dtype == "float32" else (2 ** -7, 1e-2)
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_dense_cuda_every_tile_ring_and_offset_on_card(cuda_device,
+                                                             dtype):
+    """Every strip of the set at block_k 16 (a ring of chunks), 64 and the
+    largest that fits, on ragged and unaligned shapes; and operands whose
+    base is one element off a 16-byte boundary (narrower copies)."""
+    dt = getattr(torch, dtype)
+    rtol, atol = (1e-5, 1e-4) if dtype == "float32" else (2 ** -7, 1e-2)
+    for m, k, n in [(13, 100, 70), (8, 27, 5), (200, 300, 260),
+                    (17, 250, 2)]:
+        x, w, b, r = _dense_inputs(50, m, k, n, True)
+        args = [torch.from_numpy(x).to(cuda_device, dt),
+                torch.from_numpy(w * k ** -0.5).to(cuda_device, dt),
+                torch.from_numpy(b).to(cuda_device),
+                torch.from_numpy(r).to(cuda_device, dt)]
+        want = fd.fused_dense_plain(*args, act="gelu")
+        for bm, bk, bn in _fd_tiles():
+            if bk not in (16, 64, 2048) or tiling.fused_dense_smem_bytes(
+                    bm, bk, bn, k, dt.itemsize) > hw.H100_SXM.smem_bytes:
+                continue
+            got = fd.fused_dense_cuda(*args, act="gelu", block_m=bm,
+                                      block_k=bk, block_n=bn)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                       atol=atol)
+        shifted = []
+        for t in args[:2] + args[3:]:
+            flat = torch.empty(t.numel() + 1, dtype=dt, device=cuda_device)
+            view = flat[1:].view(t.shape)
+            view.copy_(t)
+            shifted.append(view)
+        got = ops.fused_dense(shifted[0], shifted[1], args[2], shifted[2],
+                              act="gelu")
+        torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                    atol=atol)
