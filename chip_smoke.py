@@ -32,16 +32,32 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    off a 16-byte boundary; and ``tiled_gemm`` in int8 (bit-exact), f32 and bf16 at
    ragged and large shapes, with the planner's block and three more of its
    dtype's tile set (tensor cores for int8 and bf16, CUDA cores for f32);
+3c. characterize: the quick sweep of ``repro_torch.characterize`` on the
+   card (each point a graph-replayed call timed as the engine pays it),
+   every fitted constant and its relative residual printed; then
+   ``Deployment.build(["jet_tagger", "tau_select"], machine_model=<that
+   model>)`` and its ``bench()``: every row within 2x of its plan,
+   re-characterizing up to 3 times under load, else the phase fails.  The
+   stock constants' rows are printed beside them, and the default
+   ``"auto"`` calibration is fitted (phase 4's build takes it from its
+   memo);
 4. serve: ``Deployment.build(["jet_tagger", "tau_select"])`` on the default
-   device, its verify stage on: clean findings, one ``fused_dense`` launch
-   per layer (4 + 3) from the calibration pass and nothing else, and input
-   scales within 1e-5 relative of a CPU build of the same weights.  Then
-   ``serve()``, ``warmup()``, ``drive(iters=50)``; then every engine
-   degraded to the per-layer rung and driven again.  The launch counters
-   are zeroed just before and read just after: every served request must
-   have launched ``fused_mlp_q8``, the degraded rung ``gemm_int8``.  The
-   two rungs must agree, and the served outputs must match the plain path
-   on the CPU with the same weights; 4b: ``edge_forward`` of all five nets
+   device, its stages characterize (the memoized ``"auto"`` model), plan,
+   verify and engines: clean findings, one ``fused_dense`` launch per layer
+   (4 + 3) from the calibration pass and nothing else, and input scales
+   within 1e-5 relative of a CPU build of the same weights.  Then
+   ``serve()``, ``warmup()``, ``drive(iters=50)``, each engine's forward a
+   CUDA graph; then every engine degraded to the per-layer rung and driven
+   again.  The launch counters are zeroed just before and read just after,
+   and must equal, kernel by kernel, what the requests ran on each rung
+   (a replay adds the launches its graph's own kernel nodes hold), and
+   each captured graph's kernel nodes are printed.  The two rungs must
+   agree, the served outputs must match
+   the plain path on the CPU with the same weights, the same engines run
+   eagerly (``graphs=False``) must give the graphed outputs bit for bit on
+   both rungs and the same launches for the same requests, and a NaN bias
+   must fail the graphed request.  The edge p50/p95 eager and graphed are
+   printed side by side; 4b: ``edge_forward`` of all five nets
    on the card, one ``fused_dense`` per layer, against the plain path on
    the CPU; 4c: ``python -m repro_torch check`` in a subprocess: exit 0,
    no error finding, one launch of each kernel (``tiled_gemm`` among them)
@@ -74,7 +90,11 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    then a decode-heavy run of 4 requests with ``max_new=256``; each run
    reports its prefill and decode rates apart.  A ``torch.profiler`` trace
    of 5 batched decode ticks gives the device's busy and idle time per
-   tick.  ``build_serve_steps`` prefill of a 3000-token prompt (past the
+   tick.  The tick is a CUDA graph (its kernel nodes held to 18 or 32 scan
+   launches a step); the decode-heavy run and the trace are repeated with
+   the tick run eagerly (``graphs=False``), and one replayed tick is held
+   bit for bit (logits and every state leaf, an idle slot untouched) to an
+   eager tick from the same state.  ``build_serve_steps`` prefill of a 3000-token prompt (past the
    2048 window: the ring roll) held against the forward, then 8 decode
    steps.  Counters are zeroed just before each LM path and read just
    after; each kernel's count must equal 18 (scan) or 8 (flash) per step
@@ -108,9 +128,11 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    time as ``was_ms``, and the sweep of T behind
    ``rwkv6.CHUNKED_MIN_T`` (B = 1, 64 heads of 64, bf16).
 
-It prints one ``{"kernels": [...]}`` line (all seven kernels), the card line
-again, and last ``{"ok": true, "device": {...}}``.  It needs no network and
-one card.
+It prints a ``summary`` line (the fitted constants and each net's
+planned-vs-measured ratio, the edge p50/p95 and the LM ticks eager and
+graphed), one ``{"kernels": [...]}`` line (all seven kernels), the card
+line again, and last ``{"ok": true, "device": {...}}``.  It needs no
+network and one card.
 """
 
 from __future__ import annotations
@@ -132,6 +154,13 @@ NETS = ("jet_tagger", "tau_select", "vae", "qubit", "autoencoder")
 SERVED = ("jet_tagger", "tau_select")
 DRIVE_ITERS = 50
 DEGRADED_ITERS = 5
+# The ported kernels the served graphs run.
+GRAPH_KERNELS = ("fused_mlp_q8", "gemm_int8", "linear_scan", "rwkv6_scan")
+# Phase 3c: characterize passes before a bench row outside 2x fails (the
+# reference's tests/test_deploy.py re-characterizes up to 3 times under
+# load), and the bench's timed calls per engine.
+CHARACTERIZE_PASSES = 3
+BENCH_ITERS = 51
 # H100 SXM datasheet (not measured): device memory rate and dense int8 and
 # bf16 rates.
 HBM_BW = 3.35e12
@@ -673,18 +702,133 @@ def dense_kernel_phase(device) -> dict:
 # Phase 4: the main path, through the entry points a user calls
 # ---------------------------------------------------------------------------
 
+def characterize_phase(device) -> dict:
+    """The quick characterization sweep on the card, each point timed as
+    the engine pays it (a graph-replayed call, host clock, CUDA-event time
+    beside it): every fitted constant and its relative residual.  Then
+    ``Deployment.build(SERVED, machine_model=<that model>)`` and its bench:
+    every row must be within 2x of its plan, re-characterizing up to
+    ``CHARACTERIZE_PASSES`` times under load, else the phase fails.  Beside
+    it, the stock constants' plans on the same engines' path (the fault
+    this closes), and the default ``"auto"`` calibration, which phase 4's
+    build then takes from its memo."""
+    from repro_torch import hw
+    from repro_torch.characterize import characterize
+    from repro_torch.deploy import Deployment
+    from repro_torch.plan import PlanCache, calibrate
+    passes = []
+    for attempt in range(CHARACTERIZE_PASSES):
+        t0 = time.perf_counter()
+        mm = characterize(sweep="quick", device=device)
+        sweep_s = time.perf_counter() - t0
+        for term, f in mm.fits.items():
+            log(f"characterize pass {attempt}: {term} constants "
+                f"{json.dumps(f.constants, sort_keys=True)} residual_rel_rms "
+                f"{f.residual_rel_rms} coefficients {list(f.coefficients)} "
+                f"timed {f.source}")
+        for smp in mm.provenance["samples"]:
+            log(f"characterize pass {attempt}: sample "
+                + json.dumps(smp, sort_keys=True))
+        dep = Deployment.build(list(SERVED), machine_model=mm,
+                               cache=PlanCache())
+        rows = dep.bench(iters=BENCH_ITERS, warmup=3)
+        out = [{"net_id": r.net_id, "planned_s": r.planned_s,
+                "measured_s": r.measured_s, "ratio": r.ratio,
+                "within_2x": r.within_2x,
+                "groups": dep.plans[r.net_id].groups(),
+                "tiles": [list(l.api_tile)
+                          for l in dep.plans[r.net_id].layers]}
+               for r in rows]
+        log(f"characterize pass {attempt}: sweep {sweep_s:.2f} s, model "
+            f"{mm.version[:16]}, bench " + json.dumps(out, sort_keys=True))
+        passes.append({"model": mm, "h100": mm.h100(), "rows": out,
+                       "sweep_s": sweep_s})
+        if all(r.within_2x for r in rows):
+            break
+    else:
+        raise SmokeFailure(f"bench rows outside 2x after "
+                           f"{CHARACTERIZE_PASSES} characterizations: "
+                           f"{passes[-1]['rows']}")
+    stock = Deployment.build(list(SERVED), machine_model="stock",
+                             cache=PlanCache())
+    stock_rows = [{"net_id": r.net_id, "planned_s": r.planned_s,
+                   "measured_s": r.measured_s, "ratio": r.ratio,
+                   "within_2x": r.within_2x}
+                  for r in stock.bench(iters=BENCH_ITERS, warmup=3)]
+    log("characterize: stock constants' bench (not judged) "
+        + json.dumps(stock_rows, sort_keys=True))
+    t0 = time.perf_counter()
+    auto = calibrate.calibrated_device_model(device)
+    log(f"characterize: auto calibration in {time.perf_counter() - t0:.2f} "
+        f"s: kernel_overhead_s {auto.kernel_overhead_s} (stock "
+        f"{hw.H100_SXM.kernel_overhead_s}), peak_int8_ops "
+        f"{auto.peak_int8_ops}")
+    fitted = passes[-1]["h100"]
+    return {"passes": len(passes), "rows": passes[-1]["rows"],
+            "stock_rows": stock_rows,
+            "constants": {k: getattr(fitted, k) for k in (
+                "kernel_overhead_s", "peak_int8_ops", "fused_epilogue_s",
+                "hbm_bw")},
+            "residuals": passes[-1]["model"].residuals(),
+            "auto": {"kernel_overhead_s": auto.kernel_overhead_s,
+                     "peak_int8_ops": auto.peak_int8_ops}}
+
+
+def graph_kernel_nodes(report: dict) -> dict:
+    """Each captured graph's kernel nodes: those of the ported kernels (the
+    launches a replay adds to the counters, read off the graph's own
+    nodes), the rest torch's own.  Returns the counts by graph."""
+    out = {}
+    for key, g in report.items():
+        ours = {k: g["launches"][k] for k in GRAPH_KERNELS}
+        total = g["nodes"]["types"].get("kernel", 0)
+        out[key] = {"kernel_nodes": total, "ported_kernel_nodes": ours,
+                    "torch_kernel_nodes": total - sum(g["launches"].values()),
+                    "node_types": g["nodes"]["types"],
+                    "replays": g["replays"]}
+    return out
+
+
+def _plan_launches(plan, requests: int, rung: int) -> dict:
+    """The kernel launches ``requests`` requests of ``plan`` make on a rung:
+    the fused rung one ``fused_mlp_q8`` per multi-layer group and one
+    ``gemm_int8`` per singleton group, the per-layer rung one ``gemm_int8``
+    per layer."""
+    groups = plan.groups() if rung == 0 else [[i] for i in
+                                              range(len(plan.layers))]
+    fused = sum(1 for g in groups if len(g) > 1)
+    return {"fused_mlp_q8": requests * fused,
+            "gemm_int8": requests * (len(groups) - fused)}
+
+
 def serve_phase():
     import torch
+    from repro_torch import hw
     from repro_torch.deploy import Deployment
     from repro_torch.kernels import ops
     from repro_torch.models import edge
+    from repro_torch.serve import EdgeEngine, Router
 
     ops.reset_launches()
     dep = Deployment.build(list(SERVED))
     build_launches = ops.launch_counts()
     if dep.device.type != "cuda":
         raise SmokeFailure(f"default device is {dep.device}, not cuda")
+    if list(dep.stage_results) != ["characterize", "plan", "verify",
+                                   "engines"]:
+        raise SmokeFailure(f"stages {list(dep.stage_results)}")
+    model = dep.machine_model
+    if not (isinstance(model, hw.H100) and dep.stage_results[
+            "characterize"].cached and model.kernel_overhead_s
+            != hw.H100_SXM.kernel_overhead_s):
+        raise SmokeFailure(f"machine_model 'auto' resolved to {model}, "
+                           f"{dep.stage_results['characterize']}")
+    if not all(eng.graphs for eng in dep.engines.values()):
+        raise SmokeFailure("the engines on the card do not run CUDA graphs")
+    log("build: stages " + "; ".join(str(r) for r in
+                                      dep.stage_results.values()))
     check_build(dep, build_launches)
+    ops.reset_launches()
     router = dep.serve()
     inputs = router.warmup()
     report = router.drive(inputs, iters=DRIVE_ITERS)
@@ -716,17 +860,28 @@ def serve_phase():
                                f"served, want {DRIVE_ITERS}")
         if degraded[nid]["count"] != DRIVE_ITERS + DEGRADED_ITERS:
             raise SmokeFailure(f"{nid}: degraded drive not counted")
-    want_fused = len(SERVED) * (DRIVE_ITERS + 1)       # warmup + drive
-    if fused_after_drive < want_fused:
+    # The counters count replays: every request's kernels, exactly.  The
+    # fused rung served warmup + drive + the last request, the per-layer
+    # rung the degraded drive and one request.
+    want = {k: 0 for k in launches}
+    for nid in SERVED:
+        plan = dep.plans[nid]
+        for rung, n in ((0, DRIVE_ITERS + 2), (1, DEGRADED_ITERS + 1)):
+            for k, v in _plan_launches(plan, n, rung).items():
+                want[k] += v
+    if launches != want:
+        raise SmokeFailure(f"served requests launched {launches}, want "
+                           f"{want} (one count per kernel a request runs)")
+    want_fused = sum(_plan_launches(dep.plans[nid], DRIVE_ITERS + 1, 0)[
+        "fused_mlp_q8"] for nid in SERVED)
+    if fused_after_drive != want_fused:
         raise SmokeFailure(f"fused_mlp_q8 launched {fused_after_drive} "
                            f"times for {want_fused} fused requests")
-    layers = sum(len(dep.plans[nid].layers) for nid in SERVED)
-    if launches["gemm_int8"] < layers * DEGRADED_ITERS:
-        raise SmokeFailure(f"gemm_int8 launched {launches['gemm_int8']} "
-                           f"times on the degraded rung, want >= "
-                           f"{layers * DEGRADED_ITERS}")
     log(f"serve launches {json.dumps(launches)} (fused after the fused "
         f"drive: {fused_after_drive})")
+    nodes = {nid: graph_kernel_nodes(eng.graph_report())
+             for nid, eng in dep.engines.items()}
+    log("serve graphs " + json.dumps(nodes, sort_keys=True))
 
     # The served outputs against the plain path on the CPU, same weights.
     for nid, (x, y) in outputs.items():
@@ -739,7 +894,80 @@ def serve_phase():
         err = check_close(f"{nid} card vs CPU plain path", y.cpu(), y_cpu)
         log(f"serve {nid}: card vs CPU plain path max_abs_err={err} "
             f"tol={TOL}")
-    return dep, launches, build_launches
+
+    # The same engines run eagerly (graphs=False): both rungs equal to the
+    # graphed ones bit for bit, the same launches for the same requests,
+    # and the eager p50/p95 beside the graphed drive's.
+    eager = {nid: EdgeEngine(eng.cfg, qparams=eng.qparams, plan=eng.plan,
+                             graphs=False)
+             for nid, eng in dep.engines.items()}
+    for nid, eng in dep.engines.items():
+        x = outputs[nid][0]
+        for rung in (1, 0):
+            for e in (eng, eager[nid]):
+                if rung:
+                    e.degrade()
+                else:
+                    e.restore()
+            if not torch.equal(eng.infer(x), eager[nid].infer(x)):
+                raise SmokeFailure(f"{nid} rung {rung}: graphed and eager "
+                                   f"outputs differ")
+    # A poisoned output (a NaN bias) fails the request on the graphed path
+    # as on the eager one: the guard is computed inside the graph.
+    from repro_torch.serve import NonFiniteOutput
+    for nid, eng in dep.engines.items():
+        poisoned = [dict(q) for q in eng.qparams]
+        poisoned[-1]["b"] = poisoned[-1]["b"].clone()
+        poisoned[-1]["b"][0] = float("nan")
+        bad = EdgeEngine(eng.cfg, qparams=poisoned, plan=eng.plan)
+        for _ in range(2):                       # the capture, a replay
+            try:
+                bad.infer(outputs[nid][0])
+            except NonFiniteOutput:
+                continue
+            raise SmokeFailure(f"{nid}: a NaN output passed the graphed "
+                               f"guard")
+        if bad.faults != 2 or bad.calls != 0:
+            raise SmokeFailure(f"{nid}: poisoned engine counted "
+                               f"{bad.faults} faults, {bad.calls} calls")
+    eager_router = Router.from_fleet(dep.fleet, engines=eager)
+    eager_router.warmup(inputs)
+    ops.reset_launches()
+    eager_report = eager_router.drive(inputs, iters=DRIVE_ITERS)
+    eager_launches = ops.launch_counts()
+    ops.reset_launches()
+    for nid in SERVED:
+        for _ in range(DRIVE_ITERS):
+            router.infer(nid, inputs[nid])
+    graphed_launches = ops.launch_counts()
+    if eager_launches != graphed_launches:
+        raise SmokeFailure(f"{DRIVE_ITERS} requests a tenant launched "
+                           f"{graphed_launches} graphed, {eager_launches} "
+                           f"eager")
+    p = {nid: {"graphed_p50_us": report[nid]["p50_s"] * 1e6,
+               "graphed_p95_us": report[nid]["p95_s"] * 1e6,
+               "eager_p50_us": eager_report[nid]["p50_s"] * 1e6,
+               "eager_p95_us": eager_report[nid]["p95_s"] * 1e6,
+               "planned_us": dep.plans[nid].est_latency_s * 1e6}
+         for nid in SERVED}
+    # The per-layer rung (one gemm_int8 and six torch kernels a layer),
+    # graphed and eager, DRIVE_ITERS engine calls each.
+    for nid in SERVED:
+        for label, eng in (("graphed", dep.engines[nid]),
+                           ("eager", eager[nid])):
+            eng.degrade()
+            eng.reset_measurements()
+            for _ in range(DRIVE_ITERS):
+                eng.infer(inputs[nid])
+            agg = eng.span_stats()["infer"]
+            p[nid][f"per_layer_{label}_p50_us"] = agg["p50_s"] * 1e6
+            p[nid][f"per_layer_{label}_p95_us"] = agg["p95_s"] * 1e6
+            eng.restore()
+    log(f"serve eager vs graphed: outputs bit-exact on both rungs; "
+        f"launches for {DRIVE_ITERS} requests a tenant "
+        f"{json.dumps(graphed_launches)} (equal); latency "
+        + json.dumps(p, sort_keys=True))
+    return dep, launches, build_launches, {"latency": p, "graphs": nodes}
 
 
 def check_build(dep, build_launches) -> None:
@@ -1379,17 +1607,20 @@ def lm_forward_phase(arch: str):
     return cfg, params, tokens, launches, per_step, per_tick
 
 
-def serve_run(cfg, params, prompts, max_new, per_tick, label):
-    """Serve ``prompts`` through a fresh ``ContinuousBatcher`` until drained,
-    counters zeroed just before and read just after.  Returns the batcher
-    and a row of rates: overall, and prefill and decode apart from the
-    batcher's own spans (``prefill_chunk``: a prompt fed token by token;
-    ``decode_step``: one batched tick over the live slots)."""
+def serve_run(cfg, params, prompts, max_new, per_tick, label,
+              graphs=None):
+    """Serve ``prompts`` through a fresh ``ContinuousBatcher`` (its tick a
+    CUDA graph unless ``graphs=False``) until drained, counters zeroed just
+    before and read just after.  Returns the batcher and a row of rates:
+    overall, and prefill and decode apart from the batcher's own spans
+    (``prefill_chunk``: a prompt fed token by token; ``decode_step``: one
+    batched tick over the live slots).  A graphed tick's kernel nodes are
+    held to the scan launches a step makes."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serve import engine
     batcher = engine.ContinuousBatcher(cfg, params, slots=LM_SLOTS,
-                                       max_len=LM_SEQ)
+                                       max_len=LM_SEQ, graphs=graphs)
     reqs = [engine.Request(rid=i, prompt=p, max_new=max_new)
             for i, p in enumerate(prompts)]
     ops.reset_launches()
@@ -1430,7 +1661,16 @@ def serve_run(cfg, params, prompts, max_new, per_tick, label):
            "decode_s": dec["total_s"],
            "decode_tok_per_s": decode_tokens / dec["total_s"],
            "decode_p50_ms": dec["p50_s"] * 1e3,
-           "decode_p95_ms": dec["p95_s"] * 1e3, "launches": launches}
+           "decode_p95_ms": dec["p95_s"] * 1e3, "launches": launches,
+           "graphed": graphs is not False}
+    report = batcher.graph_report()
+    if (graphs is not False) != (report is not None):
+        raise SmokeFailure(f"serve {label}: graph report {report}")
+    if report is not None:
+        row["graph"] = graph_kernel_nodes({"tick": report})["tick"]
+        if {k: report["launches"][k] for k in per_tick} != per_tick:
+            raise SmokeFailure(f"serve {label}: the captured tick launches "
+                               f"{report['launches']}, want {per_tick}")
     log(f"lm {cfg.name} serve {label} " + json.dumps(row, sort_keys=True))
     log(f"lm {cfg.name} serve {label} span_stats "
         + json.dumps(stats, sort_keys=True))
@@ -1528,6 +1768,15 @@ def lm_serve_phase(cfg, params, tokens, per_step, per_tick) -> dict:
                                LM_LONG_GEN, per_tick, "decode-heavy")
     trace = decode_tick_trace(batcher, cfg, LM_TRACED_TICKS)
     del batcher
+    # The same decode-heavy run and trace with the tick run eagerly.
+    batcher, eager_heavy = serve_run(cfg, params, prompts[LM_REQUESTS:],
+                                     LM_LONG_GEN, per_tick,
+                                     "decode-heavy eager", graphs=False)
+    eager_trace = decode_tick_trace(batcher, cfg, LM_TRACED_TICKS)
+    del batcher
+    parity = tick_parity(cfg, params, prompts[:LM_SLOTS])
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # Whole-prompt prefill (for Griffin past the window: the ring roll; for
     # RWKV one launch per layer from the carried state), then decode.
@@ -1564,8 +1813,52 @@ def lm_serve_phase(cfg, params, tokens, per_step, per_tick) -> dict:
         f"{json.dumps(long_launches)}")
     return {"launches": {"serve": short["launches"],
                          "serve decode-heavy": heavy["launches"],
+                         "serve decode-heavy eager": eager_heavy["launches"],
                          "prefill+decode": long_launches},
-            "short": short, "decode_heavy": heavy, "trace": trace}
+            "short": short, "decode_heavy": heavy, "trace": trace,
+            "decode_heavy_eager": eager_heavy, "trace_eager": eager_trace,
+            "tick_parity": parity}
+
+
+def tick_parity(cfg, params, prompts) -> dict:
+    """One decode tick replayed from the graph and the same tick run
+    eagerly from the same state must agree bit for bit: logits and every
+    state leaf.  The batcher first admits and prefills ``prompts`` and
+    decodes a few ticks (the graph is captured at the first), so the state
+    is a served one."""
+    import numpy as np
+    import torch
+    from repro_torch.models import tree
+    from repro_torch.serve import engine
+    b = engine.ContinuousBatcher(cfg, params, slots=LM_SLOTS, max_len=LM_SEQ)
+    for i, p in enumerate(prompts):
+        b.submit(engine.Request(rid=20_000 + i, prompt=p, max_new=64))
+    for _ in range(3):
+        b.step()
+    tok = np.array([[r.out[-1]] for r in b.active], np.int32)
+    live = np.ones((b.slots,), bool)
+    live[0] = False                              # one idle slot as well
+    before = tree.tree_map(torch.clone, b.state)
+    graphed = b._decode_masked(tok, live).clone()
+    after_graph = tree.tree_map(torch.clone, b.state)
+    tree.tree_map(lambda s, v: s.copy_(v), b.state, before)
+    eager = b._step().clone()                    # the same static inputs
+    worst = float((graphed.float() - eager.float()).abs().max())
+    same = torch.equal(graphed, eager) and all(tree.leaves(tree.tree_map(
+        torch.equal, after_graph, b.state)))
+    kept = all(tree.leaves(tree.tree_map(
+        lambda a, c, ax: torch.equal(a.select(ax, 0), c.select(ax, 0)),
+        before, after_graph, b._axes)))
+    if not (same and kept):
+        raise SmokeFailure(f"{cfg.name}: a replayed tick and an eager tick "
+                           f"from the same state differ (logits max abs "
+                           f"{worst}; idle slot kept: {kept})")
+    out = {"bit_exact": True, "leaves": len(tree.leaves(b.state)),
+           "replays_before": b.graph_report()["replays"]}
+    log(f"lm {cfg.name} tick parity: replayed vs eager tick from the same "
+        f"state bit-exact (logits and {out['leaves']} state leaves; idle "
+        f"slot unchanged)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1871,6 +2164,38 @@ def lm_kernel_entries(errs, launches_by_path, per_step, per_tick,
     return entries
 
 
+def summary_line(characterized, served_edge, served_lm) -> dict:
+    """The run's end-to-end readings in one place: the fitted constants and
+    each net's planned-vs-measured ratio, the edge p50/p95 eager and
+    graphed, and per LM the decode tick p50/p95, decode tok/s and device
+    ops a tick, eager and graphed."""
+    lm = {}
+    for arch, srv in served_lm.items():
+        lm[arch] = {}
+        for label, run, trace in (
+                ("graphed", srv["decode_heavy"], srv["trace"]),
+                ("eager", srv["decode_heavy_eager"], srv["trace_eager"])):
+            lm[arch][label] = {
+                "tick_p50_ms": run["decode_p50_ms"],
+                "tick_p95_ms": run["decode_p95_ms"],
+                "decode_tok_per_s": run["decode_tok_per_s"],
+                "device_ops_per_tick": trace["device_ops_per_tick"],
+                "device_busy_ms_per_tick": trace.get(
+                    "device_busy_ms_per_tick"),
+                "idle_share": trace.get("idle_share")}
+        lm[arch]["short_graphed"] = {
+            k: srv["short"][k] for k in ("decode_p50_ms", "decode_p95_ms",
+                                         "decode_tok_per_s",
+                                         "prefill_tok_per_s")}
+    return {"constants": characterized["constants"],
+            "residuals": characterized["residuals"],
+            "characterize_passes": characterized["passes"],
+            "bench": characterized["rows"],
+            "bench_stock": characterized["stock_rows"],
+            "auto": characterized["auto"],
+            "edge": served_edge["latency"], "lm": lm}
+
+
 def edge_times_main(src: pathlib.Path) -> int:
     """``--edge-kernel-times SRC``: phase 5's rows alone (``fused_mlp_q8``
     on the five nets, ``gemm_int8`` at their layer shapes and at 256 x 1024
@@ -1944,7 +2269,8 @@ def main(argv: list) -> int:
         device = torch.device("cuda", torch.cuda.current_device())
         errs = kernel_phase(device)
         errs.update(dense_kernel_phase(device))
-        dep, launches, build_launches = serve_phase()
+        characterized = characterize_phase(device)
+        dep, launches, build_launches, served_edge = serve_phase()
         forward = edge_forward_phase(device)
         report = check_cli_phase()
         timing = timing_phase(device)
@@ -1990,6 +2316,9 @@ def main(argv: list) -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     log(f"chip_smoke: all phases in {time.perf_counter() - t_all:.1f} s")
+    log("summary " + json.dumps(summary_line(
+        characterized, served_edge, {LM_ARCH: served, RWKV_ARCH: r_served}),
+        sort_keys=True))
     log(json.dumps(line, sort_keys=True))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -37,7 +37,10 @@ from repro_torch.core import tiling
 # Relative slack for float identities that calibration rescales under.
 _REL_TOL = 5e-3
 
-_SERVE_KEYS = {"decode_regime", "quantize_weights", "prefill_chunk"}
+# The planner's keys, and the record calibration feedback adds
+# (plan/calibrate.py).
+_SERVE_KEYS = {"decode_regime", "quantize_weights", "prefill_chunk",
+               "calibration"}
 _DECODE_REGIMES = ("pipeline", "tiled")
 
 # The artifact's top-level keys (``plan/artifact.py``, ``plan/multinet.py``).
@@ -291,8 +294,8 @@ def _rule_latency_invariant(plan, tenant) -> list:
 def _rule_serve_section(plan, tenant) -> list:
     """Serve-section vocabulary: the keys the port's planner writes
     (``decode_regime``, ``quantize_weights``, ``prefill_chunk``) must be
-    legal; any other key is one warning, since nothing in the port reads
-    it."""
+    legal, beside calibration feedback's ``calibration`` record; any other
+    key is one warning, since nothing in the port reads it."""
     fs = []
     serve = plan.serve
 

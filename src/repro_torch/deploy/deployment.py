@@ -1,32 +1,36 @@
-"""``Deployment``: the one-call facade over plan -> verify -> engines ->
-serve.
+"""``Deployment``: the one-call facade over characterize -> plan -> verify
+-> engines -> serve.
 
     from repro_torch.deploy import Deployment
-    dep = Deployment.build(["jet_tagger", "tau_select"])   # plans + engines
-    router = dep.serve()                                   # live router
+    dep = Deployment.build(["jet_tagger", "tau_select"])   # fit + plan +
+    router = dep.serve()                                   #   engines
     router.drive(iters=20)                                 # measured traffic
     rows = dep.bench()                                     # planned-vs-measured
+    dep.recalibrate()                                      # feedback loop
 
-Port of the JAX package's ``deploy/deployment.py``, trimmed to its plan,
-verify and engine stages; characterization is not ported yet.  The verify
-stage is the fail-closed design-rule gate (``repro_torch.check``): error
-findings raise :class:`PlanVerificationError` before any engine is built.
+Port of the JAX package's ``deploy/deployment.py`` for the edge nets.  The
+stages (:mod:`repro_torch.deploy.stages`) run in order: characterize fits
+the machine model the plan is made under (``machine_model="auto"`` by
+default: the launch cost and int8 rate timed on the deployment's device, as
+the served engine runs), plan makes the fleet plan, verify is the
+fail-closed design-rule gate (``repro_torch.check``: error findings raise
+:class:`PlanVerificationError` before any engine is built), and engines
+builds one engine per tenant, whose forward is a CUDA graph on the card.
 Everything runs on ``device`` (``None``: the GPU, raising when there is
 none).
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
+import time
 
 import torch
 
-from repro_torch.check import PlanVerificationError, check_fleet
 from repro_torch.device import resolve_device
+from repro_torch.deploy.stages import PIPELINE, StageContext, StageResult
 from repro_torch.models import edge as edge_lib
 from repro_torch.obs import NULL_TRACER, Tracer
-from repro_torch.plan.multinet import plan_fleet
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,60 +70,95 @@ def resolve_configs(specs) -> list:
 
 
 class Deployment:
-    """A built deployment: the fleet plan, the verify stage's findings and
-    outcome, one engine per tenant, and the serving router.  Construct with
-    :meth:`build`."""
+    """A built deployment: the stages' results, the fleet plan, the verify
+    stage's findings, one engine per tenant, and the serving router.
+    Construct with :meth:`build`; the pipeline state lives on ``self.ctx``
+    and per-stage provenance on :attr:`stage_results`."""
 
-    def __init__(self, fleet, engines: dict, device: torch.device, tracer,
-                 findings: list, verify: str):
-        self.fleet = fleet
-        self.engines = engines
-        self.device = device
-        self.tracer = tracer
-        self.findings = findings   # the warnings and info of the gate
-        self.verify = verify       # "clean", "1 info, 2 warning", "skipped"
+    def __init__(self, ctx: StageContext):
+        self.ctx = ctx
         self._router = None
 
     @classmethod
-    def build(cls, configs, *, target: str = "h100", device=None,
-              seed: int = 0, params: dict | None = None,
+    def build(cls, configs, *, target: str = "h100", machine_model="auto",
+              device=None, seed: int = 0, params: dict | None = None,
               qparams: dict | None = None, calib_x: dict | None = None,
-              trace=False, check: bool = True) -> "Deployment":
-        """Plan ``configs`` as one fleet for ``target``, verify the plan, and
-        build one :class:`EdgeEngine` per tenant.
+              trace=False, check: bool = True,
+              cache=None) -> "Deployment":
+        """Characterize, plan ``configs`` as one fleet for ``target``,
+        verify the plan, and build one :class:`EdgeEngine` per tenant.
 
-        ``params`` / ``qparams`` / ``calib_x`` map a net id to the float
-        params, quantized params or calibration batch its engine uses (see
-        :class:`EdgeEngine`); nets without an entry draw weights from
-        ``seed``.  ``trace`` is ``True`` (a fresh :class:`Tracer`) or a
-        tracer to fill.  ``check=False`` skips the verify stage and records
-        it as skipped; otherwise an error finding raises
-        :class:`PlanVerificationError` before any engine is built."""
-        device = resolve_device(device)
+        ``machine_model``: see :class:`~repro_torch.deploy.stages.
+        CharacterizeStage`.  ``"auto"`` (default) fits the launch cost and
+        int8 rate on ``device``; ``"stock"`` (or None) keeps
+        ``hw.H100_SXM``; ``"quick"``/``"full"`` run the characterization
+        sweep; a ``MachineModel``, a path to one or an ``hw.H100`` is used
+        as given.  ``params`` / ``qparams`` / ``calib_x`` map a net id to
+        the float params, quantized params or calibration batch its engine
+        uses (see :class:`EdgeEngine`); nets without an entry draw weights
+        from ``seed``.  ``trace`` is ``True`` (a fresh :class:`Tracer`) or
+        a tracer to fill: every stage emits a ``stage/<name>`` span.
+        ``check=False`` skips the verify stage and records it as skipped;
+        otherwise an error finding raises :class:`PlanVerificationError`
+        before any engine is built.  ``cache`` is the plan cache (default:
+        the process-wide one)."""
         tracer = (trace if isinstance(trace, Tracer)
                   else Tracer() if trace else NULL_TRACER)
-        cfgs = resolve_configs(configs)
-        with tracer.span("stage/plan", tenant="deploy"):
-            fleet = plan_fleet(cfgs, target=target, device=device)
-        with tracer.span("stage/verify", tenant="deploy", skipped=not check):
-            findings = check_fleet(fleet) if check else []
-        counts = collections.Counter(f.severity for f in findings)
-        if counts["error"]:
-            raise PlanVerificationError(findings)
-        verify = "skipped" if not check else (", ".join(
-            f"{n} {s}" for s, n in sorted(counts.items())) or "clean")
-        by_name = {c.name: c for c in cfgs}
-        params, qparams, calib_x = params or {}, qparams or {}, calib_x or {}
-        engines = {}
-        from repro_torch.serve.engine import EdgeEngine
-        with tracer.span("stage/engines", tenant="deploy"):
-            for tp in fleet.tenants:
-                engines[tp.net_id] = EdgeEngine(
-                    by_name[tp.plan.network], params.get(tp.net_id),
-                    plan=tp.plan, seed=seed,
-                    qparams=qparams.get(tp.net_id),
-                    calib_x=calib_x.get(tp.net_id), device=device)
-        return cls(fleet, engines, device, tracer, findings, verify)
+        ctx = StageContext(
+            configs=resolve_configs(configs), target=target,
+            machine_model=machine_model, device=resolve_device(device),
+            cache=cache, seed=seed, params=dict(params or {}),
+            qparams=dict(qparams or {}), calib_x=dict(calib_x or {}),
+            tracer=tracer, verify=check)
+        for stage in PIPELINE:
+            t0 = time.perf_counter()
+            res = stage.run(ctx)
+            if tracer.enabled:
+                tracer.add(f"stage/{stage.name}", t0, time.perf_counter(),
+                           tenant="deploy", cached=res.cached,
+                           skipped=res.skipped)
+        return cls(ctx)
+
+    # -- typed views over the pipeline state ------------------------------
+    @property
+    def stage_results(self) -> dict[str, StageResult]:
+        """Each stage's result, in pipeline order: ``characterize``,
+        ``plan``, ``verify``, ``engines``."""
+        return dict(self.ctx.results)
+
+    @property
+    def machine_model(self):
+        """The resolved model (``MachineModel`` or ``hw.H100``), or None
+        for the stock constants."""
+        return self.ctx.model
+
+    @property
+    def fleet(self):
+        return self.ctx.fleet
+
+    @property
+    def engines(self) -> dict:
+        return self.ctx.engines
+
+    @property
+    def device(self) -> torch.device:
+        return self.ctx.device
+
+    @property
+    def tracer(self):
+        return self.ctx.tracer
+
+    @property
+    def findings(self) -> list:
+        """The warnings and info the verify stage recorded (error findings
+        abort the build)."""
+        return list(self.ctx.findings)
+
+    @property
+    def verify(self) -> str:
+        """"clean", "1 info, 2 warning" or "skipped"."""
+        res = self.ctx.results["verify"]
+        return "skipped" if res.skipped else res.detail
 
     @property
     def plans(self) -> dict:
@@ -136,8 +175,9 @@ class Deployment:
         return self._router
 
     def bench(self, *, iters: int = 5, warmup: int = 1) -> list[BenchRow]:
-        """Planned-vs-measured rows: each engine is warmed up, timed for
-        ``iters`` calls, and judged by its median against the plan."""
+        """Planned-vs-measured rows: each engine is warmed up (its first
+        call captures the graph on the card), timed for ``iters`` calls, and
+        judged by its median against the plan."""
         rows = []
         for tp in self.fleet.tenants:
             eng = self.engines[tp.net_id]
@@ -153,3 +193,24 @@ class Deployment:
                 measured_s=eng.measured_p50_s,
                 extra=f"fuse_groups={len(tp.plan.groups())};"))
         return rows
+
+    def recalibrate(self):
+        """Feed the engines' measured latencies back and rescale the fleet
+        plan (:func:`repro_torch.plan.calibrate.recalibrate_fleet`): costs
+        and budgets (with the fleet's own headroom factor) move; tiles,
+        groups and engines stay.  The live router, if any, adopts the new
+        fleet.  Returns (and adopts) it."""
+        from repro_torch.plan import calibrate
+        measurements = calibrate.measurements_from_engines(self.engines)
+        if not measurements:
+            raise RuntimeError("nothing measured yet: serve traffic or run "
+                               ".bench() before recalibrating")
+        fleet = calibrate.recalibrate_fleet(self.fleet, measurements,
+                                            cache=self.ctx.cache)
+        if self._router is not None:
+            self._router.adopt_fleet(fleet)
+        else:
+            for tp in fleet.tenants:
+                self.engines[tp.net_id].plan = tp.plan
+        self.ctx.fleet = fleet
+        return fleet

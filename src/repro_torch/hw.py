@@ -13,8 +13,12 @@ that planner, so they stay out of the edge plans' keys (``plan_key:
 False``).
 
 Rates and sizes are the H100 SXM datasheet's (not measured on a card).  The
-two launch-cost terms are placeholders until a characterization slice fits
-them on the card; they are not measured either.
+two launch-cost terms are the stock values that plans made with
+``machine_model="stock"`` use; they are not measured.  A characterization
+(:mod:`repro_torch.characterize`) fits them, with the int8 rate and the
+memory rate, on the card as the served engine runs, and its
+``MachineModel.h100()`` (or ``Deployment.build``'s default ``"auto"``
+calibration) replaces them.
 """
 
 from __future__ import annotations
@@ -32,9 +36,10 @@ class H100:
     hbm_bw: float = 3.35e12              # B/s
     peak_int8_ops: float = 1979e12       # OP/s, dense int8 tensor cores
     smem_bytes: int = 232_448            # dynamic shared memory per block
-    # Placeholders, not measured: the fixed host-to-card cost of one kernel
-    # launch, and the cost of one layer boundary kept inside the fused
-    # kernel (requantize through shared memory instead of a new launch).
+    # Stock values, not measured (a characterization replaces them): the
+    # fixed host-to-card cost of one kernel launch, and the cost of one
+    # layer boundary kept inside the fused kernel (requantize through shared
+    # memory instead of a new launch).
     kernel_overhead_s: float = 4e-6
     fused_epilogue_s: float = 3e-7
     # Dense bf16 on the tensor cores, and f32 FMAs on the CUDA cores (128

@@ -20,22 +20,33 @@ from repro_torch.kernels import tiled_gemm as _tg
 from repro_torch.kernels.fused_mlp import FusedGroup, pack_group
 
 
+# Each kernel's module, which holds its launch counter (``launches``).  A
+# wrapper adds one where it launches its kernel; a replayed CUDA graph adds
+# the launches its capture recorded (kernels/graph.py).
+_COUNTERS = {"fused_mlp_q8": _fm, "gemm_int8": _g8, "flash_attention": _fa,
+             "linear_scan": _rg, "rwkv6_scan": _rw, "tiled_gemm": _tg,
+             "fused_dense": _fd}
+
+
 def reset_launches() -> None:
     """Zero every kernel's launch counter."""
-    _fm.launches = 0
-    _g8.launches = 0
-    _fa.launches = 0
-    _rg.launches = 0
-    _rw.launches = 0
-    _tg.launches = 0
-    _fd.launches = 0
+    set_launches(dict.fromkeys(_COUNTERS, 0))
 
 
 def launch_counts() -> dict[str, int]:
-    return {"fused_mlp_q8": _fm.launches, "gemm_int8": _g8.launches,
-            "flash_attention": _fa.launches, "linear_scan": _rg.launches,
-            "rwkv6_scan": _rw.launches, "tiled_gemm": _tg.launches,
-            "fused_dense": _fd.launches}
+    return {name: mod.launches for name, mod in _COUNTERS.items()}
+
+
+def set_launches(counts: dict[str, int]) -> None:
+    """Set every kernel's launch counter to ``counts[kernel]``."""
+    for name, mod in _COUNTERS.items():
+        mod.launches = counts[name]
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add ``counts[kernel]`` to each kernel's launch counter."""
+    for name, n in counts.items():
+        _COUNTERS[name].launches += n
 
 
 def fused_group(x: torch.Tensor, g: FusedGroup) -> torch.Tensor:

@@ -198,8 +198,10 @@ def _embed(params: dict, cfg: ModelConfig, tokens) -> torch.Tensor:
     emb = params["emb"]
     tokens = torch.as_tensor(tokens, device=emb.device).long()
     x = F.embedding(tokens, emb)
-    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                            device=x.device)
+    # A fill on the device, not a copy from the host: a decode step must
+    # capture into a CUDA graph.
+    return x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype,
+                          device=x.device)
 
 
 def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

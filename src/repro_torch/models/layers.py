@@ -57,8 +57,8 @@ def mask_padded_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
         return logits
     col = torch.arange(logits.shape[-1], device=logits.device)
     return torch.where(col < cfg.vocab_size, logits,
-                       torch.tensor(NEG, dtype=logits.dtype,
-                                    device=logits.device))
+                       torch.full((), NEG, dtype=logits.dtype,
+                                  device=logits.device))
 
 
 # ---------------------------------------------------------------------------

@@ -112,8 +112,13 @@ def _net_ids(graphs) -> list[str]:
     return out
 
 
-def _fleet_key(graphs, target: str, hw: hwlib.H100,
-               budget_factor: float) -> str:
+def fleet_key(cfgs, *, target: str = planner.TARGET,
+              batch: int | None = None,
+              budget_factor: float = DEFAULT_BUDGET_FACTOR,
+              hw: hwlib.H100 = hwlib.H100_SXM) -> str:
+    """The cache key :func:`plan_fleet` files these arguments' fleet under:
+    every net's plan key (machine model included) and the budget factor."""
+    graphs = [planner.as_graph(c, batch=batch) for c in cfgs]
     payload = {"planner": PLANNER_VERSION, "target": target,
                "fleet": [planner._key_for(g, target, hw) for g in graphs],
                "budget_factor": budget_factor}
@@ -134,7 +139,8 @@ def plan_fleet(cfgs, *, target: str = planner.TARGET,
         raise ValueError("plan_fleet needs at least one network")
     graphs = [planner.as_graph(c, batch=batch) for c in cfgs]
     ids = _net_ids(graphs)
-    key = _fleet_key(graphs, target, hw, budget_factor)
+    key = fleet_key(graphs, target=target, budget_factor=budget_factor,
+                    hw=hw)
     cache = cache if cache is not None else default_cache()
     hit = cache.get_fleet(key)
     if hit is not None:

@@ -14,12 +14,21 @@ Port of the JAX package's ``serve/engine.py``, two surfaces:
   whole-prompt prefill and decode steps of any ported LM family (Griffin,
   RWKV-6), and a fixed-slot continuous batcher that advances every slot at
   its own position in one batched decode step.
+
+On the card both served steps run as CUDA graphs
+(:class:`~repro_torch.kernels.graph.StepGraph`), where the reference
+``jax.jit``s them: the edge forward of each rung, captured once per input
+shape, and the batcher's decode tick, captured once per batcher.  A graph
+reads its inputs from static tensors that each call refills, so a request
+or a tick costs one replay and one read-back.  ``graphs=False`` runs the
+same steps eagerly, one Python launch per kernel; the CPU always does.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import queue
 import time
 
@@ -27,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.graph import GraphedForward, StepGraph, finite_guard
 from repro_torch.models import api
 from repro_torch.models import edge as edge_lib
 from repro_torch.models import tree
@@ -39,6 +49,16 @@ class NonFiniteOutput(RuntimeError):
     garbage."""
 
 
+def _use_graphs(graphs: bool | None, device: torch.device) -> bool:
+    """CUDA graphs on the card unless the caller turns them off; the CPU
+    runs eagerly, and asking it for graphs raises."""
+    if graphs is None:
+        return device.type == "cuda"
+    if graphs and device.type != "cuda":
+        raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
+    return bool(graphs)
+
+
 class EdgeEngine:
     """Serve one edge net on ``device`` (``None``: the GPU, raising when
     there is none).
@@ -47,12 +67,24 @@ class EdgeEngine:
     ``x_scale`` use the ``x_scale`` argument); else ``params`` (float) are
     quantized with activation scales calibrated on ``calib_x`` (default: a
     seeded normal batch); else params are drawn from ``seed``.
+
+    ``graphs``: ``None`` replays each rung's forward as a CUDA graph on the
+    card and runs it eagerly on the CPU; ``False`` runs it eagerly on the
+    card too.  A graph is captured per rung and input shape, on the request
+    that first brings them (one eager run and the capture), and holds its
+    own static buffers and memory pool; the engine keeps the
+    :attr:`MAX_GRAPHS` it used last and frees the others, so a tenant of
+    ragged batch sizes pays a capture per new size but never accumulates
+    card memory.
     """
+
+    MAX_GRAPHS = 8
 
     def __init__(self, cfg, params=None, *, plan=None, x_scale: float = 0.05,
                  seed: int = 0, qparams=None, calib_x=None, tracer=None,
-                 device=None):
+                 device=None, graphs: bool | None = None):
         self.device = resolve_device(device)
+        self.graphs = _use_graphs(graphs, self.device)
         self.cfg = cfg
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.trace_label = cfg.name
@@ -79,6 +111,9 @@ class EdgeEngine:
                                               x_scale=x_scale, plan=self.plan)
         self.degrade_level = 0
         self._fwd_fallback = None
+        # (rung, input shape) -> the captured forward, oldest use first
+        self._graphs: collections.OrderedDict[tuple, GraphedForward] = \
+            collections.OrderedDict()
         self.faults = 0
         self.reset_measurements()
 
@@ -104,16 +139,38 @@ class EdgeEngine:
             return True
         return False
 
+    def graph_report(self) -> dict:
+        """What each captured forward the engine holds runs: per ``"<rung>
+        <shape>"`` the launches one replay makes, the graph's nodes (types,
+        and kernels by function name) and the replays so far.  The
+        counterpart of the reference's ``hlo_text()``."""
+        return {f"{'fused' if level == 0 else 'per_layer'} {list(shape)}": {
+                    "launches": f.graph.launches, "nodes": f.graph.nodes,
+                    "replays": f.graph.replays}
+                for (level, shape), f in self._graphs.items()}
+
     def infer(self, x) -> torch.Tensor:
         """One request: ``(batch, dims[0])`` in, a ready ``(batch,
         dims[-1])`` f32 tensor on the engine's device out."""
         t0 = time.perf_counter()
-        x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
+        x = torch.as_tensor(x, dtype=torch.float32)
         fwd = self._fwd if self.degrade_level == 0 else self._fallback()
-        y = fwd(x)
-        # The finiteness guard reads one flag back to the host, which also
+        if self.graphs:
+            # The rung's forward at this shape, captured at its first call.
+            key = (self.degrade_level, tuple(x.shape))
+            if key in self._graphs:
+                self._graphs.move_to_end(key)
+            else:
+                if len(self._graphs) == self.MAX_GRAPHS:
+                    self._graphs.popitem(last=False)
+                self._graphs[key] = GraphedForward(fwd, x.shape, self.device)
+            y, guard = self._graphs[key](x)
+        else:
+            y = fwd(x.to(self.device))
+            guard = finite_guard(y)
+        # The finiteness guard reads one value back to the host, which also
         # waits for the forward: infer returns a ready result by contract.
-        if not bool(torch.isfinite(y).all()):
+        if not math.isfinite(float(guard)):
             t1 = time.perf_counter()
             self.faults += 1
             if self.tracer.enabled:
@@ -122,6 +179,7 @@ class EdgeEngine:
             raise NonFiniteOutput(f"{self.trace_label}: non-finite output")
         t1 = time.perf_counter()
         self.calls += 1
+        self.total_s += t1 - t0
         self._latencies.append(t1 - t0)
         if self.tracer.enabled:
             self.tracer.add("infer", t0, t1, trace=self.calls,
@@ -137,6 +195,10 @@ class EdgeEngine:
         return {"infer": agg}
 
     @property
+    def measured_mean_s(self) -> float:
+        return self.total_s / self.calls if self.calls else 0.0
+
+    @property
     def measured_p50_s(self) -> float:
         """Median over the recent-call window."""
         if not self._latencies:
@@ -146,8 +208,19 @@ class EdgeEngine:
 
     def reset_measurements(self):
         """Drop accumulated timings (e.g. after warmup)."""
-        self.calls = 0
+        self.calls, self.total_s = 0, 0.0
         self._latencies = collections.deque(maxlen=256)
+
+    def record_calibration(self, cache=None):
+        """Write the measured mean latency back into the plan cache
+        (:func:`repro_torch.plan.calibrate.feedback`) and adopt the
+        calibrated plan; tiles and groups stay, only the costs move."""
+        from repro_torch.plan import calibrate
+        if not self.calls:
+            raise RuntimeError("no measurements recorded yet")
+        self.plan = calibrate.feedback(self.plan, self.measured_mean_s,
+                                       cache=cache)
+        return self.plan
 
 
 # ---------------------------------------------------------------------------
@@ -229,11 +302,17 @@ class ContinuousBatcher:
     slots with a per-slot position tensor; a ``live`` mask keeps the state
     of idle slots byte-identical (``torch.where(live, new, old)``).  Runs on
     the device the parameters lie on.
+
+    The step reads its tokens, positions and ``live`` mask from one static
+    ``(3, slots)`` tensor, refilled by one copy a step, and writes the new
+    state into the state tensors in place, which are never rebound.  So on
+    the card it runs as a CUDA graph captured at the first step (``graphs=
+    None``); ``graphs=False`` runs it eagerly, as the CPU always does.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int | None = None,
                  max_len: int = 256, policy: BatchPolicy | None = None,
-                 tracer=None):
+                 tracer=None, graphs: bool | None = None):
         self.cfg, self.params = cfg, params
         policy = policy if policy is not None else BatchPolicy()
         if slots is not None:           # explicit arg outranks the policy
@@ -250,6 +329,11 @@ class ContinuousBatcher:
         self.state = api.init_decode_state(cfg, self.slots, max_len,
                                            device=self.device)
         self._axes = _batch_axes(cfg, max_len)
+        # The step's static inputs: rows tokens, positions, live (0/1).
+        self._inputs = torch.zeros((3, self.slots), dtype=torch.long,
+                                   device=self.device)
+        self._graph = (StepGraph(self._step, self.device)
+                       if _use_graphs(graphs, self.device) else None)
         self.pos = np.zeros((self.slots,), np.int32)
         self.active: list[Request | None] = [None] * self.slots
         self.queue: "queue.Queue[Request]" = queue.Queue()
@@ -291,25 +375,40 @@ class ContinuousBatcher:
         return self._span_totals.get("decode_step", 0)
 
     # -- the batched step --------------------------------------------------
+    def _step(self) -> torch.Tensor:
+        """The decode step over the static inputs, the state written in
+        place; idle slots write their old state back.  Returns the logits
+        (slots, 1, padded_vocab)."""
+        tokens = self._inputs[0].unsqueeze(1)
+        live = self._inputs[2].bool()
+        logits, new_state = api.decode_step(self.params, self.cfg, tokens,
+                                            self.state, self._inputs[1])
+
+        def keep_idle(old, new, ax):
+            mask = live.reshape((-1,) + (1,) * (old.dim() - ax - 1))
+            old.copy_(torch.where(mask, new, old))
+
+        tree.tree_map(keep_idle, self.state, new_state, self._axes)
+        return logits
+
     def _decode_masked(self, tok: np.ndarray,
                        live: np.ndarray) -> torch.Tensor:
         """One decode step of every slot at its own position; the state of
         slots not ``live`` stays as it was.  Returns the logits (slots, 1,
-        padded_vocab) on the device."""
-        dev = self.device
-        tokens = torch.as_tensor(tok, dtype=torch.long).to(dev)
-        pos = torch.as_tensor(self.pos, dtype=torch.long).to(dev)
-        live_t = torch.as_tensor(live).to(dev)
-        logits, new_state = api.decode_step(self.params, self.cfg, tokens,
-                                            self.state, pos)
+        padded_vocab) on the device: on the card, the graph's own output,
+        which the next step overwrites."""
+        self._inputs.copy_(torch.from_numpy(
+            np.stack([tok[:, 0], self.pos, live]).astype(np.int64)))
+        return self._step() if self._graph is None else self._graph()
 
-        def keep_idle(old, new, ax):
-            mask = live_t.reshape((-1,) + (1,) * (old.dim() - ax - 1))
-            return torch.where(mask, new, old)
-
-        self.state = tree.tree_map(keep_idle, self.state, new_state,
-                                   self._axes)
-        return logits
+    def graph_report(self) -> dict | None:
+        """The captured decode tick: the launches one replay makes, the
+        graph's nodes (types, and kernels by function name) and the replays
+        so far; None when the tick runs eagerly or is not captured yet."""
+        if self._graph is None or self._graph.graph is None:
+            return None
+        return {"launches": self._graph.launches, "nodes": self._graph.nodes,
+                "replays": self._graph.replays}
 
     @staticmethod
     def _pick(logits: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:

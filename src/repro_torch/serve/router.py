@@ -107,6 +107,18 @@ class Router:
                 self.infer(nid, x)
         return self.report()
 
+    def adopt_fleet(self, new_fleet):
+        """Swap a recalibrated fleet into the live tenants: plans, budgets
+        and engine plan annotations move; engines keep their graphs."""
+        for tp in new_fleet.tenants:
+            t = self._tenants[tp.net_id]
+            t.plan = tp.plan
+            t.latency_budget_s = tp.latency_budget_s
+            t.metrics.latency_budget_s = tp.latency_budget_s
+            if hasattr(t.engine, "plan"):
+                t.engine.plan = tp.plan
+        self.fleet = new_fleet
+
     def report(self) -> dict:
         """Per-tenant metrics with the planned latency beside them."""
         out = {}

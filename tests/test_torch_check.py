@@ -22,7 +22,7 @@ from repro_torch import check as checklib
 from repro_torch import cli, hw
 from repro_torch.check import kernel_contracts, plan_rules
 from repro_torch.deploy import Deployment
-from repro_torch.deploy import deployment as deployment_mod
+from repro_torch.deploy import stages as stages_mod
 from repro_torch.kernels import flash_attention, fused_dense, fused_mlp
 from repro_torch.kernels import gemm_int8, ops, rglru, rwkv6, tiled_gemm
 from repro_torch.models import edge
@@ -359,7 +359,7 @@ def test_clean_build_records_the_verify_stage(engines_built):
                            trace=True)
     assert dep.verify == "clean" and dep.findings == []
     assert [s.name for s in dep.tracer.spans] == [
-        "stage/plan", "stage/verify", "stage/engines"]
+        "stage/characterize", "stage/plan", "stage/verify", "stage/engines"]
     assert engines_built == ["jet_tagger", "tau_select"]
 
 
@@ -377,7 +377,7 @@ def test_build_refuses_a_faulty_plan_before_any_engine(monkeypatch,
                                     vmem_bytes=10 ** 6)
         bad = _with_plan(fleet, "tau_select", fusion_groups=(group,))
         want = {"plan.vmem-budget"}
-    monkeypatch.setattr(deployment_mod, "plan_fleet", lambda *a, **k: bad)
+    monkeypatch.setattr(stages_mod, "plan_fleet", lambda *a, **k: bad)
     with pytest.raises(checklib.PlanVerificationError) as info:
         Deployment.build(["jet_tagger", "tau_select"], device="cpu")
     assert _rules(info.value.findings) == want
@@ -390,7 +390,7 @@ def test_check_false_records_the_stage_as_skipped(monkeypatch,
     plan = fleet.tenants[0].plan
     bad = _with_plan(fleet, "tau_select",
                      layers=_with_layer(plan, 0, api_tile=(12, 32, 32)))
-    monkeypatch.setattr(deployment_mod, "plan_fleet", lambda *a, **k: bad)
+    monkeypatch.setattr(stages_mod, "plan_fleet", lambda *a, **k: bad)
     dep = Deployment.build(["tau_select"], device="cpu", check=False,
                            trace=True)
     assert dep.verify == "skipped" and dep.findings == []

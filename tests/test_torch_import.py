@@ -13,8 +13,10 @@ import pytest
 import torch
 
 from repro_torch import configs, resolve_device
+from repro_torch.characterize import characterize
+from repro_torch.deploy import Deployment
 from repro_torch.models import api, edge
-from repro_torch.plan import plan_deployment, plan_fleet
+from repro_torch.plan import calibrate, plan_deployment, plan_fleet
 from repro_torch.serve import EdgeEngine, Router
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -46,6 +48,28 @@ def test_imports_with_jax_and_reference_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20, out.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.characterize", "repro_torch.characterize.__main__",
+    "repro_torch.characterize.fit", "repro_torch.characterize.harness",
+    "repro_torch.characterize.model", "repro_torch.characterize.sweeps",
+    "repro_torch.deploy.stages", "repro_torch.kernels.graph",
+    "repro_torch.plan.calibrate"])
+def test_characterize_and_graph_modules_import_alone(module):
+    """Each module of the characterize stage and the CUDA graphs imports in
+    a fresh process with ``jax`` and the JAX package blocked, and loads no
+    kernel."""
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            f"importlib.import_module({module!r})\n"
+            "from repro_torch.kernels import build\n"
+            "assert not build._loaded\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -85,7 +109,8 @@ def no_cuda(monkeypatch):
 @pytest.mark.parametrize("entry", [
     "resolve_device", "plan_deployment", "plan_fleet", "init_edge",
     "EdgeEngine", "Router.from_fleet", "api.init", "api.init_decode_state",
-    "api.init rwkv", "api.init_decode_state rwkv"])
+    "api.init rwkv", "api.init_decode_state rwkv", "Deployment.build",
+    "characterize", "calibrated_device_model"])
 def test_entry_points_raise_without_gpu(no_cuda, entry):
     cfg = edge.edge_config("tau_select")
     lm = configs.get("recurrentgemma-2b").smoke
@@ -105,6 +130,9 @@ def test_entry_points_raise_without_gpu(no_cuda, entry):
                                           torch.Generator().manual_seed(0)),
         "api.init_decode_state rwkv": lambda: api.init_decode_state(
             rwkv, 1, 16),
+        "Deployment.build": lambda: Deployment.build(["tau_select"]),
+        "characterize": lambda: characterize(sweep="calibrate"),
+        "calibrated_device_model": lambda: calibrate.calibrated_device_model(),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -38,7 +38,7 @@ def served():
     from the same float weights and calibration batches."""
     weights = {n: _weights(n, seed) for seed, n in enumerate(SERVED)}
     dep = Deployment.build(
-        SERVED, device="cpu",
+        SERVED, device="cpu", machine_model="stock",
         params={n: edge.params_from_numpy(p, device="cpu")
                 for n, (p, _) in weights.items()},
         calib_x={n: torch.from_numpy(c) for n, (_, c) in weights.items()})
