@@ -23,10 +23,11 @@ def _fmt_constant(name: str, value: float) -> str:
     return f"{name}={value:.3g}"
 
 
-def main(argv: list[str] | None = None) -> int:
+def main(argv: list[str] | None = None, *,
+         prog: str = "python -m repro_torch.characterize") -> int:
     from repro_torch.characterize import sweeps as sweeplib
     ap = argparse.ArgumentParser(
-        prog="python -m repro_torch.characterize",
+        prog=prog,
         description="Run the microbenchmark sweeps on the card, fit every "
                     "cost term, and write the versioned MachineModel "
                     "artifact the planner consumes.")
@@ -50,7 +51,7 @@ def main(argv: list[str] | None = None) -> int:
     try:
         device = resolve_device(args.device)
     except RuntimeError as exc:
-        print(f"python -m repro_torch.characterize: {exc}", file=sys.stderr)
+        print(f"{prog}: {exc}", file=sys.stderr)
         return 1
     print(f"# characterizing {len(args.terms)} cost term(s), "
           f"sweep={args.sweep}, device={device}")

@@ -37,10 +37,11 @@ from repro_torch.core import tiling
 # Relative slack for float identities that calibration rescales under.
 _REL_TOL = 5e-3
 
-# The planner's keys, and the record calibration feedback adds
+# The planner's keys, the LM batch policy the fleet planner adds
+# (plan/multinet.py), and the record calibration feedback adds
 # (plan/calibrate.py).
 _SERVE_KEYS = {"decode_regime", "quantize_weights", "prefill_chunk",
-               "calibration"}
+               "slots", "admit_per_tick", "max_queue_depth", "calibration"}
 _DECODE_REGIMES = ("pipeline", "tiled")
 
 # The artifact's top-level keys (``plan/artifact.py``, ``plan/multinet.py``).
@@ -292,10 +293,11 @@ def _rule_latency_invariant(plan, tenant) -> list:
 
 
 def _rule_serve_section(plan, tenant) -> list:
-    """Serve-section vocabulary: the keys the port's planner writes
-    (``decode_regime``, ``quantize_weights``, ``prefill_chunk``) must be
-    legal, beside calibration feedback's ``calibration`` record; any other
-    key is one warning, since nothing in the port reads it."""
+    """Serve-section vocabulary: the keys the port's planners write
+    (``decode_regime``, ``quantize_weights`` and the LM batch policy
+    ``slots``, ``prefill_chunk``, ``admit_per_tick``, ``max_queue_depth``)
+    must be legal, beside calibration feedback's ``calibration`` record;
+    any other key is one warning, since nothing in the port reads it."""
     fs = []
     serve = plan.serve
 
@@ -315,10 +317,18 @@ def _rule_serve_section(plan, tenant) -> list:
     qw = serve.get("quantize_weights")
     if qw is not None and not isinstance(qw, bool):
         bad(f"serve.quantize_weights must be a bool, got {qw!r}")
-    pc = serve.get("prefill_chunk")
-    if pc is not None and (not isinstance(pc, int) or isinstance(pc, bool)
-                           or pc < 1):
-        bad(f"serve.prefill_chunk={pc!r} must be an int >= 1 (or null)")
+    # LM continuous-batching policy.
+    for k in ("slots", "admit_per_tick", "max_queue_depth", "prefill_chunk"):
+        v = serve.get(k)
+        if v is not None and (not isinstance(v, int) or isinstance(v, bool)
+                              or v < 1):
+            bad(f"serve.{k}={v!r} must be an int >= 1 (or null)")
+    slots = serve.get("slots")
+    depth = serve.get("max_queue_depth")
+    if isinstance(slots, int) and isinstance(depth, int) and depth < slots:
+        bad(f"serve.max_queue_depth={depth} < slots={slots}: admission "
+            f"would refuse requests the batcher has free slots for",
+            severity="warning")
     return fs
 
 

@@ -1,10 +1,11 @@
 """The facade's stages: characterize -> plan -> verify -> engines, as
 explicit objects.
 
-Port of the JAX package's ``deploy/stages.py`` for the edge nets on the
-card.  Each stage reads its inputs off a :class:`StageContext`, writes one
-output back, and returns a :class:`StageResult`: output, wall time, whether
-it was served from a cache or memo, the artifact it loaded.
+Port of the JAX package's ``deploy/stages.py`` for the edge nets and the
+ported LMs on the card.  Each stage reads its inputs off a
+:class:`StageContext`, writes one output back, and returns a
+:class:`StageResult`: output, wall time, whether it was served from a cache
+or memo, the artifact it loaded or wrote.
 :class:`repro_torch.deploy.Deployment` runs them in order.
 
 =============== =============================== =======================
@@ -13,7 +14,8 @@ stage           inputs (ctx fields)             output (ctx field)
 characterize    machine_model spec, device      model + plan_kw["hw"]
 plan            configs, target, plan_kw, cache fleet (FleetPlan)
 verify          fleet, plan_kw, verify flag     findings (design rules)
-engines         fleet, configs, weights         engines {net_id: engine}
+engines         fleet, configs, weights,        engines {net_id: engine}
+                lm_params
 =============== =============================== =======================
 """
 
@@ -65,6 +67,8 @@ class StageContext:
     ``engines``) and records its :class:`StageResult` under ``results``."""
     configs: list = dataclasses.field(default_factory=list)
     target: str = "h100"
+    batch: int | None = None             # the plan's batch (None: the net's)
+    artifact_dir: pathlib.Path | None = None   # the plan stage writes here
     machine_model: Any = "auto"          # spec; resolved by CharacterizeStage
     device: torch.device = torch.device("cpu")
     cache: PlanCache | None = None
@@ -73,6 +77,8 @@ class StageContext:
     params: dict = dataclasses.field(default_factory=dict)
     qparams: dict = dataclasses.field(default_factory=dict)
     calib_x: dict = dataclasses.field(default_factory=dict)
+    lm_params: dict = dataclasses.field(default_factory=dict)
+    max_len: int = 256                   # each LM batcher's cache length
     tracer: Any = NULL_TRACER            # repro_torch.obs.Tracer when tracing
     verify: bool = True                  # run the design-rule gate
     # stage outputs
@@ -85,10 +91,43 @@ class StageContext:
     def __post_init__(self):
         if self.cache is None:
             self.cache = default_cache()
+        if self.artifact_dir is not None:
+            self.artifact_dir = pathlib.Path(self.artifact_dir)
 
     def record(self, res: StageResult) -> StageResult:
         self.results[res.stage] = res
         return res
+
+
+def resolve_configs(specs) -> list:
+    """One or many config specs as config objects.  A spec is an
+    ``EdgeConfig`` or ``ModelConfig`` (passed through), an edge net name,
+    or an LM arch id, bare or as ``"lm:<arch>"``, which resolves to the
+    arch's smoke config; pass ``configs.get(arch).config`` to plan the
+    published shape."""
+    from repro_torch import configs as configs_lib
+    from repro_torch.models import edge
+    if specs is None:
+        return []
+    if not isinstance(specs, (list, tuple)):
+        specs = [specs]
+    out = []
+    for s in specs:
+        if not isinstance(s, str):
+            out.append(s)
+            continue
+        name = s[3:] if s.startswith("lm:") else s
+        if not s.startswith("lm:") and name in edge.EDGE_NETS:
+            out.append(edge.edge_config(name))
+            continue
+        try:
+            out.append(configs_lib.get(name).smoke)
+        except ValueError:
+            raise ValueError(
+                f"unknown edge net or LM arch {s!r} (edge nets: "
+                f"{sorted(edge.EDGE_NETS)}; LM archs: "
+                f"{', '.join(configs_lib.ARCH_NAMES)})") from None
+    return out
 
 
 class CharacterizeStage:
@@ -181,21 +220,39 @@ def provenance_mismatch(model, device: torch.device) -> dict:
 class PlanStage:
     """Plan the configs as one (possibly single-tenant) fleet under the
     characterized machine model; the fleet cache answers repeat questions
-    (the result's ``cached`` flag says it did)."""
+    (the result's ``cached`` flag says it did).  A fleet already on the
+    context (``Deployment.build(plan=...)``) is served as given.  With an
+    ``artifact_dir`` the plan (one tenant) or the fleet is written there."""
 
     name = "plan"
 
     def run(self, ctx: StageContext) -> StageResult:
         t0 = time.perf_counter()
+        if ctx.fleet is not None:
+            return ctx.record(StageResult(
+                stage=self.name, output=ctx.fleet, cached=True,
+                wall_s=time.perf_counter() - t0,
+                detail="pre-built plan supplied"))
         if not ctx.configs:
-            raise ValueError("plan stage needs at least one config")
-        kw = dict(target=ctx.target, **ctx.plan_kw)
+            raise ValueError("plan stage needs at least one config "
+                             "(or a pre-built plan=)")
+        kw = dict(target=ctx.target, batch=ctx.batch, **ctx.plan_kw)
         cached = ctx.cache.get_fleet(fleet_key(ctx.configs, **kw)) is not None
         ctx.fleet = plan_fleet(ctx.configs, cache=ctx.cache,
                                device=ctx.device, **kw)
+        artifact = None
+        if ctx.artifact_dir is not None:
+            if len(ctx.fleet.tenants) == 1:
+                t = ctx.fleet.tenants[0]
+                artifact = t.plan.save(
+                    ctx.artifact_dir / f"{t.net_id}_{ctx.target}.json")
+            else:
+                artifact = ctx.fleet.save(
+                    ctx.artifact_dir
+                    / f"fleet_{ctx.fleet.name}_{ctx.target}.json")
         return ctx.record(StageResult(
             stage=self.name, output=ctx.fleet, cached=cached,
-            wall_s=time.perf_counter() - t0,
+            artifact=artifact, wall_s=time.perf_counter() - t0,
             detail=f"{len(ctx.fleet.tenants)} tenant(s), "
                    f"key={ctx.fleet.key[:12]}"))
 
@@ -233,17 +290,22 @@ class VerifyStage:
 
 
 class EngineStage:
-    """One :class:`~repro_torch.serve.EdgeEngine` per tenant, running
-    exactly the tenant's plan: weights quantized with activation scales
-    calibrated by a float forward (``fused_dense``), the forward a CUDA
-    graph on the card.  ``ctx.params`` / ``qparams`` / ``calib_x`` map a
-    net id to its float params, quantized params or calibration batch; other
+    """One engine per tenant, running exactly the tenant's plan.
+
+    An edge tenant gets an :class:`~repro_torch.serve.EdgeEngine`: weights
+    quantized with activation scales calibrated by a float forward
+    (``fused_dense``), the forward a CUDA graph on the card;
+    ``ctx.params`` / ``qparams`` / ``calib_x`` map a net id to its float
+    params, quantized params or calibration batch.  An LM tenant gets a
+    plan-driven :class:`~repro_torch.serve.ContinuousBatcher` of
+    ``ctx.max_len`` over ``ctx.lm_params[net_id] = (cfg, params)``.  Other
     nets draw weights from ``ctx.seed``."""
 
     name = "engines"
 
     def run(self, ctx: StageContext) -> StageResult:
-        from repro_torch.serve.engine import EdgeEngine
+        from repro_torch.models import api, edge as edge_lib
+        from repro_torch.serve.engine import ContinuousBatcher, EdgeEngine
         if ctx.fleet is None:
             raise ValueError("engine stage needs a planned fleet "
                              "(run the plan stage first)")
@@ -252,15 +314,34 @@ class EngineStage:
         for tp in ctx.fleet.tenants:
             if tp.net_id in ctx.engines:
                 continue
+            cfg = by_name.get(tp.plan.network)
+            if tp.plan.kind == "lm":
+                if tp.net_id in ctx.lm_params:
+                    cfg, params = ctx.lm_params[tp.net_id]
+                elif cfg is None:
+                    raise ValueError(
+                        f"LM tenant {tp.net_id!r} needs its config: pass "
+                        f"lm_params={{net_id: (cfg, params)}} or build from "
+                        f"config objects")
+                else:
+                    gen = torch.Generator(device=ctx.device).manual_seed(
+                        ctx.seed)
+                    params = api.init(cfg, gen, device=ctx.device)
+                ctx.engines[tp.net_id] = ContinuousBatcher(
+                    cfg, params, plan=tp.plan, max_len=ctx.max_len,
+                    device=ctx.device)
+                continue
+            if cfg is None:
+                cfg = edge_lib.edge_config(tp.plan.network)
             ctx.engines[tp.net_id] = EdgeEngine(
-                by_name[tp.plan.network], ctx.params.get(tp.net_id),
-                plan=tp.plan, seed=ctx.seed,
+                cfg, ctx.params.get(tp.net_id), plan=tp.plan, seed=ctx.seed,
                 qparams=ctx.qparams.get(tp.net_id),
                 calib_x=ctx.calib_x.get(tp.net_id), device=ctx.device)
+        kinds = [tp.plan.kind for tp in ctx.fleet.tenants]
         return ctx.record(StageResult(
             stage=self.name, output=ctx.engines,
             wall_s=time.perf_counter() - t0,
-            detail=f"{len(ctx.engines)} edge"))
+            detail=f"{kinds.count('edge')} edge + {kinds.count('lm')} lm"))
 
 
 PIPELINE = (CharacterizeStage(), PlanStage(), VerifyStage(), EngineStage())

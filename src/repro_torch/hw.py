@@ -5,12 +5,13 @@ The fusion DP (``core/boundary.py``) and the tile planner
 package's TPU model carries: ``hbm_bw``, ``kernel_overhead_s`` and
 ``fused_epilogue_s``.  ``smem_bytes`` (shared memory one block may use)
 plays the role the TPU model's VMEM size plays.  ``peak_bf16_ops`` (the
-tensor cores, which bf16 ``tiled_gemm`` runs on) and ``f32_fma_ops`` (the
-CUDA cores, which f32 ``tiled_gemm`` and ``fused_dense`` run on) are read
-only by their tile planner, and ``dram_round_trip_s`` (one round trip to
-device memory, which ``fused_dense``'s planner charges per K stage) only by
-that planner, so they stay out of the edge plans' keys (``plan_key:
-False``).
+tensor cores, which bf16 ``tiled_gemm`` and an LM's bf16 GEMMs run on) and
+``f32_fma_ops`` (the CUDA cores, which f32 ``tiled_gemm`` and
+``fused_dense`` run on) are read only by their tile planners and the LM
+planner, and ``dram_round_trip_s`` (one round trip to device memory, which
+``fused_dense``'s planner charges per K stage) only by that planner, so
+they stay out of the edge plans' keys (``plan_key: False``); an LM plan's
+key adds the bf16 rate itself.
 
 Rates and sizes are the H100 SXM datasheet's (not measured on a card).  The
 two launch-cost terms are the stock values that plans made with

@@ -11,6 +11,12 @@
 // registers.  Whole KV tiles outside the causal/window band are never
 // loaded, as the Pallas kernel skips them.
 //
+// Query row i sits at key position q_off + i (q_off = 0 but for a chunk of
+// a prompt after q_off cached keys, the reference's chunked_attention
+// q_offset; the TPU kernel has none): the causal mask keeps k_pos <= q_off
+// + i, the window k_pos > q_off + i - window, and the band of KV tiles a
+// query tile walks moves with it.
+//
 // Masking follows the reference: masked logits are -0.7 * FLT_MAX, their
 // probabilities are zeroed, and a row with zero mass writes 0 (l == 0 -> 1).
 // Unlike the Pallas kernel, keys at k_pos >= Sk are masked here in every
@@ -85,6 +91,7 @@ struct Args {
   int hq, hkv, s, sk, d;
   float scale, softcap;  // softcap <= 0: none
   int causal, window;    // window <= 0: none
+  int q_off;             // key position of query row 0
 };
 
 __device__ inline void load8(const float* src, float* dst) {
@@ -136,18 +143,21 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Args p) {
 
   const int row = threadIdx.x / kLanes;
   const int lane = threadIdx.x - row * kLanes;
-  const int q_pos = q_lo + row;
+  const int q_row = q_lo + row;
+  const int q_pos = p.q_off + q_row;
   float m = kNeg, l = 0.f;
   float4 acc[kChunks];
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  // KV tiles inside the causal/window band of this query tile.
+  // KV tiles inside the causal/window band of this query tile, whose rows
+  // sit at key positions qp_lo .. qp_lo + kRows - 1.
+  const int qp_lo = p.q_off + q_lo;
   const int n_kv = (p.sk + kRows - 1) / kRows;
   int t_begin = 0, t_end = n_kv;
-  if (p.causal) t_end = min(n_kv, (q_lo + kRows - 1) / kRows + 1);
-  if (p.window > 0 && q_lo - p.window + 1 > 0)
-    t_begin = (q_lo - p.window + 1) / kRows;
+  if (p.causal) t_end = min(n_kv, (qp_lo + kRows - 1) / kRows + 1);
+  if (p.window > 0 && qp_lo - p.window + 1 > 0)
+    t_begin = (qp_lo - p.window + 1) / kRows;
 
   for (int t = t_begin; t < t_end; ++t) {
     const int k_lo = t * kRows;
@@ -232,10 +242,10 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Args p) {
     }
   }
 
-  if (q_pos >= p.s) return;
+  if (q_row >= p.s) return;
   const float denom = l == 0.f ? 1.f : l;
   float* orow = static_cast<float*>(p.out) +
-                (static_cast<long long>(bh) * p.s + q_pos) * p.d;
+                (static_cast<long long>(bh) * p.s + q_row) * p.d;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
     const int col = (lane + c * kLanes) * 4;
@@ -291,6 +301,7 @@ struct TcArgs {
   int hq, hkv, s, sk, d;
   float scale, softcap;  // softcap <= 0: none
   int causal, window;    // window <= 0: none
+  int q_off;             // key position of query row 0
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -320,12 +331,14 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int b = bh / p.hq, h = bh - b * p.hq;
   const int hk = h / (p.hq / p.hkv);
   const int q_lo = (gridDim.y - 1 - blockIdx.y) * kQTile;
-  // KV tiles inside the causal/window band of this query tile.
+  // KV tiles inside the causal/window band of this query tile, whose rows
+  // sit at key positions qp_lo .. qp_lo + kQTile - 1.
+  const int qp_lo = p.q_off + q_lo;
   const int n_kv = (p.sk + kKTile - 1) / kKTile;
   int t_begin = 0, t_end = n_kv;
-  if (p.causal) t_end = min(n_kv, (q_lo + kQTile - 1) / kKTile + 1);
-  if (p.window > 0 && q_lo - p.window + 1 > 0)
-    t_begin = (q_lo - p.window + 1) / kKTile;
+  if (p.causal) t_end = min(n_kv, (qp_lo + kQTile - 1) / kKTile + 1);
+  if (p.window > 0 && qp_lo - p.window + 1 > 0)
+    t_begin = (qp_lo - p.window + 1) / kKTile;
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(qbar, 1);
@@ -403,8 +416,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
     // Logits, masks (only on tiles the band's edges cross), row maxima.
     const bool edge = k_lo + kKTile > p.sk ||
-                      (p.causal && k_lo + kKTile - 1 > q_lo) ||
-                      (p.window > 0 && k_lo < q_lo + kQTile - p.window);
+                      (p.causal && k_lo + kKTile - 1 > qp_lo) ||
+                      (p.window > 0 && k_lo < qp_lo + kQTile - p.window);
     float mx[2] = {kNeg, kNeg};
 #pragma unroll
     for (int e = 0; e < 32; ++e) {
@@ -413,7 +426,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
       if (cap > 0.f) x = cap * tanhf(x / cap);
       if (edge) {
         const int k_pos = k_lo + 8 * (e >> 2) + cq + (e & 1);
-        const int q_pos = row0 + 8 * hh;
+        const int q_pos = p.q_off + row0 + 8 * hh;
         bool ok = k_pos < p.sk;
         if (p.causal) ok = ok && k_pos <= q_pos;
         if (p.window > 0) ok = ok && k_pos > q_pos - p.window;
@@ -530,8 +543,8 @@ int launch_tc(const Args& a, int batch, cudaStream_t stream) {
     err = qkv_map(&tv, a.v, a.d, a.sk, a.hkv, batch, a.v_ss, a.v_sh, a.v_sb,
                   kKTile);
   if (err != 0) return err;
-  const TcArgs p{a.out, a.hq, a.hkv, a.s, a.sk, a.d, a.scale, a.softcap,
-                 a.causal, a.window};
+  const TcArgs p{a.out,   a.hq,      a.hkv,    a.s,      a.sk, a.d,
+                 a.scale, a.softcap, a.causal, a.window, a.q_off};
   const dim3 grid(batch * a.hq, (a.s + kQTile - 1) / kQTile);
   flash_tc_kernel<DMAX>
       <<<grid, kFlashThreads, F::smem_bytes(), stream>>>(tq, tk, tv, p);
@@ -552,8 +565,10 @@ int dispatch_d(const Args& args, int batch, int is_bf16, cudaStream_t st) {
 }  // namespace
 
 // q/k/v/out in f32 (is_bf16 = 0) or bf16 (1); strides in elements, the last
-// dimension contiguous.  out is contiguous (B, Hq, S, D).  Refuses D > 256,
-// D % 8 != 0, Hq % Hkv != 0 and grids past the hardware limits with
+// dimension contiguous.  out is contiguous (B, Hq, S, D); query row i sits
+// at key position q_offset + i.  Refuses D > 256, D % 8 != 0, Hq % Hkv !=
+// 0, a q_offset below 0 or with q_offset + S past 2^30 (flash_attention.py's
+// MAX_POSITION) and grids past the hardware limits with
 // cudaErrorInvalidValue; bf16 views TMA cannot map (a stride that is not a
 // multiple of 8 elements, a base not 16-byte aligned) too.  Otherwise
 // returns cudaGetLastError() after the launch.
@@ -562,13 +577,15 @@ extern "C" int repro_flash_attention(
     int batch, int hq, int hkv, int s, int sk, int d, long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
-    float scale, int causal, int window, float softcap, void* stream) {
+    float scale, int causal, int window, float softcap, int q_offset,
+    void* stream) {
   if (batch < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || s < 1 || sk < 1 ||
       d < 8 || d > 256 || d % 8 != 0 ||
-      static_cast<long long>(batch) * hq > 65535)
+      static_cast<long long>(batch) * hq > 65535 || q_offset < 0 ||
+      static_cast<long long>(q_offset) + s > (1LL << 30))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args args{q,    k,    v,    out,  q_sb, q_sh,  q_ss,    k_sb,
-                  k_sh, k_ss, v_sb, v_sh, v_ss, hq,    hkv,     s,
-                  sk,   d,    scale, softcap, causal, window};
+  const Args args{q,    k,    v,    out,  q_sb,  q_sh,    q_ss,   k_sb,
+                  k_sh, k_ss, v_sb, v_sh, v_ss,  hq,      hkv,    s,
+                  sk,   d,    scale, softcap, causal, window, q_offset};
   return dispatch_d(args, batch, is_bf16, static_cast<cudaStream_t>(stream));
 }

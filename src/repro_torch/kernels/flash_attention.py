@@ -5,10 +5,13 @@ Port of the JAX package's ``kernels/flash_attention.py::flash_attention``:
 q ``(B, Hq, S, D)``, k/v ``(B, Hkv, Sk, D)`` in f32 or bf16, query head ``h``
 reading KV head ``h // (Hq // Hkv)``, the result in q's dtype.  Masked logits
 are ``-0.7 * f32max`` with their probabilities zeroed, and a row with zero
-mass is 0.  Keys at positions ``>= Sk`` never carry mass, in any mode.  The
-CUDA kernel is ``csrc/flash_attention.cu``; :func:`flash_attention_plain` is
-the same function in plain PyTorch, used for CPU tensors and as the
-kernel's oracle on the card.
+mass is 0.  Keys at positions ``>= Sk`` never carry mass, in any mode.
+``q_offset`` places query row ``i`` at key position ``q_offset + i`` (a
+chunk of a prompt after ``q_offset`` cached keys), as the reference's
+``models/layers.py::chunked_attention`` does; the TPU kernel has no offset.
+The CUDA kernel is ``csrc/flash_attention.cu``;
+:func:`flash_attention_plain` is the same function in plain PyTorch, used
+for CPU tensors and as the kernel's oracle on the card.
 """
 
 from __future__ import annotations
@@ -25,10 +28,11 @@ launches = 0          # kernel launches since the last reset (plain int)
 
 NEG = -0.7 * torch.finfo(torch.float32).max
 MAX_HEAD_DIM = 256
+MAX_POSITION = 2 ** 30   # q_offset + S at most; csrc/flash_attention.cu's
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check(q, k, v, *, window, softcap) -> None:
+def _check(q, k, v, *, window, softcap, q_offset) -> None:
     """Shape and option checks shared by both versions, so an argument the
     kernel refuses is refused on the CPU as well."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -47,16 +51,21 @@ def _check(q, k, v, *, window, softcap) -> None:
     if softcap is not None and softcap <= 0:
         raise ValueError(f"flash_attention: softcap must be > 0, got "
                          f"{softcap}")
+    if type(q_offset) is not int \
+            or not 0 <= q_offset <= MAX_POSITION - q.shape[2]:
+        raise ValueError(f"flash_attention: q_offset must be an int in "
+                         f"[0, {MAX_POSITION} - S], got {q_offset!r}")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int | None = None,
                           softcap: float | None = None,
-                          scale: float | None = None) -> torch.Tensor:
+                          scale: float | None = None,
+                          q_offset: int = 0) -> torch.Tensor:
     """The kernel's function as one dense masked softmax in f32: the same
     constants, the zero-mass rule, and no key past ``Sk`` (the dense form
     has no padding to mask)."""
-    _check(q, k, v, window=window, softcap=softcap)
+    _check(q, k, v, window=window, softcap=softcap, q_offset=q_offset)
     s_q, d = q.shape[2], q.shape[3]
     s_k = k.shape[2]
     group = q.shape[1] // k.shape[1]
@@ -66,7 +75,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.matmul(q.float(), kx.transpose(-1, -2)) * scale
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    q_pos = torch.arange(s_q, device=q.device)[:, None]
+    q_pos = q_offset + torch.arange(s_q, device=q.device)[:, None]
     k_pos = torch.arange(s_k, device=q.device)[None, :]
     mask = torch.ones((s_q, s_k), dtype=torch.bool, device=q.device)
     if causal:
@@ -87,7 +96,7 @@ def _lib() -> ctypes.CDLL:
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.repro_flash_attention.argtypes = (
         [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci] + [ll] * 9
-        + [ctypes.c_float, ci, ci, ctypes.c_float, vp])
+        + [ctypes.c_float, ci, ci, ctypes.c_float, ci, vp])
     lib.repro_flash_attention.restype = ci
     return lib
 
@@ -95,13 +104,14 @@ def _lib() -> ctypes.CDLL:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int | None = None,
                          softcap: float | None = None,
-                         scale: float | None = None) -> torch.Tensor:
+                         scale: float | None = None,
+                         q_offset: int = 0) -> torch.Tensor:
     """Launch ``csrc/flash_attention.cu`` on q's device and stream.  q, k, v
     may be strided views (the model passes head-transposed projections)
     as long as the last dimension is contiguous and every stride is a
     multiple of 8 elements; the output is contiguous."""
     global launches
-    _check(q, k, v, window=window, softcap=softcap)
+    _check(q, k, v, window=window, softcap=softcap, q_offset=q_offset)
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
         raise ValueError("flash_attention_cuda: q, k, v must lie on one CUDA "
                          "device")
@@ -133,7 +143,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         int(q.dtype == torch.bfloat16), b, hq, hkv, s, sk, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale),
         int(causal), 0 if window is None else int(window),
-        0.0 if softcap is None else float(softcap), stream)
+        0.0 if softcap is None else float(softcap), q_offset, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention: CUDA error {err}")
     launches += 1

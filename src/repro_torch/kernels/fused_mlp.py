@@ -168,8 +168,10 @@ def pack_group(weights, w_scales, biases, x_scales, *, act: str = "relu",
 
 def _quantize(h: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     # Division by a 0-d tensor is a true IEEE division on every device;
-    # torch.round rounds half to even like jnp.round.
-    return torch.clamp(torch.round(h / scale), -127, 127)
+    # torch.round rounds half to even like jnp.round.  NaN quantizes to 0
+    # and +-inf to +-127, as the reference's clip-then-int8 cast gives.
+    q = torch.clamp(torch.round(h / scale), -127, 127)
+    return torch.where(torch.isnan(q), 0.0, q)
 
 
 def fused_mlp_q8_plain(x: torch.Tensor, g: FusedGroup) -> torch.Tensor:

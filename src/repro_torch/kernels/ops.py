@@ -100,15 +100,18 @@ def gemm_int8(x, w, w_scale, x_scale: float = 1.0, *,
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
                     softcap: float | None = None,
-                    scale: float | None = None) -> torch.Tensor:
+                    scale: float | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """Blocked attention, q ``(B, Hq, S, D)`` against k, v ``(B, Hkv, Sk,
-    D)``; the queries sit at positions ``0..S-1`` of the key timeline."""
+    D)``; the queries sit at positions ``q_offset..q_offset+S-1`` of the
+    key timeline."""
     if q.device.type == "cpu":
         return _fa.flash_attention_plain(q, k, v, causal=causal,
                                          window=window, softcap=softcap,
-                                         scale=scale)
+                                         scale=scale, q_offset=q_offset)
     return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    softcap=softcap, scale=scale)
+                                    softcap=softcap, scale=scale,
+                                    q_offset=q_offset)
 
 
 def linear_scan(a, b) -> torch.Tensor:

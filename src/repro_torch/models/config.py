@@ -1,9 +1,10 @@
 """Model configuration schema of the port's language models.
 
 A copy of the JAX package's ``models/config.py`` (``GriffinConfig``,
-``ModelConfig``) with the fields the port's two families read: Griffin
-(``recurrentgemma``) and RWKV-6.  The dataclass, field names and defaults
-stay, so a configuration reads the same in both packages.  The Griffin
+``ModelConfig``) with the fields the port's two families and its planner
+(``plan/graph.model_graph``) read: Griffin (``recurrentgemma``) and
+RWKV-6.  The dataclass, field names and defaults stay, so a configuration
+reads the same in both packages.  The Griffin
 family always ties and scales its embeddings; RWKV-6 reads
 ``rwkv_head_dim`` and keeps a separate unembedding.
 """
@@ -44,6 +45,7 @@ class ModelConfig:
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
+    mlp_gated: bool = True            # the planner's graph: 2 input matrices
     # Whether a 500k-token decode is sub-quadratic-feasible (SSM/hybrid only).
     subquadratic: bool = False
 

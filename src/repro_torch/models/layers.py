@@ -9,8 +9,9 @@ Every block is a pair ``init_*(generator, cfg, ...) -> params`` and
 tree layout, so a JAX parameter tree converts leaf by leaf.
 
 Compute conventions follow the reference: weights in ``cfg.dtype``, norms and
-softmax statistics in f32, matmul results in f32 (:func:`mm`).  Full-sequence
-attention (``q_offset == 0``) runs the ``flash_attention`` kernel through
+softmax statistics in f32, matmul results in f32 (:func:`mm`).  Every
+multi-token attention (a forward, a prompt, a chunk of one at a later
+position) runs the ``flash_attention`` kernel through
 :func:`repro_torch.kernels.ops.flash_attention`.
 """
 
@@ -142,17 +143,45 @@ def _slot_positions(cache_pos, b: int, device) -> torch.Tensor:
     return torch.full((b,), int(cache_pos), dtype=torch.long, device=device)
 
 
-def _prefill_at_zero(cache_pos) -> None:
-    """Multi-token steps run the flash kernel, whose queries start at key
-    position 0; a later start (chunked prefill) is not ported."""
+def _chunk_start(cache_pos) -> int:
+    """The start position of a multi-token step: one int shared by every
+    row (a chunk of a prompt runs the flash kernel with this q_offset)."""
     if torch.is_tensor(cache_pos):
         raise ValueError("a multi-token step takes one int start position, "
                          "not a per-row tensor")
-    if cache_pos not in (None, 0):
-        raise NotImplementedError(
-            f"prefill starting at position {cache_pos}: chunked prefill "
-            f"needs a q_offset, which the flash_attention kernel (like the "
-            f"TPU kernel it ports) does not take")
+    return 0 if cache_pos is None else int(cache_pos)
+
+
+def _ring_chunk(q, k, v, cache: dict, start: int, window: int,
+                softcap) -> tuple[torch.Tensor, dict]:
+    """A chunk of ``s`` tokens at ``start`` against a ring of the last ``W``
+    keys (token j at slot ``j % W``).  The ``h = min(start, W)`` cached keys
+    are unrolled in position order, the chunk appended, and flash runs with
+    its queries at ``q_offset = h``; then the last ``W`` tokens are
+    published at ``pos % W``, as the decode writes them."""
+    w_buf = cache["k"].shape[2]
+    h = min(start, w_buf)
+    if h == 0:
+        kk, vv = k, v
+    else:
+        # Position start - h lies at slot (start - h) % W.
+        first = (start - h) % w_buf
+        kk = torch.cat([torch.roll(cache["k"], -first, dims=2)[:, :, :h], k],
+                       dim=2)
+        vv = torch.cat([torch.roll(cache["v"], -first, dims=2)[:, :, :h], v],
+                       dim=2)
+    out = ops.flash_attention(q, kk, vv, causal=True, window=window,
+                              softcap=softcap, q_offset=h)
+    end = start + k.shape[2]
+    if end < w_buf:
+        k_buf, v_buf = cache["k"].clone(), cache["v"].clone()
+        k_buf[:, :, start:end] = k
+        v_buf[:, :, start:end] = v
+    else:
+        # kk's last W keys are positions end - W .. end - 1.
+        k_buf = torch.roll(kk[:, :, -w_buf:], end % w_buf, dims=2)
+        v_buf = torch.roll(vv[:, :, -w_buf:], end % w_buf, dims=2)
+    return out, {"k": k_buf, "v": v_buf}
 
 
 def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -163,8 +192,9 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     (output, updated_cache).
 
     No ``cache``: full-sequence causal attention.  With ``cache`` = {"k",
-    "v"}: a multi-token step (prefill from position 0) or a one-token decode
-    step at ``cache_pos``, an int or a (B,) tensor of per-row positions.
+    "v"}: a multi-token step at the int ``cache_pos`` (a prompt, or a chunk
+    of one after ``cache_pos`` cached tokens) or a one-token decode step at
+    ``cache_pos``, an int or a (B,) tensor of per-row positions.
     ``ring_window``: the cache is a ring of the last ``ring_window`` keys.
     Caches are never written in place: the updated cache is a new tensor.
     """
@@ -186,25 +216,11 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         out = ops.flash_attention(q, k, v, causal=True, window=window,
                                   softcap=softcap)
     elif ring_window is not None and s > 1:
-        # Ring prefill: windowed attention over the prompt itself, then the
-        # last W keys published into the ring, rolled so token j sits at
-        # slot j % W as the decode writes expect.
-        _prefill_at_zero(cache_pos)
-        w_buf = cache["k"].shape[2]
-        out = ops.flash_attention(q, k, v, causal=True,
-                                  window=window or ring_window,
-                                  softcap=softcap)
-        keep = min(s, w_buf)
-        k_last, v_last = k[:, :, -keep:], v[:, :, -keep:]
-        if keep < w_buf:
-            k_buf, v_buf = cache["k"].clone(), cache["v"].clone()
-            k_buf[:, :, :keep] = k_last
-            v_buf[:, :, :keep] = v_last
-        else:
-            shift = s % w_buf          # first kept token's slot
-            k_buf = torch.roll(k_last, shift, dims=2)
-            v_buf = torch.roll(v_last, shift, dims=2)
-        new_cache = {"k": k_buf, "v": v_buf}
+        # A chunk against the ring: its cached keys unrolled in front of it.
+        # (The reference attends over the chunk alone here, so a chunk after
+        # the first loses the earlier context.)
+        out, new_cache = _ring_chunk(q, k, v, cache, _chunk_start(cache_pos),
+                                     window or ring_window, softcap)
     elif ring_window is not None:
         # Ring decode: each row writes its token at pos % W and attends to
         # every slot written so far; K was roped at its absolute position.
@@ -230,14 +246,15 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
             out = decode_attention(q, k_buf, v_buf, pos, window=window,
                                    softcap=softcap)
         else:
-            _prefill_at_zero(cache_pos)
-            if s > w_buf:
-                raise ValueError(f"prompt of {s} tokens exceeds the "
-                                 f"{w_buf}-token cache")
-            k_buf[:, :, :s] = k
-            v_buf[:, :, :s] = v
+            start = _chunk_start(cache_pos)
+            if start + s > w_buf:
+                raise ValueError(f"{s} tokens at position {start} exceed "
+                                 f"the {w_buf}-token cache")
+            k_buf[:, :, start:start + s] = k
+            v_buf[:, :, start:start + s] = v
             out = ops.flash_attention(q, k_buf, v_buf, causal=True,
-                                      window=window, softcap=softcap)
+                                      window=window, softcap=softcap,
+                                      q_offset=start)
         new_cache = {"k": k_buf, "v": v_buf}
     out = out.transpose(1, 2).reshape(b, s, h * dh)
     return mm(out, params["wo"]).to(x.dtype), new_cache

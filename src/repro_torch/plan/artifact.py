@@ -5,6 +5,10 @@ The JSON schema is the JAX package's schema 3: ``layers``, ``boundaries``,
 ``target: "h100"``.  ``plan_key`` hashes everything the planner's answer
 depends on (layer shapes, batch, target, every machine-model constant, the
 planner version), so a cache hit is the same question asked again.
+:class:`PlanCache` keeps plans and fleets in memory and, given a directory,
+on disk (``<key>.json``, ``<key>.fleet.json``), written atomically.  The
+port's default directory is ``REPRO_TORCH_PLAN_CACHE_DIR``: its artifacts
+(target ``h100``) never share a directory with the JAX package's.
 """
 
 from __future__ import annotations
@@ -14,9 +18,26 @@ import hashlib
 import json
 import os
 import pathlib
+import warnings
 
 PLAN_SCHEMA_VERSION = 3
 PLANNER_VERSION = "h100-plan-1"     # bump on any search or cost-model change
+
+
+def atomic_write_text(path: str | os.PathLike, text: str) -> pathlib.Path:
+    """Write through a temporary file in the same directory and
+    ``os.replace``: a process killed mid-write leaves the old artifact, not
+    a truncated one."""
+    p = pathlib.Path(path)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    tmp = p.with_name(f"{p.name}.tmp.{os.getpid()}")
+    try:
+        tmp.write_text(text)
+        os.replace(tmp, p)
+    except BaseException:
+        tmp.unlink(missing_ok=True)
+        raise
+    return p
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,10 +179,7 @@ class DeploymentPlan:
         return cls.from_dict(json.loads(s))
 
     def save(self, path: str | os.PathLike) -> pathlib.Path:
-        p = pathlib.Path(path)
-        p.parent.mkdir(parents=True, exist_ok=True)
-        p.write_text(self.to_json() + "\n")
-        return p
+        return atomic_write_text(path, self.to_json() + "\n")
 
     @classmethod
     def load(cls, path: str | os.PathLike) -> "DeploymentPlan":
@@ -197,33 +215,79 @@ def plan_key(graph, target: str, hw_objs: tuple,
 
 
 class PlanCache:
-    """In-memory plan and fleet cache keyed on :func:`plan_key`."""
+    """Plan and fleet cache keyed on :func:`plan_key`: in memory, and on
+    disk under ``directory`` when one is given (``<key>.json`` holds
+    ``DeploymentPlan.to_json()``, ``<key>.fleet.json`` a fleet's), so the
+    cached files double as the CLI's artifacts.  A corrupt or truncated file
+    is a miss (a warning, then a fresh plan), never an error."""
 
-    def __init__(self):
+    def __init__(self, directory: str | os.PathLike | None = None):
         self._plans: dict[str, DeploymentPlan] = {}
         self._fleets: dict[str, object] = {}
+        self.directory = pathlib.Path(directory) if directory else None
+        self.corrupt_reads = 0
+
+    def _read_artifact(self, path: pathlib.Path, loader, what: str):
+        try:
+            return loader(path)
+        except (KeyError, ValueError, TypeError, AttributeError,
+                OSError) as exc:
+            self.corrupt_reads += 1
+            warnings.warn(f"corrupt {what} artifact {path} "
+                          f"({exc.__class__.__name__}: {exc}); treating as "
+                          f"cache miss", RuntimeWarning, stacklevel=3)
+            return None
+
+    def _get(self, mem: dict, key: str, suffix: str, loader, what: str):
+        if key in mem:
+            return mem[key]
+        if self.directory is None:
+            return None
+        p = self.directory / f"{key}{suffix}"
+        if not p.exists():
+            return None
+        hit = self._read_artifact(p, loader, what)
+        if hit is not None:
+            mem[key] = hit
+        return hit
 
     def get(self, key: str) -> DeploymentPlan | None:
-        return self._plans.get(key)
+        return self._get(self._plans, key, ".json", DeploymentPlan.load,
+                         "plan")
 
     def put(self, plan: DeploymentPlan) -> DeploymentPlan:
         self._plans[plan.key] = plan
+        if self.directory is not None:
+            plan.save(self.directory / f"{plan.key}.json")
         return plan
 
     def get_fleet(self, key: str):
-        return self._fleets.get(key)
+        from repro_torch.plan.multinet import FleetPlan
+        return self._get(self._fleets, key, ".fleet.json", FleetPlan.load,
+                         "fleet")
 
     def put_fleet(self, fleet, *, key: str):
         self._fleets[key] = fleet
+        if self.directory is not None:
+            fleet.save(self.directory / f"{key}.fleet.json")
         return fleet
+
+    def clear(self):
+        self._plans.clear()
+        self._fleets.clear()
+
+    def __len__(self) -> int:
+        return len(self._plans) + len(self._fleets)
 
 
 _DEFAULT_CACHE: PlanCache | None = None
 
 
 def default_cache() -> PlanCache:
-    """The process-wide cache."""
+    """The process-wide cache; ``REPRO_TORCH_PLAN_CACHE_DIR`` set keeps it
+    on disk there too."""
     global _DEFAULT_CACHE
     if _DEFAULT_CACHE is None:
-        _DEFAULT_CACHE = PlanCache()
+        _DEFAULT_CACHE = PlanCache(
+            os.environ.get("REPRO_TORCH_PLAN_CACHE_DIR"))
     return _DEFAULT_CACHE

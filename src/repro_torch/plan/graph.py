@@ -1,4 +1,10 @@
-"""Per-layer dataflow graphs, the planner's input (edge nets only)."""
+"""Per-layer dataflow graphs, the planner's input.
+
+Two front-ends, as in the JAX package's ``plan/graph.py``:
+:func:`edge_graph` (an ``EdgeConfig``: one int8 node per dense layer) and
+:func:`model_graph` (a ``ModelConfig`` decode step: one bf16 node per
+distinct GEMM of a block, with the block's repeat count).
+"""
 
 from __future__ import annotations
 
@@ -20,6 +26,9 @@ class LayerNode:
     @property
     def macs(self) -> int:
         return self.n_in * self.n_out
+
+    def weight_bytes(self) -> int:
+        return self.n_in * self.n_out * self.itemsize
 
     def out_bytes(self, batch: int) -> int:
         # Activations hand off in f32 before requantization.
@@ -46,3 +55,21 @@ def edge_graph(cfg, *, batch: int | None = None) -> DataflowGraph:
         for i, (n_in, n_out) in enumerate(cfg.layer_shapes))
     return DataflowGraph(name=cfg.name, batch=batch or cfg.batch,
                          nodes=nodes)
+
+
+def model_graph(cfg, *, batch: int = 1) -> DataflowGraph:
+    """Graph of a ``ModelConfig`` decode step: the distinct per-block GEMMs
+    (``repeat`` = the layer count) and the unembedding, in bf16."""
+    d, layers = cfg.d_model, cfg.num_layers
+    n_mlp_in = 2 if cfg.mlp_gated else 1
+    nodes = (
+        LayerNode(0, "attn.wq", d, cfg.q_dim, repeat=layers, itemsize=2),
+        LayerNode(1, "attn.wk", d, cfg.kv_dim, repeat=layers, itemsize=2),
+        LayerNode(2, "attn.wv", d, cfg.kv_dim, repeat=layers, itemsize=2),
+        LayerNode(3, "attn.wo", cfg.q_dim, d, repeat=layers, itemsize=2),
+        LayerNode(4, "mlp.in", d, cfg.d_ff * n_mlp_in, repeat=layers,
+                  itemsize=2),
+        LayerNode(5, "mlp.out", cfg.d_ff, d, repeat=layers, itemsize=2),
+        LayerNode(6, "unemb", d, cfg.padded_vocab, itemsize=2),
+    )
+    return DataflowGraph(name=cfg.name, batch=batch, nodes=nodes, kind="lm")

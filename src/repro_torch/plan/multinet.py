@@ -1,9 +1,14 @@
-"""Several edge nets served from one card: the fleet plan.
+"""Several nets served from one card: the fleet plan.
 
-The nets time-share the card, so each is planned by the single-net search;
-the hand-off of each net's result is charged one DR7' crossing, and each
-tenant's latency budget is ``budget_factor x (planned + crossing)``, the
-budget the serving router measures against.
+The nets (edge nets and LMs) time-share the card, so each is planned by the
+single-net search; the hand-off of each net's result is charged one DR7'
+crossing, and each tenant's latency budget is ``budget_factor x (planned +
+crossing)``, the budget the serving router measures against.  An LM
+tenant's serve section also carries the continuous batcher's policy, as the
+reference's ``_plan_fleet_tpu`` writes it: a fair share of
+``serve_slots_total`` slots across the LM tenants, the ``prefill_chunk``,
+one admission a tick and a queue-depth bound of ``queue_depth_factor``
+slot generations.
 """
 
 from __future__ import annotations
@@ -11,15 +16,26 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import os
+import pathlib
 
 from repro_torch import hw as hwlib
 from repro_torch.core import boundary
 from repro_torch.device import resolve_device
 from repro_torch.plan import planner
 from repro_torch.plan.artifact import (PLAN_SCHEMA_VERSION, PLANNER_VERSION,
-                                       DeploymentPlan, default_cache)
+                                       DeploymentPlan, atomic_write_text,
+                                       default_cache)
 
 DEFAULT_BUDGET_FACTOR = 2.0
+
+# The LM tenants' serve-policy knobs and their defaults (the reference's
+# SERVE_DEFAULTS less the budget factor).
+LM_SERVE_DEFAULTS = {
+    "serve_slots_total": 8,
+    "prefill_chunk": 8,
+    "queue_depth_factor": 4,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +104,13 @@ class FleetPlan:
     def from_json(cls, s: str) -> "FleetPlan":
         return cls.from_dict(json.loads(s))
 
+    def save(self, path: str | os.PathLike) -> pathlib.Path:
+        return atomic_write_text(path, self.to_json() + "\n")
+
+    @classmethod
+    def load(cls, path: str | os.PathLike) -> "FleetPlan":
+        return cls.from_json(pathlib.Path(path).read_text())
+
     @classmethod
     def from_plan(cls, plan: DeploymentPlan, *,
                   budget_factor: float = DEFAULT_BUDGET_FACTOR
@@ -115,13 +138,20 @@ def _net_ids(graphs) -> list[str]:
 def fleet_key(cfgs, *, target: str = planner.TARGET,
               batch: int | None = None,
               budget_factor: float = DEFAULT_BUDGET_FACTOR,
-              hw: hwlib.H100 = hwlib.H100_SXM) -> str:
+              hw: hwlib.H100 = hwlib.H100_SXM, **lm_serve) -> str:
     """The cache key :func:`plan_fleet` files these arguments' fleet under:
-    every net's plan key (machine model included) and the budget factor."""
+    every net's plan key (machine model included), the budget factor and,
+    when the fleet has an LM tenant, the LM serve knobs (``lm_serve``,
+    defaulting as in :func:`plan_fleet`)."""
+    unknown = set(lm_serve) - set(LM_SERVE_DEFAULTS)
+    if unknown:
+        raise TypeError(f"unknown serve option(s): {sorted(unknown)}")
     graphs = [planner.as_graph(c, batch=batch) for c in cfgs]
     payload = {"planner": PLANNER_VERSION, "target": target,
                "fleet": [planner._key_for(g, target, hw) for g in graphs],
                "budget_factor": budget_factor}
+    if any(g.kind == "lm" for g in graphs):
+        payload["lm_serve"] = {**LM_SERVE_DEFAULTS, **lm_serve}
     return hashlib.sha256(json.dumps(payload, sort_keys=True).encode()
                           ).hexdigest()
 
@@ -129,25 +159,39 @@ def fleet_key(cfgs, *, target: str = planner.TARGET,
 def plan_fleet(cfgs, *, target: str = planner.TARGET,
                batch: int | None = None,
                budget_factor: float = DEFAULT_BUDGET_FACTOR,
+               serve_slots_total: int = LM_SERVE_DEFAULTS["serve_slots_total"],
+               prefill_chunk: int | None = LM_SERVE_DEFAULTS["prefill_chunk"],
+               queue_depth_factor: int = LM_SERVE_DEFAULTS[
+                   "queue_depth_factor"],
                hw: hwlib.H100 = hwlib.H100_SXM, cache=None,
                device=None) -> FleetPlan:
-    """Plan N edge nets served from one card.  ``device`` is where the fleet
-    will run (``None``: the GPU, raising when there is none).  Repeat calls
-    with the same nets, machine model and budget factor hit the cache."""
+    """Plan N nets (EdgeConfigs, ModelConfigs or graphs) served from one
+    card.  ``device`` is where the fleet will run (``None``: the GPU,
+    raising when there is none).  Repeat calls with the same nets, machine
+    model, budget factor and LM serve knobs hit the cache."""
     resolve_device(device)
     if not cfgs:
         raise ValueError("plan_fleet needs at least one network")
     graphs = [planner.as_graph(c, batch=batch) for c in cfgs]
     ids = _net_ids(graphs)
     key = fleet_key(graphs, target=target, budget_factor=budget_factor,
-                    hw=hw)
+                    hw=hw, serve_slots_total=serve_slots_total,
+                    prefill_chunk=prefill_chunk,
+                    queue_depth_factor=queue_depth_factor)
     cache = cache if cache is not None else default_cache()
     hit = cache.get_fleet(key)
     if hit is not None:
         return hit
+    n_lm = sum(1 for g in graphs if g.kind == "lm") or 1
     tenants = []
     for g, net_id in zip(graphs, ids):
         plan = planner._plan_h100(g, hw=hw, key=f"{key}:{net_id}")
+        if g.kind == "lm":
+            slots = max(1, serve_slots_total // n_lm)
+            plan = dataclasses.replace(plan, serve={
+                **plan.serve, "slots": slots, "prefill_chunk": prefill_chunk,
+                "admit_per_tick": 1,
+                "max_queue_depth": max(1, queue_depth_factor * slots)})
         crossing = boundary.crossing_cost(g.nodes[-1].out_bytes(g.batch), hw)
         tenants.append(TenantPlan(
             net_id=net_id, plan=plan, crossing_s=crossing,

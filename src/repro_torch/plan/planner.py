@@ -9,6 +9,14 @@ this target yet, so every layer carries ``lare = -1``.
 A fusion group's working set is priced by
 :func:`repro_torch.kernels.fused_mlp.fused_smem_bytes`, the same function
 that sizes the fused kernel's shared memory, against one block's budget.
+
+An LM graph (:func:`~repro_torch.plan.graph.model_graph`, a decode step) is
+priced as the port runs it: each GEMM one bf16 ``torch.matmul`` at the
+graph's batch, ``max(weight bytes / hbm_bw, ops / peak_bf16_ops)`` plus the
+launch term, each node its own group (a repeat- and regime-uniform
+partition, as the reference's ``_plan_tpu`` makes it).  Its tile is the one
+``gemm_int8`` would take for the shape, the kernel the plan's
+``quantize_weights`` points at.
 """
 
 from __future__ import annotations
@@ -23,22 +31,65 @@ from repro_torch.kernels.fused_mlp import ROWS, fused_smem_bytes
 from repro_torch.plan.artifact import (BoundaryPlan, DeploymentPlan,
                                        FusionGroup, LayerPlan, default_cache,
                                        plan_key)
-from repro_torch.plan.graph import DataflowGraph, edge_graph
+from repro_torch.plan.graph import DataflowGraph, edge_graph, model_graph
 
 TARGET = "h100"
 
 
 def as_graph(cfg, *, batch: int | None = None) -> DataflowGraph:
-    """Accept an EdgeConfig or an already-built graph."""
+    """Accept an EdgeConfig, a ModelConfig or an already-built graph."""
     if isinstance(cfg, DataflowGraph):
         return cfg
     if hasattr(cfg, "layer_shapes") and hasattr(cfg, "dims"):
         return edge_graph(cfg, batch=batch)
+    if hasattr(cfg, "family"):
+        return model_graph(cfg, batch=batch or 1)
     raise TypeError(f"cannot build a dataflow graph from {type(cfg)!r}")
+
+
+def _plan_lm(graph: DataflowGraph, *, hw: hwlib.H100,
+             key: str) -> DeploymentPlan:
+    """One group per GEMM node of a decode step (see the module doc)."""
+    batch = graph.batch
+    layers, groups, quantize = [], [], False
+    for node in graph:
+        compute_s = max(node.weight_bytes() / hw.hbm_bw,
+                        2.0 * batch * node.macs / hw.peak_bf16_ops)
+        est = hw.kernel_overhead_s + compute_s
+        api = tiling.plan_api(batch, node.n_in, node.n_out, hw=hw)
+        rules = ["regime=tiled", "bf16 torch.matmul",
+                 f"DR7'(fuse_group={node.index})"]
+        if node.macs >= 1 << 16:
+            quantize = True
+        layers.append(LayerPlan(
+            index=node.index, name=node.name, n_in=node.n_in,
+            n_out=node.n_out, regime="tiled", lare=-1.0, p_k=1, p_n=1,
+            band=1, api_tile=api.blocks, fuse_group=node.index,
+            est_latency_s=est, est_interval_s=est, act=node.act,
+            repeat=node.repeat, rules=tuple(rules)))
+        groups.append(FusionGroup(id=node.index, layers=(node.index,),
+                                  est_latency_s=est * node.repeat,
+                                  vmem_bytes=api.smem_bytes))
+    boundaries = [
+        BoundaryPlan(after_layer=prev.index, from_regime="tiled",
+                     to_regime="tiled",
+                     crossing_s=2.0 * prev.out_bytes(batch) / hw.hbm_bw)
+        for prev in graph.nodes[:-1]]
+    est_latency = sum(g.est_latency_s for g in groups) \
+        + sum(b.crossing_s for b in boundaries) + hw.kernel_overhead_s
+    return DeploymentPlan(
+        network=graph.name, target=TARGET, batch=batch, key=key,
+        layers=tuple(layers), boundaries=tuple(boundaries),
+        est_latency_s=est_latency, est_interval_s=est_latency,
+        serve={"quantize_weights": quantize, "prefill_chunk": None,
+               "decode_regime": "tiled"},
+        kind=graph.kind, fusion_groups=tuple(groups))
 
 
 def _plan_h100(graph: DataflowGraph, *, hw: hwlib.H100,
                key: str) -> DeploymentPlan:
+    if graph.kind == "lm":
+        return _plan_lm(graph, hw=hw, key=key)
     batch = graph.batch
     dims = [graph.nodes[0].n_in] + [n.n_out for n in graph]
     layers: list[LayerPlan] = []
@@ -117,13 +168,17 @@ def _plan_h100(graph: DataflowGraph, *, hw: hwlib.H100,
 def _key_for(graph: DataflowGraph, target: str, hw: hwlib.H100) -> str:
     if target != TARGET:
         raise ValueError(f"unknown target {target!r} (want {TARGET!r})")
-    return plan_key(graph, target, (hw,))
+    # An LM plan also reads the bf16 rate, which edge plans leave out.
+    extra = {"peak_bf16_ops": hw.peak_bf16_ops} if graph.kind == "lm" \
+        else None
+    return plan_key(graph, target, (hw,), extra)
 
 
 def plan_deployment(cfg, *, target: str = TARGET, batch: int | None = None,
                     hw: hwlib.H100 = hwlib.H100_SXM,
                     device=None) -> DeploymentPlan:
-    """Plan one deployment of an EdgeConfig (or graph) for the card.
+    """Plan one deployment of an EdgeConfig, a ModelConfig (its decode
+    step) or a graph for the card.
 
     ``device`` is where the plan will run: ``None`` means the GPU and raises
     when there is none (the plan itself does not depend on it)."""

@@ -11,9 +11,11 @@ Port of the JAX package's ``serve/engine.py``, two surfaces:
   ``fused=False``).  Both give the same answers to 1e-5, so degrading never
   changes a result.
 * **LM serving** (:func:`build_serve_steps`, :class:`ContinuousBatcher`):
-  whole-prompt prefill and decode steps of any ported LM family (Griffin,
-  RWKV-6), and a fixed-slot continuous batcher that advances every slot at
-  its own position in one batched decode step.
+  prefill (whole-prompt, or chunked as the plan's ``serve`` section says)
+  and decode steps of any ported LM family (Griffin, RWKV-6), and a
+  fixed-slot continuous batcher that advances every slot at its own
+  position in one batched decode step, under the plan's
+  :class:`BatchPolicy`.
 
 On the card both served steps run as CUDA graphs
 (:class:`~repro_torch.kernels.graph.StepGraph`), where the reference
@@ -227,22 +229,32 @@ class EdgeEngine:
 # LM serving: step builders and the continuous batcher
 # ---------------------------------------------------------------------------
 
-def build_serve_steps(cfg: ModelConfig):
+def build_serve_steps(cfg: ModelConfig, *, max_len: int | None = None,
+                      plan=None):
     """Returns (prefill_fn, decode_fn) over a state from
-    :func:`~repro_torch.models.api.init_decode_state`.
+    :func:`~repro_torch.models.api.init_decode_state` (``max_len`` is the
+    state's; the steps read it from the state itself).
 
     prefill_fn(params, tokens, state)        -> (logits_last, state)
     decode_fn(params, tokens, state, pos)    -> (logits, state)
 
-    Prefill takes the whole prompt in one step from position 0.  A
-    Griffin model's attention layers run the ``flash_attention`` kernel
-    there; a multi-token Griffin step at a later position (chunked prefill)
-    needs a query offset the kernel does not take and raises
-    ``NotImplementedError``.  An RWKV-6 model carries all of its context in
-    the state, so a multi-token step at any position continues from it.
+    Prefill takes the whole prompt in one step from position 0, or, when
+    ``plan.serve["prefill_chunk"]`` is set and the prompt is longer, one
+    multi-token step per chunk at its offset.  A Griffin chunk runs the
+    ``flash_attention`` kernel with its queries at that offset, against the
+    cache's earlier keys (on a ring cache too, where the reference attends
+    over the chunk alone); an RWKV-6 chunk continues from the carried state.
     """
+    chunk = None if plan is None else plan.serve.get("prefill_chunk")
+
     def prefill_fn(params, tokens, state):
-        logits, state = api.decode_step(params, cfg, tokens, state, 0)
+        s = tokens.shape[1]
+        if chunk is None or s <= chunk:
+            logits, state = api.decode_step(params, cfg, tokens, state, 0)
+            return logits[:, -1:], state
+        for off in range(0, s, chunk):
+            logits, state = api.decode_step(
+                params, cfg, tokens[:, off:off + chunk], state, off)
         return logits[:, -1:], state
 
     def decode_fn(params, tokens, state, pos):
@@ -271,12 +283,42 @@ class Request:
 
 @dataclasses.dataclass(frozen=True)
 class BatchPolicy:
-    """Continuous-batching policy: the number of slots."""
+    """Continuous-batching policy, read from a plan's ``serve`` section
+    (:meth:`from_plan`).  ``None`` keeps the permissive default."""
     slots: int = 4
+    prefill_chunk: int | None = None   # prompt tokens prefilled per tick
+    admit_per_tick: int | None = None  # admissions per tick at most
+    max_new_cap: int | None = None     # eviction: cap on generated tokens
 
     def __post_init__(self):
         if self.slots < 1:
             raise ValueError(f"slots must be >= 1, got {self.slots}")
+        for name in ("prefill_chunk", "admit_per_tick", "max_new_cap"):
+            v = getattr(self, name)
+            # A zero chunk would stall prefill forever.
+            if v is not None and v < 1:
+                raise ValueError(f"{name} must be >= 1 or None, got {v}")
+
+    @classmethod
+    def from_plan(cls, plan, **overrides) -> "BatchPolicy":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(overrides) - fields
+        if unknown:
+            raise TypeError(
+                f"unknown BatchPolicy override(s): {sorted(unknown)} "
+                f"(valid: {sorted(fields)})")
+        serve = dict(getattr(plan, "serve", None) or {})
+        slots = serve.get("slots")
+        kw = {
+            # `is None`, not truthiness: a 0 in a plan must reach the
+            # validation, not become the default.
+            "slots": cls.slots if slots is None else slots,
+            "prefill_chunk": serve.get("prefill_chunk"),
+            "admit_per_tick": serve.get("admit_per_tick"),
+            "max_new_cap": serve.get("max_new_cap"),
+        }
+        kw.update(overrides)
+        return cls(**kw)
 
 
 def _batch_axes(cfg: ModelConfig, max_len: int):
@@ -296,12 +338,15 @@ class ContinuousBatcher:
     """Fixed-slot continuous batching over one batched decode step.
 
     Slots hold independent sequences, each at its own position; finished
-    slots admit queued requests (greedy sampling).  Prompts are prefilled
-    token by token through the decode step, the whole prompt in the tick
-    that admits it.  Every tick runs ONE decode step over all
-    slots with a per-slot position tensor; a ``live`` mask keeps the state
-    of idle slots byte-identical (``torch.where(live, new, old)``).  Runs on
-    the device the parameters lie on.
+    slots admit queued requests (greedy sampling).  Admission, eviction and
+    the prefill chunk come from a :class:`BatchPolicy`: ``policy=``, or the
+    ``serve`` section of ``plan=`` (``slots=`` outranks either).  Prompts
+    are prefilled token by token through the decode step, at most
+    ``prefill_chunk`` tokens a tick (the whole prompt when it is None).
+    Every tick runs ONE decode step over all slots with a per-slot position
+    tensor; a ``live`` mask keeps the state of idle slots byte-identical
+    (``torch.where(live, new, old)``).  Runs on ``device`` (``None``: the
+    device the parameters lie on; otherwise they are moved there).
 
     The step reads its tokens, positions and ``live`` mask from one static
     ``(3, slots)`` tensor, refilled by one copy a step, and writes the new
@@ -311,13 +356,20 @@ class ContinuousBatcher:
     """
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int | None = None,
-                 max_len: int = 256, policy: BatchPolicy | None = None,
-                 tracer=None, graphs: bool | None = None):
+                 max_len: int = 256, plan=None,
+                 policy: BatchPolicy | None = None, tracer=None,
+                 device=None, graphs: bool | None = None):
+        if device is not None:
+            device = resolve_device(device)
+            params = tree.tree_map(lambda t: t.to(device), params)
         self.cfg, self.params = cfg, params
-        policy = policy if policy is not None else BatchPolicy()
-        if slots is not None:           # explicit arg outranks the policy
+        if policy is None:
+            policy = (BatchPolicy.from_plan(plan) if plan is not None
+                      else BatchPolicy())
+        if slots is not None:           # explicit arg outranks the plan
             policy = dataclasses.replace(policy, slots=slots)
         self.policy = policy
+        self.plan = plan
         self.slots, self.max_len = policy.slots, max_len
         self.device = params["emb"].device
         # Per-kind service-time windows are always kept (decode-step p50
@@ -431,10 +483,19 @@ class ContinuousBatcher:
         """Occupied slots."""
         return sum(1 for r in self.active if r is not None)
 
+    def _max_new(self, req: Request) -> int:
+        """Eviction policy: the plan's cap bounds every request's budget."""
+        cap = self.policy.max_new_cap
+        return req.max_new if cap is None else min(req.max_new, cap)
+
     def _prefill_tick(self, i: int, req: Request):
-        """Prefill slot ``i``'s whole prompt, one token per decode step,
-        and emit the first generated token."""
-        limit = len(req.prompt)
+        """Advance slot ``i``'s prefill by at most ``prefill_chunk`` tokens
+        (the whole prompt when the policy sets no chunk), one token per
+        decode step; emit the first generated token once the prompt is
+        consumed."""
+        chunk = self.policy.prefill_chunk
+        limit = (len(req.prompt) if chunk is None
+                 else min(len(req.prompt), req.filled + chunk))
         if req.filled >= limit:
             return
         t0 = time.perf_counter()
@@ -448,19 +509,25 @@ class ContinuousBatcher:
             logits = self._decode_masked(tok, live)
             self.pos[i] += 1
         req.filled = limit
-        finite, best = self._pick(logits)
-        if not finite[i]:
-            self._fail_request(i, req, "non_finite_output")
-        else:
-            req.out.append(int(best[i]))
+        if req.filled == len(req.prompt):
+            finite, best = self._pick(logits)
+            if not finite[i]:
+                self._fail_request(i, req, "non_finite_output")
+            else:
+                req.out.append(int(best[i]))
         self._record("prefill_chunk", t0, time.perf_counter(), trace=req.rid,
                      tokens=limit - first, slot=i)
 
-    def _admit(self):
-        """Fill free slots from the queue."""
+    def _admit(self) -> int:
+        """Fill free slots from the queue, at most the policy's
+        ``admit_per_tick``."""
+        cap = self.policy.admit_per_tick
+        admitted = 0
         for i in range(self.slots):
             if self.active[i] is not None:
                 continue
+            if cap is not None and admitted >= cap:
+                break
             try:
                 req = self.queue.get_nowait()
             except queue.Empty:
@@ -477,6 +544,8 @@ class ContinuousBatcher:
             self._reset_slot(i)
             req.filled = 0
             self.active[i] = req
+            admitted += 1
+        return admitted
 
     def _finish(self, req: Request):
         """Close a completed (or failed) request's trace span."""
@@ -501,8 +570,8 @@ class ContinuousBatcher:
         self._finish(req)
 
     def step(self) -> int:
-        """One tick: admit, advance prefills, decode live slots.  Returns
-        #active."""
+        """One tick: admit, advance chunked prefills, decode live slots.
+        Returns #active."""
         self._admit()
         for i, req in enumerate(self.active):
             if req is not None and req.filled < len(req.prompt):
@@ -530,8 +599,8 @@ class ContinuousBatcher:
                     continue
                 stepped.append((i, req))
                 req.out.append(int(best[i]))
-                if len(req.out) >= req.max_new:
-                    req.done = True
+                if len(req.out) >= self._max_new(req):
+                    req.done = True      # completion or max_new_cap
                     done_reqs.append(req)
                     self.active[i] = None
             # _pick read the results back, so [t0, t1] is the whole

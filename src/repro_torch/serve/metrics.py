@@ -1,5 +1,6 @@
-"""Per-tenant serving metrics: a latency window, percentiles and budget
-accounting, updated by the router on every request."""
+"""Per-tenant serving metrics: a latency window, percentiles, budget
+accounting and (LM tenants) slot occupancy, updated by the router on every
+request and tick."""
 
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ def _finite(x, default=None):
 
 
 class TenantMetrics:
-    """Latency and budget counters for one tenant over a bounded window."""
+    """Latency, budget and occupancy counters for one tenant over a
+    bounded window."""
 
     def __init__(self, net_id: str, *, latency_budget_s: float = math.inf,
                  window: int = 256):
@@ -33,6 +35,7 @@ class TenantMetrics:
         self.budget_violations = 0
         self.invalid_observations = 0
         self.failures = 0
+        self._occ_sum, self._occ_n = 0.0, 0
         self._latencies = collections.deque(maxlen=self.window)
 
     def observe_latency(self, dt_s: float) -> bool:
@@ -52,6 +55,16 @@ class TenantMetrics:
     def observe_failure(self):
         """Record one failed request (it has no latency)."""
         self.failures += 1
+
+    def observe_occupancy(self, active: int, capacity: int):
+        """Record one scheduling tick's slot occupancy."""
+        self._occ_sum += active / capacity if capacity else 0.0
+        self._occ_n += 1
+
+    @property
+    def occupancy(self) -> float:
+        """Mean fraction of slots busy across observed ticks."""
+        return self._occ_sum / self._occ_n if self._occ_n else 0.0
 
     @property
     def mean_s(self) -> float:
@@ -84,4 +97,5 @@ class TenantMetrics:
             "budget_violations": self.budget_violations,
             "invalid_observations": self.invalid_observations,
             "failures": self.failures,
+            "occupancy": self.occupancy,
         }

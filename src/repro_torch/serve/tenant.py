@@ -1,4 +1,7 @@
-"""Tenant: one co-resident edge net inside the serving runtime."""
+"""Tenant: one co-resident net inside the serving runtime, bound to its
+engine: an :class:`~repro_torch.serve.engine.EdgeEngine` for an edge net, a
+plan-driven :class:`~repro_torch.serve.engine.ContinuousBatcher` for an
+LM."""
 
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ from repro_torch.serve.metrics import TenantMetrics
 class Tenant:
     net_id: str
     plan: Any                    # DeploymentPlan (the tenant's slice)
-    engine: Any                  # EdgeEngine
+    engine: Any                  # EdgeEngine | ContinuousBatcher
     # Seeds metrics.latency_budget_s; after construction the metrics copy is
     # the live one.
     latency_budget_s: float = math.inf
@@ -26,7 +29,13 @@ class Tenant:
 
     @property
     def kind(self) -> str:
+        """"edge" (synchronous infer) or "lm" (batched decode)."""
         return self.plan.kind
+
+    @property
+    def slots(self) -> int:
+        """Batching capacity (1 for the synchronous edge path)."""
+        return getattr(self.engine, "slots", 1)
 
 
 def edge_tenant(tenant_plan, *, seed: int = 0, device=None) -> Tenant:
@@ -38,4 +47,19 @@ def edge_tenant(tenant_plan, *, seed: int = 0, device=None) -> Tenant:
     engine = EdgeEngine(edge_lib.edge_config(plan.network), plan=plan,
                         seed=seed, device=device)
     return Tenant(net_id=tenant_plan.net_id, plan=plan, engine=engine,
+                  latency_budget_s=tenant_plan.latency_budget_s)
+
+
+def lm_tenant(tenant_plan, cfg, params, *, max_len: int = 256,
+              device=None) -> Tenant:
+    """An LM tenant: a continuous batcher on ``device`` (``None``: the GPU,
+    raising when there is none; the params move there) whose slots,
+    prefill chunk and admission bound come from the tenant plan's serve
+    section."""
+    from repro_torch.device import resolve_device
+    from repro_torch.serve.engine import ContinuousBatcher
+    plan = tenant_plan.plan
+    batcher = ContinuousBatcher(cfg, params, plan=plan, max_len=max_len,
+                                device=resolve_device(device))
+    return Tenant(net_id=tenant_plan.net_id, plan=plan, engine=batcher,
                   latency_budget_s=tenant_plan.latency_budget_s)

@@ -166,15 +166,13 @@ NOT_PORTED = {
 }
 
 # Parts of plan.serve-keys the port leaves out: it checks only the keys its
-# planner writes and warns on any other, since nothing in the port reads
-# them.  They come back with the plan-driven LM serving path.
+# planners write and warns on any other, since nothing in the port reads
+# them.  They come back with the SLO, priority and resilience work of the
+# router (the batch policy's keys came with plan-driven LM serving).
 SERVE_KEYS_NOT_PORTED = {
     "slo": "the SLO checks and the LM 'SLO but no slots' warning",
     "priority": "the router's priority classes",
     "resilience": "the supervisor's breaker and retry knobs",
-    "slots": "the LM batch policy",
-    "admit_per_tick": "the LM batch policy",
-    "max_queue_depth": "the LM batch policy",
 }
 
 
@@ -243,6 +241,15 @@ def _d_bad_serve(d):
                                 prefill_chunk=0)
 
 
+def _d_bad_batch_policy(d):
+    _plan_of(d)["serve"].update(slots=0, admit_per_tick=True,
+                                max_queue_depth=2.5)
+
+
+def _d_queue_below_slots(d):
+    _plan_of(d)["serve"].update(slots=8, admit_per_tick=1, max_queue_depth=2)
+
+
 def _d_budget_below_plan(d):
     d["tenants"][0]["latency_budget_s"] = 1e-9
 
@@ -258,7 +265,8 @@ def _d_fleet_total_off(d):
 @pytest.mark.parametrize("fault", [
     None, _d_broken_chain, _d_split_group, _d_extra_boundary,
     _d_negative_overhead, _d_group_estimate_off, _d_bad_serve,
-    _d_budget_below_plan, _d_negative_crossing, _d_fleet_total_off],
+    _d_bad_batch_policy, _d_queue_below_slots, _d_budget_below_plan,
+    _d_negative_crossing, _d_fleet_total_off],
     ids=lambda f: f.__name__[3:] if f else "clean")
 def test_plan_rules_agree_with_the_reference(fault):
     """The same fleet artifact, with one fault, gets the same rule ids,
@@ -280,8 +288,7 @@ def test_serve_keys_the_port_does_not_read_are_one_warning_each():
     fleet = _fleet(["tau_select"])
     plan = fleet.tenants[0].plan
     serve = {**plan.serve, "slo": {"p95_s": -1.0}, "priority": "urgent",
-             "resilience": {"retries": -1}, "slots": 0,
-             "admit_per_tick": 0, "max_queue_depth": 0}
+             "resilience": {"retries": -1}}
     findings = checklib.check_fleet(_with_plan(fleet, "tau_select",
                                                serve=serve))
     assert _rules(findings) == set()

@@ -161,13 +161,22 @@ def test_finite_guard(bad):
 
 
 def test_non_finite_output_fails_on_the_eager_path():
-    eng = EdgeEngine(edge.edge_config("tau_select"), device="cpu")
+    """A NaN input quantizes to 0 at the fused group's entry, as in the
+    reference, so the output stays finite; a NaN bias in the last layer
+    poisons the output, and the guard fails the request."""
+    cfg = edge.edge_config("tau_select")
+    eng = EdgeEngine(cfg, device="cpu")
     x = torch.ones((8, 27))
     eng.infer(x)
     x[0, 0] = float("nan")
+    assert torch.isfinite(eng.infer(x)).all()
+    qparams = [dict(q) for q in eng.qparams]
+    qparams[-1]["b"] = torch.full_like(qparams[-1]["b"], float("nan"))
+    bad = EdgeEngine(cfg, qparams=qparams, device="cpu")
     with pytest.raises(engine.NonFiniteOutput):
-        eng.infer(x)
-    assert eng.faults == 1 and eng.calls == 1
+        bad.infer(torch.ones((8, 27)))
+    assert bad.faults == 1 and bad.calls == 0
+    assert eng.faults == 0 and eng.calls == 2
 
 
 # ---------------------------------------------------------------------------

@@ -211,12 +211,28 @@ def test_full_depth_launches_each_kernel_per_layer(monkeypatch):
     assert calls == {"flash_attention": 8, "linear_scan": 36}
 
 
-def test_prefill_at_a_later_position_is_not_ported():
+def test_prefill_at_a_later_position_matches_decode():
+    """A multi-token step at a later position, once refused for want of a
+    flash ``q_offset``, now runs: four tokens at position 4 give the logits
+    and state of four one-token decode steps (2e-3, float32).  A per-row
+    position tensor is still refused for a multi-token step."""
     _, cfg = _cfgs(3)
     params = api.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = _tokens(cfg, b=1, s=8)
     state = api.init_decode_state(cfg, 1, 32, device="cpu")
-    with pytest.raises(NotImplementedError, match="q_offset"):
-        api.decode_step(params, cfg, _tokens(cfg, b=1, s=4), state, 4)
+    _, state = api.decode_step(params, cfg, toks[:, :4], state, 0)
+    got, got_state = api.decode_step(params, cfg, toks[:, 4:], state, 4)
+    want_state = state
+    for t in range(4, 8):
+        want, want_state = api.decode_step(params, cfg, toks[:, t:t + 1],
+                                           want_state, t)
+    np.testing.assert_allclose(got[:, -1].numpy(), want[:, 0].numpy(),
+                               rtol=2e-3, atol=2e-3)
+    for a, b in zip(tree.leaves(got_state), tree.leaves(want_state)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-3,
+                                   atol=2e-3)
+    with pytest.raises(ValueError, match="per-row"):
+        api.decode_step(params, cfg, toks[:, 4:], state, torch.tensor([4]))
 
 
 def test_params_from_numpy_checks_layout():

@@ -55,7 +55,9 @@ def test_imports_with_jax_and_reference_blocked():
     "repro_torch.characterize.fit", "repro_torch.characterize.harness",
     "repro_torch.characterize.model", "repro_torch.characterize.sweeps",
     "repro_torch.deploy.stages", "repro_torch.kernels.graph",
-    "repro_torch.plan.calibrate"])
+    "repro_torch.plan.calibrate", "repro_torch.obs.workload",
+    "repro_torch.cli", "repro_torch.serve.router",
+    "repro_torch.deploy.deployment", "repro_torch.plan.multinet"])
 def test_characterize_and_graph_modules_import_alone(module):
     """Each module of the characterize stage and the CUDA graphs imports in
     a fresh process with ``jax`` and the JAX package blocked, and loads no
@@ -110,7 +112,8 @@ def no_cuda(monkeypatch):
     "resolve_device", "plan_deployment", "plan_fleet", "init_edge",
     "EdgeEngine", "Router.from_fleet", "api.init", "api.init_decode_state",
     "api.init rwkv", "api.init_decode_state rwkv", "Deployment.build",
-    "characterize", "calibrated_device_model"])
+    "characterize", "calibrated_device_model", "plan_fleet lm",
+    "Deployment.build lm", "Router.from_fleet lm"])
 def test_entry_points_raise_without_gpu(no_cuda, entry):
     cfg = edge.edge_config("tau_select")
     lm = configs.get("recurrentgemma-2b").smoke
@@ -133,6 +136,12 @@ def test_entry_points_raise_without_gpu(no_cuda, entry):
         "Deployment.build": lambda: Deployment.build(["tau_select"]),
         "characterize": lambda: characterize(sweep="calibrate"),
         "calibrated_device_model": lambda: calibrate.calibrated_device_model(),
+        "plan_fleet lm": lambda: plan_fleet([cfg, lm]),
+        "Deployment.build lm": lambda: Deployment.build(
+            ["tau_select", "lm:recurrentgemma_2b"], machine_model="stock"),
+        "Router.from_fleet lm": lambda: Router.from_fleet(
+            plan_fleet([lm], device="cpu"),
+            lm={lm.name: (lm, {"emb": torch.zeros(1)})}),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

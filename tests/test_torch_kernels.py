@@ -95,6 +95,42 @@ def test_fused_plain_matches_pallas_on_odd_widths(act_last):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+def _nan_inf_case(rng):
+    """A three-layer group whose scales are powers of two (every epilogue
+    product and quotient is exact, so the reference's rounding of the
+    multiply-add cannot differ) and a batch with NaN, +inf and -inf entries
+    in the input; a NaN quantizes to 0 and +-inf to +-127 in the reference
+    (``jnp.clip`` then the int8 cast)."""
+    dims = [24, 40, 16, 8]
+    ws = [rng.integers(-127, 128, (a, b)).astype(np.int8)
+          for a, b in zip(dims[:-1], dims[1:])]
+    scs = [np.float32(2.0) ** rng.integers(-9, -5, (b,)).astype(np.float32)
+           for b in dims[1:]]
+    bs = [rng.normal(size=(b,)).astype(np.float32) for b in dims[1:]]
+    xs = np.float32([2.0 ** -4, 2.0 ** 3, 2.0 ** 4])
+    x = rng.normal(scale=3.0, size=(13, dims[0])).astype(np.float32)
+    x[0, :] = np.nan
+    x[1, 3], x[1, 7] = np.inf, -np.inf
+    x[2, ::2], x[2, 1::2] = np.nan, np.inf
+    x[3, 5], x[3, 6], x[3, 9] = np.nan, -np.inf, np.inf
+    x[4, :] = -np.inf
+    return (ws, scs, bs, xs), x
+
+
+@pytest.mark.parametrize("act_last", [False, True])
+def test_fused_plain_maps_nan_and_inf_as_the_reference(act_last):
+    """NaN quantizes to 0 and +-inf to +-127 at the entry, as the reference
+    gives on the CPU: the plain version equals the Pallas kernel bit for
+    bit, and the output is finite."""
+    group, x = _nan_inf_case(np.random.default_rng(11))
+    got, want = _both_fused(x, group, act_last=act_last)
+    assert np.isfinite(want).all()
+    np.testing.assert_array_equal(got, want)
+    g = _pack_numpy(group, act_last=act_last)
+    np.testing.assert_array_equal(
+        _fused_emulated(torch.from_numpy(x), g).numpy(), got)
+
+
 def test_pack_layout_round_trips():
     """The packed (np_i, kp_i) blocks hold each layer's weights transposed,
     with zero padding up to a multiple of 32 of the input width and of 16
@@ -437,6 +473,14 @@ def test_cuda_kernels_match_plain_on_card():
             torch.testing.assert_close(fm.fused_mlp_q8_cuda(x, g),
                                        fm.fused_mlp_q8_plain(x, g),
                                        rtol=0, atol=0, msg=f"{what} M={m}")
+    # NaN quantizes to 0 and +-inf to +-127, as the plain version and the
+    # reference give (test_fused_plain_maps_nan_and_inf_as_the_reference).
+    group, x = _nan_inf_case(np.random.default_rng(11))
+    for act_last in (False, True):
+        g, xd = on_card(group, act_last=act_last), torch.from_numpy(x).to(dev)
+        torch.testing.assert_close(fm.fused_mlp_q8_cuda(xd, g),
+                                   fm.fused_mlp_q8_plain(xd, g), rtol=0,
+                                   atol=0, msg=f"NaN/inf act_last={act_last}")
     # The kernel's division against IEEE division: a one-layer identity
     # group (act none, unit weight scales) returns q * xs, so a quotient
     # rounded another way shows.  Inputs: every half-integer quotient

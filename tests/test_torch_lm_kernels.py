@@ -97,6 +97,47 @@ def test_flash_plain_longer_keys_matches_chunked_attention():
                                atol=2e-3)
 
 
+# A chunk of a prompt after q_offset cached keys: (shape, options, offsets).
+Q_OFFSET_CASES = [
+    ("chunk8_window", dict(b=1, hq=4, hkv=1, s=8, d=32, sk=56),
+     dict(causal=True, window=24), (0, 1, 23, 24, 48)),
+    ("chunk8_softcap_gqa", dict(b=2, hq=4, hkv=2, s=8, d=16, sk=40),
+     dict(causal=True, window=16, softcap=30.0), (0, 5, 32)),
+    ("chunk13_causal", dict(b=1, hq=2, hkv=2, s=13, d=16, sk=77),
+     dict(causal=True), (0, 17, 64)),
+]
+
+
+@pytest.mark.parametrize("name,shape,kw,offsets", Q_OFFSET_CASES,
+                         ids=[c[0] for c in Q_OFFSET_CASES])
+def test_flash_plain_q_offset_matches_chunked_attention(name, shape, kw,
+                                                        offsets):
+    """Queries at key positions ``q_offset + i`` against the reference's
+    ``chunked_attention(q_offset=...)``, at the model path's 2e-3; keys past
+    a query's position are masked by ``causal``, so the buffer may hold
+    more keys than the chunk reaches."""
+    arrs = _qkv(21, **shape)
+    for off in offsets:
+        want = ref_layers.chunked_attention(*_jax(arrs, "float32"), chunk=16,
+                                            q_offset=off, **kw)
+        got = ops.flash_attention(*_port(arrs, "float32"), q_offset=off,
+                                  **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
+                                   atol=2e-3, err_msg=f"q_offset={off}")
+
+
+@pytest.mark.parametrize("q_offset", [-1, 1.0, fa.MAX_POSITION - 7,
+                                      torch.tensor(3)])
+def test_flash_refuses_a_q_offset_it_cannot_honour(q_offset):
+    """A negative, non-int or too large offset is refused on every device:
+    the CUDA wrapper raises before it launches, as the plain version does."""
+    q, k, v = _port(_qkv(22, b=1, hq=2, hkv=1, s=8, d=8), "float32")
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.flash_attention(q, k, v, q_offset=q_offset)
+    with pytest.raises(ValueError, match="q_offset"):
+        fa.flash_attention_cuda(q, k, v, q_offset=q_offset)
+
+
 @pytest.mark.parametrize("s", [100, 77])
 def test_flash_plain_noncausal_ragged_matches_ref(s):
     """Non-causal with a ragged S, against the quadratic oracle.  The Pallas
@@ -161,7 +202,7 @@ TOL_FLASH_CARD = _load_chip_smoke().TOL_FLASH["bfloat16"]
 
 
 def _flash_tc_emulated(q, k, v, *, causal=True, window=None, softcap=None,
-                       block_kv=64):
+                       q_offset=0, block_kv=64):
     """``csrc/flash_attention.cu``'s bf16 tensor-core arithmetic in torch:
     f32 logits, the online softmax over 64-key tiles, P rounded to bf16
     before P V (f32 accumulation), l summing the unrounded P."""
@@ -175,7 +216,7 @@ def _flash_tc_emulated(q, k, v, *, causal=True, window=None, softcap=None,
     m = torch.full((b, hq, s_q, 1), fa.NEG)
     l = torch.zeros((b, hq, s_q, 1))
     o = torch.zeros((b, hq, s_q, d))
-    q_pos = torch.arange(s_q)[:, None]
+    q_pos = q_offset + torch.arange(s_q)[:, None]
     for k_lo in range(0, s_k, block_kv):
         k_pos = torch.arange(k_lo, min(k_lo + block_kv, s_k))[None, :]
         x = qf @ kx[:, :, k_lo:k_lo + block_kv].transpose(-1, -2) * scale
@@ -200,8 +241,10 @@ def _flash_tc_emulated(q, k, v, *, causal=True, window=None, softcap=None,
 
 @pytest.mark.parametrize("name,shape,kw", FLASH_CASES + [
     ("served_cut", dict(b=1, hq=10, hkv=1, s=512, d=256),
-     dict(causal=True, window=256))],
-    ids=[c[0] for c in FLASH_CASES] + ["served_cut"])
+     dict(causal=True, window=256)),
+    ("chunk_at_offset", dict(b=1, hq=10, hkv=1, s=8, d=256, sk=264),
+     dict(causal=True, window=256, softcap=30.0, q_offset=256))],
+    ids=[c[0] for c in FLASH_CASES] + ["served_cut", "chunk_at_offset"])
 def test_flash_bf16_p_rounding_holds_the_card_tolerance(name, shape, kw):
     """The bf16 kernel rounds P to bf16 before P V, as every tensor-core
     flash does.  Its arithmetic, emulated here, stays within the card's
@@ -213,7 +256,11 @@ def test_flash_bf16_p_rounding_holds_the_card_tolerance(name, shape, kw):
     want = fa.flash_attention_plain(q, k, v, **kw).float()
     rtol, atol = TOL_FLASH_CARD
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
-    oracle = ref.attention(*_jax(arrs, "bfloat16"), **kw)
+    if "q_offset" in kw:   # ref.attention takes no offset
+        oracle = ref_layers.chunked_attention(*_jax(arrs, "bfloat16"),
+                                              chunk=64, **kw)
+    else:
+        oracle = ref.attention(*_jax(arrs, "bfloat16"), **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(oracle, np.float32),
                                rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
 
@@ -349,6 +396,28 @@ def test_flash_cuda_matches_plain_on_card(cuda_device, name, shape, kw,
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,shape,kw,offsets", Q_OFFSET_CASES + [
+    ("chunk8_d256_window", dict(b=1, hq=10, hkv=1, s=8, d=256, sk=300),
+     dict(causal=True, window=128, softcap=30.0), (0, 1, 127, 128, 292)),
+    ("chunk200", dict(b=1, hq=4, hkv=2, s=200, d=64, sk=400),
+     dict(causal=True, window=150), (0, 63, 200))],
+    ids=[c[0] for c in Q_OFFSET_CASES] + ["chunk8_d256_window", "chunk200"])
+def test_flash_cuda_q_offset_matches_plain_on_card(cuda_device, name, shape,
+                                                   kw, offsets, dtype):
+    """Both kernels with queries at ``q_offset + i``: the band's tile skip
+    and the element masks of its edge tiles move with the offset."""
+    q, k, v = [t.to(cuda_device) for t in _port(_qkv(23, **shape), dtype)]
+    for off in offsets:
+        got = fa.flash_attention_cuda(q, k, v, q_offset=off, **kw)
+        want = fa.flash_attention_plain(q, k, v, q_offset=off, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype],
+                                   msg=f"q_offset={off}")
 
 
 @pytest.mark.gpu

@@ -199,3 +199,93 @@ def test_serve_cli_without_device_needs_a_card(monkeypatch, capsys):
     rc = serve_cli.main(["--arch", "recurrentgemma-2b", "--smoke"])
     assert rc == 2
     assert "no CUDA device" in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill (build_serve_steps with a plan's prefill_chunk)
+# ---------------------------------------------------------------------------
+
+def _smoke_pair(**kw):
+    """The 3-layer SMOKE Griffin in float32, JAX weights carried across."""
+    ref_cfg = dataclasses.replace(ref_configs.get("recurrentgemma_2b").smoke,
+                                  dtype="float32", **kw)
+    cfg = dataclasses.replace(configs.get("recurrentgemma-2b").smoke,
+                              dtype="float32", **kw)
+    ref_params = ref_api.init(ref_cfg, jax.random.PRNGKey(0))
+    params = griffin.params_from_numpy(
+        cfg, jax.tree.map(np.asarray, ref_params), device="cpu")
+    return ref_cfg, ref_params, cfg, params
+
+
+def _window(w):
+    g = configs.get("recurrentgemma-2b").smoke.griffin
+    return dict(window=w, griffin=dataclasses.replace(g, local_window=w))
+
+
+class _Plan:
+    """The one field ``build_serve_steps`` reads off a plan."""
+    def __init__(self, chunk):
+        self.serve = {"prefill_chunk": chunk}
+
+
+@pytest.mark.parametrize("s,max_len,window,ring,ref_err", [
+    (24, 64, 16, True, 0.187), (40, 64, 16, True, 0.200),
+    (24, 16, 16, True, 0.187), (24, 32, 64, False, 0.0)],
+    ids=["ring_s24", "ring_s40", "ring_short_cache", "non_ring"])
+def test_chunked_prefill_matches_decode_where_the_reference_loses_context(
+        s, max_len, window, ring, ref_err):
+    """Chunks of 8 prompt tokens (``prefill_chunk`` 8) against feeding the
+    prompt token by token through the decode step, then four decode steps.
+
+    The port holds its chunked prefill to its own token-by-token decode at
+    2e-3 (float32: the algorithm) on both cache paths.  The reference's
+    chunked prefill attends over each chunk alone on the ring path (cache
+    length == window), so every chunk after the first loses the earlier
+    context: its last logits miss its own token-by-token decode by the
+    recorded ``ref_err`` (0.187-0.200 on the CPU: JAX weights from seed 0,
+    prompt from numpy seed 3), which this test bounds from below.  On the non-ring path the reference is
+    right, and the port's chunked prefill matches it at 2e-3."""
+    ref_cfg, ref_params, cfg, params = _smoke_pair(**_window(window))
+    assert (min(window, max_len) == window) == ring
+    prompt = _prompt(3, s, cfg.vocab_size)[None]
+    plan = _Plan(8)
+
+    def token_by_token(decode, state):
+        for t in range(s):
+            logits, state = decode(prompt[:, t:t + 1], state, t)
+        return logits, state
+
+    prefill, decode = engine.build_serve_steps(cfg, max_len=max_len,
+                                               plan=plan)
+    got, state = prefill(params, prompt, api.init_decode_state(
+        cfg, 1, max_len, device="cpu"))
+    want, want_state = token_by_token(
+        lambda t, st, p: decode(params, t, st, p),
+        api.init_decode_state(cfg, 1, max_len, device="cpu"))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    for a, b in zip(tree.leaves(state), tree.leaves(want_state)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
+    for i, tok in enumerate((3, 17, 255, 4)):
+        t = np.array([[tok]], np.int32)
+        got, state = decode(params, t, state, s + i)
+        want, want_state = decode(params, t, want_state, s + i)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+    ref_prefill, ref_decode = map(jax.jit, ref_engine.build_serve_steps(
+        ref_cfg, max_len=max_len, plan=plan))
+    ref_chunked, _ = ref_prefill(ref_params, jnp.asarray(prompt),
+                                 ref_api.init_decode_state(ref_cfg, 1,
+                                                           max_len))
+    ref_tbt, _ = token_by_token(
+        lambda t, st, p: ref_decode(ref_params, jnp.asarray(t), st, p),
+        ref_api.init_decode_state(ref_cfg, 1, max_len))
+    err = float(np.abs(np.asarray(ref_chunked)
+                       - np.asarray(ref_tbt)[:, -1:]).max())
+    if ring:
+        assert err > 0.5 * ref_err, err      # the reference's fault
+    else:
+        assert err < 2e-3
+        chunked, _ = prefill(params, prompt, api.init_decode_state(
+            cfg, 1, max_len, device="cpu"))
+        np.testing.assert_allclose(chunked.numpy(), np.asarray(ref_chunked),
+                                   **TOL)
