@@ -105,6 +105,24 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    measured again in a new process up to 3 times under load, as in phase
    3c).  Its edge engines are timed again after phase 8's profiler
    sessions, beside their time before them;
+7c. the router's drift watcher and faults, on 7b's deployment before any
+   profiler session: ``serve(drift_threshold=3, drift_min_samples=20)``,
+   50 edge calls a tenant and 4 LM requests of 16 prompt and 16 new
+   tokens: at least one replan, adopted by every tenant, engine and the
+   cache entry, no graph captured again and the same outputs bit for bit
+   (each replan printed with the tenant that tripped it, the plans before
+   and after beside the measured p50s, and the drift of 50 fresh calls).
+   The ladder: an ``engine_exception`` burst on ``jet_tagger`` of
+   ``breaker_k x (retries + 1)``: failures booked on it alone,
+   ``tau_select`` bit-exact, the breaker open and refusing, the per-layer
+   rung graphed (its kernel nodes: one ``gemm_int8`` a layer), the probe
+   reclosing and the fused rung back after a clean streak
+   (``time_to_recovery_s``, the per-layer p50 and the first degraded
+   call's capture printed).  Then ``non_finite_output`` on a graphed call
+   and on a decode, ``batcher_stall``, ``replan_failure``,
+   ``cache_corruption`` and a verify-stage build fault, each once; and on
+   phase 4's deployment ``serve(shed_after=3)`` under 2 ms latency spikes:
+   shed, 3 refusals, the half-open probe, re-opened;
 8. LM serve: ``ContinuousBatcher(slots=4, max_len=4096)`` (the ring-cache
    path) serving 8 requests with 16-64 token prompts and ``max_new=16``,
    then a decode-heavy run of 4 requests with ``max_new=256``; each run
@@ -861,7 +879,10 @@ def serve_phase():
                                       dep.stage_results.values()))
     check_build(dep, build_launches)
     ops.reset_launches()
-    router = dep.serve()
+    # Unsupervised: this phase pins each rung by hand, and a supervisor's
+    # clean streak would restore the fused rung mid-drive (phase 7c drives
+    # the ladder through the supervisor).
+    router = dep.serve(resilience=False)
     inputs = router.warmup()
     report = router.drive(inputs, iters=DRIVE_ITERS)
     fused_after_drive = ops.launch_counts()["fused_mlp_q8"]
@@ -1777,6 +1798,464 @@ def chunk_alone_fault(cfg, params, prompt, chunked, last_w, state_w) -> dict:
                                            .max())
                                      for a, b in zip(tree.leaves(state_f),
                                                      tree.leaves(state_w)))}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7c: the router's drift watcher, faults, breakers and shedding
+# ---------------------------------------------------------------------------
+
+# The drift watcher's band and sample floor for this phase.  An edge call's
+# measured/planned ratio has read 1.27-2.04 on this card (host drift within
+# one process; PERF.md section 5), the LM tick 5-8x its plan: a band of 3
+# leaves the edge tenants' host drift alone and catches the LM, and 20
+# samples hold a p50 steady.  The router, like the reference, has no
+# hysteresis.
+DRIFT_THRESHOLD = 3.0
+DRIFT_MIN_SAMPLES = 20
+DRIFT_EDGE_CALLS = 50
+DRIFT_LM_PROMPTS = (16, 16, 16, 16)
+DRIFT_NEW_TOKENS = 16
+# The ladder: calls before the burst, and calls after the restore.
+LADDER_AFTER = 8
+LADDER_TAIL = 5
+# Shedding on phase 4's deployment: spikes far above a budget of tens of
+# microseconds, and the half-open probes allowed to find one within it.
+SHED_AFTER = 3
+SPIKE_S = 0.002
+SHED_PROBES = 3
+
+
+def edge_graphs(eng) -> dict:
+    """An edge engine's captured graphs: ``{(rung, shape): (graph object
+    id, replays)}`` (empty where it runs eagerly)."""
+    return {key: (id(f.graph.graph), f.graph.replays)
+            for key, f in eng._graphs.items()}
+
+
+def tick_graph(batcher):
+    """A batcher's captured tick: (graph object id, replays), or None."""
+    g = batcher._graph
+    return None if g is None or g.graph is None else (id(g.graph), g.replays)
+
+
+def per_layer_graph_launches(eng, shape) -> dict:
+    """The launches one replay of an engine's per-layer graph makes, read
+    off the graph's own kernel nodes."""
+    return eng.graph_report()[f"per_layer {list(shape)}"]["launches"]
+
+
+def same_graphs(label, before: dict, after: dict) -> None:
+    """No graph captured again: the same graph objects, each replayed on
+    (a graph captured since is allowed only under a key it lacked)."""
+    for key, (gid, replays) in before.items():
+        if key not in after or after[key][0] != gid:
+            raise SmokeFailure(f"{label}: graph {key} was captured again")
+        if after[key][1] < replays:
+            raise SmokeFailure(f"{label}: graph {key} replays went back")
+
+
+def _lm_request(rid, n, new, vocab):
+    import numpy as np
+    from repro_torch.serve import engine
+    prompt = np.random.default_rng(100 + rid).integers(
+        1, vocab, n).astype(np.int32)
+    return engine.Request(rid=rid, prompt=prompt, max_new=new)
+
+
+def fleet_resilience_phase(dep, cfg, params, per_tick, edge_dep) -> dict:
+    """Phase 7c, on phase 7b's mixed deployment (before any profiler
+    session), through ``Deployment.serve`` and the router's entry points:
+    the drift replan, the degradation ladder, each other fault kind once,
+    and shedding on phase 4's edge deployment.  Every check fails the
+    run."""
+    import tempfile
+    import warnings
+    import torch
+    from repro_torch.deploy import Deployment
+    from repro_torch.faults import (FaultPlan, FaultSpec, InjectedFault,
+                                    NonFiniteOutput)
+    from repro_torch.kernels import ops
+    from repro_torch.models import tree
+    from repro_torch.plan import PlanCache
+    from repro_torch.serve import (TenantBreakerOpen, TenantFaulted,
+                                   TenantOverBudget, engine)
+
+    readings, launches = {}, {}
+    nid_lm = cfg.name
+    batcher = dep.engines[nid_lm]
+    lm_plan = batcher.plan
+
+    # -- 1. drift --------------------------------------------------------
+    router = dep.serve(drift_threshold=DRIFT_THRESHOLD,
+                       drift_min_samples=DRIFT_MIN_SAMPLES, fresh=True)
+    inputs = router.warmup()
+    planned_before = {n: router.tenant(n).plan.est_latency_s
+                      for n in router.net_ids}
+    warm_drift = {n: router.drift(n) for n in router.net_ids}
+    log(f"drift: threshold {DRIFT_THRESHOLD}, min samples "
+        f"{DRIFT_MIN_SAMPLES}; after warmup {json.dumps(warm_drift)}; "
+        f"planned us " + json.dumps({n: v * 1e6 for n, v
+                                     in planned_before.items()}))
+    y0 = {n: dep.engines[n].infer(x).clone() for n, x in inputs.items()}
+    graphs0 = {n: edge_graphs(dep.engines[n]) for n in inputs}
+    tick0 = tick_graph(batcher)
+    steps0 = batcher.decode_steps_observed
+    trips = []
+
+    def watch(nid, what):
+        if router.replans > len(trips):
+            trips.append({"replan": router.replans, "tripped_by": nid,
+                          "at": what})
+            log(f"drift: replan {router.replans} tripped by {nid} ({what})")
+
+    ops.reset_launches()
+    for i in range(DRIFT_EDGE_CALLS):
+        for n, x in inputs.items():
+            router.infer(n, x)
+            watch(n, f"edge call {i}")
+    reqs = [_lm_request(i, n, DRIFT_NEW_TOKENS, cfg.vocab_size)
+            for i, n in enumerate(DRIFT_LM_PROMPTS)]
+    for r in reqs:
+        router.submit(nid_lm, r)
+    ticks = 0
+    while router.lm_pending():
+        router.step()
+        ticks += 1
+        watch(nid_lm, f"tick {ticks}")
+        if ticks > 10_000:
+            raise SmokeFailure("drift: the LM requests never drained")
+    torch.cuda.synchronize()
+    drift_launches = ops.launch_counts()
+    if not all(r.done and not r.error and len(r.out) == DRIFT_NEW_TOKENS
+               for r in reqs):
+        raise SmokeFailure("drift: LM requests " + str(
+            [(r.done, r.error, len(r.out)) for r in reqs]))
+    steps = sum(DRIFT_LM_PROMPTS) + batcher.decode_steps_observed - steps0
+    want = {"fused_mlp_q8": DRIFT_EDGE_CALLS * len(inputs),
+            "linear_scan": per_tick["linear_scan"] * steps}
+    got = {k: drift_launches[k] for k in want}
+    others = {k: n for k, n in drift_launches.items() if k not in want and n}
+    if got != want or others:
+        raise SmokeFailure(f"drift: launched {drift_launches}, want {want} "
+                           f"and nothing else")
+    launches["fleet drift"] = drift_launches
+    rep = router.report()
+    measured = {n: (batcher.measured_decode_p50_s if n == nid_lm
+                    else rep[n]["p50_s"]) for n in router.net_ids}
+    planned_after = {n: router.tenant(n).plan.est_latency_s
+                     for n in router.net_ids}
+    drift_after = {n: router.drift(n) for n in router.net_ids}
+    if router.replans < 1:
+        raise SmokeFailure(f"drift: no replan (drift {drift_after}, "
+                           f"threshold {DRIFT_THRESHOLD})")
+    for n in router.net_ids:
+        t = router.tenant(n)
+        cached = dep.ctx.cache.get(t.plan.key)
+        if not (t.plan is dep.engines[n].plan is router.fleet.tenant(n).plan
+                and cached == t.plan):
+            raise SmokeFailure(f"drift: tenant {n}'s plan, engine plan, "
+                               f"fleet plan and cache entry disagree")
+    for n, x in inputs.items():
+        same_graphs(f"drift {n}", graphs0[n], edge_graphs(dep.engines[n]))
+        if not torch.equal(dep.engines[n].infer(x), y0[n]):
+            raise SmokeFailure(f"drift: {n}'s output changed across the "
+                               f"replan")
+    tick1 = tick_graph(batcher)
+    if tick0 is not None and (tick1[0] != tick0[0] or tick1[1] <= tick0[1]):
+        raise SmokeFailure(f"drift: the LM tick graph {tick0} -> {tick1}")
+    router.reset_metrics()
+    for _ in range(DRIFT_EDGE_CALLS):
+        for n, x in inputs.items():
+            router.infer(n, x)
+            watch(n, "fresh call")
+    fresh = {n: router.drift(n) for n in router.net_ids}
+    readings["drift"] = {
+        "threshold": DRIFT_THRESHOLD, "min_samples": DRIFT_MIN_SAMPLES,
+        "after_warmup": warm_drift, "replans": router.replans,
+        "trips": trips, "ticks": ticks,
+        "planned_us_before": {n: v * 1e6 for n, v in planned_before.items()},
+        "planned_us_after": {n: v * 1e6 for n, v in planned_after.items()},
+        "measured_p50_us": {n: v * 1e6 for n, v in measured.items()},
+        "drift_after_replan": drift_after, "drift_fresh": fresh,
+        "budget_us_after": {n: router.tenant(n).metrics.latency_budget_s
+                            * 1e6 for n in router.net_ids}}
+    log("drift " + json.dumps(readings["drift"], sort_keys=True))
+
+    # -- 2. the ladder ---------------------------------------------------
+    router = dep.serve(fresh=True)
+    sup = router.supervisor
+    knobs = sup.cfg("jet_tagger")
+    k = knobs["breaker_k"] * (knobs["retries"] + 1)
+    jet, tau = dep.engines["jet_tagger"], dep.engines["tau_select"]
+    x_jet, x_tau = inputs["jet_tagger"], inputs["tau_select"]
+    fused_jet, want_tau = jet.infer(x_jet).clone(), tau.infer(x_tau).clone()
+    shape = tuple(x_jet.shape)
+    if (1, shape) in jet._graphs:
+        raise SmokeFailure("ladder: the per-layer rung was captured before "
+                           "the breaker opened")
+    tau_graphs = edge_graphs(tau)
+    router.arm_faults(FaultPlan.burst("jet_tagger", after=LADDER_AFTER,
+                                      count=k).injector())
+    calls = (LADDER_AFTER + knobs["breaker_k"] + 2 * knobs["breaker_cooldown"]
+             + LADDER_TAIL)
+    trace = []
+    ops.reset_launches()
+    for i in range(calls):
+        level = jet.degrade_level
+        t0 = time.perf_counter()
+        try:
+            y = router.infer("jet_tagger", x_jet)
+            outcome = "ok"
+        except TenantBreakerOpen:
+            outcome, y = "refused", None
+        except TenantFaulted:
+            outcome, y = "failed", None
+        dt = time.perf_counter() - t0
+        state = sup.breaker("jet_tagger").state
+        trace.append((outcome, level, jet.degrade_level, state, dt))
+        if y is not None:
+            err = check_close(f"ladder call {i} (rung {level})", y, fused_jet)
+            if level == 0 and err != 0.0:
+                raise SmokeFailure(f"ladder call {i}: fused rung output "
+                                   f"moved by {err}")
+        if not torch.equal(router.infer("tau_select", x_tau), want_tau):
+            raise SmokeFailure(f"ladder call {i}: tau_select's output is "
+                               f"not bit-exact with the unarmed run")
+    torch.cuda.synchronize()
+    ladder_launches = ops.launch_counts()
+    router.arm_faults(None)
+    outcomes = [t[0] for t in trace]
+    per_layer = [t for t in trace if t[0] == "ok" and t[1] == 1]
+    fused_ok = sum(1 for t in trace if t[0] == "ok" and t[1] == 0)
+    health = router.health()["tenants"]
+    hj, ht = health["jet_tagger"], health["tau_select"]
+    want_seq = (["ok"] * LADDER_AFTER + ["failed"] * knobs["breaker_k"]
+                + ["refused"] * knobs["breaker_cooldown"]
+                + ["ok"] * (knobs["breaker_cooldown"] + LADDER_TAIL))
+    if outcomes != want_seq:
+        raise SmokeFailure(f"ladder outcomes {outcomes}, want {want_seq}")
+    if (hj["failures"], ht["failures"], ht["state"]) != (
+            knobs["breaker_k"], 0, "closed"):
+        raise SmokeFailure(f"ladder: failures not booked on jet_tagger "
+                           f"alone: {health}")
+    if (hj["breaker_opens"], hj["breaker_recloses"], hj["degrades"],
+            hj["restores"], hj["state"]) != (1, 1, 1, 1, "closed"):
+        raise SmokeFailure(f"ladder: breaker/ladder counters {hj}")
+    opened = trace[LADDER_AFTER + knobs["breaker_k"] - 1]
+    probe = trace[LADDER_AFTER + knobs["breaker_k"]
+                  + knobs["breaker_cooldown"]]
+    if opened[2:4] != (1, "open") or probe[1:4] != (1, 1, "closed"):
+        raise SmokeFailure(f"ladder: open {opened}, probe {probe}")
+    if len(per_layer) != knobs["breaker_cooldown"] or trace[-1][1:3] != (0, 0):
+        raise SmokeFailure(f"ladder: {len(per_layer)} per-layer calls, last "
+                           f"{trace[-1]}")
+    layer_nodes = per_layer_graph_launches(jet, shape)
+    n_layers = len(jet.cfg.dims) - 1
+    if (layer_nodes["gemm_int8"], layer_nodes["fused_mlp_q8"]) != (
+            n_layers, 0):
+        raise SmokeFailure(f"ladder: the per-layer graph's kernel nodes "
+                           f"{layer_nodes}")
+    want = {"gemm_int8": n_layers * len(per_layer),
+            "fused_mlp_q8": fused_ok + calls}
+    got = {kk: ladder_launches[kk] for kk in want}
+    others = {kk: n for kk, n in ladder_launches.items()
+              if kk not in want and n}
+    if got != want or others:
+        raise SmokeFailure(f"ladder launched {ladder_launches}, want {want} "
+                           f"and nothing else")
+    same_graphs("ladder tau_select", tau_graphs, edge_graphs(tau))
+    launches["ladder"] = ladder_launches
+    fused_dt = [t[4] for t in trace[:LADDER_AFTER]]
+    readings["ladder"] = {
+        "burst": k, "knobs": knobs, "outcomes": outcomes,
+        "time_to_recovery_s": hj["time_to_recovery_s"],
+        "first_degraded_call_us": per_layer[0][4] * 1e6,
+        "per_layer_p50_us": statistics.median(t[4] for t in per_layer[1:])
+        * 1e6,
+        "fused_p50_us": statistics.median(fused_dt) * 1e6,
+        "per_layer_graph_launches": layer_nodes, "health": hj}
+    log("ladder " + json.dumps(readings["ladder"], sort_keys=True))
+
+    # -- 3. each other fault kind once -----------------------------------
+    kinds = {}
+    router.arm_faults(FaultPlan(faults=(FaultSpec(
+        kind="non_finite_output", tenant="tau_select", after=0),)).injector())
+    before = edge_graphs(tau)
+    try:
+        router.infer("tau_select", x_tau)
+        raise SmokeFailure("non_finite_output: the poisoned call passed")
+    except TenantFaulted as exc:
+        if not isinstance(exc.__cause__, NonFiniteOutput):
+            raise SmokeFailure(f"non_finite_output raised {exc!r}") from exc
+    if not torch.equal(router.infer("tau_select", x_tau), want_tau):
+        raise SmokeFailure("non_finite_output: the next call is not "
+                           "bit-exact")
+    same_graphs("non_finite_output", before, edge_graphs(tau))
+    kinds["non_finite_output"] = "failed, next call bit-exact"
+
+    # A poisoned decode with two requests decoding: both fail, and the
+    # graph's own logits stay finite.
+    router.arm_faults(None)
+    pair = [_lm_request(10 + i, 16, DRIFT_NEW_TOKENS, cfg.vocab_size)
+            for i in range(2)]
+    for r in pair:
+        router.submit(nid_lm, r)
+    while not all(r.out for r in pair):
+        router.step()
+    failures = router.tenant(nid_lm).metrics.failures
+    router.arm_faults(FaultPlan(faults=(FaultSpec(
+        kind="non_finite_output", site="batcher.decode", tenant=nid_lm),
+    )).injector())
+    router.step()
+    if batcher._graph is not None and not bool(
+            torch.isfinite(batcher._graph._out).all()):
+        raise SmokeFailure("batcher.decode: the graph's own logits were "
+                           "poisoned")
+    if [r.error for r in pair] != ["non_finite_output"] * 2 \
+            or router.tenant(nid_lm).metrics.failures != failures + 2 \
+            or batcher.n_active:
+        raise SmokeFailure(f"batcher.decode: errors "
+                           f"{[r.error for r in pair]}, {batcher.n_active} "
+                           f"slots still active")
+    kinds["batcher.decode non_finite_output"] = "both live requests failed"
+
+    # A stalled tick: no admission, no decode, the state untouched; the
+    # request's tokens equal a standalone batcher's.
+    inj = FaultPlan(faults=(FaultSpec(kind="batcher_stall", tenant=nid_lm,
+                                      after=1),)).injector()
+    router.arm_faults(inj)
+    follow = _lm_request(20, 16, DRIFT_NEW_TOKENS, cfg.vocab_size)
+    router.submit(nid_lm, follow)
+    router.step()
+    state = tree.tree_map(torch.clone, batcher.state)
+    steps, active = batcher.decode_steps_observed, batcher.n_active
+    router.step()
+    torch.cuda.synchronize()
+    if inj.fired() != 1 or batcher.decode_steps_observed != steps \
+            or batcher.n_active != active or not all(tree.leaves(
+                tree.tree_map(torch.equal, state, batcher.state))):
+        raise SmokeFailure("batcher_stall: the stalled tick moved the "
+                           "batcher")
+    del state
+    router.run_until_drained()
+    twin = _lm_request(20, 16, DRIFT_NEW_TOKENS, cfg.vocab_size)
+    alone = engine.ContinuousBatcher(cfg, params, plan=lm_plan,
+                                     max_len=LM_SEQ)
+    alone.submit(twin)
+    alone.run_until_drained()
+    if follow.error or follow.out != twin.out:
+        raise SmokeFailure(f"after the faults: router tokens {follow.out} "
+                           f"!= standalone {twin.out}")
+    del alone
+    kinds["batcher_stall"] = "tick skipped, state bit-exact"
+    kinds["following request"] = "tokens equal a standalone batcher's"
+    router.arm_faults(None)
+
+    # A replan that fails keeps serving under the current fleet.
+    router = dep.serve(drift_threshold=DRIFT_THRESHOLD, drift_min_samples=1,
+                       fresh=True)
+    fleet0 = router.fleet
+    router.arm_faults(FaultPlan(faults=(
+        FaultSpec(kind="latency_spike", tenant="jet_tagger", after=0,
+                  magnitude_s=SPIKE_S),
+        FaultSpec(kind="replan_failure", tenant="jet_tagger", after=0,
+                  count=99))).injector())
+    router.infer("jet_tagger", x_jet)
+    if (router.replan_failures, router.replans) != (1, 0) \
+            or router.fleet is not fleet0:
+        raise SmokeFailure(f"replan_failure: {router.health()}")
+    if not torch.equal(router.infer("jet_tagger", x_jet), fused_jet) \
+            or router.fleet is not fleet0:
+        raise SmokeFailure("replan_failure: the router stopped serving the "
+                           "current fleet")
+    router.arm_faults(None)
+    kinds["replan_failure"] = (f"{router.replan_failures} replan failures, "
+                               f"the fleet kept")
+
+    # A corrupt cache read is a miss with a warning; a build fault at the
+    # verify stage raises before any engine exists.
+    with tempfile.TemporaryDirectory() as tmp:
+        first = Deployment.build(list(SERVED), cache=PlanCache(tmp),
+                                 stop_after="plan")
+        cache = PlanCache(tmp)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            again = Deployment.build(
+                list(SERVED), cache=cache, stop_after="plan",
+                faults=[FaultSpec(kind="cache_corruption")])
+    caught = [w for w in caught if issubclass(w.category, RuntimeWarning)]
+    if cache.corrupt_reads != 1 or len(caught) != 1 \
+            or again.stage_results["plan"].cached \
+            or again.fleet != first.fleet:
+        raise SmokeFailure(f"cache_corruption: {cache.corrupt_reads} "
+                           f"corrupt reads, warnings {caught}")
+    kinds["cache_corruption"] = f"a miss: {caught[0].message}"
+    ops.reset_launches()
+    try:
+        Deployment.build(list(SERVED), cache=PlanCache(), faults=[FaultSpec(
+            kind="engine_exception", site="build", tenant="verify")])
+        raise SmokeFailure("build fault: Deployment.build returned")
+    except InjectedFault as exc:
+        kinds["build"] = str(exc)
+    if any(ops.launch_counts().values()):
+        raise SmokeFailure(f"build fault: launched {ops.launch_counts()} "
+                           f"(an engine was built)")
+    readings["faults"] = kinds
+    log("faults " + json.dumps(kinds, sort_keys=True))
+
+    # -- 4. shedding, on phase 4's edge deployment -----------------------
+    # The spiked tenant alone is driven: tau_select, called right after each
+    # spike, read over its budget three times running on the card and was
+    # shed too.  A call that follows a 2 ms sleep runs slow on the host,
+    # whichever tenant makes it (``after_sleep_us`` beside
+    # ``back_to_back_us``, engine calls).  tau_select is served once after,
+    # and must not be shed.
+    edge_dep.recalibrate()
+    router = edge_dep.serve(shed_after=SHED_AFTER, fresh=True)
+    x4 = router.default_inputs()
+    tau4 = edge_dep.engines["tau_select"]
+    after_sleep, back_to_back = [], []
+    for _ in range(SHED_AFTER * 3):
+        time.sleep(SPIKE_S)
+        for out in (after_sleep, back_to_back):
+            t0 = time.perf_counter()
+            tau4.infer(x4["tau_select"])
+            out.append((time.perf_counter() - t0) * 1e6)
+    budget = router.tenant("jet_tagger").metrics.latency_budget_s
+    router.arm_faults(FaultPlan(faults=(FaultSpec(
+        kind="latency_spike", tenant="jet_tagger", after=0, count=SHED_AFTER,
+        magnitude_s=SPIKE_S),)).injector())
+    seq, latencies = [], []
+    for _ in range(2 * SHED_AFTER + (SHED_AFTER + 1) * SHED_PROBES):
+        t0 = time.perf_counter()
+        try:
+            router.infer("jet_tagger", x4["jet_tagger"])
+            seq.append("ok")
+            latencies.append(time.perf_counter() - t0)
+        except TenantOverBudget as exc:
+            if type(exc) is not TenantOverBudget:
+                raise
+            seq.append("shed")
+        if len(seq) > SHED_AFTER and seq[-1] == "ok" \
+                and not router.over_budget("jet_tagger"):
+            break
+    router.arm_faults(None)
+    router.infer("tau_select", x4["tau_select"])
+    want_seq = ["ok"] * SHED_AFTER + ["shed"] * SHED_AFTER + ["ok"]
+    if seq[:len(want_seq)] != want_seq or router.over_budget("jet_tagger") \
+            or router.over_budget("tau_select"):
+        raise SmokeFailure(f"shedding: {seq}, latencies {latencies}, budget "
+                           f"{budget}")
+    readings["shed"] = {"sequence": seq, "budget_us": budget * 1e6,
+                        "spiked_us": [v * 1e6 for v in
+                                      latencies[:SHED_AFTER]],
+                        "probe_us": [v * 1e6 for v in
+                                     latencies[SHED_AFTER:]],
+                        "spike_us": SPIKE_S * 1e6,
+                        "after_sleep_us": statistics.median(after_sleep),
+                        "back_to_back_us": statistics.median(back_to_back)}
+    log("shed " + json.dumps(readings["shed"], sort_keys=True))
+    return {"readings": readings, "launches": launches}
 
 
 def edge_call_split(deps: dict, iters: int = BENCH_ITERS) -> dict:
@@ -2744,6 +3223,10 @@ def main(argv: list) -> int:
         cfg, params, tokens, fwd_launches, per_step, per_tick = \
             lm_forward_phase(LM_ARCH)
         fleet = fleet_phase(cfg, params, tokens, per_step, per_tick)
+        guarded = fleet_resilience_phase(fleet["deployment"], cfg, params,
+                                         per_tick, dep)
+        fleet["launches"].update(guarded["launches"])
+        fleet["fleet"]["resilience"] = guarded["readings"]
         fleet["fleet"]["edge_call_split_us"] = edge_call_split(
             {"phase 4": dep, "fleet": fleet["deployment"]})
         served = lm_serve_phase(cfg, params, tokens, per_step, per_tick)
@@ -2768,12 +3251,14 @@ def main(argv: list) -> int:
                 paths[f"{arch} forward"] = fwd
             paths.update({f"{arch} {p}": c
                           for p, c in srv["launches"].items()})
-        # The edge kernels of the fleet's path beside phase 4's.
+        # The edge kernels of the fleet's paths (7b, and 7c's drift replan
+        # and ladder) beside phase 4's.
         for entry in line["kernels"]:
             name = entry["name"]
             fleet_n = {p: c[name] for p, c in fleet["launches"].items()
                        if c[name]}
-            if name in ("fused_mlp_q8", "fused_dense") and fleet_n:
+            if name in ("fused_mlp_q8", "gemm_int8", "fused_dense") \
+                    and fleet_n:
                 by_path = entry.get("launches_by_path",
                                     {"serve": entry["launches"]})
                 entry["launches_by_path"] = {**by_path, **fleet_n}

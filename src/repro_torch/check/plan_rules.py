@@ -37,11 +37,14 @@ from repro_torch.core import tiling
 # Relative slack for float identities that calibration rescales under.
 _REL_TOL = 5e-3
 
-# The planner's keys, the LM batch policy the fleet planner adds
-# (plan/multinet.py), and the record calibration feedback adds
-# (plan/calibrate.py).
+# The planner's keys, the LM batch policy and the supervisor's knobs the
+# fleet planner adds (plan/multinet.py), and the record calibration
+# feedback adds (plan/calibrate.py).
 _SERVE_KEYS = {"decode_regime", "quantize_weights", "prefill_chunk",
-               "slots", "admit_per_tick", "max_queue_depth", "calibration"}
+               "slots", "admit_per_tick", "max_queue_depth", "calibration",
+               "resilience"}
+_RESILIENCE_KEYS = {"breaker_k", "breaker_cooldown", "retries", "backoff_s",
+                    "deadline_factor"}
 _DECODE_REGIMES = ("pipeline", "tiled")
 
 # The artifact's top-level keys (``plan/artifact.py``, ``plan/multinet.py``).
@@ -294,10 +297,11 @@ def _rule_latency_invariant(plan, tenant) -> list:
 
 def _rule_serve_section(plan, tenant) -> list:
     """Serve-section vocabulary: the keys the port's planners write
-    (``decode_regime``, ``quantize_weights`` and the LM batch policy
-    ``slots``, ``prefill_chunk``, ``admit_per_tick``, ``max_queue_depth``)
-    must be legal, beside calibration feedback's ``calibration`` record;
-    any other key is one warning, since nothing in the port reads it."""
+    (``decode_regime``, ``quantize_weights``, the LM batch policy
+    ``slots``, ``prefill_chunk``, ``admit_per_tick``, ``max_queue_depth``,
+    and the supervisor's ``resilience`` knobs) must be legal, beside
+    calibration feedback's ``calibration`` record; any other key is one
+    warning, since nothing in the port reads it."""
     fs = []
     serve = plan.serve
 
@@ -317,6 +321,13 @@ def _rule_serve_section(plan, tenant) -> list:
     qw = serve.get("quantize_weights")
     if qw is not None and not isinstance(qw, bool):
         bad(f"serve.quantize_weights must be a bool, got {qw!r}")
+    res = serve.get("resilience")
+    if res is not None:
+        if not isinstance(res, dict):
+            bad(f"serve.resilience must be an object, "
+                f"got {type(res).__name__}")
+        else:
+            _check_resilience(res, bad)
     # LM continuous-batching policy.
     for k in ("slots", "admit_per_tick", "max_queue_depth", "prefill_chunk"):
         v = serve.get(k)
@@ -330,6 +341,28 @@ def _rule_serve_section(plan, tenant) -> list:
             f"would refuse requests the batcher has free slots for",
             severity="warning")
     return fs
+
+
+def _check_resilience(res: dict, bad) -> None:
+    """The supervisor's knobs, as the reference checks them: an unknown
+    knob warns; the breaker's K, cooldown and retries are ints at or above
+    their floors, backoff a number >= 0 and the deadline factor > 0."""
+    for k in sorted(set(res) - _RESILIENCE_KEYS):
+        bad(f"serve.resilience carries unknown knob {k!r} "
+            f"(known: {sorted(_RESILIENCE_KEYS)})", severity="warning")
+    for k, floor in (("breaker_k", 1), ("breaker_cooldown", 0),
+                     ("retries", 0)):
+        v = res.get(k)
+        if v is not None and (not isinstance(v, int) or isinstance(v, bool)
+                              or v < floor):
+            bad(f"serve.resilience.{k}={v!r} must be an int >= {floor}")
+    for k in ("backoff_s", "deadline_factor"):
+        v = res.get(k)
+        if v is not None and (not isinstance(v, (int, float))
+                              or isinstance(v, bool) or v < 0
+                              or (k == "deadline_factor" and v <= 0)):
+            bad(f"serve.resilience.{k}={v!r} must be a number "
+                f"{'> 0' if k == 'deadline_factor' else '>= 0'}")
 
 
 # ---------------------------------------------------------------------------

@@ -79,6 +79,23 @@ class BenchRow:
                 "derived": self.derived}
 
 
+def _fault_injector(faults):
+    """A live ``FaultInjector`` from a ``faults=`` argument: an injector
+    passes through, a ``FaultPlan`` arms fresh counters, a list or tuple of
+    specs (or spec dicts) becomes a plan, anything else is a path to a
+    saved plan."""
+    from repro_torch.faults import FaultInjector, FaultPlan
+    if faults is None:
+        return None
+    if isinstance(faults, FaultInjector):
+        return faults
+    if isinstance(faults, FaultPlan):
+        return faults.injector()
+    if isinstance(faults, (list, tuple)):
+        return FaultPlan(faults=tuple(faults)).injector()
+    return FaultPlan.load(faults).injector()
+
+
 def _load_plan(plan) -> FleetPlan:
     """A FleetPlan, a DeploymentPlan, or a path to either artifact."""
     from repro_torch.check.plan_rules import load_artifact
@@ -98,6 +115,7 @@ class Deployment:
     def __init__(self, ctx: StageContext):
         self.ctx = ctx
         self._router = None
+        self._router_kw = None
 
     @classmethod
     def build(cls, configs=None, *, target: str = "h100",
@@ -106,8 +124,8 @@ class Deployment:
               calib_x: dict | None = None, lm_params: dict | None = None,
               max_len: int = 256, stop_after: str | None = None,
               artifact_dir=None, batch: int | None = None, plan=None,
-              trace=False, check: bool = True,
-              cache=None) -> "Deployment":
+              trace=False, check: bool = True, cache=None,
+              faults=None) -> "Deployment":
         """Characterize, plan ``configs`` as one fleet for ``target``,
         verify the plan, and build one engine per tenant.
 
@@ -135,7 +153,11 @@ class Deployment:
         ``check=False`` skips the verify stage and records it as skipped;
         otherwise an error finding raises :class:`PlanVerificationError`
         before any engine is built.  ``cache`` is the plan cache (default:
-        the process-wide one)."""
+        the process-wide one).  ``faults``: a
+        :class:`~repro_torch.faults.FaultPlan`, injector, list of specs or
+        path to a saved plan, armed on the build's hooks (``build``, before
+        any stage and at the verify stage, and the plan cache's
+        ``cache.read``); arm serving faults with ``Router.arm_faults``."""
         if stop_after is not None and stop_after not in _STAGE_ORDER:
             raise ValueError(f"stop_after must be one of {_STAGE_ORDER}, "
                              f"got {stop_after!r}")
@@ -153,6 +175,12 @@ class Deployment:
         if plan is not None:
             ctx.fleet = _load_plan(plan)
         dep = cls(ctx)
+        ctx.injector = _fault_injector(faults)
+        if ctx.injector is not None:
+            ctx.cache.injector = ctx.injector
+            if ctx.injector.fire("build") is not None:
+                from repro_torch.faults import InjectedFault
+                raise InjectedFault("deployment build: injected failure")
         dep._run_until(stop_after or _STAGE_ORDER[-1])
         return dep
 
@@ -228,15 +256,44 @@ class Deployment:
     def plans(self) -> dict:
         return {t.net_id: t.plan for t in self.fleet.tenants}
 
-    def serve(self):
-        """The fleet behind a :class:`Router` over this deployment's engines
-        (memoized: repeated calls return the same live router)."""
+    def serve(self, *, shed_after: int | None = None,
+              drift_threshold: float | None = None,
+              drift_min_samples: int = 5, resilience=True,
+              fresh: bool = False):
+        """The fleet behind a :class:`Router` over this deployment's engines.
+        Memoized: repeated calls with the same arguments return the same
+        live router; other arguments, or ``fresh=True``, build a new one
+        over the same engines (their graphs kept, the router's metrics
+        new).
+
+        ``shed_after``: consecutive budget violations after which a tenant
+        is shed.  ``drift_threshold`` / ``drift_min_samples``: the drift
+        watcher's band and sample floor (None: off); a replan writes
+        through this deployment's plan cache.  ``resilience``: ``True``
+        attaches a :class:`~repro_torch.serve.resilience.Supervisor` from
+        each plan's ``serve["resilience"]`` knobs (breakers, retries, the
+        degradation ladder), a ``Supervisor`` is used as it is,
+        ``False``/``None`` leaves dispatch unsupervised."""
         from repro_torch.serve.router import Router
-        if self._router is None:
+        kw = {"shed_after": shed_after, "drift_threshold": drift_threshold,
+              "drift_min_samples": drift_min_samples,
+              "resilience": resilience}
+        if self._router is None or fresh or kw != self._router_kw:
             tracer = self.tracer if self.tracer is not NULL_TRACER else None
-            self._router = Router.from_fleet(self.fleet, engines=self.engines,
-                                             tracer=tracer)
+            self._router = Router.from_fleet(
+                self.fleet, engines=self.engines, cache=self.ctx.cache,
+                tracer=tracer, shed_after=shed_after,
+                drift_threshold=drift_threshold,
+                drift_min_samples=drift_min_samples,
+                resilience=resilience or None)
+            self._router_kw = kw
         return self._router
+
+    def health(self) -> dict:
+        """The served fleet's resilience state (``Router.health()``): per
+        tenant its failures, breaker and ladder level, and the fleet's
+        replan counters.  Empty before :meth:`serve`."""
+        return self._router.health() if self._router is not None else {}
 
     def bench(self, *, iters: int = 5, warmup: int = 1) -> list[BenchRow]:
         """Planned-vs-measured rows of the edge tenants (an LM request's
@@ -262,24 +319,51 @@ class Deployment:
                 extra=f"fuse_groups={len(tp.plan.groups())};"))
         return rows
 
-    def recalibrate(self):
-        """Feed the engines' measured latencies back and rescale the fleet
-        plan (:func:`repro_torch.plan.calibrate.recalibrate_fleet`): costs
-        and budgets (with the fleet's own headroom factor) move; tiles,
-        groups and engines stay.  The live router, if any, adopts the new
-        fleet.  Returns (and adopts) it."""
+    def recalibrate(self, *, budget_factor: float | None = None):
+        """Feed measured latencies back and rescale the fleet plan
+        (:func:`repro_torch.plan.calibrate.recalibrate_fleet`): the live
+        router's measurements when it has served traffic (its
+        ``replan_fleet``), the engines' otherwise.  Costs and budgets (with
+        the fleet's own headroom factor, or ``budget_factor``) move; tiles,
+        groups and engines stay.  Returns (and adopts) the new fleet.
+
+        The planner's own rung: when the recalibration fails while a fitted
+        machine model is in play, the deployment drops to the stock
+        constants (a ``degrade/machine_model`` span), keeps the current
+        fleet and returns it.  Under the stock constants already, or with
+        nothing measured, the error is raised."""
+        try:
+            return self._recalibrate(budget_factor)
+        except Exception as exc:
+            if self.ctx.model is None or "nothing measured" in str(exc):
+                raise
+            t0 = time.perf_counter()
+            self.ctx.model = None
+            if self.ctx.tracer.enabled:
+                self.ctx.tracer.add(
+                    "degrade/machine_model", t0, time.perf_counter(),
+                    tenant="deploy", error=str(exc)[:160])
+            return self.ctx.fleet
+
+    def _recalibrate(self, budget_factor):
         from repro_torch.plan import calibrate
-        measurements = calibrate.measurements_from_engines(self.engines)
-        if not measurements:
-            raise RuntimeError("nothing measured yet: serve traffic or run "
-                               ".bench() before recalibrating")
-        fleet = calibrate.recalibrate_fleet(self.fleet, measurements,
-                                            cache=self.ctx.cache)
-        if self._router is not None:
-            self._router.adopt_fleet(fleet)
+        router = self._router
+        if router is not None and any(
+                router.tenant(nid).metrics.count for nid in router.net_ids):
+            fleet = router.replan_fleet(budget_factor=budget_factor)
         else:
-            for tp in fleet.tenants:
-                self.engines[tp.net_id].plan = tp.plan
+            measurements = calibrate.measurements_from_engines(self.engines)
+            if not measurements:
+                raise RuntimeError("nothing measured yet: serve traffic or "
+                                   "run .bench() before recalibrating")
+            fleet = calibrate.recalibrate_fleet(self.fleet, measurements,
+                                                cache=self.ctx.cache,
+                                                budget_factor=budget_factor)
+            if router is not None:
+                router.adopt_fleet(fleet)
+            else:
+                for tp in fleet.tenants:
+                    self.engines[tp.net_id].plan = tp.plan
         self.ctx.fleet = fleet
         return fleet
 
@@ -306,7 +390,39 @@ class Deployment:
             else:
                 lines.append(f"check: {res.detail}")
                 lines += [f"  {f}" for f in self.ctx.findings]
+        lines += self._health_lines()
         if self.tracer.enabled:
             lines.append(f"tracing: {len(self.tracer.spans)} spans "
                          f"({self.tracer.dropped} dropped)")
         return "\n".join(lines)
+
+    def _health_lines(self) -> list[str]:
+        """The summary's health block: each sick tenant (failures, a ladder
+        below the fused rung, a breaker not closed), else one ok line, and
+        the replan failures; nothing before :meth:`serve`."""
+        health = self.health()
+        if not health:
+            return []
+        sick = {nid: h for nid, h in health["tenants"].items()
+                if h["failures"] or h["degrade_level"]
+                or h.get("state", "closed") != "closed"}
+        lines = []
+        if sick:
+            lines.append("health:")
+            for nid, h in sorted(sick.items()):
+                bits = [f"failures={h['failures']}",
+                        f"level={h['degrade_level']}"]
+                if "state" in h:
+                    bits.append(f"breaker={h['state']} "
+                                f"opens={h['breaker_opens']} "
+                                f"recloses={h['breaker_recloses']}")
+                lines.append(f"  {nid:<14} " + " ".join(bits))
+        else:
+            supervised = ("supervised" if health["supervised"]
+                          else "unsupervised")
+            lines.append(f"health: ok ({supervised}; no failures, all "
+                         f"breakers closed, ladder at level 0)")
+        if health["replan_failures"]:
+            lines.append(f"health: {health['replan_failures']} replan "
+                         f"failure(s), serving on the current fleet")
+        return lines

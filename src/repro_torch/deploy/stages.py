@@ -81,6 +81,7 @@ class StageContext:
     max_len: int = 256                   # each LM batcher's cache length
     tracer: Any = NULL_TRACER            # repro_torch.obs.Tracer when tracing
     verify: bool = True                  # run the design-rule gate
+    injector: Any = None                 # repro_torch.faults.FaultInjector
     # stage outputs
     model: Any = None                    # MachineModel | H100 | None
     fleet: FleetPlan | None = None
@@ -262,7 +263,9 @@ class VerifyStage:
     :func:`repro_torch.check.check_fleet` over the planned fleet, under the
     same machine model, BEFORE any engine exists.  Error findings raise
     :class:`repro_torch.check.PlanVerificationError`; warnings and info
-    land on ``ctx.findings``.  ``verify=False`` records it as skipped."""
+    land on ``ctx.findings``.  ``verify=False`` records it as skipped.  An
+    armed injector's ``build`` fault raises :class:`InjectedFault` here,
+    before any engine exists."""
 
     name = "verify"
 
@@ -276,6 +279,11 @@ class VerifyStage:
         if ctx.fleet is None:
             raise ValueError("verify stage needs a planned fleet "
                              "(run the plan stage first)")
+        if ctx.injector is not None:
+            spec = ctx.injector.fire("build", tenant="verify")
+            if spec is not None:
+                from repro_torch.faults import InjectedFault
+                raise InjectedFault("verify stage: injected failure")
         ctx.findings = check_fleet(ctx.fleet, hw=ctx.plan_kw.get("hw"))
         counts: dict[str, int] = {}
         for f in ctx.findings:

@@ -21,7 +21,7 @@ import pathlib
 import warnings
 
 PLAN_SCHEMA_VERSION = 3
-PLANNER_VERSION = "h100-plan-1"     # bump on any search or cost-model change
+PLANNER_VERSION = "h100-plan-2"     # bump on any search or cost-model change
 
 
 def atomic_write_text(path: str | os.PathLike, text: str) -> pathlib.Path:
@@ -225,9 +225,21 @@ class PlanCache:
         self._plans: dict[str, DeploymentPlan] = {}
         self._fleets: dict[str, object] = {}
         self.directory = pathlib.Path(directory) if directory else None
+        # Fault hook (repro_torch.faults): an armed injector's
+        # "cache_corruption" makes a disk read corrupt, the path a
+        # truncated file takes.
+        self.injector = None
         self.corrupt_reads = 0
 
     def _read_artifact(self, path: pathlib.Path, loader, what: str):
+        if self.injector is not None:
+            spec = self.injector.fire("cache.read", tenant=what)
+            if spec is not None and spec.kind == "cache_corruption":
+                self.corrupt_reads += 1
+                warnings.warn(f"injected corrupt {what} artifact "
+                              f"{path.name}; treating as cache miss",
+                              RuntimeWarning, stacklevel=3)
+                return None
         try:
             return loader(path)
         except (KeyError, ValueError, TypeError, AttributeError,

@@ -75,13 +75,15 @@ def feedback(plan, measured_latency_s: float, *, cache=None):
     return calibrated
 
 
-def recalibrate_fleet(fleet, measurements: dict, *, cache=None):
+def recalibrate_fleet(fleet, measurements: dict, *, cache=None,
+                      budget_factor: float | None = None):
     """Recalibrate a whole :class:`~repro_torch.plan.multinet.FleetPlan`
     from measured per-tenant latencies (``net_id -> seconds``, a robust
     statistic such as the p50).  Each measured tenant's plan goes through
     :func:`feedback`, its latency budget is re-derived from the calibrated
-    latency with the SAME headroom factor the fleet was planned with, and
-    the fleet totals are recomputed.  Tiles and groups are untouched, so engines keep running."""
+    latency with the SAME headroom factor the fleet was planned with
+    (``budget_factor`` overrides it), and the fleet totals are recomputed.
+    Tiles and groups are untouched, so engines keep running."""
     tenants = []
     for tp in fleet.tenants:
         m = measurements.get(tp.net_id)
@@ -90,7 +92,8 @@ def recalibrate_fleet(fleet, measurements: dict, *, cache=None):
         else:
             plan = tp.plan
         planned = tp.plan.est_latency_s + tp.crossing_s
-        factor = tp.latency_budget_s / planned if planned > 0 else 2.0
+        factor = budget_factor if budget_factor is not None else (
+            tp.latency_budget_s / planned if planned > 0 else 2.0)
         tenants.append(dataclasses.replace(
             tp, plan=plan,
             latency_budget_s=factor * (plan.est_latency_s + tp.crossing_s)))

@@ -8,7 +8,8 @@ tenant's serve section also carries the continuous batcher's policy, as the
 reference's ``_plan_fleet_tpu`` writes it: a fair share of
 ``serve_slots_total`` slots across the LM tenants, the ``prefill_chunk``,
 one admission a tick and a queue-depth bound of ``queue_depth_factor``
-slot generations.
+slot generations.  Every tenant's serve section carries the supervisor's
+``resilience`` knobs (:data:`repro_torch.faults.RESILIENCE_DEFAULTS`).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import pathlib
 from repro_torch import hw as hwlib
 from repro_torch.core import boundary
 from repro_torch.device import resolve_device
+from repro_torch.faults import RESILIENCE_DEFAULTS
 from repro_torch.plan import planner
 from repro_torch.plan.artifact import (PLAN_SCHEMA_VERSION, PLANNER_VERSION,
                                        DeploymentPlan, atomic_write_text,
@@ -186,6 +188,10 @@ def plan_fleet(cfgs, *, target: str = planner.TARGET,
     tenants = []
     for g, net_id in zip(graphs, ids):
         plan = planner._plan_h100(g, hw=hw, key=f"{key}:{net_id}")
+        # The supervisor's knobs ship in the plan, as every serve policy
+        # does (the resilience part of the reference's ``_with_slo``).
+        plan = dataclasses.replace(plan, serve={
+            **plan.serve, "resilience": dict(RESILIENCE_DEFAULTS)})
         if g.kind == "lm":
             slots = max(1, serve_slots_total // n_lm)
             plan = dataclasses.replace(plan, serve={

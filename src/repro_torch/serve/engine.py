@@ -38,17 +38,13 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.faults import InjectedFault, NonFiniteOutput
 from repro_torch.kernels.graph import GraphedForward, StepGraph, finite_guard
 from repro_torch.models import api
 from repro_torch.models import edge as edge_lib
 from repro_torch.models import tree
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import NULL_TRACER, summarize
-
-
-class NonFiniteOutput(RuntimeError):
-    """An engine produced NaN/inf: the request fails instead of returning
-    garbage."""
 
 
 def _use_graphs(graphs: bool | None, device: torch.device) -> bool:
@@ -116,6 +112,10 @@ class EdgeEngine:
         # (rung, input shape) -> the captured forward, oldest use first
         self._graphs: collections.OrderedDict[tuple, GraphedForward] = \
             collections.OrderedDict()
+        # Fault hooks (repro_torch.faults): ``injector`` is armed by
+        # Router.arm_faults; ``faults`` counts failed calls (injected, or a
+        # real non-finite output).
+        self.injector = None
         self.faults = 0
         self.reset_measurements()
 
@@ -155,6 +155,16 @@ class EdgeEngine:
         """One request: ``(batch, dims[0])`` in, a ready ``(batch,
         dims[-1])`` f32 tensor on the engine's device out."""
         t0 = time.perf_counter()
+        spec = None
+        if self.injector is not None:
+            spec = self.injector.fire("engine.infer", tenant=self.trace_label)
+        if spec is not None:
+            if spec.kind == "engine_exception":
+                self.faults += 1
+                raise InjectedFault(
+                    f"injected engine fault on {self.trace_label}")
+            if spec.kind == "latency_spike" and spec.magnitude_s > 0:
+                time.sleep(spec.magnitude_s)   # inside [t0, t1]: visible
         x = torch.as_tensor(x, dtype=torch.float32)
         fwd = self._fwd if self.degrade_level == 0 else self._fallback()
         if self.graphs:
@@ -169,6 +179,12 @@ class EdgeEngine:
             y, guard = self._graphs[key](x)
         else:
             y = fwd(x.to(self.device))
+            guard = finite_guard(y)
+        if spec is not None and spec.kind == "non_finite_output":
+            # Poison this call's own output (on the card, the clone of the
+            # graph's), never a graph's static buffer; the guard, taken
+            # before, is taken again from the poisoned tensor.
+            y = torch.full_like(y, float("nan"))
             guard = finite_guard(y)
         # The finiteness guard reads one value back to the host, which also
         # waits for the forward: infer returns a ready result by contract.
@@ -390,6 +406,9 @@ class ContinuousBatcher:
         self.active: list[Request | None] = [None] * self.slots
         self.queue: "queue.Queue[Request]" = queue.Queue()
         self._steps = 0
+        # Fault hooks, as the edge engine's: ``faults`` counts failed
+        # requests and ticks.
+        self.injector = None
         self.faults = 0
 
     def submit(self, req: Request):
@@ -421,6 +440,15 @@ class ContinuousBatcher:
             agg["total_count"] = self._span_totals[kind]
             out[kind] = agg
         return out
+
+    @property
+    def measured_decode_p50_s(self) -> float:
+        """Median decode-step service time over the recent window: queue
+        wait and prefill excluded, so it compares with the LM plan's
+        ``est_latency_s`` (an LM plan models one decode step).  The router's
+        drift watcher reads it."""
+        win = self._windows.get("decode_step")
+        return summarize(win)["p50_s"] if win else 0.0
 
     @property
     def decode_steps_observed(self) -> int:
@@ -571,7 +599,21 @@ class ContinuousBatcher:
 
     def step(self) -> int:
         """One tick: admit, advance chunked prefills, decode live slots.
-        Returns #active."""
+        Returns #active.  An injected ``batcher_stall`` skips the tick (no
+        admission, no decode, the state untouched)."""
+        if self.injector is not None:
+            spec = self.injector.fire("batcher.tick", tenant=self.trace_label)
+            if spec is not None:
+                if spec.kind == "batcher_stall":
+                    if spec.magnitude_s > 0:
+                        time.sleep(spec.magnitude_s)
+                    return self.n_active
+                if spec.kind == "engine_exception":
+                    self.faults += 1
+                    raise InjectedFault(
+                        f"injected batcher fault on {self.trace_label}")
+                if spec.kind == "latency_spike" and spec.magnitude_s > 0:
+                    time.sleep(spec.magnitude_s)
         self._admit()
         for i, req in enumerate(self.active):
             if req is not None and req.filled < len(req.prompt):
@@ -586,7 +628,15 @@ class ContinuousBatcher:
                 live[i] = True
         if live.any():
             t0 = time.perf_counter()
-            finite, best = self._pick(self._decode_masked(tok, live))
+            logits = self._decode_masked(tok, live)
+            if self.injector is not None:
+                spec = self.injector.fire("batcher.decode",
+                                          tenant=self.trace_label)
+                if spec is not None and spec.kind == "non_finite_output":
+                    # A new tensor: on the card the logits are the graph's
+                    # own buffer, which a poison must not touch.
+                    logits = torch.full_like(logits, float("nan"))
+            finite, best = self._pick(logits)
             self._steps += 1
             stepped = []                 # (slot, request) pairs that decoded
             done_reqs = []

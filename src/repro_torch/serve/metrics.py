@@ -33,6 +33,9 @@ class TenantMetrics:
         self.count = 0
         self.total_s = 0.0
         self.budget_violations = 0
+        # Violations since the last request within budget: the router's
+        # shedding reads it.
+        self.consecutive_violations = 0
         self.invalid_observations = 0
         self.failures = 0
         self._occ_sum, self._occ_n = 0.0, 0
@@ -48,8 +51,11 @@ class TenantMetrics:
         self.total_s += dt_s
         self._latencies.append(dt_s)
         within = dt_s <= self.latency_budget_s
-        if not within:
+        if within:
+            self.consecutive_violations = 0
+        else:
             self.budget_violations += 1
+            self.consecutive_violations += 1
         return within
 
     def observe_failure(self):

@@ -167,12 +167,12 @@ NOT_PORTED = {
 
 # Parts of plan.serve-keys the port leaves out: it checks only the keys its
 # planners write and warns on any other, since nothing in the port reads
-# them.  They come back with the SLO, priority and resilience work of the
-# router (the batch policy's keys came with plan-driven LM serving).
+# them.  They come back with the SLO and priority work of the router (the
+# batch policy's keys came with plan-driven LM serving, the supervisor's
+# resilience knobs with the breakers).
 SERVE_KEYS_NOT_PORTED = {
     "slo": "the SLO checks and the LM 'SLO but no slots' warning",
     "priority": "the router's priority classes",
-    "resilience": "the supervisor's breaker and retry knobs",
 }
 
 
@@ -250,6 +250,16 @@ def _d_queue_below_slots(d):
     _plan_of(d)["serve"].update(slots=8, admit_per_tick=1, max_queue_depth=2)
 
 
+def _d_bad_resilience(d):
+    _plan_of(d)["serve"]["resilience"].update(
+        breaker_k=0, breaker_cooldown=1.5, retries=-1, backoff_s=True,
+        deadline_factor=0, jitter=1)
+
+
+def _d_resilience_not_an_object(d):
+    _plan_of(d, "tau_select")["serve"]["resilience"] = [3, 8]
+
+
 def _d_budget_below_plan(d):
     d["tenants"][0]["latency_budget_s"] = 1e-9
 
@@ -265,7 +275,8 @@ def _d_fleet_total_off(d):
 @pytest.mark.parametrize("fault", [
     None, _d_broken_chain, _d_split_group, _d_extra_boundary,
     _d_negative_overhead, _d_group_estimate_off, _d_bad_serve,
-    _d_bad_batch_policy, _d_queue_below_slots, _d_budget_below_plan,
+    _d_bad_batch_policy, _d_queue_below_slots, _d_bad_resilience,
+    _d_resilience_not_an_object, _d_budget_below_plan,
     _d_negative_crossing, _d_fleet_total_off],
     ids=lambda f: f.__name__[3:] if f else "clean")
 def test_plan_rules_agree_with_the_reference(fault):
@@ -287,8 +298,7 @@ def test_clean_table1_fleet_agrees_with_the_reference():
 def test_serve_keys_the_port_does_not_read_are_one_warning_each():
     fleet = _fleet(["tau_select"])
     plan = fleet.tenants[0].plan
-    serve = {**plan.serve, "slo": {"p95_s": -1.0}, "priority": "urgent",
-             "resilience": {"retries": -1}}
+    serve = {**plan.serve, "slo": {"p95_s": -1.0}, "priority": "urgent"}
     findings = checklib.check_fleet(_with_plan(fleet, "tau_select",
                                                serve=serve))
     assert _rules(findings) == set()

@@ -207,24 +207,26 @@ def test_stage_defaults_are_dataclass_fields():
 # The five nets' h100 plans as they stood before the float edge forward and
 # the tiled_gemm tiles entered the port: plan key, per-layer gemm_int8 tile,
 # fusion groups.  Adding kernels and a second tile set must change none.
+# The keys are those of planner version "h100-plan-2" (the fleet plans'
+# resilience knobs); the tiles and groups are version 1's.
 H100_PLANS = {
     "jet_tagger": (
-        "e4a1a050feed2ebc9977ff2ae751804bb8b58e872e507b42b44c3627cb3691cd",
+        "2e193339e98ee439380b445238f2f218f76a20357ab373837cbb3e80df62e136",
         [(8, 32, 32), (8, 64, 32), (8, 32, 32), (8, 32, 32)],
         [[0, 1, 2, 3]]),
     "tau_select": (
-        "78e2342be8cbb945a0b9ac05abe860af73a0d04ad3f85cdd9a506c13aae4aab0",
+        "d64e04f9166c30eed81e3c319c22deb3862d75d7098c331d7e8b902be862128e",
         [(8, 32, 32)] * 3, [[0, 1, 2]]),
     "vae": (
-        "abac5702541e6ff656f02a0863d7f5213f11ec7559322c0a8d49fc77c51959f3",
+        "7fd317bd615211a7bda49bcab3aeb569c12af700b04254dfdc781e934789ea01",
         [(8, 64, 32), (8, 128, 32), (8, 128, 32), (8, 128, 32),
          (8, 64, 32)], [[0, 1, 2, 3, 4]]),
     "qubit": (
-        "b2d4a37452049887681794ec97449ae3e8aca42808778eddbcb340d4c856f6f2",
+        "f682b61baaa6756c2b6c35d509ff40fa0c262d0e12dc4a3de57fd511d47b5b04",
         [(8, 128, 32), (8, 32, 32), (8, 128, 32), (8, 128, 32),
          (8, 128, 32), (8, 32, 32)], [[0, 1, 2, 3, 4, 5]]),
     "autoencoder": (
-        "6d6cd18914a5801b9383c7724be0aa800e6ba0f2f507d97573703410f46e62d5",
+        "8b596c8040a608303c9de6f5a7f031f8f0e0e3d2111c4d8a650c289378b11846",
         [(8, 32, 32)] * 8, [list(range(8))]),
 }
 
