@@ -123,6 +123,24 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    ``cache_corruption`` and a verify-stage build fault, each once; and on
    phase 4's deployment ``serve(shed_after=3)`` under 2 ms latency spikes:
    shed, 3 refusals, the half-open probe, re-opened;
+7d. SLO scheduling, scenarios, replay and chaos, on 7b's deployment before
+   any profiler session: closed-loop edge calls through a router with and
+   without the SLO monitor (off, on, on, off; per-call p50, mean and calls
+   a second) and ``SloMonitor.observe`` alone; each scenario (``steady``,
+   ``bursty``, ``diurnal``, ``flash_crowd``) through ``Deployment.replay`` with
+   ``serve(fresh=True)`` (the SLO monitor on) at the reference's knobs
+   (0.25 s, edge 200 Hz, LM 16 Hz, 3 prompt and 4 new tokens, seed 0):
+   the generator's offered count, every record ``ok`` or a refusal, the
+   LM's tokens equal to a standalone batcher's, and per tenant the
+   statuses, p50/p95/p99, scheduling lag, SLO violations, burn rates,
+   ``at_risk``, deferrals and the deadline audit printed; the flash crowd
+   again with ``slo=False`` (the LM's p50/p95 both ways); a 5 s flash
+   crowd of 32-prompt, 32-token LM requests at a 2.5 Hz base, with and
+   without the monitor (per tenant as above, both ways); the flash crowd
+   under an ``engine_exception`` burst on ``jet_tagger`` (injected, the
+   breaker opened and reclosed and closed, the co-residents served); and
+   ``python -m repro_torch replay`` and ``chaos`` with the published LM
+   in their own processes (exit 0; ``RECOVERED``);
 8. LM serve: ``ContinuousBatcher(slots=4, max_len=4096)`` (the ring-cache
    path) serving 8 requests with 16-64 token prompts and ``max_new=16``,
    then a decode-heavy run of 4 requests with ``max_new=256``; each run
@@ -137,6 +155,14 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    the forward, then 8 decode steps.  Counters are zeroed just before
    each LM path and read just after; each kernel's count must equal 18
    (scan) or 8 (flash) per step that runs it;
+8q. ``--quant8``: ``quantize_params(params, min_size=1024)`` on the card
+   (``quantized_bytes`` and ``memory_allocated`` before and after), one
+   stacked leaf quantized on the card and on the CPU (bit-exact), phase
+   8's short and decode-heavy runs over the int8 weights (graphed tick
+   p50/p95, decode tok/s and peak memory beside bf16's), one quant8 tick
+   graphed and eager from one state (bit-exact), the forward's logits on
+   256 tokens in int8 against bf16 (printed), and ``python -m
+   repro_torch.launch.serve --arch recurrentgemma-2b --quant8`` (exit 0);
 9. LM kernel times: device ms per call (graph-replayed) and eager ms, the
    plain version's, ``F.scaled_dot_product_attention`` with the same band
    mask as the yardstick for flash (none exists for the scan) and, beside
@@ -161,6 +187,10 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    ``build_serve_steps`` prefill (one launch per layer from the carried
    state) held against the forward, then 8 decode steps.  Every step
    launches ``rwkv6_scan`` 32 times and nothing else of the LM kernels;
+12q. ``--quant8`` for ``rwkv6-7b``, as phase 8q, and the forward's int8
+   gap (relative RMS, largest difference, argmax agreement) through its
+   first 1, 2, 4, 8, 16 and 32 layers, and at full depth with the LoRA
+   and decay leaves left in bf16 (printed);
 13. ``rwkv6_scan`` times at the forward and decode-tick shapes, beside the
    bound max(bytes / 3.35 TB/s, flops / 67 TFLOP/s f32): the recurrence
    is f32 arithmetic outside the tensor cores; the step-by-step kernel's
@@ -177,6 +207,7 @@ network and one card.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import itertools
@@ -2258,6 +2289,320 @@ def fleet_resilience_phase(dep, cfg, params, per_tick, edge_dep) -> dict:
     return {"readings": readings, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7d: SLO scheduling, the scenarios, replay and chaos
+# ---------------------------------------------------------------------------
+
+# The reference's replay defaults: 0.25 s, edge 200 Hz, LM 16 Hz, 3 prompt
+# and 4 new tokens, seed 0 (``obs/workload.py``'s generators).
+SCENARIO_KW = {"duration_s": 0.25, "rate_hz": 200.0, "lm_rate_hz": 16.0,
+               "prompt_tokens": 3, "new_tokens": 4, "seed": 0}
+REFUSALS = ("shed", "queue_full", "breaker")
+CHAOS_AFTER, CHAOS_COUNT = 8, 6
+# The flash crowd at a length that gives the SLO comparison samples: 5 s,
+# about 30 LM requests of 32 prompt and 32 new tokens at a 2.5 Hz base and
+# 2400 edge requests a tenant, replayed with and without the monitor.  The
+# batcher prefills one token a tick of all its slots (16 ms), so the card
+# time grows with the prompt tokens offered: 128-token prompts at 4 Hz took
+# 42 s a replay on the H100.
+LONG_FLASH_KW = {"duration_s": 5.0, "rate_hz": 200.0, "lm_rate_hz": 2.5,
+                 "prompt_tokens": 32, "new_tokens": 32, "seed": 0}
+# Closed-loop edge calls through the router, with and without the monitor.
+SLO_COST_CALLS = 2000
+SCENARIO_CLI = (
+    ("replay", ["replay", "jet_tagger", "tau_select", "--lm",
+                "recurrentgemma_2b", "--lm-config", "published",
+                "--json-dir", "chiprun_out/replay_7d"]),
+    ("chaos", ["chaos", "jet_tagger", "tau_select", "--lm",
+               "recurrentgemma_2b", "--lm-config", "published",
+               "--json-dir", "chiprun_out/chaos_7d"]))
+
+
+def _audited(router):
+    """The router with a tracer of its own: its audit spans (``request``,
+    ``sched/defer``, ``fault/*``) are kept, the engines' are not."""
+    from repro_torch.obs.trace import Tracer
+    router.tracer = Tracer()
+    return router
+
+
+def _scenario_rows(report, router) -> dict:
+    """Per tenant: offered, statuses, tails, lag, the SLO monitor's state,
+    the deferrals (the router's ``sched/defer`` spans) and the deadline
+    audit."""
+    deferred = collections.Counter(
+        s.attrs["tenant"] for s in router.tracer.by_name("sched/defer"))
+    health = router.health()["tenants"]
+    snap = router.slo.snapshot() if router.slo is not None else {}
+    rows = {}
+    for nid, s in report.summary().items():
+        st = snap.get(nid, {})
+        rows[nid] = {
+            "offered": s["count"],
+            "status": {k: s[k] for k in ("ok", *REFUSALS, "fault", "stuck")
+                       if s[k]},
+            "p50_us": s["p50_s"] * 1e6, "p95_us": s["p95_s"] * 1e6,
+            "p99_us": s["p99_s"] * 1e6,
+            "lag_p50_us": s["lag_p50_s"] * 1e6,
+            "lag_p95_us": s["lag_p95_s"] * 1e6,
+            "slo_p95_budget_us": (st["p95_budget_s"] * 1e6
+                                  if st.get("p95_budget_s") else None),
+            "slo_violations": st.get("violations"),
+            "burn_fast": st.get("burn_fast"), "burn_slow": st.get("burn_slow"),
+            "at_risk": st.get("at_risk"),
+            "deferrals": deferred.get(nid, 0),
+            "deadline_exceeded": health[nid].get("deadline_exceeded")}
+    return rows
+
+
+def slo_cost(dep) -> dict:
+    """What the SLO monitor costs an edge request: closed-loop
+    ``router.infer`` calls on each edge tenant through a router with and
+    without the monitor, in the order off, on, on, off (each a fresh router,
+    warmed and reset), as per-call p50 and mean µs and calls a second; and
+    ``SloMonitor.observe`` alone on a full 256-sample window (printed, not
+    judged)."""
+    from repro_torch.obs.slo import SloMonitor
+    out = {}
+    for tp in dep.fleet.tenants:
+        if tp.plan.kind != "edge":
+            continue
+        nid = tp.net_id
+        runs = {"off": [], "on": []}
+        for label in ("off", "on", "on", "off"):
+            router = dep.serve(slo=label == "on", fresh=True)
+            x = router.warmup()[nid]
+            router.reset_metrics()
+            calls = []
+            t_start = time.perf_counter()
+            for _ in range(SLO_COST_CALLS):
+                t0 = time.perf_counter()
+                router.infer(nid, x)
+                calls.append(time.perf_counter() - t0)
+            wall = time.perf_counter() - t_start
+            runs[label].append({"p50_us": statistics.median(calls) * 1e6,
+                                "mean_us": statistics.fmean(calls) * 1e6,
+                                "calls_per_s": SLO_COST_CALLS / wall})
+        out[nid] = {k: {m: statistics.fmean(r[m] for r in v)
+                        for m in v[0]} for k, v in runs.items()}
+        out[nid]["runs"] = runs
+    mon = SloMonitor.from_fleet(dep.fleet)
+    nid = next(iter(out))
+    lat = [40e-6 + 1e-6 * (i % 97) for i in range(4 * mon.window)]
+    for v in lat[:mon.window]:
+        mon.observe(nid, v)
+    t0 = time.perf_counter()
+    for v in lat[mon.window:]:
+        mon.observe(nid, v)
+    out["observe_us"] = (time.perf_counter() - t0) / (3 * mon.window) * 1e6
+    log("slo cost, closed-loop edge calls " + json.dumps(out, sort_keys=True))
+    return out
+
+
+def scenario_phase(dep, cfg, params) -> dict:
+    """Phase 7d, on 7b's mixed deployment after 7c and before any profiler
+    session: the monitor's cost on closed-loop edge calls; each scenario
+    replayed with ``serve(fresh=True)`` (the SLO monitor on, the
+    reference's default) at the reference's default knobs; the flash crowd
+    again with ``slo=False``; a 5 s flash crowd of 32-prompt, 32-token LM
+    requests with and without the monitor; the flash crowd under an
+    ``engine_exception`` burst on ``jet_tagger`` (in process); and ``python
+    -m repro_torch replay`` and ``chaos`` with the published LM in their own
+    processes.  Counters are zeroed just before each replay and read just
+    after.  Every check fails the run."""
+    import os
+    import torch
+    from repro_torch.faults import FaultPlan
+    from repro_torch.kernels import ops
+    from repro_torch.obs import workload
+    from repro_torch.serve import engine
+
+    tenants = {t.net_id: t.plan.kind for t in dep.fleet.tenants}
+    nid_lm = cfg.name
+    lm_plan = dep.plans[nid_lm]
+    alone = engine.ContinuousBatcher(cfg, params, plan=lm_plan,
+                                     max_len=LM_SEQ)
+    readings, launches = {"knobs": SCENARIO_KW,
+                          "slo_cost": slo_cost(dep)}, {}
+
+    def replay(label, drive):
+        ops.reset_launches()
+        report = drive()
+        torch.cuda.synchronize()
+        launches[f"scenario {label}"] = ops.launch_counts()
+        return report
+
+    def same_tokens(label, report):
+        """The LM's served tokens equal a standalone batcher's on the same
+        prompts, bit for bit."""
+        reqs = {}
+        for r in report.records:
+            if r.kind == "lm" and r.status == "ok":
+                tr = workload.TraceRequest(0.0, r.tenant, "lm",
+                                           SCENARIO_KW["prompt_tokens"],
+                                           SCENARIO_KW["new_tokens"], r.rid)
+                reqs[r.rid] = engine.Request(
+                    rid=r.rid, prompt=workload._lm_prompt(tr, cfg.vocab_size),
+                    max_new=SCENARIO_KW["new_tokens"])
+                alone.submit(reqs[r.rid])
+        alone.run_until_drained()
+        for r in report.records:
+            if r.rid in reqs and reqs[r.rid].out != r.tokens:
+                raise SmokeFailure(f"{label}: LM request {r.rid} served "
+                                   f"{r.tokens}, a standalone batcher "
+                                   f"{reqs[r.rid].out}")
+        return len(reqs)
+
+    for name in sorted(workload.SCENARIOS):
+        router = _audited(dep.serve(fresh=True))
+        if router.slo is None:
+            raise SmokeFailure("serve() attached no SLO monitor")
+        want = workload.make_scenario(name, tenants, **SCENARIO_KW)
+        report = replay(name, lambda: dep.replay(
+            name, json_dir=ROOT / "chiprun_out" / "scenarios_7d",
+            **SCENARIO_KW))
+        if dep.serve() is not router:
+            raise SmokeFailure(f"{name}: replay served another router")
+        offered = {n: sum(1 for r in want if r.tenant == n) for n in tenants}
+        got = {n: s["count"] for n, s in report.summary().items()}
+        if got != {n: c for n, c in offered.items() if c}:
+            raise SmokeFailure(f"{name}: offered {got}, the generator "
+                               f"{offered}")
+        bad = [r for r in report.records
+               if r.status not in ("ok",) + REFUSALS]
+        if bad:
+            raise SmokeFailure(f"{name}: records neither ok nor refused: "
+                               f"{bad[:3]}")
+        checked = same_tokens(name, report)
+        rows = _scenario_rows(report, router)
+        readings[name] = {"tenants": rows, "wall_s": report.wall_s,
+                          "lm_tokens_checked": checked}
+        for nid, row in rows.items():
+            log(f"scenario {name} {nid} " + json.dumps(row, sort_keys=True))
+        log(f"scenario {name}: {len(report.records)} requests in "
+            f"{report.wall_s * 1e3:.1f} ms wall; {checked} LM requests' "
+            f"tokens equal a standalone batcher's; launches "
+            + json.dumps(launches[f"scenario {name}"]))
+    log(workload.format_replay(report, slo=router.slo))
+
+    # The flash crowd without the monitor: what deferral costs the LM.
+    # ``Deployment.replay`` serves with the default arguments, so this
+    # replay goes through ``workload.replay`` on this router.
+    router = _audited(dep.serve(slo=False, fresh=True))
+    inputs = router.warmup()
+    report = replay("flash_crowd slo=False", lambda: workload.replay(
+        router, workload.make_scenario("flash_crowd", tenants,
+                                       **SCENARIO_KW), inputs=inputs))
+    if any(r.status not in ("ok",) + REFUSALS for r in report.records):
+        raise SmokeFailure("flash_crowd slo=False: a record neither ok nor "
+                           "refused")
+    same_tokens("flash_crowd slo=False", report)
+    off = _scenario_rows(report, router)
+    on = readings["flash_crowd"]["tenants"]
+    readings["flash_crowd_slo_off"] = {"tenants": off,
+                                       "wall_s": report.wall_s}
+    log(f"scenario flash_crowd LM request p50 / p95 us: slo on "
+        f"{on[nid_lm]['p50_us']:.1f} / {on[nid_lm]['p95_us']:.1f} "
+        f"({on[nid_lm]['deferrals']} deferrals), slo off "
+        f"{off[nid_lm]['p50_us']:.1f} / {off[nid_lm]['p95_us']:.1f}")
+
+    # The same comparison at a length that gives the monitor samples: the
+    # 5 s flash crowd, with the monitor (``Deployment.replay``) and without.
+    long = {}
+    for label, slo in (("on", True), ("off", False)):
+        router = _audited(dep.serve(slo=slo, fresh=True))
+        if slo:
+            report = replay("flash_crowd long", lambda: dep.replay(
+                "flash_crowd", **LONG_FLASH_KW))
+        else:
+            inputs = router.warmup()
+            report = replay("flash_crowd long slo=False",
+                            lambda: workload.replay(router, (
+                                workload.make_scenario(
+                                    "flash_crowd", tenants,
+                                    **LONG_FLASH_KW)), inputs=inputs))
+        if any(r.status not in ("ok",) + REFUSALS for r in report.records):
+            raise SmokeFailure(f"long flash_crowd slo {label}: a record "
+                               f"neither ok nor refused")
+        long[label] = {"tenants": _scenario_rows(report, router),
+                       "wall_s": report.wall_s}
+        for nid, row in long[label]["tenants"].items():
+            log(f"scenario flash_crowd long slo {label} {nid} "
+                + json.dumps(row, sort_keys=True))
+    readings["flash_crowd_long"] = {"knobs": LONG_FLASH_KW, **long}
+    on, off = long["on"]["tenants"][nid_lm], long["off"]["tenants"][nid_lm]
+    log(f"scenario flash_crowd long LM request p50 / p95 / p99 ms: slo on "
+        f"{on['p50_us'] / 1e3:.1f} / {on['p95_us'] / 1e3:.1f} / "
+        f"{on['p99_us'] / 1e3:.1f} ({on['deferrals']} deferrals, "
+        f"{on['status']}), slo off {off['p50_us'] / 1e3:.1f} / "
+        f"{off['p95_us'] / 1e3:.1f} / {off['p99_us'] / 1e3:.1f} "
+        f"({off['status']})")
+
+    # Chaos in process: the default burst of the chaos subcommand.
+    router = dep.serve(fresh=True)
+    injector = FaultPlan.burst("jet_tagger", kind="engine_exception",
+                               after=CHAOS_AFTER,
+                               count=CHAOS_COUNT).injector()
+    t0 = time.perf_counter()
+    report = replay("chaos", lambda: dep.replay(
+        "flash_crowd", faults=injector, **SCENARIO_KW))
+    chaos_s = time.perf_counter() - t0
+    health = router.health()
+    if dep.serve() is not router:
+        raise SmokeFailure("chaos: replay served another router")
+    vh = health["tenants"]["jet_tagger"]
+    summary = report.summary()
+    fired = injector.fired(tenant="jet_tagger")
+    served = {n: summary[n]["ok"] for n in tenants if n != "jet_tagger"}
+    chaos = {"injected": fired, "failures": vh["failures"],
+             "opens": vh["breaker_opens"],
+             "recloses": vh["breaker_recloses"], "state": vh["state"],
+             "time_to_recovery_s": vh["time_to_recovery_s"],
+             "degrades": vh["degrades"], "restores": vh["restores"],
+             "co_residents_ok": served, "wall_s": chaos_s,
+             "jet_tagger": {k: summary["jet_tagger"][k]
+                            for k in ("count", "ok", "fault", "breaker",
+                                      "p95_s", "lag_p95_s")}}
+    log("scenario chaos " + json.dumps(chaos, sort_keys=True))
+    if not (fired > 0 and vh["breaker_opens"] >= 1
+            and vh["breaker_recloses"] >= vh["breaker_opens"]
+            and vh["state"] == "closed" and all(served.values())):
+        raise SmokeFailure(f"chaos: not recovered {chaos}")
+    if any(r.status == "stuck" for r in report.records):
+        raise SmokeFailure("chaos: a request never finished")
+    readings["chaos"] = chaos
+    router.arm_faults(None)
+    dep.engines["jet_tagger"].restore()
+
+    # The subcommands, as a user runs them.
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cli = {}
+    for label, argv in SCENARIO_CLI:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch", *argv],
+                              cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        cli[label] = {"rc": proc.returncode,
+                      "s": time.perf_counter() - t0}
+        tail = "\n".join(proc.stdout.splitlines()[-24:])
+        log(f"scenario cli {label}: rc {proc.returncode} in "
+            f"{cli[label]['s']:.1f} s\n{tail}")
+        if proc.returncode != 0:
+            raise SmokeFailure(f"python -m repro_torch {' '.join(argv)} "
+                               f"exited {proc.returncode}:\n{proc.stderr}")
+        if label == "chaos":
+            verdict = [l for l in proc.stdout.splitlines()
+                       if l.startswith("chaos: ")]
+            cli[label]["verdict"] = verdict[-1] if verdict else None
+            if not verdict or not verdict[-1].startswith("chaos: RECOVERED"):
+                raise SmokeFailure(f"chaos subcommand verdict {verdict}")
+    readings["cli"] = cli
+    del alone
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"readings": readings, "launches": launches}
+
+
 def edge_call_split(deps: dict, iters: int = BENCH_ITERS) -> dict:
     """The host parts of one graphed edge call (input copy, replay, output
     clone, stream synchronize; p50 us over ``iters`` calls), for each edge
@@ -2751,6 +3096,216 @@ def tick_parity(cfg, params, prompts) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phases 8q and 12q: int8 LM weights (--quant8) at full width
+# ---------------------------------------------------------------------------
+
+QUANT_MIN_SIZE = 1024          # the launcher's --quant8
+QUANT_PROMPT = 256             # the forward compared int8 against bf16
+# One stacked leaf per family, quantized on the card and on the CPU.
+QUANT_LEAF = {"recurrentgemma-2b": ("blocks", "slot0", "rec", "w_x"),
+              "rwkv6-7b": ("blocks", "tmix", "wr")}
+
+
+# Where the RWKV forward's int8 error comes from: the forward through its
+# first n layers in int8 against bf16, and the whole depth with the LoRA and
+# decay leaves left in bf16.
+QUANT_DEPTHS = (1, 2, 4, 8, 16, 32)
+QUANT_BF16_LEAVES = ("w1_mix", "w2_mix", "w1_decay", "w2_decay")
+
+
+def _logit_gap(cfg, qparams, params, prompt) -> dict:
+    """The forward's logits in int8 against bf16: the relative RMS and the
+    largest difference, the argmax agreement and the largest bf16 logit;
+    fails the run on a non-finite int8 logit."""
+    import torch
+    from repro_torch.models import api
+    real = slice(0, cfg.vocab_size)
+    with torch.no_grad():
+        q = api.forward(qparams, cfg, {"tokens": prompt})["logits"]
+        b = api.forward(params, cfg, {"tokens": prompt})["logits"]
+    if not bool(torch.isfinite(q).all()):
+        raise SmokeFailure(f"quant8 {cfg.name}: non-finite forward logits")
+    q, b = q[..., real].float(), b[..., real].float()
+    return {"rel_rms": float((q - b).norm() / b.norm()),
+            "max_abs_diff": float((q - b).abs().max()),
+            "argmax_agreement": float((q.argmax(-1) == b.argmax(-1))
+                                      .float().mean()),
+            "bf16_max_abs": float(b.abs().max())}
+
+
+def quant8_depth(cfg, params, qparams, prompt) -> dict:
+    """The int8-against-bf16 gap of the forward through the first n layers
+    (the embedding and head as they are), and of the whole depth with
+    :data:`QUANT_BF16_LEAVES` left in bf16 (printed, not judged)."""
+    from repro_torch.models import tree
+
+    def first(p, n):
+        return {**p, "blocks": tree.tree_map(lambda t: t[:n], p["blocks"])}
+
+    out = {str(n): _logit_gap(cfg, first(qparams, n), first(params, n),
+                              prompt)
+           for n in QUANT_DEPTHS if n <= cfg.num_layers}
+    tmix = {**qparams["blocks"]["tmix"],
+            **{k: params["blocks"]["tmix"][k] for k in QUANT_BF16_LEAVES}}
+    mixed = {**qparams, "blocks": {**qparams["blocks"], "tmix": tmix}}
+    out["lora_decay_bf16"] = _logit_gap(cfg, mixed, params, prompt)
+    log(f"quant8 {cfg.name} forward on {prompt.shape[-1]} tokens by depth, "
+        f"int8 against bf16 (reported, not judged): "
+        + json.dumps(out, sort_keys=True))
+    return out
+
+
+def _leaf(tree_, path):
+    for k in path:
+        tree_ = tree_[k]
+    return tree_
+
+
+def _bytes(tree_) -> int:
+    from repro_torch.models import tree
+    return sum(t.numel() * t.element_size() for t in tree.leaves(tree_))
+
+
+def quant8_phase(cfg, params, tokens, per_tick, served) -> dict:
+    """``quantize_params(params, min_size=1024)`` on the card's bf16
+    parameters (bytes and device memory before and after); one stacked leaf
+    quantized on the card and on the CPU, bit for bit; phase 8's short and
+    decode-heavy runs on a 4-slot batcher over the int8 weights (the tick a
+    CUDA graph, every logit finite, the peak memory of each run), beside
+    phase 8's bf16 ticks; one quant8 tick graphed and eager from one state,
+    bit for bit; the forward's logits on a 256-token prompt in int8 against
+    bf16 (printed, not judged); and ``python -m repro_torch.launch.serve
+    --arch <arch> --quant8`` in its own process.  Counters are zeroed just
+    before each run and read just after."""
+    import os
+    import numpy as np
+    import torch
+    from repro_torch import runtime
+    from repro_torch.serve import engine
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    qparams = engine.quantize_params(params, min_size=QUANT_MIN_SIZE)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    mem_after = torch.cuda.memory_allocated()
+    before, after = engine.quantized_bytes(qparams)
+    out = {"quantize_s": quant_s,
+           "quantized_bytes": {"before": before, "after": after},
+           "resident_bytes": {"bf16": _bytes(params),
+                              "int8": _bytes(qparams)},
+           "memory_allocated": {"before": mem_before,
+                                "after_quantize": mem_after}}
+    log(f"quant8 {cfg.name}: int8 weights {before / 1e6:.1f} -> "
+        f"{after / 1e6:.1f} MB (quantized_bytes), resident "
+        f"{out['resident_bytes']['bf16'] / 1e9:.3f} GB bf16 -> "
+        f"{out['resident_bytes']['int8'] / 1e9:.3f} GB int8; "
+        f"memory_allocated {mem_before / 1e9:.3f} -> {mem_after / 1e9:.3f} "
+        f"GB; quantized in {quant_s:.2f} s")
+
+    path = QUANT_LEAF[cfg.name]
+    leaf = _leaf(params, path)
+    card = _leaf(qparams, path)
+    t0 = time.perf_counter()
+    cpu = engine.quantize_params({"w": leaf.cpu()}, min_size=1)["w"]
+    cpu_s = time.perf_counter() - t0
+    for k in ("q8", "scale"):
+        if not torch.equal(card[k].cpu(), cpu[k]):
+            raise SmokeFailure(f"quant8 {cfg.name}: {'/'.join(path)} {k} on "
+                               f"the card differs from the CPU's")
+    if not torch.equal(runtime.dequant(card).cpu(), runtime.dequant(cpu)):
+        raise SmokeFailure(f"quant8 {cfg.name}: dequant on the card differs "
+                           f"from the CPU's")
+    out["leaf"] = {"path": "/".join(path), "shape": list(leaf.shape),
+                   "bit_exact": True, "cpu_s": cpu_s}
+    log(f"quant8 {cfg.name}: {'/'.join(path)} {list(leaf.shape)} quantized "
+        f"on the card and on the CPU: q8, scale and dequant bit-exact")
+    del cpu
+    # One layer's dequant as the model runs it (one pass: int8 read, bf16
+    # written), beside the two-step form through an f32 copy, which is
+    # bit-identical and moves 19 bytes a weight instead of 3.
+    layer = {"q8": card["q8"][0], "scale": card["scale"][0]}
+    n = layer["q8"].numel()
+    one = event_ms(lambda: runtime.dequant(layer))
+    two = event_ms(lambda: (layer["q8"].float() * layer["scale"])
+                   .to(torch.bfloat16))
+    out["dequant_layer"] = {
+        "shape": list(layer["q8"].shape), "ms": one, "two_step_ms": two,
+        "bytes": 3 * n, "gb_per_s": 3 * n / one / 1e6,
+        "bound_ms": 3 * n / HBM_BW * 1e3}
+    log(f"quant8 {cfg.name} dequant of one layer "
+        + json.dumps(out["dequant_layer"], sort_keys=True))
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size,
+                            int(rng.integers(16, 65))).astype(np.int32)
+               for _ in range(LM_REQUESTS + LM_SLOTS)]
+    runs = {}
+    for label, ps, new in (("short", prompts[:LM_REQUESTS], LM_MAX_NEW),
+                           ("decode-heavy", prompts[LM_REQUESTS:],
+                            LM_LONG_GEN)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        batcher, row = serve_run(cfg, qparams, ps, new, per_tick,
+                                 f"quant8 {label}")
+        row["peak_above_resident_gb"] = (
+            torch.cuda.max_memory_allocated() - base) / 1e9
+        runs[label] = row
+        if label == "decode-heavy":
+            out["trace"] = decode_tick_trace(batcher, cfg, LM_TRACED_TICKS)
+        del batcher
+    heavy, bf16 = runs["decode-heavy"], served["decode_heavy"]
+    out["ticks"] = {
+        "quant8": {k: heavy[k] for k in ("decode_p50_ms", "decode_p95_ms",
+                                          "decode_tok_per_s")},
+        "bf16": {k: bf16[k] for k in ("decode_p50_ms", "decode_p95_ms",
+                                       "decode_tok_per_s")},
+        "short_quant8": {k: runs["short"][k] for k in (
+            "decode_p50_ms", "decode_p95_ms", "decode_tok_per_s",
+            "prefill_tok_per_s")},
+        "peak_above_resident_gb": {k: r["peak_above_resident_gb"]
+                                   for k, r in runs.items()}}
+    log(f"quant8 {cfg.name} ticks " + json.dumps(out["ticks"],
+                                                 sort_keys=True))
+    out["tick_parity"] = tick_parity(cfg, qparams, prompts[:LM_SLOTS])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    prompt = tokens[:, :QUANT_PROMPT]
+    out["forward"] = {"tokens": QUANT_PROMPT,
+                      **_logit_gap(cfg, qparams, params, prompt)}
+    log(f"quant8 {cfg.name} forward on {QUANT_PROMPT} tokens, int8 against "
+        f"bf16 logits (reported, not judged): " + json.dumps(out["forward"]))
+    if cfg.family == "rwkv":
+        out["forward_by_depth"] = quant8_depth(cfg, params, qparams, prompt)
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           "--arch", cfg.name, "--quant8"], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    out["launcher"] = {"rc": proc.returncode,
+                       "s": time.perf_counter() - t0,
+                       "stdout": proc.stdout.splitlines()[:2]}
+    log(f"quant8 {cfg.name} launcher: rc {proc.returncode} in "
+        f"{out['launcher']['s']:.1f} s\n{proc.stdout.strip()}")
+    if proc.returncode != 0 or "int8 weights" not in proc.stdout:
+        raise SmokeFailure(f"python -m repro_torch.launch.serve --arch "
+                           f"{cfg.name} --quant8 exited {proc.returncode}:\n"
+                           f"{proc.stderr}")
+    return {"readings": out,
+            "launches": {f"quant8 {k}": r["launches"]
+                         for k, r in runs.items()}}
+
+
+# ---------------------------------------------------------------------------
 # Phase 9: LM kernel times
 # ---------------------------------------------------------------------------
 
@@ -3102,7 +3657,7 @@ def summary_line(characterized, served_edge, served_lm) -> dict:
     """The run's end-to-end readings in one place: the fitted constants and
     each net's planned-vs-measured ratio, the edge p50/p95 eager and
     graphed, and per LM the decode tick p50/p95, decode tok/s and device
-    ops a tick, eager and graphed."""
+    ops a tick, eager and graphed, and the quant8 ticks beside them."""
     lm = {}
     for arch, srv in served_lm.items():
         lm[arch] = {}
@@ -3121,6 +3676,17 @@ def summary_line(characterized, served_edge, served_lm) -> dict:
             k: srv["short"][k] for k in ("decode_p50_ms", "decode_p95_ms",
                                          "decode_tok_per_s",
                                          "prefill_tok_per_s")}
+        if "quant8" in srv:
+            q = srv["quant8"]
+            lm[arch]["quant8"] = {
+                "ticks": q["ticks"], "forward": q["forward"],
+                "resident_bytes": q["resident_bytes"],
+                "memory_allocated": q["memory_allocated"],
+                "dequant_layer": q["dequant_layer"],
+                "device_busy_ms_per_tick": q["trace"].get(
+                    "device_busy_ms_per_tick"),
+                "idle_share": q["trace"].get("idle_share"),
+                "tick_parity": q["tick_parity"]["bit_exact"]}
     return {"constants": characterized["constants"],
             "residuals": characterized["residuals"],
             "characterize_passes": characterized["passes"],
@@ -3227,9 +3793,15 @@ def main(argv: list) -> int:
                                          per_tick, dep)
         fleet["launches"].update(guarded["launches"])
         fleet["fleet"]["resilience"] = guarded["readings"]
+        scenarios = scenario_phase(fleet["deployment"], cfg, params)
+        fleet["launches"].update(scenarios["launches"])
+        fleet["fleet"]["scenarios"] = scenarios["readings"]
         fleet["fleet"]["edge_call_split_us"] = edge_call_split(
             {"phase 4": dep, "fleet": fleet["deployment"]})
         served = lm_serve_phase(cfg, params, tokens, per_step, per_tick)
+        q8 = quant8_phase(cfg, params, tokens, per_tick, served)
+        served["launches"].update(q8["launches"])
+        served["quant8"] = q8["readings"]
         bench_after_profiler(fleet)
         del params
         gc.collect()
@@ -3239,6 +3811,9 @@ def main(argv: list) -> int:
         rcfg, rparams, rtokens, r_fwd_launches, r_step, r_tick = \
             lm_forward_phase(RWKV_ARCH)
         r_served = lm_serve_phase(rcfg, rparams, rtokens, r_step, r_tick)
+        r_q8 = quant8_phase(rcfg, rparams, rtokens, r_tick, r_served)
+        r_served["launches"].update(r_q8["launches"])
+        r_served["quant8"] = r_q8["readings"]
         del rparams
         gc.collect()
         torch.cuda.empty_cache()

@@ -37,12 +37,14 @@ from repro_torch.core import tiling
 # Relative slack for float identities that calibration rescales under.
 _REL_TOL = 5e-3
 
-# The planner's keys, the LM batch policy and the supervisor's knobs the
-# fleet planner adds (plan/multinet.py), and the record calibration
-# feedback adds (plan/calibrate.py).
+# The planner's keys, the LM batch policy, the priority class, the tail
+# contract and the supervisor's knobs the fleet planner adds
+# (plan/multinet.py), and the record calibration feedback adds
+# (plan/calibrate.py).
 _SERVE_KEYS = {"decode_regime", "quantize_weights", "prefill_chunk",
                "slots", "admit_per_tick", "max_queue_depth", "calibration",
-               "resilience"}
+               "resilience", "priority", "slo"}
+_PRIORITIES = ("critical", "standard", "batch")
 _RESILIENCE_KEYS = {"breaker_k", "breaker_cooldown", "retries", "backoff_s",
                     "deadline_factor"}
 _DECODE_REGIMES = ("pipeline", "tiled")
@@ -299,9 +301,10 @@ def _rule_serve_section(plan, tenant) -> list:
     """Serve-section vocabulary: the keys the port's planners write
     (``decode_regime``, ``quantize_weights``, the LM batch policy
     ``slots``, ``prefill_chunk``, ``admit_per_tick``, ``max_queue_depth``,
-    and the supervisor's ``resilience`` knobs) must be legal, beside
-    calibration feedback's ``calibration`` record; any other key is one
-    warning, since nothing in the port reads it."""
+    the ``priority`` class, the ``slo`` tail contract and the supervisor's
+    ``resilience`` knobs) must be legal and consistent, beside calibration
+    feedback's ``calibration`` record; any other key is one warning, since
+    nothing in the port reads it."""
     fs = []
     serve = plan.serve
 
@@ -315,6 +318,22 @@ def _rule_serve_section(plan, tenant) -> list:
     for k in sorted(set(serve) - _SERVE_KEYS):
         bad(f"serve section carries unknown key {k!r} (the port reads "
             f"{sorted(_SERVE_KEYS)})", severity="warning")
+    slo = serve.get("slo")
+    if slo is not None:
+        if not isinstance(slo, dict):
+            bad(f"serve.slo must be an object, got {type(slo).__name__}")
+        else:
+            p95, p99 = slo.get("p95_s"), slo.get("p99_s")
+            if not isinstance(p95, (int, float)) or p95 <= 0:
+                bad(f"serve.slo.p95_s must be a positive number, got {p95!r}")
+            if p99 is not None and (not isinstance(p99, (int, float))
+                                    or (isinstance(p95, (int, float))
+                                        and p99 < p95)):
+                bad(f"serve.slo.p99_s={p99!r} must be >= p95_s={p95!r} "
+                    f"(a p99 tighter than p95 is unsatisfiable)")
+    prio = serve.get("priority")
+    if prio is not None and prio not in _PRIORITIES:
+        bad(f"serve.priority={prio!r} is not one of {_PRIORITIES}")
     dr = serve.get("decode_regime")
     if dr is not None and dr not in _DECODE_REGIMES:
         bad(f"serve.decode_regime={dr!r} is not one of {_DECODE_REGIMES}")
@@ -340,6 +359,9 @@ def _rule_serve_section(plan, tenant) -> list:
         bad(f"serve.max_queue_depth={depth} < slots={slots}: admission "
             f"would refuse requests the batcher has free slots for",
             severity="warning")
+    if plan.kind == "lm" and slo is not None and slots is None:
+        bad("LM tenant has an SLO but no batch policy (slots) - the "
+            "batcher falls back to built-in defaults", severity="warning")
     return fs
 
 

@@ -6,18 +6,28 @@
     python -m repro_torch deploy vae --dry-run          # stop after planning
     python -m repro_torch serve jet_tagger --lm rwkv6_7b --requests 4
     python -m repro_torch bench jet_tagger tau_select --json BENCH_deploy.json
+    python -m repro_torch replay jet_tagger tau_select --scenario bursty
+    python -m repro_torch chaos jet_tagger tau_select --lm recurrentgemma_2b
     python -m repro_torch check [PLAN_JSON ...] [--json] [--no-kernels]
 
 Every subcommand runs on the card unless ``--device cpu`` is given (the
 plain PyTorch path on the CPU); without a card it exits with an error.
-``plan``, ``deploy``, ``serve`` and ``bench`` go through
-:class:`repro_torch.deploy.Deployment`: ``--lm ARCH`` adds an LM tenant
+``plan``, ``deploy``, ``serve``, ``bench``, ``replay`` and ``chaos`` go
+through :class:`repro_torch.deploy.Deployment`: ``--lm ARCH`` adds an LM tenant
 (``recurrentgemma_2b`` or ``rwkv6_7b``, seeded weights; its smoke config,
 or the published one with ``--lm-config published``), ``--machine-model``
 picks the characterization (``auto`` by default; ``stock``, ``quick``,
 ``full`` or an artifact path).  ``plan`` writes its artifacts under
 ``plans_torch/``, the others under ``deployments_torch/``; ``bench
 --json PATH`` writes the planned-vs-measured rows as ``{"meta", "rows"}``.
+
+``replay`` serves the fleet and replays a scenario trace open loop
+(``steady``, ``bursty``, ``diurnal``, ``flash_crowd``; or ``--trace-file``),
+printing each tenant's tail, scheduling lag and SLO verdict.  ``chaos``
+replays a scenario under a fault burst against one tenant (armed after the
+warmup) and judges isolation and recovery: exit 0 only when the verdict is
+``RECOVERED``.  Both write their ``BENCH_serve_*`` (and ``BENCH_chaos_*``)
+snapshots under ``--json-dir``.
 
 ``check`` verifies the plan or fleet artifacts given, or, with none, plans
 the five Table-I edge nets as one fleet and verifies that; then it runs the
@@ -289,9 +299,258 @@ def cmd_bench(argv) -> int:
     return 0
 
 
+def _scenario_args(ap) -> None:
+    """The arguments ``replay`` and ``chaos`` share: the scenario and its
+    knobs."""
+    from repro_torch.obs import workload as wl
+    ap.add_argument("--scenario", choices=sorted(wl.SCENARIOS),
+                    default="flash_crowd")
+    ap.add_argument("--duration", type=float, default=0.25, metavar="S",
+                    help="trace duration in seconds (default 0.25)")
+    ap.add_argument("--rate", type=float, default=None, metavar="HZ",
+                    help="edge-tenant mean arrival rate")
+    ap.add_argument("--lm-rate", type=float, default=None, metavar="HZ",
+                    help="LM-tenant mean arrival rate")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--speed", type=float, default=1.0,
+                    help="replay speedup: 2.0 compresses arrivals 2x")
+
+
+def _scenario_kw(args) -> dict:
+    kw = {}
+    if args.rate is not None:
+        kw["rate_hz"] = args.rate
+    if args.lm_rate is not None:
+        kw["lm_rate_hz"] = args.lm_rate
+    return kw
+
+
+def cmd_replay(argv) -> int:
+    from repro_torch.obs import workload as wl
+    ap = _deploy_parser(
+        "python -m repro_torch replay",
+        "Open-loop traffic replay against a served fleet: generate a "
+        "deterministic scenario trace (or load one), fire arrivals on the "
+        "wall clock whatever the completions, and report each tenant's tail "
+        "latency, scheduling lag and SLO verdict.", out="deployments_torch")
+    _scenario_args(ap)
+    ap.add_argument("--trace-file", default=None, metavar="JSONL",
+                    help="replay this saved trace instead of generating")
+    ap.add_argument("--save-trace", default=None, metavar="JSONL",
+                    help="also save the generated trace for re-replay")
+    ap.add_argument("--json-dir", default=None, metavar="DIR",
+                    help="write BENCH_serve_<net>__<scenario>.json tail "
+                         "snapshots here")
+    ap.add_argument("--underbudget", default=None, metavar="NET",
+                    help="shrink NET's SLO budgets to ~0 before the replay "
+                         "(the monitor must flag it)")
+    args = ap.parse_args(argv)
+    try:
+        dep = _build_deployment(args)
+    except RuntimeError as e:
+        print(f"replay: {e}", file=sys.stderr)
+        return 1
+    router = dep.serve()
+    if args.underbudget:
+        if router.slo is None:
+            print("--underbudget needs the SLO monitor (serve(slo=True))",
+                  file=sys.stderr)
+            return 2
+        router.slo.set_budget(args.underbudget, p95_s=1e-9, p99_s=1e-9)
+        print(f"# injected near-zero SLO budget for {args.underbudget}")
+    requests = None
+    if args.trace_file:
+        requests = wl.load_trace(args.trace_file)
+        print(f"# loaded {len(requests)} request(s) from {args.trace_file}")
+    scenario_kw = _scenario_kw(args)
+    if requests is None and args.save_trace:
+        tenants = {t.net_id: t.plan.kind for t in dep.fleet.tenants}
+        requests = wl.make_scenario(args.scenario, tenants,
+                                    duration_s=args.duration,
+                                    seed=args.seed, **scenario_kw)
+        print(f"[wrote {wl.save_trace(requests, args.save_trace)}]")
+    report = dep.replay(args.scenario, duration_s=args.duration,
+                        seed=args.seed, speed=args.speed,
+                        requests=requests, json_dir=args.json_dir,
+                        **scenario_kw)
+    print(wl.format_replay(report, slo=router.slo))
+    if args.json_dir:
+        out = pathlib.Path(args.json_dir)
+        for p in sorted(out.glob("BENCH_serve_*__*.json")):
+            print(f"wrote {p}")
+    return 0
+
+
+def _recovery_window(records, victim: str, budget, *, window: int = 8):
+    """The first post-fault rolling window of ok latencies whose p95 is
+    back under the recovery target: ``(requests_until_recovered,
+    window_p95_s, target_s)``, the first two None when it never recovered
+    or cannot be judged.  The target is the SLO budget when attainable,
+    else 2x the victim's pre-fault window p95: a budget the replay never
+    met before the fault is not the bar its recovery is judged by."""
+    from repro_torch.obs.trace import percentile
+    recs = sorted((r for r in records if r.tenant == victim),
+                  key=lambda r: r.rid)
+    last_bad = max((i for i, r in enumerate(recs) if r.status != "ok"),
+                   default=-1)
+    pre = [r.e2e_s for r in recs[:last_bad + 1]
+           if r.status == "ok" and r.e2e_s is not None]
+    tail = [r.e2e_s for r in recs[last_bad + 1:]
+            if r.status == "ok" and r.e2e_s is not None]
+    baseline = 2.0 * percentile(pre, 0.95) if pre else None
+    target = budget
+    if baseline is not None:
+        target = max(budget, baseline) if budget is not None else baseline
+    if target is None or len(tail) < window:
+        return None, (percentile(tail, 0.95) if tail else None), target
+    for i in range(window, len(tail) + 1):
+        p95 = percentile(tail[i - window:i], 0.95)
+        if p95 <= target:
+            return i, p95, target
+    return None, percentile(tail[-window:], 0.95), target
+
+
+def cmd_chaos(argv) -> int:
+    from repro_torch import faults as flib
+    from repro_torch.obs import workload as wl
+    ap = _deploy_parser(
+        "python -m repro_torch chaos",
+        "Chaos replay: serve the fleet, arm a deterministic fault burst "
+        "against one tenant after the warmup, replay a scenario under it, "
+        "and judge isolation and recovery (the breaker's reclose and the "
+        "first post-fault window with p95 back under its target).  Exits "
+        "non-zero when the fleet did not recover.", out="deployments_torch")
+    _scenario_args(ap)
+    ap.add_argument("--faults", default=None, metavar="JSON",
+                    help="saved FaultPlan artifact (default: a burst of "
+                         "--fault-kind faults against --victim)")
+    ap.add_argument("--victim", default=None, metavar="NET",
+                    help="tenant the default burst targets "
+                         "(default: the first edge tenant)")
+    ap.add_argument("--fault-kind", choices=sorted(flib.FAULT_KINDS),
+                    default="engine_exception")
+    ap.add_argument("--fault-at", type=int, default=8, metavar="N",
+                    help="post-warmup call index the burst starts at")
+    ap.add_argument("--fault-count", type=int, default=6)
+    ap.add_argument("--json-dir", default=None, metavar="DIR",
+                    help="write BENCH_serve_* tail snapshots and the "
+                         "BENCH_chaos recovery snapshot here")
+    args = ap.parse_args(argv)
+    try:
+        dep = _build_deployment(args)
+    except RuntimeError as e:
+        print(f"chaos: {e}", file=sys.stderr)
+        return 1
+    router = dep.serve()
+    victim = args.victim or next(
+        (t.net_id for t in dep.fleet.tenants if t.plan.kind == "edge"),
+        dep.fleet.tenants[0].net_id)
+    if args.faults:
+        plan = flib.FaultPlan.load(args.faults)
+        print(f"# loaded fault plan ({len(plan.faults)} spec(s)) "
+              f"from {args.faults}")
+    else:
+        plan = flib.FaultPlan.burst(
+            victim, kind=args.fault_kind, after=args.fault_at,
+            count=args.fault_count,
+            magnitude_s=0.002 if args.fault_kind == "latency_spike" else 0.0)
+        print(f"# fault burst: {args.fault_count}x {args.fault_kind} "
+              f"against {victim!r} from call {args.fault_at}")
+    injector = plan.injector()
+    report = dep.replay(args.scenario, duration_s=args.duration,
+                        seed=args.seed, speed=args.speed,
+                        json_dir=args.json_dir, faults=injector,
+                        **_scenario_kw(args))
+    print(wl.format_replay(report, slo=router.slo))
+
+    health = router.health()
+    vh = health["tenants"].get(victim, {})
+    cfg = (router.supervisor.cfg(victim) if router.supervisor is not None
+           else dict(flib.RESILIENCE_DEFAULTS))
+    slo_snap = router.slo.snapshot() if router.slo is not None else {}
+    budget = slo_snap.get(victim, {}).get("p95_budget_s")
+    fired = injector.fired(tenant=victim)
+    opens = vh.get("breaker_opens", 0)
+    recloses = vh.get("breaker_recloses", 0)
+    ttr = vh.get("time_to_recovery_s")
+    n_rec, rec_p95, target = _recovery_window(report.records, victim,
+                                              budget)
+
+    print(f"\nchaos verdict for {victim!r}:")
+    print(f"  faults: scheduled={plan.scheduled(victim)} injected={fired} "
+          f"failures={vh.get('failures', 0)}")
+    print(f"  breaker: opens={opens} recloses={recloses} "
+          f"state={vh.get('state', '-')}"
+          + (f" ttr={ttr * 1e3:.1f}ms" if ttr is not None else ""))
+    if n_rec is not None:
+        print(f"  p95 recovery: back under target "
+              f"({target * 1e6:.1f}us) after {n_rec} post-fault "
+              f"request(s), window p95={rec_p95 * 1e6:.1f}us")
+    elif target is not None:
+        print(f"  p95 recovery: window p95 never returned under the "
+              f"target ({target * 1e6:.1f}us)"
+              + (f"; last window p95={rec_p95 * 1e6:.1f}us"
+                 if rec_p95 is not None else ""))
+    healthy = [t for t in health["tenants"] if t != victim]
+    isolated = all(
+        report.summary().get(t, {}).get("ok", 0) > 0 for t in healthy)
+    print(f"  isolation: co-residents {healthy} "
+          f"{'kept serving' if isolated else 'STARVED'}")
+
+    recovered = (fired > 0 and opens > 0 and recloses >= opens
+                 and vh.get("state") == "closed" and isolated)
+    print(f"\nchaos: {'RECOVERED' if recovered else 'NOT RECOVERED'} "
+          f"(injected={fired}, breaker {opens}->{recloses}, "
+          f"model={cfg['breaker_cooldown'] + 1} requests open->reclose)")
+
+    if args.json_dir:
+        from repro_torch.serve.metrics import _safe_net_name
+        prefix = f"chaos/{victim}/{args.scenario}"
+        model_derived = (f"src=model;scenario={args.scenario};"
+                         f"kind={args.fault_kind}")
+        meas_derived = (f"src=measured;scenario={args.scenario};"
+                        f"opens={opens};recloses={recloses};"
+                        f"state={vh.get('state', '-')}")
+        rows = [
+            {"name": f"{prefix}/faults_scheduled",
+             "us_per_call": float(plan.scheduled(victim)),
+             "derived": f"{model_derived};unit=faults"},
+            {"name": f"{prefix}/breaker_k",
+             "us_per_call": float(cfg["breaker_k"]),
+             "derived": f"{model_derived};unit=failures"},
+            {"name": f"{prefix}/recovery_model",
+             "us_per_call": float(cfg["breaker_cooldown"] + 1),
+             "derived": f"{model_derived};unit=requests"},
+            {"name": f"{prefix}/faults_injected",
+             "us_per_call": float(fired),
+             "derived": f"{meas_derived};unit=faults"},
+        ]
+        if ttr is not None:
+            rows.append({"name": f"{prefix}/time_to_recovery",
+                         "us_per_call": round(ttr * 1e6, 3),
+                         "derived": meas_derived})
+        if n_rec is not None:
+            rows.append({"name": f"{prefix}/recovery_requests",
+                         "us_per_call": float(n_rec),
+                         "derived": f"{meas_derived};unit=requests"})
+        out = pathlib.Path(args.json_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        p = out / (f"BENCH_chaos_{_safe_net_name(victim)}__"
+                   f"{_safe_net_name(args.scenario)}.json")
+        p.write_text(json.dumps(
+            {"meta": {"source": "python -m repro_torch chaos",
+                      "victim": victim, "scenario": args.scenario,
+                      "fault_kind": args.fault_kind, "seed": args.seed,
+                      "device": str(dep.device)},
+             "rows": rows}, indent=2, sort_keys=True, allow_nan=False)
+            + "\n")
+        print(f"wrote {p}")
+    return 0 if recovered else 1
+
+
 _SUBCOMMANDS = {"characterize": cmd_characterize, "plan": cmd_plan,
                 "deploy": cmd_deploy, "serve": cmd_serve, "bench": cmd_bench,
-                "check": cmd_check}
+                "replay": cmd_replay, "chaos": cmd_chaos, "check": cmd_check}
 
 
 def main(argv=None) -> int:

@@ -15,6 +15,7 @@ the ported LMs (Griffin, RWKV-6), alone or in one fleet:
                             configs.get("recurrentgemma-2b").config],
                            lm_params={"recurrentgemma-2b": (cfg, params)})
     router = dep.serve()        # router.infer(...) edge, router.submit(...) LM
+    report = dep.replay("flash_crowd")   # an open-loop scenario replay
 
 ``Deployment.build(configs, stop_after="plan")`` plans only;
 ``Deployment.build(plan=path)`` serves a plan artifact as it is.  The
@@ -258,8 +259,8 @@ class Deployment:
 
     def serve(self, *, shed_after: int | None = None,
               drift_threshold: float | None = None,
-              drift_min_samples: int = 5, resilience=True,
-              fresh: bool = False):
+              drift_min_samples: int = 5, slo=True, defer_limit: int = 4,
+              resilience=True, fresh: bool = False):
         """The fleet behind a :class:`Router` over this deployment's engines.
         Memoized: repeated calls with the same arguments return the same
         live router; other arguments, or ``fresh=True``, build a new one
@@ -269,31 +270,81 @@ class Deployment:
         ``shed_after``: consecutive budget violations after which a tenant
         is shed.  ``drift_threshold`` / ``drift_min_samples``: the drift
         watcher's band and sample floor (None: off); a replan writes
-        through this deployment's plan cache.  ``resilience``: ``True``
+        through this deployment's plan cache.  ``slo``: ``True`` attaches
+        an :class:`~repro_torch.obs.slo.SloMonitor` with each tenant's
+        p95/p99 budgets from its plan's serve section (the router's
+        priority scheduling, deferrals aging out after ``defer_limit``
+        ticks), an ``SloMonitor`` is used as it is, ``False``/``None``
+        serves without one.  ``resilience``: ``True``
         attaches a :class:`~repro_torch.serve.resilience.Supervisor` from
         each plan's ``serve["resilience"]`` knobs (breakers, retries, the
         degradation ladder), a ``Supervisor`` is used as it is,
         ``False``/``None`` leaves dispatch unsupervised."""
+        from repro_torch.obs.slo import SloMonitor
         from repro_torch.serve.router import Router
         kw = {"shed_after": shed_after, "drift_threshold": drift_threshold,
-              "drift_min_samples": drift_min_samples,
-              "resilience": resilience}
+              "drift_min_samples": drift_min_samples, "slo": slo,
+              "defer_limit": defer_limit, "resilience": resilience}
         if self._router is None or fresh or kw != self._router_kw:
             tracer = self.tracer if self.tracer is not NULL_TRACER else None
+            monitor = slo if isinstance(slo, SloMonitor) else (
+                SloMonitor.from_fleet(self.fleet, tracer=tracer)
+                if slo else None)
             self._router = Router.from_fleet(
                 self.fleet, engines=self.engines, cache=self.ctx.cache,
-                tracer=tracer, shed_after=shed_after,
-                drift_threshold=drift_threshold,
+                tracer=tracer, slo=monitor, defer_limit=defer_limit,
+                shed_after=shed_after, drift_threshold=drift_threshold,
                 drift_min_samples=drift_min_samples,
                 resilience=resilience or None)
             self._router_kw = kw
         return self._router
+
+    @property
+    def slo(self):
+        """The live router's SLO monitor (None before :meth:`serve` or when
+        serving with ``slo=False``)."""
+        return self._router.slo if self._router is not None else None
 
     def health(self) -> dict:
         """The served fleet's resilience state (``Router.health()``): per
         tenant its failures, breaker and ladder level, and the fleet's
         replan counters.  Empty before :meth:`serve`."""
         return self._router.health() if self._router is not None else {}
+
+    def replay(self, scenario: str = "steady", *, duration_s: float = 0.25,
+               seed: int = 0, speed: float = 1.0, requests=None,
+               json_dir=None, faults=None, **scenario_kw):
+        """Open-loop traffic through the served fleet
+        (:mod:`repro_torch.obs.workload`): generate the scenario's trace (or
+        take ``requests``, e.g. from :func:`~repro_torch.obs.workload.
+        load_trace`), warm the router, fire the arrivals on the wall clock,
+        and return the :class:`~repro_torch.obs.workload.ReplayReport`.
+        ``json_dir`` also writes the per-tenant
+        ``BENCH_serve_<net>__<scenario>.json`` snapshots.  ``faults`` (a
+        ``FaultPlan``, an injector, a list of specs or a saved plan's path;
+        default: the plan given to :meth:`build`) is armed on the router
+        after the warmup, so the warmup uses up no scheduled fault."""
+        from repro_torch.obs import workload
+        router = self.serve()
+        inputs = router.warmup()
+        injector = (_fault_injector(faults) if faults is not None
+                    else self.ctx.injector)
+        if injector is not None:
+            router.arm_faults(injector)
+        if requests is None:
+            tenants = {t.net_id: t.plan.kind for t in self.fleet.tenants}
+            requests = workload.make_scenario(
+                scenario, tenants, duration_s=duration_s, seed=seed,
+                **scenario_kw)
+        report = workload.replay(router, requests, inputs=inputs,
+                                 speed=speed)
+        report.scenario = scenario
+        if json_dir is not None:
+            workload.write_replay_snapshots(
+                report, json_dir, scenario=scenario, slo=router.slo,
+                meta={"source": "Deployment.replay", "seed": seed,
+                      "duration_s": duration_s})
+        return report
 
     def bench(self, *, iters: int = 5, warmup: int = 1) -> list[BenchRow]:
         """Planned-vs-measured rows of the edge tenants (an LM request's
@@ -390,6 +441,16 @@ class Deployment:
             else:
                 lines.append(f"check: {res.detail}")
                 lines += [f"  {f}" for f in self.ctx.findings]
+        slo = self.slo
+        if slo is not None:
+            counts = slo.violation_counts()
+            total = sum(counts.values())
+            if total:
+                per = " ".join(f"{t}={n}" for t, n in sorted(counts.items())
+                               if n)
+                lines.append(f"slo: {total} violation event(s) {per}")
+            else:
+                lines.append("slo: ok (no violation events)")
         lines += self._health_lines()
         if self.tracer.enabled:
             lines.append(f"tracing: {len(self.tracer.spans)} spans "

@@ -1,13 +1,17 @@
-"""Serving launcher: continuous batching of a language model on the card.
+"""Serving launcher: continuous batching of a language model on the card,
+with optional int8 weights.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --quant8
 
 ``--arch`` takes any architecture the port registers (``repro_torch.configs``:
 ``recurrentgemma-2b``, ``rwkv6-7b``); ``--smoke`` serves its reduced
-same-family configuration.
+same-family configuration.  ``--quant8`` serves int8 weights
+(``engine.quantize_params(params, min_size=1024)``, each layer expanded to
+bf16 as it runs) and prints the bytes before and after.
 
 Random weights from seed 0 (drawn on the serving device), requests with
 2-8 token prompts from numpy seed 0, greedy decoding.  ``--device`` left out
@@ -37,6 +41,7 @@ def main(argv=None) -> int:
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--quant8", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU)")
     args = ap.parse_args(argv)
@@ -50,6 +55,10 @@ def main(argv=None) -> int:
     cfg = arch.smoke if args.smoke else arch.config
     gen = torch.Generator(device=device).manual_seed(0)
     params = api.init(cfg, gen, device=device)
+    if args.quant8:
+        params = engine.quantize_params(params, min_size=1024)
+        before, after = engine.quantized_bytes(params)
+        print(f"[serve] int8 weights: {before/1e6:.1f} -> {after/1e6:.1f} MB")
     batcher = engine.ContinuousBatcher(cfg, params, slots=args.slots,
                                        max_len=args.max_len)
     rng = np.random.default_rng(0)

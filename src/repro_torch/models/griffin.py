@@ -38,6 +38,7 @@ from repro_torch.models.layers import (F32, attention, dense_init, dtype_of,
                                        init_attention, init_mlp,
                                        init_rmsnorm, mask_padded_vocab, mlp,
                                        mm, rmsnorm)
+from repro_torch.runtime import maybe_dequant
 
 _C_RGLRU = 8.0
 
@@ -179,6 +180,7 @@ def params_from_numpy(cfg: ModelConfig, params, *, device=None) -> dict:
 
 def _apply_layer(pl: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                  state: dict | None = None, cache_pos=None):
+    pl = maybe_dequant(pl)
     h = rmsnorm(pl["ln1"], x, cfg.norm_eps)
     if kind == "rec":
         a, new_state = recurrent_block(pl["rec"], h, cfg, state=state)

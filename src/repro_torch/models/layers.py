@@ -47,7 +47,12 @@ def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` as an f32 tensor, the reference's
     ``preferred_element_type=F32``.  f32 operands multiply in f32; bf16
     operands go to the bf16 GEMM, which accumulates in f32 and rounds its
-    output to bf16 once before the widening."""
+    output to bf16 once before the widening.  Mixed operands (an f32 model
+    with int8 weights expanded to bf16) are promoted first, as ``jnp.dot``
+    promotes them."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
     return torch.matmul(x, w).float()
 
 

@@ -35,6 +35,7 @@ from repro_torch.models.layers import (F32, dense_init, dtype_of,
                                        init_layernorm, init_rmsnorm,
                                        layernorm, mask_padded_vocab, mm,
                                        rmsnorm)
+from repro_torch.runtime import maybe_dequant
 
 _LORA_MIX = 32
 _LORA_DECAY = 64
@@ -215,6 +216,7 @@ def params_from_numpy(cfg: ModelConfig, params, *, device=None) -> dict:
 
 def _rwkv_block(pl: dict, x: torch.Tensor, cfg: ModelConfig,
                 state: dict | None):
+    pl = maybe_dequant(pl)
     a, st_t = time_mix(pl["tmix"], rmsnorm(pl["ln1"], x, cfg.norm_eps), cfg,
                        state=state["tmix"] if state is not None else None)
     x = x + a

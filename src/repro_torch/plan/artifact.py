@@ -21,7 +21,7 @@ import pathlib
 import warnings
 
 PLAN_SCHEMA_VERSION = 3
-PLANNER_VERSION = "h100-plan-2"     # bump on any search or cost-model change
+PLANNER_VERSION = "h100-plan-3"     # bump on any search or cost-model change
 
 
 def atomic_write_text(path: str | os.PathLike, text: str) -> pathlib.Path:

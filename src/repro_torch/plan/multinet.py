@@ -8,8 +8,11 @@ tenant's serve section also carries the continuous batcher's policy, as the
 reference's ``_plan_fleet_tpu`` writes it: a fair share of
 ``serve_slots_total`` slots across the LM tenants, the ``prefill_chunk``,
 one admission a tick and a queue-depth bound of ``queue_depth_factor``
-slot generations.  Every tenant's serve section carries the supervisor's
-``resilience`` knobs (:data:`repro_torch.faults.RESILIENCE_DEFAULTS`).
+slot generations.  Every tenant's serve section carries its priority
+class (``critical`` edge, ``standard`` LM), its tail contract (``slo``:
+p95 at the budget, p99 at 1.5x) and the supervisor's ``resilience`` knobs
+(:data:`repro_torch.faults.RESILIENCE_DEFAULTS`), as the reference's
+``_with_slo`` writes them.
 """
 
 from __future__ import annotations
@@ -158,6 +161,23 @@ def fleet_key(cfgs, *, target: str = planner.TARGET,
                           ).hexdigest()
 
 
+def _with_slo(serve: dict, kind: str, budget_s: float) -> dict:
+    """The tail contract, the priority class and the supervisor's knobs,
+    written into the plan's serve section so the runtime
+    (:class:`~repro_torch.obs.slo.SloMonitor`, the router, the supervisor)
+    needs no side channel: p95 at the tenant's latency budget
+    (``budget_factor x (planned + crossing)``), p99 at 1.5x that; an edge
+    tenant is ``critical`` (the trigger path), an LM ``standard``; the
+    ``resilience`` block is :data:`repro_torch.faults.RESILIENCE_DEFAULTS`.
+    """
+    return {
+        **serve,
+        "priority": "standard" if kind == "lm" else "critical",
+        "slo": {"p95_s": budget_s, "p99_s": 1.5 * budget_s},
+        "resilience": dict(RESILIENCE_DEFAULTS),
+    }
+
+
 def plan_fleet(cfgs, *, target: str = planner.TARGET,
                batch: int | None = None,
                budget_factor: float = DEFAULT_BUDGET_FACTOR,
@@ -188,10 +208,6 @@ def plan_fleet(cfgs, *, target: str = planner.TARGET,
     tenants = []
     for g, net_id in zip(graphs, ids):
         plan = planner._plan_h100(g, hw=hw, key=f"{key}:{net_id}")
-        # The supervisor's knobs ship in the plan, as every serve policy
-        # does (the resilience part of the reference's ``_with_slo``).
-        plan = dataclasses.replace(plan, serve={
-            **plan.serve, "resilience": dict(RESILIENCE_DEFAULTS)})
         if g.kind == "lm":
             slots = max(1, serve_slots_total // n_lm)
             plan = dataclasses.replace(plan, serve={
@@ -199,9 +215,12 @@ def plan_fleet(cfgs, *, target: str = planner.TARGET,
                 "admit_per_tick": 1,
                 "max_queue_depth": max(1, queue_depth_factor * slots)})
         crossing = boundary.crossing_cost(g.nodes[-1].out_bytes(g.batch), hw)
-        tenants.append(TenantPlan(
-            net_id=net_id, plan=plan, crossing_s=crossing,
-            latency_budget_s=budget_factor * (plan.est_latency_s + crossing)))
+        budget = budget_factor * (plan.est_latency_s + crossing)
+        plan = dataclasses.replace(plan, serve=_with_slo(plan.serve, g.kind,
+                                                         budget))
+        tenants.append(TenantPlan(net_id=net_id, plan=plan,
+                                  crossing_s=crossing,
+                                  latency_budget_s=budget))
     fleet = FleetPlan(name="+".join(ids), target=target, key=key,
                       tenants=tuple(tenants),
                       est_latency_s=max(t.total_latency_s for t in tenants))

@@ -16,6 +16,10 @@ Port of the JAX package's ``serve/engine.py``, two surfaces:
   fixed-slot continuous batcher that advances every slot at its own
   position in one batched decode step, under the plan's
   :class:`BatchPolicy`.
+* **int8 LM weights** (:func:`quantize_params`): per-output-channel
+  symmetric int8 for the large weight leaves, as ``{"q8", "scale"}``
+  marker dicts the models expand a layer at a time
+  (:func:`repro_torch.runtime.maybe_dequant`).
 
 On the card both served steps run as CUDA graphs
 (:class:`~repro_torch.kernels.graph.StepGraph`), where the reference
@@ -239,6 +243,97 @@ class EdgeEngine:
         self.plan = calibrate.feedback(self.plan, self.measured_mean_s,
                                        cache=cache)
         return self.plan
+
+
+# ---------------------------------------------------------------------------
+# int8 LM weights
+# ---------------------------------------------------------------------------
+
+_QUANT_MIN_SIZE = 1 << 16      # only quantize big matmul weights
+
+# Embeddings are gathered directly; norm scales and biases stay exact.
+_QUANT_EXCLUDE = ("emb", "unemb", "pos_emb", "scale", "bias",
+                  "ln0", "ln1", "ln2", "ln_x", "post_ln1", "post_ln2",
+                  "final_norm", "gn", "q_norm", "kv_norm", "norm_h", "norm_e",
+                  "enc_final", "dec_final")
+
+
+def _quantize_leaf(w: torch.Tensor) -> dict:
+    """One >=2-D float leaf as ``{"q8", "scale"}``: ``scale = max|w| / 127
+    + 1e-12`` over axis -2 (one scale per output channel), ``q8 =
+    clip(round(w / scale), -127, 127)``, in f32 and rounded half to even,
+    as the reference computes it.  A leaf of more than two axes (a stacked
+    layer axis) is quantized slice by slice along its first axis (the
+    reduction is over axis -2, so the result is the same), so the f32 copy
+    is one layer's, not the leaf's."""
+    if w.dim() > 2:
+        q8 = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        scale = torch.empty(w.shape[:-2] + (1, w.shape[-1]),
+                            dtype=torch.float32, device=w.device)
+        for i in range(w.shape[0]):
+            part = _quantize_leaf(w[i])
+            q8[i].copy_(part["q8"])
+            scale[i].copy_(part["scale"])
+        return {"q8": q8, "scale": scale}
+    w = w.float()
+    # A divisor on the device, not a Python scalar: CUDA divides by a host
+    # scalar as a multiply by its reciprocal, which is not always the
+    # quotient the reference rounds.
+    div = torch.full((), 127.0, dtype=torch.float32, device=w.device)
+    scale = torch.div(w.abs().amax(dim=-2, keepdim=True), div) + 1e-12
+    q8 = torch.clamp(torch.round(torch.div(w, scale)), -127, 127)
+    return {"q8": q8.to(torch.int8), "scale": scale}
+
+
+def quantize_params(params, *, min_size: int = _QUANT_MIN_SIZE):
+    """Per-output-channel symmetric int8 for the >=2-D float weight leaves
+    of at least ``min_size`` elements, outside :data:`_QUANT_EXCLUDE`.
+    Each becomes a ``{"q8", "scale"}`` marker dict that
+    :func:`repro_torch.runtime.maybe_dequant` expands at the top of each
+    layer, so at rest the card holds int8.  The q8 and scale equal the
+    reference's bit for bit on the same f32 leaf.
+
+    A leaf under ``blocks`` is stacked on a leading layer axis, so its rank
+    is counted without that axis: a stacked vector (a bias, a gate's
+    decay) stays as it is.  The reference quantizes it over the layer axis,
+    into a scale that no longer stacks, and its own layer scan then refuses
+    the tree whenever there is more than one layer."""
+
+    def walk(node, keys):
+        if isinstance(node, dict):
+            return {k: walk(v, keys + (str(k),)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, keys + (str(i),))
+                              for i, v in enumerate(node))
+        if any(k in _QUANT_EXCLUDE for k in keys) \
+                or not isinstance(node, torch.Tensor):
+            return node
+        rank = node.dim() - ("blocks" in keys)
+        if rank < 2 or node.numel() < min_size \
+                or not node.is_floating_point():
+            return node
+        return _quantize_leaf(node)
+
+    return walk(params, ())
+
+
+def quantized_bytes(params) -> tuple[int, int]:
+    """(bytes before, assuming bf16; bytes after) for reporting."""
+    before = after = 0
+    for leaf in tree.leaves(params):
+        n = leaf.numel()
+        before += 2 * n
+        after += n if leaf.dtype == torch.int8 else 2 * n
+    return before, after
+
+
+def prepare_params(params, *, plan=None, quantize: bool = False):
+    """Apply the plan's weight-format decision (int8 or not) to params.
+    Nothing calls it on the serving path, as in the reference: its batcher
+    never applies the plan's ``quantize_weights``."""
+    if plan is not None:
+        quantize = bool(plan.serve.get("quantize_weights", quantize))
+    return quantize_params(params) if quantize else params
 
 
 # ---------------------------------------------------------------------------
@@ -546,10 +641,16 @@ class ContinuousBatcher:
         self._record("prefill_chunk", t0, time.perf_counter(), trace=req.rid,
                      tokens=limit - first, slot=i)
 
-    def _admit(self) -> int:
+    def _admit(self, admit_cap: int | None = None) -> int:
         """Fill free slots from the queue, at most the policy's
-        ``admit_per_tick``."""
-        cap = self.policy.admit_per_tick
+        ``admit_per_tick``.  ``admit_cap`` tightens this tick's bound (the
+        router's SLO deferral passes 0 to hold a lower-priority tenant's
+        queue; live slots keep decoding either way)."""
+        caps = [c for c in (self.policy.admit_per_tick, admit_cap)
+                if c is not None]
+        cap = min(caps) if caps else None
+        if cap is not None and cap <= 0:
+            return 0
         admitted = 0
         for i in range(self.slots):
             if self.active[i] is not None:
@@ -597,10 +698,13 @@ class ContinuousBatcher:
                             tenant=self.trace_label, slot=i)
         self._finish(req)
 
-    def step(self) -> int:
+    def step(self, *, admit_cap: int | None = None) -> int:
         """One tick: admit, advance chunked prefills, decode live slots.
-        Returns #active.  An injected ``batcher_stall`` skips the tick (no
-        admission, no decode, the state untouched)."""
+        Returns #active.  ``admit_cap`` tightens this tick's admissions (0:
+        defer the queue, keep decoding).  Admission is host work before the
+        decode, so the tick's graph is the same either way.  An injected
+        ``batcher_stall`` skips the tick (no admission, no decode, the state
+        untouched)."""
         if self.injector is not None:
             spec = self.injector.fire("batcher.tick", tenant=self.trace_label)
             if spec is not None:
@@ -614,7 +718,7 @@ class ContinuousBatcher:
                         f"injected batcher fault on {self.trace_label}")
                 if spec.kind == "latency_spike" and spec.magnitude_s > 0:
                     time.sleep(spec.magnitude_s)
-        self._admit()
+        self._admit(admit_cap=admit_cap)
         for i, req in enumerate(self.active):
             if req is not None and req.filled < len(req.prompt):
                 self._prefill_tick(i, req)

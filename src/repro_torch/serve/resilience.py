@@ -1,5 +1,5 @@
-"""Supervised serving: per-tenant circuit breakers, bounded retries, and
-the degradation ladder.
+"""Supervised serving: per-tenant circuit breakers, bounded retries,
+deadlines, and the degradation ladder.
 
 Port of the JAX package's ``serve/resilience.py``.  The serving loop treats
 a sick tenant the way a trigger path must: isolate it, keep the
@@ -25,9 +25,11 @@ Degradation ladder (audited as ``degrade/`` spans)
     (planning has its own rung: a fitted machine model falls back to the
     stock constants when recalibration fails, in ``repro_torch.deploy``.)
 
-The reference also audits per-request deadlines from the plan's
-``serve["slo"]["p95_s"]``; the port's plans carry no SLO yet, so it has no
-deadline to audit (a plan without an SLO has none in the reference too).
+Per-request deadlines come from the plan's ``serve["slo"]["p95_s"]`` budget
+x ``deadline_factor``.  An overrun is counted and audited (a
+``fault/deadline`` span) but does not feed the breaker: a planned budget is
+modelled device time, and a host wall clock over it is an SLO matter (the
+:class:`~repro_torch.obs.slo.SloMonitor`'s), not a sign of a sick tenant.
 """
 
 from __future__ import annotations
@@ -118,8 +120,8 @@ class CircuitBreaker:
 
 
 class Supervisor:
-    """Wraps each tenant engine with retries, a breaker and the degradation
-    ladder.  The :class:`~repro_torch.serve.router.Router` consults it at
+    """Wraps each tenant engine with retries, deadlines, a breaker and the
+    degradation ladder.  The :class:`~repro_torch.serve.router.Router` consults it at
     dispatch; a router without one still isolates and counts failures."""
 
     def __init__(self, *, tracer=NULL_TRACER, injector=None, defaults=None):
@@ -131,7 +133,9 @@ class Supervisor:
         self._cfg: dict = {}              # net_id -> resolved knobs
         self._breakers: dict = {}
         self._streak: dict = {}           # net_id -> consecutive successes
+        self._deadline_s: dict = {}       # net_id -> seconds | None
         self.retries: dict = {}
+        self.deadline_exceeded: dict = {}
         self.degrades: dict = {}
         self.restores: dict = {}
 
@@ -154,7 +158,11 @@ class Supervisor:
             k=cfg["breaker_k"], cooldown=cfg["breaker_cooldown"],
             tenant=net_id, tracer=self.tracer)
         self._streak[net_id] = 0
-        for d in (self.retries, self.degrades, self.restores):
+        p95 = (serve.get("slo") or {}).get("p95_s")
+        self._deadline_s[net_id] = (cfg["deadline_factor"] * p95
+                                    if p95 else None)
+        for d in (self.retries, self.deadline_exceeded, self.degrades,
+                  self.restores):
             d[net_id] = 0
         return cfg
 
@@ -193,11 +201,22 @@ class Supervisor:
                 if backoff > 0.0:
                     time.sleep(backoff * (2 ** attempt))
 
-    def record_success(self, tenant) -> None:
+    def record_success(self, tenant, dt_s: float | None = None) -> None:
+        """Book one success; ``dt_s`` (the request's latency) is audited
+        against the tenant's deadline."""
         nid = tenant.net_id
         br = self.breaker(nid)
         was_recovering = br.state != CLOSED
         br.record_success()
+        if dt_s is not None:
+            deadline = self._deadline_s.get(nid)
+            if deadline is not None and dt_s > deadline:
+                self.deadline_exceeded[nid] = \
+                    self.deadline_exceeded.get(nid, 0) + 1
+                if self.tracer.enabled:
+                    now = time.perf_counter()
+                    self.tracer.add("fault/deadline", now - dt_s, now,
+                                    tenant=nid, deadline_s=deadline)
         self._streak[nid] = self._streak.get(nid, 0) + 1
         # Ladder restore: a clean streak at the degraded level (one breaker
         # cooldown's worth, counting the probe that reclosed) earns the
@@ -235,6 +254,7 @@ class Supervisor:
     def snapshot(self, net_id: str) -> dict:
         out = self.breaker(net_id).snapshot()
         out.update(retries=self.retries.get(net_id, 0),
+                   deadline_exceeded=self.deadline_exceeded.get(net_id, 0),
                    degrades=self.degrades.get(net_id, 0),
                    restores=self.restores.get(net_id, 0))
         return out

@@ -7,7 +7,7 @@ budget.  An LM request is queued on its tenant's batcher by
 :meth:`Router.submit`; :meth:`Router.step` ticks every LM batcher once and
 books each finished request's latency (submit to done).
 
-Port of the JAX package's router, less its priorities and SLO deferral:
+Port of the JAX package's router:
 
 * **Shedding** -- with ``shed_after=k`` the router refuses
   (:class:`TenantOverBudget`) a tenant's traffic after ``k`` consecutive
@@ -26,6 +26,14 @@ Port of the JAX package's router, less its priorities and SLO deferral:
   and budgets move, tiles and groups stay) and adopts it.  An edge tenant
   is measured by its request p50, an LM tenant by its batcher's
   decode-step p50: the quantity each plan estimates.
+* **SLO-aware priority scheduling** -- with ``slo=`` (a
+  :class:`~repro_torch.obs.slo.SloMonitor`) every finished request feeds
+  the monitor, and its burn rates drive the scheduler: LM tenants tick
+  priority-first, and while any tenant burns its p95 budget, strictly
+  lower-priority LM tenants admit nothing (``admit_cap=0``; live slots
+  keep decoding) and their queue-depth bound halves.  A deferral ages out
+  after ``defer_limit`` consecutive ticks, so a backlog is slowed, never
+  starved.  Every deferral is a ``sched/defer`` audit span.
 * **Faults and the supervisor** -- an engine that fails is booked against
   its own tenant (:class:`TenantFaulted`, ``fault/<kind>`` spans) while
   the others keep draining.  With ``resilience=True`` a
@@ -46,6 +54,7 @@ import torch
 
 from repro_torch.faults import InjectedFault, fault_kind
 from repro_torch.obs import NULL_TRACER
+from repro_torch.obs.slo import priority_rank
 from repro_torch.serve.resilience import Supervisor
 from repro_torch.serve.tenant import Tenant, edge_tenant, lm_tenant
 
@@ -81,7 +90,7 @@ class Router:
                  shed_after: int | None = None, fleet=None,
                  drift_threshold: float | None = None,
                  drift_min_samples: int = 5, cache=None, tracer=None,
-                 resilience=None):
+                 slo=None, defer_limit: int = 4, resilience=None):
         self._tenants: dict[str, Tenant] = {}
         for t in tenants:
             if t.net_id in self._tenants:
@@ -106,6 +115,14 @@ class Router:
         self._inflight: dict[str, list[tuple]] = {
             nid: [] for nid in self._tenants}
         self._refused: dict[str, int] = {nid: 0 for nid in self._tenants}
+        # The SLO monitor is fed every finished request and read by the
+        # tick and admission policy.
+        self.slo = slo
+        if defer_limit < 1:
+            raise ValueError(f"defer_limit must be >= 1, got {defer_limit}")
+        self.defer_limit = defer_limit
+        self._defer_streak: dict[str, int] = {
+            nid: 0 for nid in self._tenants}
         # True: a Supervisor from each tenant's plan knobs; a Supervisor is
         # adopted as it is; None/False: raw dispatch (failures are still
         # isolated and counted).
@@ -118,13 +135,15 @@ class Router:
                    lm: dict | None = None, shed_after: int | None = None,
                    drift_threshold: float | None = None,
                    drift_min_samples: int = 5, cache=None, tracer=None,
-                   resilience=None, seed: int = 0,
-                   device=None) -> "Router":
+                   slo=None, defer_limit: int = 4, resilience=None,
+                   seed: int = 0, device=None) -> "Router":
         """A router over a fleet: each tenant takes ``engines[net_id]`` when
         given; else an edge tenant gets a fresh :class:`EdgeEngine` on
         ``device`` (``None``: the GPU, raising when there is none) and an LM
         tenant a plan-driven batcher over ``lm[net_id] = (cfg, params)``.
-        ``cache`` is the plan cache a drift replan writes through."""
+        ``cache`` is the plan cache a drift replan writes through; ``slo``
+        an :class:`~repro_torch.obs.slo.SloMonitor` (None: no SLO
+        scheduling)."""
         tenants = []
         for tp in fleet.tenants:
             if engines and tp.net_id in engines:
@@ -143,7 +162,8 @@ class Router:
         return cls(tenants, shed_after=shed_after, fleet=fleet,
                    drift_threshold=drift_threshold,
                    drift_min_samples=drift_min_samples, cache=cache,
-                   tracer=tracer, resilience=resilience)
+                   tracer=tracer, slo=slo, defer_limit=defer_limit,
+                   resilience=resilience)
 
     def arm_faults(self, injector) -> "Router":
         """Thread a :class:`repro_torch.faults.FaultInjector` through every
@@ -185,11 +205,20 @@ class Router:
 
     def _admission_check(self, t: Tenant):
         bound = self.queue_depth_bound(t.net_id)
-        if bound is not None and t.kind == "lm" \
-                and t.engine.queue.qsize() >= bound:
-            raise TenantQueueFull(
-                f"tenant {t.net_id!r} queue at plan depth bound "
-                f"({t.engine.queue.qsize()}/{bound}); retry after a tick")
+        if bound is not None and t.kind == "lm":
+            # SLO pressure halves a lower-priority tenant's bound while a
+            # higher-priority tenant burns its budget: its backlog drains
+            # slower under deferral, so the same depth would mean a worse
+            # tail for its own requests.
+            pressure = (self.slo.pressure_rank()
+                        if self.slo is not None else None)
+            if pressure is not None and priority_rank(t.priority) > pressure:
+                bound = max(1, bound // 2)
+            if t.engine.queue.qsize() >= bound:
+                raise TenantQueueFull(
+                    f"tenant {t.net_id!r} queue at plan depth bound "
+                    f"({t.engine.queue.qsize()}/{bound}); retry after a "
+                    f"tick")
         if self.shed_after is None \
                 or t.metrics.consecutive_violations < self.shed_after:
             return
@@ -248,7 +277,9 @@ class Router:
         t1 = time.perf_counter()
         t.metrics.observe_latency(t1 - t0)
         if sup is not None:
-            sup.record_success(t)
+            sup.record_success(t, t1 - t0)
+        if self.slo is not None:
+            self.slo.observe(net_id, t1 - t0)
         if self.tracer.enabled:
             self.tracer.add("request", t0, t1,
                             trace=getattr(t.engine, "calls", None),
@@ -273,20 +304,63 @@ class Router:
         return any(not t.engine.queue.empty() or t.engine.n_active
                    for t in self._tenants.values() if t.kind == "lm")
 
+    def _deferrals(self, lm_order: list[Tenant]) -> set[str]:
+        """The SLO-aware tick policy: while any tenant burns its p95 budget
+        (``slo.at_risk``), strictly lower-priority LM tenants with queued
+        work admit nothing this tick (``admit_cap=0``); their live slots
+        keep decoding.  After ``defer_limit`` consecutive deferred ticks a
+        tenant admits anyway (aging).  Each deferral is a zero-duration
+        ``sched/defer`` audit span."""
+        if self.slo is None:
+            return set()
+        pressure = self.slo.pressure_rank()
+        if pressure is None:
+            for nid in self._defer_streak:
+                self._defer_streak[nid] = 0
+            return set()
+        deferred = set()
+        for t in lm_order:
+            nid = t.net_id
+            if priority_rank(t.priority) <= pressure \
+                    or t.engine.queue.empty():
+                self._defer_streak[nid] = 0
+                continue
+            streak = self._defer_streak[nid]
+            if streak >= self.defer_limit:
+                self._defer_streak[nid] = 0      # aged out: admit this tick
+                continue
+            self._defer_streak[nid] = streak + 1
+            deferred.add(nid)
+            if self.tracer.enabled:
+                now = time.perf_counter()
+                self.tracer.add("sched/defer", now, now, tenant=nid,
+                                priority=t.priority, pressure_rank=pressure,
+                                streak=streak + 1)
+        return deferred
+
     def step(self) -> int:
         """Tick every LM tenant's batcher once; returns the active slots in
-        all.  A tick that raises is booked against its tenant; the others
-        keep draining.  A finished request books its latency (submit to
-        done), a failed one (``req.error``) a failure; a tick that decoded
-        runs the drift check."""
+        all.  Tenants tick priority-first (the fast burn rate breaks ties in
+        a class), and with a monitor attached a lower-priority tenant's
+        admissions may be deferred (:meth:`_deferrals`).  A tick that raises
+        is booked against its tenant; the others keep draining.  A finished
+        request books its latency (submit to done), a failed one
+        (``req.error``) a failure; a tick that decoded runs the drift
+        check."""
+        lm = [t for t in self._tenants.values() if t.kind == "lm"]
+        if self.slo is not None:
+            lm.sort(key=lambda t: (priority_rank(t.priority),
+                                   -self.slo.burn_rate(t.net_id)))
+        else:
+            lm.sort(key=lambda t: priority_rank(t.priority))
+        deferred = self._deferrals(lm)
         total = 0
-        for t in self._tenants.values():
-            if t.kind != "lm":
-                continue
+        for t in lm:
+            nid = t.net_id
             steps_before = t.engine.decode_steps_observed
             t0 = time.perf_counter()
             try:
-                n = t.engine.step()
+                n = t.engine.step(admit_cap=0 if nid in deferred else None)
             except Exception as exc:
                 n = t.engine.n_active
                 self._record_failure(t, exc, t0)
@@ -295,7 +369,7 @@ class Router:
             now = time.perf_counter()
             sup = self.supervisor
             still = []
-            for req, t_sub in self._inflight[t.net_id]:
+            for req, t_sub in self._inflight[nid]:
                 if not req.done:
                     still.append((req, t_sub))
                 elif req.error:
@@ -304,9 +378,11 @@ class Router:
                         sup.record_failure(t)
                 else:
                     t.metrics.observe_latency(now - t_sub)
+                    if self.slo is not None:
+                        self.slo.observe(nid, now - t_sub)
                     if sup is not None:
-                        sup.record_success(t)
-            self._inflight[t.net_id] = still
+                        sup.record_success(t, now - t_sub)
+            self._inflight[nid] = still
             if t.engine.decode_steps_observed > steps_before:
                 self._maybe_replan(t)
         return total
@@ -460,22 +536,31 @@ class Router:
                 "supervised": self.supervisor is not None}
 
     def report(self) -> dict:
-        """Per-tenant metrics with the planned latency, shed state and
-        drift beside them."""
+        """Per-tenant metrics with the planned latency, priority class, shed
+        state and drift beside them, and the tenant's SLO state under
+        ``"slo"`` when a monitor is attached."""
         out = {}
+        slo_snap = self.slo.snapshot() if self.slo is not None else {}
         for nid, t in self._tenants.items():
             snap = t.metrics.snapshot()
             snap["planned_latency_s"] = t.plan.est_latency_s
             snap["kind"] = t.kind
+            snap["priority"] = t.priority
             snap["shed"] = self.over_budget(nid)
             snap["drift"] = self.drift(nid)
             snap["degrade_level"] = getattr(t.engine, "degrade_level", 0)
             snap["spans"] = t.engine.span_stats()
+            if nid in slo_snap:
+                snap["slo"] = slo_snap[nid]
             out[nid] = snap
         return out
 
     def reset_metrics(self):
-        """Zero every tenant's counters (e.g. after warmup)."""
+        """Zero every tenant's counters and the SLO monitor's windows (e.g.
+        after warmup, whose first calls must not pre-burn a budget)."""
         for t in self._tenants.values():
             t.metrics.reset()
         self._refused = {nid: 0 for nid in self._tenants}
+        self._defer_streak = {nid: 0 for nid in self._tenants}
+        if self.slo is not None:
+            self.slo.reset()

@@ -9,7 +9,20 @@ import dataclasses
 import math
 from typing import Any
 
+from repro_torch.obs.slo import priority_rank
 from repro_torch.serve.metrics import TenantMetrics
+
+
+def plan_priority(plan) -> str:
+    """A plan's priority class: its serve section's ``priority`` when the
+    fleet planner wrote one, else the kind's default (edge traffic is the
+    trigger path, ``critical``; an LM is ``standard``)."""
+    serve = getattr(plan, "serve", None) or {}
+    p = serve.get("priority")
+    if p is not None:
+        return str(p)
+    return "critical" if getattr(plan, "kind", "edge") == "edge" \
+        else "standard"
 
 
 @dataclasses.dataclass
@@ -21,11 +34,17 @@ class Tenant:
     # the live one.
     latency_budget_s: float = math.inf
     metrics: TenantMetrics = None
+    # Priority class (``repro_torch.obs.slo.PRIORITY_CLASSES``); None takes
+    # the plan's (:func:`plan_priority`).
+    priority: str | None = None
 
     def __post_init__(self):
         if self.metrics is None:
             self.metrics = TenantMetrics(
                 self.net_id, latency_budget_s=self.latency_budget_s)
+        if self.priority is None:
+            self.priority = plan_priority(self.plan)
+        priority_rank(self.priority)         # validate early
 
     @property
     def kind(self) -> str:

@@ -14,6 +14,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import types
 
 import pytest
 import torch
@@ -165,15 +166,12 @@ NOT_PORTED = {
     "fleet.columns-overlap": "AIE columns: waits for the AIE target",
 }
 
-# Parts of plan.serve-keys the port leaves out: it checks only the keys its
-# planners write and warns on any other, since nothing in the port reads
-# them.  They come back with the SLO and priority work of the router (the
-# batch policy's keys came with plan-driven LM serving, the supervisor's
-# resilience knobs with the breakers).
-SERVE_KEYS_NOT_PORTED = {
-    "slo": "the SLO checks and the LM 'SLO but no slots' warning",
-    "priority": "the router's priority classes",
-}
+# Parts of plan.serve-keys the port leaves out: none.  The batch policy's
+# keys came with plan-driven LM serving, the supervisor's resilience knobs
+# with the breakers, and the SLO and priority checks (with the LM "SLO but
+# no slots" warning) with the router's priority scheduling.  A key the port
+# does not read is still one warning.
+SERVE_KEYS_NOT_PORTED = {}
 
 
 def _rule_ids(doc):
@@ -260,6 +258,23 @@ def _d_resilience_not_an_object(d):
     _plan_of(d, "tau_select")["serve"]["resilience"] = [3, 8]
 
 
+def _d_bad_slo(d):
+    _plan_of(d)["serve"]["slo"] = {"p95_s": -1.0, "p99_s": "soon"}
+
+
+def _d_slo_p99_below_p95(d):
+    slo = _plan_of(d, "tau_select")["serve"]["slo"]
+    slo["p99_s"] = 0.5 * slo["p95_s"]
+
+
+def _d_slo_not_an_object(d):
+    _plan_of(d)["serve"]["slo"] = [1e-5, 2e-5]
+
+
+def _d_bad_priority(d):
+    _plan_of(d, "tau_select")["serve"]["priority"] = "urgent"
+
+
 def _d_budget_below_plan(d):
     d["tenants"][0]["latency_budget_s"] = 1e-9
 
@@ -276,7 +291,8 @@ def _d_fleet_total_off(d):
     None, _d_broken_chain, _d_split_group, _d_extra_boundary,
     _d_negative_overhead, _d_group_estimate_off, _d_bad_serve,
     _d_bad_batch_policy, _d_queue_below_slots, _d_bad_resilience,
-    _d_resilience_not_an_object, _d_budget_below_plan,
+    _d_resilience_not_an_object, _d_bad_slo, _d_slo_p99_below_p95,
+    _d_slo_not_an_object, _d_bad_priority, _d_budget_below_plan,
     _d_negative_crossing, _d_fleet_total_off],
     ids=lambda f: f.__name__[3:] if f else "clean")
 def test_plan_rules_agree_with_the_reference(fault):
@@ -296,16 +312,54 @@ def test_clean_table1_fleet_agrees_with_the_reference():
 
 
 def test_serve_keys_the_port_does_not_read_are_one_warning_each():
+    """The SLO and priority keys are checked, as the reference checks them
+    (an error each, with the reference's wording); a key the port does not
+    read is one warning."""
+    from repro.check import plan_rules as ref_rules
+    assert SERVE_KEYS_NOT_PORTED == {}
     fleet = _fleet(["tau_select"])
     plan = fleet.tenants[0].plan
-    serve = {**plan.serve, "slo": {"p95_s": -1.0}, "priority": "urgent"}
+    assert {"slo", "priority"} <= set(plan.serve)
+    serve = {**plan.serve, "slo": {"p95_s": -1.0}, "priority": "urgent",
+             "ttl_s": 3}
     findings = checklib.check_fleet(_with_plan(fleet, "tau_select",
                                                serve=serve))
-    assert _rules(findings) == set()
-    warned = [f.detail for f in findings if f.rule == "plan.serve-keys"]
-    assert len(warned) == len(SERVE_KEYS_NOT_PORTED)
-    assert all(any(repr(k) in w for w in warned)
-               for k in SERVE_KEYS_NOT_PORTED)
+    errors = sorted(f.detail for f in findings
+                    if f.rule == "plan.serve-keys" and f.severity == "error")
+    ref_plan = types.SimpleNamespace(serve=serve, kind="edge")
+    want = sorted(f.detail for f in ref_rules._rule_serve_section(
+        ref_plan, "tau_select") if f.severity == "error")
+    assert errors == want and len(errors) == 2
+    assert any("serve.slo.p95_s" in e for e in errors)
+    assert any("'urgent'" in e for e in errors)
+    warned = [f.detail for f in findings if f.rule == "plan.serve-keys"
+              and f.severity == "warning"]
+    assert len(warned) == 1 and "'ttl_s'" in warned[0]
+
+
+def test_lm_slo_without_slots_warns_as_the_reference():
+    """An LM tenant with an SLO and no batch policy gets the reference's
+    warning; with its slots back it gets none."""
+    from repro.check import plan_rules as ref_rules
+    from repro_torch import configs
+    fleet = plan_fleet([edge.edge_config("jet_tagger"),
+                        configs.get("recurrentgemma-2b").smoke],
+                       device="cpu")
+    lm = fleet.tenants[1]
+    assert lm.plan.kind == "lm" and lm.plan.serve["priority"] == "standard"
+    for drop in ((), ("slots",)):
+        serve = {k: v for k, v in lm.plan.serve.items() if k not in drop}
+        got = [(f.rule, f.severity, f.detail) for f in
+               plan_rules.verify_plan(dataclasses.replace(lm.plan,
+                                                          serve=serve),
+                                      tenant=lm.net_id)
+               if f.rule == "plan.serve-keys"]
+        want = [(f.rule, f.severity, f.detail) for f in
+                ref_rules._rule_serve_section(
+                    types.SimpleNamespace(serve=serve, kind="lm"),
+                    lm.net_id)]
+        assert got == want
+        assert len(got) == len(drop)
 
 
 def test_unknown_artifact_keys_are_info_findings(tmp_path):

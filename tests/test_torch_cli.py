@@ -1,11 +1,15 @@
-"""``python -m repro_torch characterize|plan|deploy|serve|bench`` on the CPU.
+"""``python -m repro_torch characterize|plan|deploy|serve|bench|replay|
+chaos`` on the CPU.
 
 Each subcommand runs in-process through ``cli.main`` with ``--device cpu``
 (the plain PyTorch path) and, where it plans, ``--machine-model stock``;
 every artifact goes under pytest's ``tmp_path``, and ``check`` accepts the
 plan artifacts written.  Without a card every subcommand exits non-zero
-unless ``--device cpu`` is given.  No test judges wall time: ``bench``'s
-rows are checked for shape, not for their ratio.
+unless ``--device cpu`` is given.  ``replay`` and ``chaos`` run beside the
+JAX package's own (``python -m repro replay|chaos``) on the same edge fleet:
+the exit codes, the chaos verdict and the snapshot files' names and rows
+agree.  No test judges wall time: ``bench``'s rows are checked for shape,
+not for their ratio, and latencies never enter a verdict compared here.
 """
 
 import json
@@ -104,6 +108,7 @@ def test_characterize_writes_a_machine_model(tmp_path, capsys):
 @pytest.mark.parametrize("argv", [
     ["plan", "jet_tagger"], ["deploy", "tau_select", "--dry-run"],
     ["serve", "tau_select"], ["bench", "tau_select"],
+    ["replay", "tau_select"], ["chaos", "tau_select"],
     ["characterize", "--terms", "gemm_int8"], ["check", "--no-kernels"]])
 def test_every_subcommand_needs_a_card_unless_told_cpu(argv, monkeypatch,
                                                        tmp_path, capsys):
@@ -121,3 +126,103 @@ def test_unknown_lm_arch_or_target_is_refused(argv, capsys):
     with pytest.raises(SystemExit):
         cli.main(["plan", "jet_tagger"] + argv + STOCK)
     assert "invalid choice" in capsys.readouterr().err
+
+
+def _ref_cli(argv, capsys):
+    from repro import cli as ref_cli
+    rc = ref_cli.main(argv)
+    return rc, capsys.readouterr().out
+
+
+def _rows(d):
+    return sorted(r["name"] for p in sorted(d.glob("BENCH_*.json"))
+                  for r in json.loads(p.read_text())["rows"])
+
+
+def test_replay_exits_as_the_reference(tmp_path, capsys):
+    """A bursty replay of the edge fleet, its trace saved and replayed
+    again from the file: exit 0 in both packages, the same snapshot files
+    and row names, the same offered counts."""
+    trace = tmp_path / "trace.jsonl"
+    argv = ["replay", "jet_tagger", "tau_select", "--scenario", "bursty",
+            "--duration", "0.1", "--seed", "3"]
+    rc = cli.main(argv + ["--save-trace", str(trace), "--json-dir",
+                          str(tmp_path / "port"), "--out",
+                          str(tmp_path / "d")] + STOCK)
+    text = capsys.readouterr().out
+    ref_rc, ref_text = _ref_cli(argv + ["--json-dir", str(tmp_path / "ref"),
+                                        "--out", str(tmp_path / "r"),
+                                        "--machine-model", "stock"], capsys)
+    assert rc == ref_rc == 0
+    for t in (text, ref_text):
+        assert "scheduling lag" in t and "prio=critical" in t
+    assert _rows(tmp_path / "port") == _rows(tmp_path / "ref")
+    for name in ("BENCH_serve_jet_tagger__bursty.json",
+                 "BENCH_serve_tau_select__bursty.json"):
+        rows = [json.loads((tmp_path / d / name).read_text())["rows"]
+                for d in ("port", "ref")]
+        offered = [[r["us_per_call"] for r in rs if
+                    r["name"].endswith("/offered")] for rs in rows]
+        assert offered[0] == offered[1] and offered[0][0] > 0
+    assert cli.main(["replay", "jet_tagger", "tau_select", "--trace-file",
+                     str(trace), "--out", str(tmp_path / "d")] + STOCK) == 0
+    assert "# loaded" in capsys.readouterr().out
+
+
+def test_replay_underbudget_is_flagged_as_the_reference(tmp_path, capsys):
+    argv = ["replay", "tau_select", "--underbudget", "tau_select",
+            "--scenario", "steady", "--duration", "0.1"]
+    rc = cli.main(argv + ["--out", str(tmp_path)] + STOCK)
+    text = capsys.readouterr().out
+    ref_rc, ref_text = _ref_cli(argv + ["--out", str(tmp_path / "r"),
+                                        "--machine-model", "stock"], capsys)
+    assert rc == ref_rc == 0
+    for t in (text, ref_text):
+        assert "# injected near-zero SLO budget for tau_select" in t
+        line = [l for l in t.splitlines()
+                if l.strip().startswith("tau_select") and "prio=" in l]
+        assert len(line) == 1 and "VIOLATION" in line[0]
+
+
+def test_chaos_recovers_as_the_reference(tmp_path, capsys):
+    """The default burst (6 engine exceptions on the first edge tenant from
+    call 8) under the flash crowd: exit 0 and ``RECOVERED`` in both
+    packages, the breaker opened and reclosed, the same BENCH_chaos
+    rows."""
+    argv = ["chaos", "jet_tagger", "tau_select"]
+    rc = cli.main(argv + ["--json-dir", str(tmp_path / "port"), "--out",
+                          str(tmp_path / "d")] + STOCK)
+    text = capsys.readouterr().out
+    ref_rc, ref_text = _ref_cli(argv + ["--json-dir", str(tmp_path / "ref"),
+                                        "--out", str(tmp_path / "r"),
+                                        "--machine-model", "stock"], capsys)
+    assert rc == ref_rc == 0
+    verdicts = [[l for l in t.splitlines() if l.startswith("chaos: ")]
+                for t in (text, ref_text)]
+    assert [v[0].split(" (")[0] for v in verdicts] == ["chaos: RECOVERED"] * 2
+    for t in (text, ref_text):
+        assert "injected=6" in t and "opens=1 recloses=1" in t
+        assert "kept serving" in t
+    chaos = [json.loads((tmp_path / d / "BENCH_chaos_jet_tagger__"
+                         "flash_crowd.json").read_text())
+             for d in ("port", "ref")]
+    model_rows = [{r["name"]: r["us_per_call"] for r in c["rows"]
+                   if "src=model" in r["derived"]} for c in chaos]
+    assert model_rows[0] == model_rows[1]
+    assert {r["name"] for r in chaos[0]["rows"]} >= {
+        "chaos/jet_tagger/flash_crowd/faults_injected",
+        "chaos/jet_tagger/flash_crowd/time_to_recovery"}
+
+
+def test_chaos_without_faults_is_not_recovered(tmp_path, capsys):
+    """A burst against a tenant that takes no traffic injects nothing: not
+    ``RECOVERED``, exit 1, in both packages."""
+    argv = ["chaos", "tau_select", "--victim", "nobody", "--duration",
+            "0.05"]
+    rc = cli.main(argv + ["--out", str(tmp_path)] + STOCK)
+    text = capsys.readouterr().out
+    ref_rc, ref_text = _ref_cli(argv + ["--out", str(tmp_path / "r"),
+                                        "--machine-model", "stock"], capsys)
+    assert rc == ref_rc == 1
+    assert "chaos: NOT RECOVERED" in text and "chaos: NOT RECOVERED" in \
+        ref_text

@@ -105,9 +105,9 @@ class _LM:
 
 def _aligned(fleet, depth):
     """The fleet with PLANNED estimates, one crossing, 2x budgets, and an
-    LM queue bound of ``depth``.  The reference's SLO is dropped: the
-    port's plans carry none, and a plan without one has no deadline to
-    audit in either package."""
+    LM queue bound of ``depth``.  Both plans' SLO is dropped: a plan
+    without one has no deadline to audit, so these routers' health
+    compares without the deadline audit (its own tests hold it)."""
     tenants = []
     for tp in fleet.tenants:
         serve = dict(tp.plan.serve)

@@ -207,26 +207,26 @@ def test_stage_defaults_are_dataclass_fields():
 # The five nets' h100 plans as they stood before the float edge forward and
 # the tiled_gemm tiles entered the port: plan key, per-layer gemm_int8 tile,
 # fusion groups.  Adding kernels and a second tile set must change none.
-# The keys are those of planner version "h100-plan-2" (the fleet plans'
-# resilience knobs); the tiles and groups are version 1's.
+# The keys are those of planner version "h100-plan-3" (the fleet plans'
+# priority and SLO); the tiles and groups are version 1's.
 H100_PLANS = {
     "jet_tagger": (
-        "2e193339e98ee439380b445238f2f218f76a20357ab373837cbb3e80df62e136",
+        "eb619f8f9da41ab71dcd7905ac8e3c10c7e2e85c3e795d8bcc9a736dbac26579",
         [(8, 32, 32), (8, 64, 32), (8, 32, 32), (8, 32, 32)],
         [[0, 1, 2, 3]]),
     "tau_select": (
-        "d64e04f9166c30eed81e3c319c22deb3862d75d7098c331d7e8b902be862128e",
+        "3bef28b5fcd2c9f73e0bffd83bcd1170de9549e3b317717f4e0ec4a674300e76",
         [(8, 32, 32)] * 3, [[0, 1, 2]]),
     "vae": (
-        "7fd317bd615211a7bda49bcab3aeb569c12af700b04254dfdc781e934789ea01",
+        "26a457a03f012b57b41dccc14a4c33ebb0f03fa0ca3b14dbac3cbcc52693df67",
         [(8, 64, 32), (8, 128, 32), (8, 128, 32), (8, 128, 32),
          (8, 64, 32)], [[0, 1, 2, 3, 4]]),
     "qubit": (
-        "f682b61baaa6756c2b6c35d509ff40fa0c262d0e12dc4a3de57fd511d47b5b04",
+        "ad5c91f81260ed6a824f33df07b7c8b76103dd686115cd129566657190129321",
         [(8, 128, 32), (8, 32, 32), (8, 128, 32), (8, 128, 32),
          (8, 128, 32), (8, 32, 32)], [[0, 1, 2, 3, 4, 5]]),
     "autoencoder": (
-        "8b596c8040a608303c9de6f5a7f031f8f0e0e3d2111c4d8a650c289378b11846",
+        "673787e83387c8f3a99d0ee17386037799b243fc6d9c45d8f27bc328d0811dfa",
         [(8, 32, 32)] * 8, [list(range(8))]),
 }
 

@@ -126,7 +126,7 @@ def test_plans_carry_the_references_resilience_knobs():
 
 def _snap(snapshot: dict) -> dict:
     """A snapshot with the recovery time reduced to set-or-not, and the
-    reference's deadline audit (none without an SLO) dropped."""
+    deadline audit (none without an SLO; its own tests hold it) dropped."""
     out = dict(snapshot)
     assert out.pop("deadline_exceeded", 0) == 0
     out["time_to_recovery_s"] = out["time_to_recovery_s"] is not None
@@ -229,6 +229,85 @@ def test_supervisor_trajectory_equals_the_references(seed):
                 tenants[1][n].engine.degrade_level
             levels.add(tenants[0][n].engine.degrade_level)
     assert levels == {0, 1}
+
+
+def _deadline_plan(p95_s, factor):
+    return types.SimpleNamespace(kind="edge", est_latency_s=1e-5, serve={
+        "slo": {"p95_s": p95_s, "p99_s": 1.5 * p95_s},
+        "resilience": {**faults.RESILIENCE_DEFAULTS,
+                       "deadline_factor": factor}})
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_deadline_audit_equals_the_references(seed):
+    """Seeded successes against each tenant's deadline (``deadline_factor
+    x serve["slo"]["p95_s"]``; none without an SLO): the same
+    ``deadline_exceeded`` counts and ``fault/deadline`` spans, and an
+    overrun never moves the breaker."""
+    from repro.obs import Tracer as RefTracer
+    from repro_torch.obs import Tracer
+    rng = np.random.default_rng(seed)
+    plans = {"a": _deadline_plan(2e-5, 1.0), "b": _deadline_plan(5e-5, 2.5),
+             "c": types.SimpleNamespace(kind="edge", serve={})}
+    sups = (Supervisor(tracer=Tracer()),
+            ref_resilience.Supervisor(tracer=RefTracer()))
+    for sup in sups:
+        for nid, plan in plans.items():
+            sup.register(nid, plan)
+    for _ in range(120):
+        nid = str(rng.choice(list(plans)))
+        dt = None if rng.random() < 0.1 else float(
+            rng.lognormal(np.log(5e-5), 0.8))
+        t = types.SimpleNamespace(net_id=nid, engine=types.SimpleNamespace())
+        for sup in sups:
+            sup.record_success(t, dt)
+        for n in plans:
+            assert sups[0].snapshot(n)["deadline_exceeded"] == \
+                sups[1].snapshot(n)["deadline_exceeded"]
+            assert sups[0].breaker(n).state == "closed"
+    spans = [[(s.attrs["tenant"], s.attrs["deadline_s"], s.dur_s)
+              for s in sup.tracer.by_name("fault/deadline")] for sup in sups]
+    assert spans[0] == spans[1] and spans[0]
+    assert sups[0].deadline_exceeded["c"] == 0
+    assert sups[0].deadline_exceeded["a"] > sups[0].deadline_exceeded["b"]
+
+
+def test_router_books_deadlines_as_the_reference(monkeypatch):
+    """Edge calls through both supervised routers on a fake clock: each
+    call's latency is audited against the plan's deadline, the same calls
+    over it in both packages."""
+    from repro.serve import router as ref_router_lib
+    from repro_torch.serve import router as router_lib
+
+    class Clock:
+        now = 0.0
+
+        def perf_counter(self):
+            return self.now
+
+    class Stub:
+        def __init__(self, clock, script):
+            self.clock, self.script = clock, list(script)
+
+        def infer(self, x):
+            self.clock.now += self.script.pop(0)
+            return x
+
+        def span_stats(self):
+            return {}
+
+    script = list(np.random.default_rng(0).lognormal(np.log(2e-5), 0.6,
+                                                     size=60))
+    got = []
+    for lib, tlib in ((router_lib, Tenant), (ref_router_lib, RefTenant)):
+        clock = Clock()
+        monkeypatch.setattr(lib, "time", clock)
+        r = lib.Router([tlib(net_id="a", plan=_deadline_plan(2e-5, 1.5),
+                             engine=Stub(clock, script))], resilience=True)
+        for _ in range(60):
+            r.infer("a", 0)
+        got.append(r.health()["tenants"]["a"]["deadline_exceeded"])
+    assert got[0] == got[1] > 0
 
 
 # ---------------------------------------------------------------------------
