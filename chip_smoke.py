@@ -141,6 +141,23 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    breaker opened and reclosed and closed, the co-residents served); and
    ``python -m repro_torch replay`` and ``chaos`` with the published LM
    in their own processes (exit 0; ``RECOVERED``);
+7e. the instruments on the card: 7b's fleet built again with
+   ``trace=True`` (same weights), the smoke trace (50 edge requests a
+   tenant, 8 LM requests of 16 prompt and 16 new tokens) replayed; the
+   edge kernels' work records equal to the planned FLOPs of the requests
+   served; ``trace.json`` (strict JSON, every tenant's spans, one event a
+   span) and ``metrics.prom`` (the span summary, the dropped-span counter
+   and the ``repro_profile_*``, ``repro_slo_*`` and ``repro_resilience_*``
+   families of every tenant, read back by ``parse_prometheus``) written
+   to a temporary directory; the attribution table and the profile rows
+   (bound, clamped and raw roofline fraction, achieved OP/s and bytes/s,
+   measured LARE) printed; each tenant's ``graph_overhead``, an edge
+   tenant's ``useful_fraction`` 1 within 1e-6; closed-loop edge p50 and
+   calls a second, traced and untraced (runs of 2000 calls, four rounds
+   of off, on, on, off) and ``Tracer.add`` alone; and ``python -m
+   repro_torch trace`` and ``profile --json-dir``
+   with the published LM in their own processes (exit 0, their files
+   written);
 8. LM serve: ``ContinuousBatcher(slots=4, max_len=4096)`` (the ring-cache
    path) serving 8 requests with 16-64 token prompts and ``max_new=16``,
    then a decode-heavy run of 4 requests with ``max_new=256``; each run
@@ -2603,6 +2620,241 @@ def scenario_phase(dep, cfg, params) -> dict:
     return {"readings": readings, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7e: the instruments on the card
+# ---------------------------------------------------------------------------
+
+INSTRUMENT_EDGE_REQUESTS = 50
+INSTRUMENT_LM_REQUESTS = 8
+INSTRUMENT_TOKENS = 16
+TRACE_COST_CALLS = 2000
+TRACE_COST_ROUNDS = 4
+USEFUL_TOL = 1e-6
+INSTRUMENT_CLI = (
+    ("trace", ["trace", "jet_tagger", "tau_select", "--lm",
+               "recurrentgemma_2b", "--lm-config", "published",
+               "--trace-out", "chiprun_out/trace_7e"]),
+    ("profile", ["profile", "jet_tagger", "tau_select", "--lm",
+                 "recurrentgemma_2b", "--lm-config", "published",
+                 "--json-dir", "chiprun_out/profile_7e"]))
+
+
+def _strict_json(text: str):
+    def refuse(const):
+        raise SmokeFailure(f"trace.json holds {const}")
+    return json.loads(text, parse_constant=refuse)
+
+
+def trace_cost(dep) -> dict:
+    """What tracing costs an edge request: closed-loop ``router.infer``
+    calls on each edge tenant with the deployment's tracer off and on,
+    ``TRACE_COST_ROUNDS`` rounds in the order off, on, on, off (the same
+    router and engines), as the p50 of all of a side's calls, its calls a
+    second and each run's p50; ``Tracer.add`` alone, the work a traced
+    call adds per span, and adding an edge graph's work record, the work a
+    replay adds (both printed, not judged)."""
+    from repro_torch.kernels import ops
+    from repro_torch.obs.trace import Tracer
+    router = dep.serve()
+    inputs = router.warmup()
+    out = {}
+    for nid, x in inputs.items():
+        calls = {"untraced": [], "traced": []}
+        walls = {"untraced": 0.0, "traced": 0.0}
+        runs = {"untraced": [], "traced": []}
+        for label in ("untraced", "traced", "traced", "untraced") \
+                * TRACE_COST_ROUNDS:
+            dep.tracer.enabled = label == "traced"
+            run = []
+            t_start = time.perf_counter()
+            for _ in range(TRACE_COST_CALLS):
+                t0 = time.perf_counter()
+                router.infer(nid, x)
+                run.append(time.perf_counter() - t0)
+            walls[label] += time.perf_counter() - t_start
+            calls[label] += run
+            runs[label].append(statistics.median(run) * 1e6)
+        out[nid] = {label: {"p50_us": statistics.median(calls[label]) * 1e6,
+                            "calls_per_s": len(calls[label]) / walls[label],
+                            "run_p50_us": runs[label]}
+                    for label in calls}
+    dep.tracer.enabled = True
+    scratch = Tracer()
+    t0 = time.perf_counter()
+    for i in range(TRACE_COST_CALLS):
+        scratch.add("infer", 0.0, 4e-5, trace=i, tenant="jet_tagger")
+    out["add_us"] = (time.perf_counter() - t0) / TRACE_COST_CALLS * 1e6
+    # What the work records cost a replayed edge call: adding its graph's
+    # record (put back after).
+    graphs = dep.engines[SERVED[0]].graph_report()
+    work = next(iter(graphs.values()))["work"] if graphs else {}
+    before = ops.work_counts()
+    t0 = time.perf_counter()
+    for _ in range(TRACE_COST_CALLS):
+        ops.add_work(work)
+    out["record_us"] = (time.perf_counter() - t0) / TRACE_COST_CALLS * 1e6
+    ops.set_work(before)
+    log("instruments trace cost, closed-loop edge calls "
+        + json.dumps(out, sort_keys=True))
+    return out
+
+
+def instruments_phase(cfg, params) -> dict:
+    """Phase 7e: 7b's fleet built again with ``trace=True`` and its
+    instruments read on the card (see the module doc).  Counters are zeroed
+    just before the traced replay and read just after.  Every check fails
+    the run."""
+    import dataclasses
+    import os
+    import tempfile
+    import torch
+    from repro_torch.deploy import Deployment
+    from repro_torch.kernels import ops
+    from repro_torch.obs import parse_prometheus, workload
+
+    t_phase = time.perf_counter()
+    dep = Deployment.build([*SERVED, cfg], lm_params={cfg.name: (cfg, params)},
+                           max_len=LM_SEQ, trace=True)
+    tenants = {t.net_id: t.plan.kind for t in dep.fleet.tenants}
+    router = dep.serve()
+    inputs = router.warmup()
+    trace = workload.smoke_trace(
+        tenants, edge_iters=INSTRUMENT_EDGE_REQUESTS,
+        lm_requests=INSTRUMENT_LM_REQUESTS, prompt_tokens=INSTRUMENT_TOKENS,
+        new_tokens=INSTRUMENT_TOKENS)
+    ops.reset_launches()
+    report = workload.replay(router, trace, inputs=inputs)
+    torch.cuda.synchronize()
+    launches, work = ops.launch_counts(), ops.work_counts()
+    bad = [r for r in report.records if r.status != "ok"]
+    if bad:
+        raise SmokeFailure(f"instruments replay: {len(bad)} records not ok: "
+                           f"{bad[:3]}")
+    # Each edge request is one fused_mlp_q8 launch of its plan's GEMMs.
+    edge_flops = sum(INSTRUMENT_EDGE_REQUESTS * dep.plans[n].work()["flops"]
+                     for n in SERVED)
+    if launches["fused_mlp_q8"] != INSTRUMENT_EDGE_REQUESTS * len(SERVED) \
+            or work["fused_mlp_q8"]["flops"] != edge_flops:
+        raise SmokeFailure(f"instruments: fused_mlp_q8 launches "
+                           f"{launches['fused_mlp_q8']} recorded "
+                           f"{work['fused_mlp_q8']}, want {edge_flops} flops")
+    missing = [k for k, n in launches.items()
+               if n and not (work[k]["flops"] > 0 and work[k]["bytes"] > 0)]
+    if missing:
+        raise SmokeFailure(f"instruments: launches without a work record "
+                           f"{missing}: {work}")
+    log("instruments replay launches " + json.dumps(launches, sort_keys=True)
+        + " work " + json.dumps(work, sort_keys=True))
+
+    # trace.json and metrics.prom, read back strictly.
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = dep.export_trace(pathlib.Path(tmp) / "trace.json")
+        prom_path = dep.export_prometheus(pathlib.Path(tmp) / "metrics.prom")
+        payload = _strict_json(trace_path.read_text())
+        prom_text = prom_path.read_text()
+    events = [e for e in payload["traceEvents"] if e["ph"] == "X"]
+    n_spans = len(dep.tracer)
+    if len(events) != n_spans or payload["otherData"]["spans"] != n_spans:
+        raise SmokeFailure(f"trace.json: {len(events)} events for "
+                           f"{n_spans} spans")
+    seen = {(e["cat"], e["name"]) for e in events}
+    want = {(n, "infer") for n in SERVED} | {(cfg.name, "decode_step"),
+                                             (cfg.name, "request")}
+    if not want <= seen:
+        raise SmokeFailure(f"trace.json lacks {sorted(want - seen)}")
+    samples = parse_prometheus(prom_text)
+    families = {(s["name"], s["labels"].get("tenant")) for s in samples}
+    per_tenant = ["repro_span_seconds", "repro_span_seconds_count",
+                  "repro_span_seconds_sum", "repro_profile_achieved_flops",
+                  "repro_profile_achieved_bytes_per_second",
+                  "repro_profile_roofline_fraction",
+                  "repro_profile_bound_info", "repro_slo_budget_seconds",
+                  "repro_slo_latency_seconds", "repro_slo_burn_rate",
+                  "repro_slo_violations_total",
+                  "repro_resilience_failures_total",
+                  "repro_resilience_breaker_state",
+                  "repro_resilience_degrade_level"]
+    lost = [(name, t) for t in tenants for name in per_tenant
+            if (name, t) not in families]
+    lost += [("repro_profile_measured_lare", t) for t in SERVED
+             if ("repro_profile_measured_lare", t) not in families]
+    if ("repro_tracer_dropped_total", None) not in families:
+        lost.append(("repro_tracer_dropped_total", None))
+    if lost:
+        raise SmokeFailure(f"metrics.prom lacks {lost}")
+    log(f"instruments export: trace.json {len(events)} events = "
+        f"{n_spans} spans ({dep.tracer.dropped} dropped), metrics.prom "
+        f"{len(samples)} samples in {len({n for n, _ in families})} "
+        f"series names, every tenant's families read back")
+    log("instruments attribution\n" + dep.format_attribution())
+
+    rows = dep.profile()
+    log("instruments profile\n" + dep.format_profile())
+    profile_rows = {}
+    for r in rows:
+        if r.group is not None:
+            continue
+        profile_rows[f"{r.tenant} {r.kind}"] = {
+            "count": r.count, "p50_us": r.measured_p50_s * 1e6,
+            "ceiling_us": r.ceiling_s * 1e6, "bound": r.bound,
+            "fraction": r.roofline_fraction, "raw_fraction": r.raw_fraction,
+            "achieved_ops_per_s": r.achieved_flops,
+            "achieved_bytes_per_s": r.achieved_bytes_per_s,
+            "t_compute_us": r.t_compute_s * 1e6,
+            "t_memory_us": r.t_memory_s * 1e6,
+            "t_launch_us": r.t_launch_s * 1e6,
+            "measured_lare": r.measured_lare}
+    log("instruments profile rows " + json.dumps(profile_rows,
+                                                 sort_keys=True))
+    ceilings = dataclasses.asdict(dep.profile_hw())
+    log("instruments ceilings " + json.dumps(ceilings, sort_keys=True))
+
+    overhead = dep.graph_overhead()
+    log("instruments graph_overhead " + json.dumps(overhead, sort_keys=True))
+    for n in SERVED:
+        uf = overhead[n]["useful_fraction"]
+        if uf is None or abs(uf - 1.0) > USEFUL_TOL:
+            raise SmokeFailure(f"{n}: useful_fraction {uf}, want 1 within "
+                               f"{USEFUL_TOL}")
+
+    cost = trace_cost(dep)
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cli = {}
+    for label, argv in INSTRUMENT_CLI:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch", *argv],
+                              cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        cli[label] = {"rc": proc.returncode, "s": time.perf_counter() - t0}
+        tail = "\n".join(proc.stdout.splitlines()[-30:])
+        log(f"instruments cli {label}: rc {proc.returncode} in "
+            f"{cli[label]['s']:.1f} s\n{tail}")
+        if proc.returncode != 0:
+            raise SmokeFailure(f"python -m repro_torch {' '.join(argv)} "
+                               f"exited {proc.returncode}:\n{proc.stderr}")
+        out_dir = ROOT / argv[-1]
+        files = sorted(p.name for p in out_dir.iterdir())
+        want_files = ({"trace.json", "metrics.prom"} if label == "trace"
+                      else set()) | {
+            f"BENCH_{'serve' if label == 'trace' else 'profile'}_{n}.json"
+            for n in (*SERVED, cfg.name)}
+        if not want_files <= set(files):
+            raise SmokeFailure(f"{label} wrote {files}, want {want_files}")
+        cli[label]["files"] = files
+    readings = {"launches": launches, "work": work, "spans": n_spans,
+                "profile": profile_rows, "graph_overhead": overhead,
+                "trace_cost": cost, "cli": cli,
+                "wall_s": time.perf_counter() - t_phase}
+    log("instruments readings " + json.dumps(
+        {k: v for k, v in readings.items() if k != "profile"},
+        sort_keys=True))
+    del router, dep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"readings": readings, "launches": {"instruments": launches}}
+
+
 def edge_call_split(deps: dict, iters: int = BENCH_ITERS) -> dict:
     """The host parts of one graphed edge call (input copy, replay, output
     clone, stream synchronize; p50 us over ``iters`` calls), for each edge
@@ -3796,6 +4048,9 @@ def main(argv: list) -> int:
         scenarios = scenario_phase(fleet["deployment"], cfg, params)
         fleet["launches"].update(scenarios["launches"])
         fleet["fleet"]["scenarios"] = scenarios["readings"]
+        instruments = instruments_phase(cfg, params)
+        fleet["launches"].update(instruments["launches"])
+        fleet["fleet"]["instruments"] = instruments["readings"]
         fleet["fleet"]["edge_call_split_us"] = edge_call_split(
             {"phase 4": dep, "fleet": fleet["deployment"]})
         served = lm_serve_phase(cfg, params, tokens, per_step, per_tick)

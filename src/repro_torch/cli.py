@@ -8,12 +8,15 @@
     python -m repro_torch bench jet_tagger tau_select --json BENCH_deploy.json
     python -m repro_torch replay jet_tagger tau_select --scenario bursty
     python -m repro_torch chaos jet_tagger tau_select --lm recurrentgemma_2b
+    python -m repro_torch trace jet_tagger --lm recurrentgemma_2b
+    python -m repro_torch profile jet_tagger --lm recurrentgemma_2b
     python -m repro_torch check [PLAN_JSON ...] [--json] [--no-kernels]
 
 Every subcommand runs on the card unless ``--device cpu`` is given (the
 plain PyTorch path on the CPU); without a card it exits with an error.
-``plan``, ``deploy``, ``serve``, ``bench``, ``replay`` and ``chaos`` go
-through :class:`repro_torch.deploy.Deployment`: ``--lm ARCH`` adds an LM tenant
+``plan``, ``deploy``, ``serve``, ``bench``, ``replay``, ``chaos``,
+``trace`` and ``profile`` go through
+:class:`repro_torch.deploy.Deployment`: ``--lm ARCH`` adds an LM tenant
 (``recurrentgemma_2b`` or ``rwkv6_7b``, seeded weights; its smoke config,
 or the published one with ``--lm-config published``), ``--machine-model``
 picks the characterization (``auto`` by default; ``stock``, ``quick``,
@@ -28,6 +31,16 @@ replays a scenario under a fault burst against one tenant (armed after the
 warmup) and judges isolation and recovery: exit 0 only when the verdict is
 ``RECOVERED``.  Both write their ``BENCH_serve_*`` (and ``BENCH_chaos_*``)
 snapshots under ``--json-dir``.
+
+``trace`` builds with spans on, serves the smoke trace, writes the
+Chrome/Perfetto ``trace.json``, a Prometheus ``metrics.prom`` and the
+``BENCH_serve_*`` snapshots under ``--trace-out`` (default ``<--out>/obs``)
+and prints the plan-vs-measured attribution.  ``profile`` serves the same
+traffic and prints the roofline profile (achieved rates, the bound, the
+roofline fraction clamped and raw, the measured LARE) and each tenant's
+model FLOPs against its served step (``--no-graph`` skips that, where the
+JAX package's ``--no-hlo`` skips its HLO analysis); ``--json-dir`` writes
+``BENCH_profile_<net>.json``.  It exits 1 when no window was profiled.
 
 ``check`` verifies the plan or fleet artifacts given, or, with none, plans
 the five Table-I edge nets as one fleet and verifies that; then it runs the
@@ -151,13 +164,13 @@ def _specs(args) -> list:
     return specs
 
 
-def _build_deployment(args, *, stop_after=None):
+def _build_deployment(args, *, stop_after=None, trace=False):
     from repro_torch.deploy import Deployment
     return Deployment.build(
         _specs(args), target=getattr(args, "target", "h100"),
         machine_model=_machine_model_spec(args.machine_model),
         device=args.device, artifact_dir=args.out, stop_after=stop_after,
-        batch=args.batch)
+        batch=args.batch, trace=trace)
 
 
 def _print_fleet(fleet) -> None:
@@ -297,6 +310,96 @@ def cmd_bench(argv) -> int:
                                 sort_keys=True) + "\n")
         print(f"[wrote {p}]")
     return 0
+
+
+def cmd_trace(argv) -> int:
+    from repro_torch.serve.metrics import write_serve_snapshots
+    ap = _deploy_parser(
+        "python -m repro_torch trace",
+        "Traced end-to-end run: build and serve with spans on, then write "
+        "the Chrome/Perfetto trace.json, a Prometheus metrics snapshot and "
+        "per-tenant BENCH_serve_<net>.json rows (with per-span-kind "
+        "percentiles), and print the plan-vs-measured attribution table.",
+        out="deployments_torch")
+    ap.add_argument("--requests", type=int, default=3,
+                    help="LM smoke requests per LM tenant")
+    ap.add_argument("--trace-out", default=None, metavar="DIR",
+                    help="directory for trace.json, metrics.prom and "
+                         "BENCH_serve_*.json (default: <--out>/obs)")
+    args = ap.parse_args(argv)
+    try:
+        dep = _build_deployment(args, trace=True)
+    except RuntimeError as e:
+        print(f"trace: {e}", file=sys.stderr)
+        return 1
+    print(dep.summary())
+    report, bad = _serve_smoke(dep, iters=args.iters, requests=args.requests)
+    _print_report(report, bad)
+    out = pathlib.Path(args.trace_out or pathlib.Path(args.out) / "obs")
+    trace_path = dep.export_trace(out / "trace.json")
+    prom_path = dep.export_prometheus(out / "metrics.prom")
+    bench_paths = write_serve_snapshots(
+        report, out, meta={"source": "python -m repro_torch trace",
+                           "device": str(dep.device)})
+    print("\nplan-vs-measured attribution:")
+    print(dep.format_attribution())
+    print(f"\nwrote {trace_path}   (load at https://ui.perfetto.dev)")
+    print(f"wrote {prom_path}")
+    for p in bench_paths:
+        print(f"wrote {p}")
+    return 1 if bad else 0
+
+
+def cmd_profile(argv) -> int:
+    ap = _deploy_parser(
+        "python -m repro_torch profile",
+        "Roofline-attributed profiling: serve the smoke traffic, then join "
+        "the measured span windows with the plans' work (FLOPs, bytes, "
+        "launches) and the card's ceilings: achieved rates, a "
+        "compute/memory/launch bound, the roofline fraction and the "
+        "measured LARE per tenant, and the plan's model FLOPs against what "
+        "each tenant's served step runs.", out="deployments_torch")
+    ap.add_argument("--requests", type=int, default=3,
+                    help="LM smoke requests per LM tenant")
+    ap.add_argument("--json-dir", default=None, metavar="DIR",
+                    help="write BENCH_profile_<net>.json snapshots here")
+    ap.add_argument("--no-graph", action="store_true",
+                    help="skip the served steps' FLOP count (one eager "
+                         "step per engine; the JAX package's --no-hlo)")
+    args = ap.parse_args(argv)
+    try:
+        dep = _build_deployment(args, trace=True)
+    except RuntimeError as e:
+        print(f"profile: {e}", file=sys.stderr)
+        return 1
+    _, bad = _serve_smoke(dep, iters=args.iters, requests=args.requests)
+    rows = dep.profile()
+    print(dep.format_profile())
+    if not rows:
+        print("no profiled windows: did the smoke traffic run?",
+              file=sys.stderr)
+        return 1
+    print("\nraw roofline fraction (unclamped):")
+    for r in rows:
+        if r.group is None and r.raw_fraction is not None:
+            print(f"  {r.tenant:<18} {r.kind:<14} raw={r.raw_fraction:.4f}")
+    if not args.no_graph:
+        print("\nserved-step overhead (plan model FLOPs vs the step):")
+        for nid, ov in sorted(dep.graph_overhead().items()):
+            uf = ov["useful_fraction"]
+            useful = f"{uf:.4f}" if uf is not None else "-"
+            print(f"  {nid:<18} model={ov['model_flops']:.4g} "
+                  f"graph={ov['graph_flops']:.4g} "
+                  f"bytes={ov['graph_bytes']:.4g} useful={useful}")
+    if args.json_dir:
+        from repro_torch.obs import write_profile_snapshots
+        paths = write_profile_snapshots(
+            rows, args.json_dir,
+            meta={"source": "python -m repro_torch profile",
+                  "device": str(dep.device)})
+        for p in paths:
+            print(f"wrote {p}")
+    return 1 if bad else 0
 
 
 def _scenario_args(ap) -> None:
@@ -550,7 +653,8 @@ def cmd_chaos(argv) -> int:
 
 _SUBCOMMANDS = {"characterize": cmd_characterize, "plan": cmd_plan,
                 "deploy": cmd_deploy, "serve": cmd_serve, "bench": cmd_bench,
-                "replay": cmd_replay, "chaos": cmd_chaos, "check": cmd_check}
+                "replay": cmd_replay, "chaos": cmd_chaos, "trace": cmd_trace,
+                "profile": cmd_profile, "check": cmd_check}
 
 
 def main(argv=None) -> int:

@@ -28,6 +28,12 @@ of a set with a roofline model of this card and keeps the cheapest;
 :func:`plan_fused_dense` adds to that model a device-memory round trip per
 K stage.  All are memoised, since the kernel wrappers plan on every
 call.
+
+The paper's own single-tile model of one AI-Engine tile closes the module
+(:func:`aie_tile_latency`, :func:`aie_tile_interval`,
+:func:`aie_best_single_tile`): the JAX package's copy, framework-free, which
+:func:`repro_torch.core.lare.lare` reads for its default AIE interval.  No
+plan of the card reads it.
 """
 
 from __future__ import annotations
@@ -272,3 +278,89 @@ def plan_tiled(m: int, k: int, n: int, *, itemsize: int = 2,
     return _search(m, k, n, (TC_BLOCK_M, (tc_block_k(itemsize),), TC_BLOCK_N),
                    itemsize, rates[itemsize], hw, _TC_SMEM[itemsize],
                    out_bytes=4 if itemsize == 1 else 2, rereads=False)
+
+
+# --------------------------------------------------------------------------
+# The paper's AIE-ML single-tile model (calibrated to its Figs. 4-6)
+# --------------------------------------------------------------------------
+
+_AIE_CALL_OVERHEAD_CYC = 6        # per aie::mmul macro-call loop overhead
+_AIE_DMA_SETUP_CYC = 220          # per-tile DMA/lock setup per inference
+_AIE_UNROLL = 2                   # manual 2x2x2 unrolling (paper IV-C)
+
+
+def aie_api_legal(s: tuple[int, int, int], m: int, q_k: int, q_n: int,
+                  aie: hwlib.AieMl = hwlib.AIE_ML) -> bool:
+    s_m, s_k, s_n = s
+    if (s_m, s_k, s_n) not in aie.legal_api_tiles_i8:
+        return False
+    # 2x unrolling makes the effective tile twice the base size per dim.
+    return (m % (s_m * _AIE_UNROLL) == 0 and q_k % (s_k * _AIE_UNROLL) == 0
+            and q_n % (s_n * _AIE_UNROLL) == 0)
+
+
+def aie_tile_latency(m: int, q_k: int, q_n: int,
+                     s: tuple[int, int, int] = (4, 8, 8),
+                     aie: hwlib.AieMl = hwlib.AIE_ML) -> float:
+    """Latency (s) of one (m, q_k, q_n) i8 GEMM on ONE AIE-ML compute tile.
+
+    Model: compute cycles at the API shape's calibrated efficiency, local-
+    memory load cycles for the A/B sub-tiles (2x256-bit loads/cycle), per-call
+    loop overhead, and fixed DMA/lock setup.  Shape asymmetry (paper Fig. 4:
+    up to 2x faster when q_n > q_k) enters through the output-accumulator
+    utilization factor.
+    """
+    s_m, s_k, s_n = s
+    r_m = math.ceil(m / (s_m * _AIE_UNROLL))
+    r_k = math.ceil(q_k / (s_k * _AIE_UNROLL))
+    r_n = math.ceil(q_n / (s_n * _AIE_UNROLL))
+    calls = r_m * r_k * r_n
+    macs_per_call = (s_m * s_k * s_n) * _AIE_UNROLL**3
+    eff = aie.api_efficiency(s_m, s_k, s_n)
+    # Output-stationarity: wide-N workloads keep the 2x-unrolled accumulators
+    # busy; K-heavy workloads serialize on the reduction chain.
+    shape_util = min(1.0, 0.55 + 0.45 * min(2.0, q_n / max(q_k, 1)) / 2.0 * 2)
+    if q_k > q_n:
+        shape_util = max(0.5, 1.0 - 0.25 * math.log2(q_k / q_n))
+    compute_cyc = calls * macs_per_call / (aie.macs_per_cycle_int8 * eff * shape_util)
+    # Local-memory traffic: A and B sub-tiles re-read per call (64 B/cycle).
+    load_cyc = calls * (s_m * s_k + s_k * s_n) * _AIE_UNROLL**2 / 64.0
+    cyc = max(compute_cyc, load_cyc) + calls * _AIE_CALL_OVERHEAD_CYC / _AIE_UNROLL \
+        + _AIE_DMA_SETUP_CYC
+    return cyc / aie.clock_hz
+
+
+def aie_tile_interval(m: int, q_k: int, q_n: int,
+                      s: tuple[int, int, int] = (4, 8, 8),
+                      aie: hwlib.AieMl = hwlib.AIE_ML) -> float:
+    """STEADY-STATE initiation interval (s) of one tile — the paper's
+    throughput measure (Fig. 2/Table I report MHz = batch/interval).
+
+    Unlike :func:`aie_tile_latency`, per-inference setup (DMA locks, loop
+    prologue) pipelines away; the interval is bound by the slowest of
+    compute, the 32-bit input stream, and the 32-bit output stream.
+    """
+    s_m, s_k, s_n = s
+    eff = aie.api_efficiency(s_m, s_k, s_n)
+    shape_util = min(1.0, 0.55 + 0.45 * min(2.0, q_n / max(q_k, 1)))
+    shape_util = max(0.5, min(shape_util, 1.0))
+    compute_cyc = (m * q_k * q_n) / (aie.macs_per_cycle_int8 * eff * shape_util)
+    stream_in_cyc = (m * q_k) / (aie.stream_bits / 8)
+    stream_out_cyc = (m * q_n) / (aie.stream_bits / 8)
+    return max(compute_cyc, stream_in_cyc, stream_out_cyc) / aie.clock_hz
+
+
+def aie_best_single_tile(m: int, k: int, n: int,
+                         aie: hwlib.AieMl = hwlib.AIE_ML,
+                         ) -> tuple[tuple[int, int, int], float]:
+    """DR1 search: best legal API tile for a single-tile workload."""
+    best = None
+    for s in aie.legal_api_tiles_i8:
+        if not aie_api_legal(s, m, k, n, aie):
+            continue
+        t = aie_tile_latency(m, k, n, s, aie)
+        if best is None or t < best[1]:
+            best = (s, t)
+    if best is None:  # fall back: pad to the default shape
+        best = ((4, 8, 8), aie_tile_latency(m, k, n, (4, 8, 8), aie))
+    return best

@@ -418,6 +418,94 @@ class Deployment:
         self.ctx.fleet = fleet
         return fleet
 
+    # -- the instruments -------------------------------------------------
+    def export_trace(self, path="trace.json"):
+        """Write the span stream as a Chrome/Perfetto ``trace.json`` (load
+        at https://ui.perfetto.dev); returns the path."""
+        from repro_torch.obs import write_chrome
+        return write_chrome(self.tracer.spans, path,
+                            dropped=self.tracer.dropped)
+
+    def export_prometheus(self, path="metrics.prom"):
+        """Write the per-(tenant, kind) span aggregates as a Prometheus
+        text-exposition snapshot, with the tracer's dropped-span counter
+        and, once serving, the SLO, profile and ``repro_resilience_*``
+        families; returns the path."""
+        from repro_torch.obs import aggregate, write_prometheus
+        slo = self.slo
+        return write_prometheus(
+            aggregate(self.tracer.spans), path,
+            dropped=self.tracer.dropped if self.tracer.enabled else None,
+            slo=slo.snapshot() if slo is not None else None,
+            profile=self.profile() or None,
+            resilience=self.health() or None)
+
+    def attribution(self):
+        """Plan-vs-measured rows per (tenant, span kind): see
+        :func:`repro_torch.obs.attribution`."""
+        from repro_torch.obs import attribution as attr
+        return attr(self.plans, self.tracer.spans)
+
+    def format_attribution(self) -> str:
+        from repro_torch.obs import format_attribution
+        return format_attribution(self.attribution(), slo=self.slo,
+                                  profile=self.profile())
+
+    def profile_hw(self):
+        """The ceilings this deployment was planned under: the fitted
+        machine model's ``h100()`` when one was characterized, a caller's
+        ``hw.H100`` as given, else the stock :data:`repro_torch.hw.
+        H100_SXM`, the constants the planner read."""
+        from repro_torch import hw as hwlib
+        model = self.ctx.model
+        if model is None:
+            return hwlib.H100_SXM
+        return model if isinstance(model, hwlib.H100) else model.h100()
+
+    def _profile_stats(self) -> dict:
+        """Measured ``(tenant, kind)`` windows: the tracer's spans when
+        tracing is on, else the engines' always-on windows
+        (``span_stats()``), so profiling needs no ``trace=True``."""
+        from repro_torch.obs import aggregate
+        if self.tracer.enabled and self.tracer.spans:
+            return aggregate(self.tracer.spans)
+        return {(nid, kind): agg
+                for nid, eng in self.ctx.engines.items()
+                for kind, agg in eng.span_stats().items()}
+
+    def profile(self, *, hw=None) -> list:
+        """Roofline rows (:func:`repro_torch.obs.profile.profile`) per
+        measured (tenant, span kind) window and per fusion group: achieved
+        FLOP/s and bytes/s, the ceiling, the bound, the roofline fraction
+        clamped and raw, and each tenant's measured LARE.  Empty until
+        traffic has been served (or :meth:`bench` has run)."""
+        from repro_torch.obs import profile as prof
+        return prof(self.plans, self._profile_stats(),
+                    hw=hw if hw is not None else self.profile_hw())
+
+    def format_profile(self) -> str:
+        from repro_torch.obs import format_profile
+        return format_profile(self.profile())
+
+    def graph_overhead(self) -> dict:
+        """Per tenant, the plan's model FLOPs against what its served step
+        runs (:func:`repro_torch.launch.graph_analysis.graph_overhead`):
+        the edge engine's forward, the batcher's decode tick.  The batcher
+        decodes all its slots a tick, so its model FLOPs scale by the slot
+        count, as the JAX package's ``hlo_overhead`` scales them."""
+        from repro_torch.launch.graph_analysis import graph_overhead
+        out = {}
+        for nid, eng in self.engines.items():
+            plan = self.plans.get(nid)
+            if plan is None or not plan.layers:
+                continue
+            model_flops = plan.work()["flops"]
+            slots = getattr(eng, "slots", None)
+            if slots:
+                model_flops *= slots
+            out[nid] = graph_overhead(model_flops, eng)
+        return out
+
     def summary(self) -> str:
         """The stages and the tenants, one line each (the CLI's deploy
         report)."""

@@ -25,6 +25,8 @@ import torch
 from repro_torch.kernels import build
 
 launches = 0          # kernel launches since the last reset (plain int)
+flops = 0.0           # their work record (``work``): FLOPs and bytes,
+bytes_moved = 0.0     # added where ``launches`` is
 
 NEG = -0.7 * torch.finfo(torch.float32).max
 MAX_HEAD_DIM = 256
@@ -55,6 +57,32 @@ def _check(q, k, v, *, window, softcap, q_offset) -> None:
             or not 0 <= q_offset <= MAX_POSITION - q.shape[2]:
         raise ValueError(f"flash_attention: q_offset must be an int in "
                          f"[0, {MAX_POSITION} - S], got {q_offset!r}")
+
+
+@functools.lru_cache(maxsize=256)
+def band_pairs(s: int, sk: int, *, causal: bool, window: int | None,
+               q_offset: int) -> int:
+    """The (query, key) pairs of one head the mask keeps: query i at
+    position ``q_offset + i`` sees key j when ``j <= q_offset + i``
+    (causal) and ``j > q_offset + i - window``."""
+    total = 0
+    for p in range(q_offset, q_offset + s):
+        hi = min(sk - 1, p) if causal else sk - 1
+        lo = max(0, p - window + 1) if window is not None else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def work(b: int, hq: int, hkv: int, s: int, sk: int, d: int, itemsize: int,
+         *, causal: bool, window: int | None,
+         q_offset: int) -> tuple[float, int]:
+    """FLOPs and bytes of one launch: ``4 D`` a kept (query, key) pair and
+    query head (Q.K^T and P.V, :func:`band_pairs`); q, k and v read once,
+    the output written once."""
+    pairs = band_pairs(s, sk, causal=causal, window=window,
+                       q_offset=q_offset)
+    nbytes = itemsize * (2 * b * hq * s * d + 2 * b * hkv * sk * d)
+    return 4.0 * d * pairs * b * hq, nbytes
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -110,7 +138,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     may be strided views (the model passes head-transposed projections)
     as long as the last dimension is contiguous and every stride is a
     multiple of 8 elements; the output is contiguous."""
-    global launches
+    global launches, flops, bytes_moved
     _check(q, k, v, window=window, softcap=softcap, q_offset=q_offset)
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
         raise ValueError("flash_attention_cuda: q, k, v must lie on one CUDA "
@@ -147,4 +175,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention: CUDA error {err}")
     launches += 1
+    f, nb = work(b, hq, hkv, s, sk, d, q.element_size(), causal=causal,
+                 window=window, q_offset=q_offset)
+    flops, bytes_moved = flops + f, bytes_moved + nb
     return out

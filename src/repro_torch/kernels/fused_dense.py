@@ -29,6 +29,8 @@ from repro_torch.core import tiling
 from repro_torch.kernels import build
 
 launches = 0          # kernel launches since the last reset (plain int)
+flops = 0.0           # their work record (``work``): FLOPs and bytes,
+bytes_moved = 0.0     # added where ``launches`` is
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # In the order of csrc/fused_dense.cu's Act codes.
@@ -46,6 +48,16 @@ ACTS = tuple(_ACTIVATE)
 def _check_act(act: str) -> None:
     if act not in ACTS:
         raise ValueError(f"fused_dense: act {act!r} is not one of {ACTS}")
+
+
+def work(m: int, k: int, n: int, itemsize: int, bias_itemsize: int,
+         out_itemsize: int, residual: bool) -> tuple[float, int]:
+    """FLOPs and bytes of one (m, k, n) launch: ``2mkn`` (the bias, the
+    activation and the residual are not counted); x, w, the bias and the
+    residual read once, the output written once."""
+    nbytes = (itemsize * (m * k + k * n) + bias_itemsize * n
+              + out_itemsize * m * n * (2 if residual else 1))
+    return 2.0 * m * k * n, nbytes
 
 
 def fused_dense_contract(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -121,7 +133,7 @@ def fused_dense_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                      block_n: int,
                      out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Launch ``csrc/fused_dense.cu`` on ``x``'s device and stream."""
-    global launches
+    global launches, flops, bytes_moved
     shape, out_dtype = fused_dense_contract(
         x, w, b, residual, act=act, block_m=block_m, block_k=block_k,
         block_n=block_n, out_dtype=out_dtype)
@@ -147,4 +159,7 @@ def fused_dense_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"fused_dense: CUDA error {err}")
     launches += 1
+    f, nb = work(m, k, n, x.element_size(), b.element_size(),
+                 out.element_size(), residual is not None)
+    flops, bytes_moved = flops + f, bytes_moved + nb
     return out

@@ -41,6 +41,8 @@ HEAD_BYTES = 36 * MAX_LAYERS   # per layer: mbarrier, input scale, record
 MAX_SMEM = 232_448    # dynamic shared memory one block may use (H100)
 
 launches = 0          # kernel launches since the last reset (plain int)
+flops = 0.0           # their work record (``work``): FLOPs and bytes,
+bytes_moved = 0.0     # added where ``launches`` is
 
 
 def _ceil_to(x: int, q: int) -> int:
@@ -215,6 +217,19 @@ def _check(err: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
+@functools.lru_cache(maxsize=256)
+def work(m: int, dims: tuple[int, ...]) -> tuple[float, int]:
+    """FLOPs and bytes of one launch of ``m`` rows through the group of
+    widths ``dims``: ``2 m k n`` a layer; x read in f32, the int8 weights,
+    each layer's f32 scales and biases and its input scale read once, the
+    f32 output written once.  Memoised: every served launch asks again."""
+    shapes = list(zip(dims[:-1], dims[1:]))
+    macs = sum(k * n for k, n in shapes)
+    nbytes = (4 * m * dims[0] + macs + sum(2 * 4 * n for n in dims[1:])
+              + 4 * len(shapes) + 4 * m * dims[-1])
+    return 2.0 * m * macs, nbytes
+
+
 def fused_mlp_q8_contract(x: torch.Tensor, dims):
     """The kernel's argument checks on the input and the group's widths
     ``dims`` (input first) alone (meta tensors do): returns the output's
@@ -234,7 +249,7 @@ def fused_mlp_q8_contract(x: torch.Tensor, dims):
 
 def fused_mlp_q8_cuda(x: torch.Tensor, g: FusedGroup) -> torch.Tensor:
     """Launch ``csrc/fused_mlp_q8.cu`` on ``x``'s device and stream."""
-    global launches
+    global launches, flops, bytes_moved
     shape, dtype = fused_mlp_q8_contract(x, g.dims)
     tensors = (x, g.pack, g.xs)
     if not all(t.is_cuda and t.device == x.device for t in tensors):
@@ -253,6 +268,8 @@ def fused_mlp_q8_cuda(x: torch.Tensor, g: FusedGroup) -> torch.Tensor:
         stream)
     _check(err, "fused_mlp_q8")
     launches += 1
+    f, nb = work(m, g.dims)
+    flops, bytes_moved = flops + f, bytes_moved + nb
     return out
 
 

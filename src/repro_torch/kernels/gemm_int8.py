@@ -18,6 +18,8 @@ from repro_torch.core import tiling
 from repro_torch.kernels import build
 
 launches = 0          # kernel launches since the last reset (plain int)
+flops = 0.0           # their work record (``work``): FLOPs and bytes,
+bytes_moved = 0.0     # added where ``launches`` is
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -42,6 +44,12 @@ def _lib() -> ctypes.CDLL:
                                     ci, ci, ci, ci, ci, vp]
     lib.repro_gemm_int8.restype = ci
     return lib
+
+
+def work(m: int, k: int, n: int, out_itemsize: int) -> tuple[float, int]:
+    """FLOPs and bytes of one (m, k, n) launch: ``2mkn``; x and w read
+    once (int8), the f32 scales once, the output written once."""
+    return 2.0 * m * k * n, m * k + k * n + 4 * n + out_itemsize * m * n
 
 
 def gemm_int8_contract(x: torch.Tensor, w: torch.Tensor,
@@ -73,7 +81,7 @@ def gemm_int8_cuda(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
                    block_n: int,
                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Launch ``csrc/gemm_int8.cu`` on ``x``'s device and stream."""
-    global launches
+    global launches, flops, bytes_moved
     shape, out_dtype = gemm_int8_contract(
         x, w, w_scale, block_m=block_m, block_k=block_k, block_n=block_n,
         out_dtype=out_dtype)
@@ -98,4 +106,6 @@ def gemm_int8_cuda(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"gemm_int8: CUDA error {err}")
     launches += 1
+    f, nb = work(m, k, n, out.element_size())
+    flops, bytes_moved = flops + f, bytes_moved + nb
     return out

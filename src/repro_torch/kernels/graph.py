@@ -21,7 +21,10 @@ reaches.  So a graph's launches per replay are read off its own kernel
 nodes (:data:`KERNEL_FUNCTIONS`), and each replay adds them to the
 counters, which keep meaning "kernels run".  The wrappers also count the
 launches they issue into a capture, which runs nothing: the capture puts
-the counters back.
+the counters back.  The kernels' work records (FLOPs and bytes,
+:func:`ops.work_counts`) follow them: the capture keeps what the wrappers
+recorded into it as the graph's ``work`` and puts the records back, and
+each replay adds ``work``.
 """
 
 from __future__ import annotations
@@ -145,9 +148,10 @@ class StepGraph:
     """``step`` (no arguments, static inputs) on ``device``, captured at its
     first call and replayed after (see the module doc).
 
-    ``launches`` is the kernel launches one replay makes, ``nodes`` what
-    :func:`graph_nodes` read from the captured graph; both are None until
-    the capture."""
+    ``launches`` is the kernel launches one replay makes, ``work`` the
+    work records one replay adds to the kernels it launches
+    (:func:`ops.work_counts`), ``nodes`` what :func:`graph_nodes` read
+    from the captured graph; all are None until the capture."""
 
     def __init__(self, step, device: torch.device):
         if device.type != "cuda":
@@ -156,6 +160,7 @@ class StepGraph:
         self.device = device
         self.graph: torch.cuda.CUDAGraph | None = None
         self.launches: dict[str, int] | None = None
+        self.work: dict[str, dict[str, float]] | None = None
         self.nodes: dict | None = None
         self.replays = 0
         self._out = None
@@ -165,6 +170,7 @@ class StepGraph:
             return self._capture()
         self.graph.replay()
         ops.add_launches(self.launches)
+        ops.add_work(self.work)
         self.replays += 1
         return self._out
 
@@ -177,7 +183,7 @@ class StepGraph:
         current.wait_stream(side)
         for t in _tensors(out):
             t.record_stream(current)
-        before = ops.launch_counts()
+        before, work_before = ops.launch_counts(), ops.work_counts()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         # An unreachable graph, event or pinned buffer that the cyclic
         # collector frees during the capture would call into CUDA from
@@ -192,6 +198,10 @@ class StepGraph:
             if collecting:
                 gc.enable()
         ops.set_launches(before)
+        # Only the kernels the step launches: a replay adds each entry.
+        self.work = {k: w for k, w in ops.work_since(work_before).items()
+                     if w["flops"] or w["bytes"]}
+        ops.set_work(work_before)
         self.nodes = graph_nodes(graph)
         self.launches = kernel_launches(self.nodes["kernels"])
         graph.instantiate()

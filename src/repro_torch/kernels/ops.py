@@ -20,17 +20,24 @@ from repro_torch.kernels import tiled_gemm as _tg
 from repro_torch.kernels.fused_mlp import FusedGroup, pack_group
 
 
-# Each kernel's module, which holds its launch counter (``launches``).  A
-# wrapper adds one where it launches its kernel; a replayed CUDA graph adds
-# the launches its capture recorded (kernels/graph.py).
+# Each kernel's module, which holds its launch counter (``launches``) and
+# beside it its work record (``flops``, ``bytes_moved``: the module's
+# ``work`` of each launch's shapes).  A wrapper adds to both where it
+# launches its CUDA kernel, never on the CPU branch (the plain versions are
+# aten ops, which ``torch.utils.flop_counter`` counts itself); a replayed
+# CUDA graph adds the launches and the work its capture recorded
+# (kernels/graph.py).  The kernels are ctypes launches, which neither
+# ``FlopCounterMode`` nor ``torch.profiler`` sees: the record is what makes
+# a captured step's arithmetic visible.
 _COUNTERS = {"fused_mlp_q8": _fm, "gemm_int8": _g8, "flash_attention": _fa,
              "linear_scan": _rg, "rwkv6_scan": _rw, "tiled_gemm": _tg,
              "fused_dense": _fd}
 
 
 def reset_launches() -> None:
-    """Zero every kernel's launch counter."""
+    """Zero every kernel's launch counter and work record."""
     set_launches(dict.fromkeys(_COUNTERS, 0))
+    set_work({name: {"flops": 0.0, "bytes": 0.0} for name in _COUNTERS})
 
 
 def launch_counts() -> dict[str, int]:
@@ -47,6 +54,32 @@ def add_launches(counts: dict[str, int]) -> None:
     """Add ``counts[kernel]`` to each kernel's launch counter."""
     for name, n in counts.items():
         _COUNTERS[name].launches += n
+
+
+def work_counts() -> dict[str, dict[str, float]]:
+    """Each kernel's work record: ``{kernel: {"flops", "bytes"}}``."""
+    return {name: {"flops": mod.flops, "bytes": mod.bytes_moved}
+            for name, mod in _COUNTERS.items()}
+
+
+def set_work(work: dict[str, dict[str, float]]) -> None:
+    """Set every kernel's work record to ``work[kernel]``."""
+    for name, mod in _COUNTERS.items():
+        mod.flops, mod.bytes_moved = work[name]["flops"], work[name]["bytes"]
+
+
+def add_work(work: dict[str, dict[str, float]]) -> None:
+    """Add ``work[kernel]`` to each kernel's work record."""
+    for name, w in work.items():
+        mod = _COUNTERS[name]
+        mod.flops += w["flops"]
+        mod.bytes_moved += w["bytes"]
+
+
+def work_since(before: dict[str, dict[str, float]]) -> dict:
+    """The work recorded since ``before`` (a :func:`work_counts`)."""
+    return {name: {key: w[key] - before[name][key] for key in w}
+            for name, w in work_counts().items()}
 
 
 def fused_group(x: torch.Tensor, g: FusedGroup) -> torch.Tensor:

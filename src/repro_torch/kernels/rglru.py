@@ -22,6 +22,8 @@ import torch
 from repro_torch.kernels import build
 
 launches = 0          # kernel launches since the last reset (plain int)
+flops = 0.0           # their work record (``work``): FLOPs and bytes,
+bytes_moved = 0.0     # added where ``launches`` is
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # T from which a launch takes the two-pass chunked scan.  Shorter T (the
@@ -35,6 +37,12 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
     if a.dim() != 3 or a.shape != b.shape:
         raise ValueError(f"linear_scan: want a, b of one shape (B, T, D), "
                          f"got {tuple(a.shape)} and {tuple(b.shape)}")
+
+
+def work(numel: int, itemsize: int) -> tuple[float, int]:
+    """FLOPs and bytes of one launch over ``numel`` elements: a multiply
+    and an add each; a and b read once, h written once."""
+    return 2.0 * numel, 3 * itemsize * numel
 
 
 def linear_scan_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -69,7 +77,7 @@ def linear_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch ``csrc/linear_scan.cu`` on a's device and stream: the
     two-pass chunked scan when T >= ``CHUNKED_MIN_T`` (its workspace from
     the caching allocator, no host sync), else the sequential kernel."""
-    global launches
+    global launches, flops, bytes_moved
     _check(a, b)
     if not (a.is_cuda and b.device == a.device):
         raise ValueError("linear_scan_cuda: a and b must lie on one CUDA "
@@ -102,4 +110,6 @@ def linear_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"linear_scan: CUDA error {err}")
     launches += 1
+    f, nb = work(out.numel(), out.element_size())
+    flops, bytes_moved = flops + f, bytes_moved + nb
     return out

@@ -34,6 +34,8 @@ import torch
 from repro_torch.kernels import build
 
 launches = 0          # kernel launches since the last reset (plain int)
+flops = 0.0           # their work record (``work``): FLOPs and bytes,
+bytes_moved = 0.0     # added where ``launches`` is
 
 HEAD_DIMS = (32, 64, 128)       # the head sizes the CUDA kernel is built for
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -66,6 +68,18 @@ def _check(r, k, v, w, u, state0) -> int:
         raise ValueError(f"rwkv6_scan: want state0 ({bh}, {d}, {d}), got "
                          f"{tuple(state0.shape)}")
     return u.shape[0]
+
+
+def work(bh: int, t: int, d: int, heads: int, itemsize: int, *,
+         state_in: bool, state_out: bool) -> tuple[float, int]:
+    """FLOPs and bytes of one launch over ``(bh, t, d)``: ``5 D^2 + 5 D``
+    a row and step (r.S, r.(u*k), the bonus, the decay and the k v^T
+    update); r, k, v read and the output written at ``itemsize``, w read in
+    f32, u once a head, and the f32 state read and written when carried."""
+    n = bh * t * d
+    nbytes = 4 * n * itemsize + 4 * n + 4 * heads * d
+    nbytes += 4 * bh * d * d * (int(state_in) + int(state_out))
+    return bh * t * (5.0 * d * d + 5.0 * d), nbytes
 
 
 def rwkv6_scan_plain(r, k, v, w, u, *, state0=None,
@@ -116,7 +130,7 @@ def rwkv6_scan_cuda(r, k, v, w, u, *, state0=None,
     views with a contiguous last axis; u and state0 are made contiguous
     (state0 also 16-byte aligned).  The output and the final state are new
     contiguous tensors."""
-    global launches
+    global launches, flops, bytes_moved
     h = _check(r, k, v, w, u, state0)
     ts = (r, k, v, w, u) + (() if state0 is None else (state0,))
     if not all(t.is_cuda and t.device == r.device for t in ts):
@@ -170,4 +184,7 @@ def rwkv6_scan_cuda(r, k, v, w, u, *, state0=None,
     if err != 0:
         raise RuntimeError(f"rwkv6_scan: CUDA error {err}")
     launches += 1
+    f, nb = work(bh, t_len, d, h, r.element_size(), state_in=s0 is not None,
+                state_out=return_state)
+    flops, bytes_moved = flops + f, bytes_moved + nb
     return (out, s_fin) if return_state else out

@@ -21,6 +21,8 @@ from repro_torch.core import tiling
 from repro_torch.kernels import build
 
 launches = 0          # kernel launches since the last reset (plain int)
+flops = 0.0           # their work record (``work``): FLOPs and bytes,
+bytes_moved = 0.0     # added where ``launches`` is
 
 _DTYPE_CODE = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
 
@@ -28,6 +30,13 @@ _DTYPE_CODE = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
 def out_dtype(dtype: torch.dtype) -> torch.dtype:
     """int8 operands give int32; f32 and bf16 keep their dtype."""
     return torch.int32 if dtype == torch.int8 else dtype
+
+
+def work(m: int, k: int, n: int, itemsize: int,
+         out_itemsize: int) -> tuple[float, int]:
+    """FLOPs and bytes of one (m, k, n) launch: ``2mkn``; x and w read
+    once, the output written once."""
+    return 2.0 * m * k * n, itemsize * (m * k + k * n) + out_itemsize * m * n
 
 
 def tiled_gemm_contract(x: torch.Tensor, w: torch.Tensor, *, block_m: int,
@@ -75,7 +84,7 @@ def _lib() -> ctypes.CDLL:
 def tiled_gemm_cuda(x: torch.Tensor, w: torch.Tensor, *, block_m: int,
                     block_k: int, block_n: int) -> torch.Tensor:
     """Launch ``csrc/tiled_gemm.cu`` on ``x``'s device and stream."""
-    global launches
+    global launches, flops, bytes_moved
     shape, dtype = tiled_gemm_contract(x, w, block_m=block_m,
                                        block_k=block_k, block_n=block_n)
     if not (x.is_cuda and w.device == x.device):
@@ -95,4 +104,6 @@ def tiled_gemm_cuda(x: torch.Tensor, w: torch.Tensor, *, block_m: int,
     if err != 0:
         raise RuntimeError(f"tiled_gemm: CUDA error {err}")
     launches += 1
+    f, nb = work(m, k, n, x.element_size(), out.element_size())
+    flops, bytes_moved = flops + f, bytes_moved + nb
     return out

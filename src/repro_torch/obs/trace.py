@@ -10,6 +10,7 @@ default is permanently disabled, so tracing off costs one branch.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 import threading
 import time
@@ -27,6 +28,10 @@ class Span:
     @property
     def t1_s(self) -> float:
         return self.t0_s + self.dur_s
+
+    def to_dict(self) -> dict:
+        return {"name": self.name, "t0_s": self.t0_s, "dur_s": self.dur_s,
+                "trace_id": self.trace_id, "attrs": dict(self.attrs)}
 
 
 class _SpanCtx:
@@ -70,6 +75,7 @@ class Tracer:
         self.dropped = 0
         self._spans: list[Span] = []
         self._lock = threading.Lock()
+        self._trace_ids = itertools.count(1)
 
     def span(self, name: str, *, trace=None, **attrs):
         """Context manager timing the enclosed block (a shared no-op when
@@ -91,17 +97,33 @@ class Tracer:
                 return
             self._spans.append(s)
 
+    def next_trace_id(self) -> int:
+        """A fresh trace id of this tracer (for callers without a request
+        id)."""
+        return next(self._trace_ids)
+
     @property
     def spans(self) -> list[Span]:
         """A snapshot copy."""
         with self._lock:
             return list(self._spans)
 
+    def by_trace(self, trace_id) -> list[Span]:
+        return [s for s in self.spans if s.trace_id == trace_id]
+
     def by_name(self, name: str) -> list[Span]:
         return [s for s in self.spans if s.name == name]
 
+    def clear(self) -> None:
+        with self._lock:
+            self._spans.clear()
+            self.dropped = 0
+
     def __len__(self) -> int:
         return len(self._spans)
+
+    def __bool__(self) -> bool:            # "if tracer:" is "tracing on"
+        return self.enabled
 
 
 class _NullTracer(Tracer):

@@ -93,6 +93,26 @@ class FusionGroup:
         return cls(**d)
 
 
+def _derive_fusion_groups(layers) -> tuple[FusionGroup, ...]:
+    """Fusion groups from the layers' ``fuse_group`` ids, for a plan
+    without a ``fusion_groups`` section (a hand-built plan): consecutive
+    layers sharing an id form one group, whose estimate is the members'
+    summed estimate."""
+    groups: list[FusionGroup] = []
+    for l in layers:
+        if groups and l.fuse_group == groups[-1].id:
+            g = groups[-1]
+            groups[-1] = FusionGroup(
+                id=g.id, layers=g.layers + (l.index,),
+                est_latency_s=g.est_latency_s + l.est_latency_s * l.repeat,
+                vmem_bytes=g.vmem_bytes)
+        else:
+            groups.append(FusionGroup(
+                id=l.fuse_group, layers=(l.index,),
+                est_latency_s=l.est_latency_s * l.repeat))
+    return tuple(groups)
+
+
 @dataclasses.dataclass(frozen=True)
 class BoundaryPlan:
     after_layer: int
@@ -131,8 +151,68 @@ class DeploymentPlan:
         return self.layers[index]
 
     def groups(self) -> list[list[int]]:
-        """Executable launch groups as layer-index lists."""
-        return [list(g.layers) for g in self.fusion_groups]
+        """Executable launch groups as layer-index lists (a plan without a
+        ``fusion_groups`` section: its layers' ``fuse_group`` ids)."""
+        gs = self.fusion_groups or _derive_fusion_groups(self.layers)
+        return [list(g.layers) for g in gs]
+
+    @property
+    def itemsize(self) -> int:
+        """Bytes of a deployed weight: int8 for an edge net, bf16 for an
+        LM (a ``--quant8`` LM's plan too, as in the JAX package: the plan's
+        ``quantize_weights`` is not applied)."""
+        return 1 if self.kind == "edge" else 2
+
+    def work(self) -> dict:
+        """The roofline work of one planned inference (edge: the whole
+        pipeline; LM: one decode step, which an LM plan's graph is), as the
+        JAX package's ``DeploymentPlan.work`` counts it.
+
+        Per layer, times its ``repeat``: ``2 x batch x n_in x n_out``
+        FLOPs, ``n_in x n_out x itemsize`` weight bytes, and activations in
+        at ``itemsize`` and out in f32.  ``launches`` is one a fusion group
+        (times the group's repeat), what the boundary cost model charges
+        ``kernel_overhead_s`` for.  The profiler
+        (:mod:`repro_torch.obs.profile`) divides these by measured span
+        time."""
+        its = self.itemsize
+        by_index = {l.index: l for l in self.layers}
+
+        def layer_work(l) -> dict:
+            flops = 2.0 * self.batch * l.n_in * l.n_out * l.repeat
+            weight_bytes = l.n_in * l.n_out * its * l.repeat
+            act_bytes = (self.batch * l.n_in * its
+                         + self.batch * l.n_out * 4) * l.repeat
+            return {"flops": flops, "weight_bytes": weight_bytes,
+                    "act_bytes": act_bytes}
+
+        groups = self.fusion_groups or _derive_fusion_groups(self.layers)
+        per_group = []
+        totals = {"flops": 0.0, "weight_bytes": 0, "act_bytes": 0}
+        launches = 0
+        for g in groups:
+            members = [by_index[i] for i in g.layers if i in by_index]
+            gw = {"flops": 0.0, "weight_bytes": 0, "act_bytes": 0}
+            for l in members:
+                lw = layer_work(l)
+                for k in gw:
+                    gw[k] += lw[k]
+            g_launches = max((l.repeat for l in members), default=1)
+            launches += g_launches
+            per_group.append({
+                "id": g.id, "layers": list(g.layers),
+                "est_latency_s": g.est_latency_s, "launches": g_launches,
+                **gw,
+            })
+            for k in totals:
+                totals[k] += gw[k]
+        return {
+            **totals,
+            "bytes": totals["weight_bytes"] + totals["act_bytes"],
+            "launches": launches,
+            "itemsize": its,
+            "per_group": per_group,
+        }
 
     def to_dict(self) -> dict:
         return {

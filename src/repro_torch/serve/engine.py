@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import math
 import queue
 import time
@@ -59,6 +60,11 @@ def _use_graphs(graphs: bool | None, device: torch.device) -> bool:
     if graphs and device.type != "cuda":
         raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
     return bool(graphs)
+
+
+def _rung_label(level: int, shape) -> str:
+    """``"<rung> <shape>"``: how an edge engine's reports name a forward."""
+    return f"{'fused' if level == 0 else 'per_layer'} {list(shape)}"
 
 
 class EdgeEngine:
@@ -147,13 +153,28 @@ class EdgeEngine:
 
     def graph_report(self) -> dict:
         """What each captured forward the engine holds runs: per ``"<rung>
-        <shape>"`` the launches one replay makes, the graph's nodes (types,
-        and kernels by function name) and the replays so far.  The
-        counterpart of the reference's ``hlo_text()``."""
-        return {f"{'fused' if level == 0 else 'per_layer'} {list(shape)}": {
-                    "launches": f.graph.launches, "nodes": f.graph.nodes,
-                    "replays": f.graph.replays}
+        <shape>"`` the launches one replay makes and the kernels' work it
+        records, the graph's nodes (types, and kernels by function name) and
+        the replays so far.  The counterpart of the reference's
+        ``hlo_text()``."""
+        return {_rung_label(level, shape): {
+                    "launches": f.graph.launches, "work": f.graph.work,
+                    "nodes": f.graph.nodes, "replays": f.graph.replays}
                 for (level, shape), f in self._graphs.items()}
+
+    def eager_steps(self) -> dict:
+        """One eager run of each forward the engine serves, by the labels of
+        :meth:`graph_report`: the current rung at the plan's batch first,
+        then each captured (rung, shape); each a no-argument callable on
+        zeros of its shape.  What ``launch.graph_analysis`` counts."""
+        keys = [(self.degrade_level, (self.plan.batch, self.cfg.dims[0]))]
+        keys += [k for k in self._graphs if k != keys[0]]
+        steps = {}
+        for level, shape in keys:
+            fwd = self._fwd if level == 0 else self._fallback()
+            x = torch.zeros(shape, dtype=torch.float32, device=self.device)
+            steps[_rung_label(level, shape)] = functools.partial(fwd, x)
+        return steps
 
     def infer(self, x) -> torch.Tensor:
         """One request: ``(batch, dims[0])`` in, a ready ``(batch,
@@ -577,13 +598,27 @@ class ContinuousBatcher:
         return self._step() if self._graph is None else self._graph()
 
     def graph_report(self) -> dict | None:
-        """The captured decode tick: the launches one replay makes, the
-        graph's nodes (types, and kernels by function name) and the replays
-        so far; None when the tick runs eagerly or is not captured yet."""
+        """The captured decode tick: the launches one replay makes and the
+        kernels' work it records, the graph's nodes (types, and kernels by
+        function name) and the replays so far; None when the tick runs
+        eagerly or is not captured yet."""
         if self._graph is None or self._graph.graph is None:
             return None
-        return {"launches": self._graph.launches, "nodes": self._graph.nodes,
-                "replays": self._graph.replays}
+        return {"launches": self._graph.launches, "work": self._graph.work,
+                "nodes": self._graph.nodes, "replays": self._graph.replays}
+
+    def eager_steps(self) -> dict:
+        """One eager decode step over every slot with none live, so the
+        state is written back as it was: ``{"decode_tick": callable}``, what
+        ``launch.graph_analysis`` counts beside the captured tick."""
+        def step():
+            saved = self._inputs.clone()
+            self._inputs[2].zero_()
+            try:
+                return self._step()
+            finally:
+                self._inputs.copy_(saved)
+        return {"decode_tick": step}
 
     @staticmethod
     def _pick(logits: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:

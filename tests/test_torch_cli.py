@@ -1,15 +1,17 @@
 """``python -m repro_torch characterize|plan|deploy|serve|bench|replay|
-chaos`` on the CPU.
+chaos|trace|profile`` on the CPU.
 
 Each subcommand runs in-process through ``cli.main`` with ``--device cpu``
 (the plain PyTorch path) and, where it plans, ``--machine-model stock``;
 every artifact goes under pytest's ``tmp_path``, and ``check`` accepts the
 plan artifacts written.  Without a card every subcommand exits non-zero
-unless ``--device cpu`` is given.  ``replay`` and ``chaos`` run beside the
-JAX package's own (``python -m repro replay|chaos``) on the same edge fleet:
-the exit codes, the chaos verdict and the snapshot files' names and rows
-agree.  No test judges wall time: ``bench``'s rows are checked for shape,
-not for their ratio, and latencies never enter a verdict compared here.
+unless ``--device cpu`` is given.  ``replay``, ``chaos``, ``trace`` and
+``profile`` run beside the JAX package's own (``python -m repro
+replay|chaos|trace|profile``) on the same edge fleet: the exit codes, the
+chaos verdict, the files written, the Prometheus families and the
+snapshot files' names and rows agree.  No test judges wall time:
+``bench``'s rows are checked for shape, not for their ratio, and latencies
+never enter a verdict compared here.
 """
 
 import json
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 from repro_torch import cli
+from repro_torch.obs import parse_prometheus
 from repro_torch.characterize import MachineModel
 
 STOCK = ["--machine-model", "stock", "--device", "cpu"]
@@ -109,6 +112,7 @@ def test_characterize_writes_a_machine_model(tmp_path, capsys):
     ["plan", "jet_tagger"], ["deploy", "tau_select", "--dry-run"],
     ["serve", "tau_select"], ["bench", "tau_select"],
     ["replay", "tau_select"], ["chaos", "tau_select"],
+    ["trace", "tau_select"], ["profile", "tau_select"],
     ["characterize", "--terms", "gemm_int8"], ["check", "--no-kernels"]])
 def test_every_subcommand_needs_a_card_unless_told_cpu(argv, monkeypatch,
                                                        tmp_path, capsys):
@@ -226,3 +230,102 @@ def test_chaos_without_faults_is_not_recovered(tmp_path, capsys):
     assert rc == ref_rc == 1
     assert "chaos: NOT RECOVERED" in text and "chaos: NOT RECOVERED" in \
         ref_text
+
+
+LM = ["--lm", "recurrentgemma_2b", "--requests", "2"]
+
+
+def test_trace_writes_strict_files_with_every_tenants_spans(tmp_path,
+                                                            capsys):
+    rc = cli.main(["trace", "jet_tagger", "tau_select", "--iters", "4",
+                   "--out", str(tmp_path)] + LM + STOCK)
+    text = capsys.readouterr().out
+    assert rc == 0
+    obs = tmp_path / "obs"
+    payload = json.loads((obs / "trace.json").read_text(),
+                         parse_constant=lambda c: pytest.fail(c))
+    events = [e for e in payload["traceEvents"] if e["ph"] == "X"]
+    assert len(events) == payload["otherData"]["spans"]
+    seen = {(e["cat"], e["name"]) for e in events}
+    lm = "recurrentgemma-2b-smoke"
+    assert {("jet_tagger", "infer"), ("tau_select", "infer"),
+            (lm, "decode_step"), (lm, "request")} <= seen
+    samples = parse_prometheus((obs / "metrics.prom").read_text())
+    families = {(s["name"], s["labels"].get("tenant")) for s in samples}
+    for tenant in ("jet_tagger", "tau_select", lm):
+        for name in ("repro_span_seconds_count",
+                     "repro_profile_roofline_fraction",
+                     "repro_slo_violations_total",
+                     "repro_resilience_failures_total"):
+            assert (name, tenant) in families, (name, tenant)
+    assert ("repro_tracer_dropped_total", None) in families
+    assert sorted(p.name for p in obs.glob("BENCH_serve_*.json")) == [
+        f"BENCH_serve_{n}.json" for n in ("jet_tagger", lm, "tau_select")]
+    attribution = text.split("plan-vs-measured attribution:")[1]
+    assert "decode_step" in attribution and "roofline:" in attribution
+
+
+def test_trace_writes_what_the_reference_writes(tmp_path, capsys):
+    argv = ["trace", "jet_tagger", "tau_select", "--iters", "3"]
+    rc = cli.main(argv + ["--trace-out", str(tmp_path / "port"), "--out",
+                          str(tmp_path / "d")] + STOCK)
+    capsys.readouterr()
+    ref_rc, _ = _ref_cli(argv + ["--trace-out", str(tmp_path / "ref"),
+                                 "--out", str(tmp_path / "r"),
+                                 "--machine-model", "stock"], capsys)
+    assert rc == ref_rc == 0
+    names = [sorted(p.name for p in (tmp_path / d).iterdir())
+             for d in ("port", "ref")]
+    assert names[0] == names[1]
+    families = [{s["name"] for s in parse_prometheus(
+        (tmp_path / d / "metrics.prom").read_text())} for d in ("port", "ref")]
+    assert families[0] == families[1]
+    assert _rows(tmp_path / "port") == _rows(tmp_path / "ref")
+
+
+def test_profile_prints_the_roofline_and_the_served_steps(tmp_path,
+                                                          capsys):
+    rc = cli.main(["profile", "jet_tagger", "tau_select", "--iters", "4",
+                   "--json-dir", str(tmp_path / "p"), "--out",
+                   str(tmp_path / "d")] + LM + STOCK)
+    text = capsys.readouterr().out
+    assert rc == 0
+    lm = "recurrentgemma-2b-smoke"
+    for tenant in ("jet_tagger", "tau_select"):
+        line = [l for l in text.splitlines()
+                if l.strip().startswith(tenant) and "useful=" in l]
+        assert len(line) == 1 and line[0].endswith("useful=1.0000")
+    assert "raw=" in text and f"{lm}" in text.split("served-step")[1]
+    assert sorted(p.name for p in (tmp_path / "p").iterdir()) == [
+        f"BENCH_profile_{n}.json" for n in ("jet_tagger", lm, "tau_select")]
+
+
+def test_profile_writes_what_the_reference_writes(tmp_path, capsys):
+    """Without the served steps' count (``--no-graph``; the reference's
+    ``--no-hlo``): the same snapshot files and whole-window rows."""
+    argv = ["profile", "jet_tagger", "tau_select", "--iters", "3"]
+    rc = cli.main(argv + ["--no-graph", "--json-dir", str(tmp_path / "port"),
+                          "--out", str(tmp_path / "d")] + STOCK)
+    text = capsys.readouterr().out
+    ref_rc, _ = _ref_cli(argv + ["--no-hlo", "--json-dir",
+                                 str(tmp_path / "ref"), "--out",
+                                 str(tmp_path / "r"), "--machine-model",
+                                 "stock"], capsys)
+    assert rc == ref_rc == 0
+    assert "served-step" not in text
+    rows = [[n for n in _rows(tmp_path / d) if "/g" not in n]
+            for d in ("port", "ref")]
+    assert rows[0] == rows[1] and rows[0]
+
+
+def test_profile_exits_1_without_a_window(tmp_path, monkeypatch, capsys):
+    monkeypatch.setattr(cli, "_serve_smoke", lambda dep, **kw: ({}, []))
+    rc = cli.main(["profile", "tau_select", "--json-dir",
+                   str(tmp_path / "p"), "--out", str(tmp_path / "d")]
+                  + STOCK)
+    captured = capsys.readouterr()
+    assert rc == 1
+    assert "profile: no measured windows" in captured.out
+    assert "no profiled windows" in captured.err
+    assert not (tmp_path / "p").exists()
+
