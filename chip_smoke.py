@@ -42,7 +42,8 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    re-characterizing up to 3 times under load, else the phase fails.  The
    stock constants' rows are printed beside them, and the default
    ``"auto"`` calibration is fitted (phase 4's build takes it from its
-   memo);
+   memo); the fitted ``contention`` slope (``band2_penalty_per_layer``,
+   read off the AIE model, not the card) is printed beside the stock one;
 4. serve: ``Deployment.build(["jet_tagger", "tau_select"])`` on the default
    device, its stages characterize (the memoized ``"auto"`` model), plan,
    verify and engines: clean findings, one ``fused_dense`` launch per layer
@@ -61,9 +62,18 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    must fail the graphed request.  The edge p50/p95 eager and graphed are
    printed side by side; 4b: ``edge_forward`` of all five nets
    on the card, one ``fused_dense`` per layer, against the plain path on
-   the CPU; 4c: ``python -m repro_torch check`` in a subprocess: exit 0,
-   no error finding, one launch of each kernel (``tiled_gemm`` among them)
-   in its library self-check;
+   the CPU; 4c: ``python -m repro_torch check`` in a subprocess (the tree
+   mode: the lint of ``src/repro_torch``, the ``bench/`` snapshots, the
+   Table-I fleet planned for h100 and aie): exit 0, no error finding, one
+   launch of each kernel (``tiled_gemm`` among them) in its library
+   self-check; 4d: ``python -m repro_torch plan jet_tagger tau_select vae
+   qubit autoencoder --target both`` in a subprocess (exit 0, both fleet
+   artifacts strict JSON), ``check --json`` of both artifacts (exit 0, no
+   error) and ``check --json --root`` of a temporary tree holding a copy of
+   ``src/repro_torch``, ``bench/`` and the two artifacts (exit 0, the lint,
+   both plans, every snapshot and one launch of each of the seven kernels
+   in ``checked``); each AIE tenant's regimes, bands, columns, estimate
+   and crossing printed beside the h100 plan's estimate;
 5. times with CUDA events: ``fused_mlp_q8`` on the five nets at batch 8
    and ``gemm_int8`` at every layer shape of the five and at 256 x 1024 x
    1024, each beside its plain version, a library yardstick
@@ -815,6 +825,7 @@ def characterize_phase(device) -> dict:
     from repro_torch.deploy import Deployment
     from repro_torch.plan import PlanCache, calibrate
     passes = []
+    t_phase = time.perf_counter()
     for attempt in range(CHARACTERIZE_PASSES):
         t0 = time.perf_counter()
         mm = characterize(sweep="quick", device=device)
@@ -862,7 +873,15 @@ def characterize_phase(device) -> dict:
         f"{hw.H100_SXM.kernel_overhead_s}), peak_int8_ops "
         f"{auto.peak_int8_ops}")
     fitted = passes[-1]["h100"]
+    band2 = {"fitted": passes[-1]["model"].aie().band2_penalty_per_layer,
+             "stock": hw.AIE_ML.band2_penalty_per_layer}
+    log(f"characterize: contention band2_penalty_per_layer fitted "
+        f"{band2['fitted']} (stock {band2['stock']}, "
+        f"src={passes[-1]['model'].fits['contention'].source})")
+    wall_s = time.perf_counter() - t_phase
+    log(f"characterize: phase 3c in {wall_s:.2f} s")
     return {"passes": len(passes), "rows": passes[-1]["rows"],
+            "band2_penalty_per_layer": band2, "wall_s": wall_s,
             "stock_rows": stock_rows,
             "constants": {k: getattr(fitted, k) for k in (
                 "kernel_overhead_s", "peak_int8_ops", "fused_epilogue_s",
@@ -1176,6 +1195,99 @@ def check_cli_phase() -> dict:
         f"counts {report['counts']}; launches "
         f"{json.dumps(report['launches'], sort_keys=True)}")
     return report
+
+
+# ---------------------------------------------------------------------------
+# Phase 4d: the AIE-vs-PL planner and the tree check, as a user runs them
+# ---------------------------------------------------------------------------
+
+def _strict_artifact(path: pathlib.Path):
+    def refuse(name):
+        raise SmokeFailure(f"{path.name}: non-strict JSON constant {name}")
+    return json.loads(path.read_text(), parse_constant=refuse)
+
+
+def _cli(args: list, what: str) -> subprocess.CompletedProcess:
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch", *args],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise SmokeFailure(f"python -m repro_torch {what} exited "
+                           f"{proc.returncode}:\n{proc.stdout}\n"
+                           f"{proc.stderr}")
+    return proc
+
+
+def aie_plan_phase() -> dict:
+    """``plan --target both`` of the five Table-I nets at their published
+    widths (under the default ``auto`` machine model, fitted on the card),
+    then ``check`` of both artifacts and ``check --root`` of a tree that
+    holds them beside a copy of ``src/repro_torch`` and ``bench/``.  Each
+    AIE tenant's regimes, bands, columns, estimate and crossing are printed
+    beside the h100 plan's estimate."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_4d_") as tmp:
+        tree = pathlib.Path(tmp)
+        deploy = tree / "deployments_torch"
+        _cli(["plan", *NETS, "--target", "both", "--out", str(deploy)],
+             "plan --target both")
+        name = "+".join(NETS)
+        arts = {t: deploy / f"fleet_{name}_{t}.json" for t in ("h100", "aie")}
+        fleets = {t: _strict_artifact(p) for t, p in arts.items()}
+        report = json.loads(_cli(["check", "--json", *map(str, arts.values())],
+                                 "check <artifacts>").stdout)
+        if report["counts"]["error"]:
+            raise SmokeFailure(f"check of the plan artifacts: {report}")
+        shutil.copytree(SRC / "repro_torch", tree / "src" / "repro_torch",
+                        ignore=shutil.ignore_patterns("__pycache__",
+                                                      "_build"))
+        shutil.copytree(ROOT / "bench", tree / "bench")
+        n_py = len(list((tree / "src" / "repro_torch").rglob("*.py")))
+        snaps = [p.name for p in sorted((tree / "bench").rglob(
+            "BENCH_*.json"))]
+        tree_report = json.loads(_cli(
+            ["check", "--json", "--root", str(tree)],
+            "check --root").stdout)
+    checked = tree_report["checked"]
+    want = ([f"lint:{n_py} files"]
+            + [f"plan:{arts[t].name}" for t in ("aie", "h100")]
+            + [f"snapshot:{n}" for n in snaps])
+    if tree_report["counts"]["error"] or checked[:len(want)] != want \
+            or any(n != 1 for n in tree_report["launches"].values()) \
+            or set(tree_report["launches"]) != set(ops.launch_counts()):
+        raise SmokeFailure(f"check --root: checked {checked}, counts "
+                           f"{tree_report['counts']}, launches "
+                           f"{tree_report['launches']}, want {want}")
+    wall_s = time.perf_counter() - t0
+    h100 = {t["net_id"]: t["plan"]["totals"]["est_latency_s"]
+            for t in fleets["h100"]["tenants"]}
+    tenants = {}
+    for t in fleets["aie"]["tenants"]:
+        layers = t["plan"]["layers"]
+        regimes = collections.Counter(l["regime"] for l in layers)
+        tenants[t["net_id"]] = {
+            "pl": regimes["pl"], "aie": regimes["aie"],
+            "bands": [l["band"] for l in layers],
+            "col_offset": t["col_offset"], "cols": t["cols"],
+            "est_latency_s": t["plan"]["totals"]["est_latency_s"],
+            "crossing_s": t["crossing_s"],
+            "h100_est_latency_s": h100[t["net_id"]]}
+        log(f"aie plan {t['net_id']}: " + json.dumps(tenants[t["net_id"]],
+                                                      sort_keys=True))
+    log(f"aie plan: band1_cols_used "
+        f"{fleets['aie']['totals']['band1_cols_used']}; check of both "
+        f"artifacts counts {report['counts']}; check --root checked "
+        f"{checked}, counts {tree_report['counts']}, launches "
+        f"{json.dumps(tree_report['launches'], sort_keys=True)}; phase 4d "
+        f"in {wall_s:.2f} s")
+    return {"tenants": tenants, "wall_s": wall_s,
+            "band1_cols_used": fleets["aie"]["totals"]["band1_cols_used"],
+            "launches": tree_report["launches"]}
 
 
 # ---------------------------------------------------------------------------
@@ -4025,6 +4137,7 @@ def main(argv: list) -> int:
         dep, launches, build_launches, served_edge = serve_phase()
         forward = edge_forward_phase(device)
         report = check_cli_phase()
+        aie_plan = aie_plan_phase()
         timing = timing_phase(device)
         dense_timing = dense_timing_phase(device, timing["empty_graph_ms"])
         line = kernels_line(errs, launches, timing)
@@ -4104,6 +4217,7 @@ def main(argv: list) -> int:
     log(f"chip_smoke: all phases in {time.perf_counter() - t_all:.1f} s")
     log("summary " + json.dumps({**summary_line(
         characterized, served_edge, {LM_ARCH: served, RWKV_ARCH: r_served}),
+        "aie_plan": {k: v for k, v in aie_plan.items() if k != "launches"},
         "fleet": {k: v for k, v in fleet["fleet"].items()
                   if k not in ("launches", "chunk_launches")}},
         sort_keys=True))

@@ -3,7 +3,8 @@
 Port of the JAX package's ``characterize`` package.  ``harness`` times the
 primitives the h100 planner charges (multi-launch ``gemm_int8`` pipelines,
 fused ``fused_mlp_q8`` chains, un-fused launch boundaries) as the served
-engine runs them, a CUDA graph per call on the card; ``sweeps``
+engine runs them, a CUDA graph per call on the card, and reads the AIE
+array's band-2 contention off the paper's model (``src=model``); ``sweeps``
 parameterizes them into calibrate/quick/full grids; ``fit``
 least-squares-fits each cost term; and ``model`` packages the result as a
 sha256-versioned :class:`MachineModel` JSON artifact with provenance.
@@ -12,6 +13,7 @@ The planner consumes it as the card's machine model::
 
     mm = characterize(sweep="quick")          # or MachineModel.load(path)
     plan = plan_deployment(cfg, hw=mm.h100())
+    aie_plan = plan_deployment(cfg, target="aie", machine_model=mm)
     dep = Deployment.build(["jet_tagger"], machine_model=mm)
 
 CLI::

@@ -20,6 +20,8 @@ import sys
 def _fmt_constant(name: str, value: float) -> str:
     if name.endswith("_s"):
         return f"{name}={value * 1e6:.3g}us"
+    if "penalty" in name:
+        return f"{name}={value:.4f}"
     return f"{name}={value:.3g}"
 
 

@@ -1,13 +1,14 @@
 """Least-squares model fitting over characterization samples.
 
 Port of the JAX package's ``characterize/fit.py``, the fit and the clamps
-copied, trimmed to the three terms the port sweeps.  Each cost term is a
+copied, trimmed to the four terms the port sweeps.  Each cost term is a
 linear model in its sweep's regressors, so one ``lstsq`` per term recovers
 the machine constants the planner charges:
 
 * ``gemm_int8``:  t = overhead * launches + inv_peak * padded_ops
 * ``fused_chain``: t = const + inv_peak * padded_ops + epilogue * inner_layers
 * ``boundary``:   t = const + dispatch * launches + per_byte * launch_bytes
+* ``contention``: t = base * (1 + slope * n_band2)
 
 Two departures from the reference, both where its fit would hand the
 planner noise:
@@ -41,7 +42,10 @@ _DESIGNS = {
     "gemm_int8": ("launches", "padded_ops"),
     "fused_chain": ("one", "padded_ops", "inner_layers"),
     "boundary": ("one", "launches", "launch_bytes"),
+    "contention": ("one", "n_band2"),
 }
+# Terms read off an analytical model, not a clock (the artifact's label).
+_MODELLED = ("contention",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +56,8 @@ class TermFit:
     coefficients: tuple            # raw lstsq solution, design order
     residual_rel_rms: float        # rms(pred - t) / mean(t)
     n_samples: int
-    source: str                    # "measured" (host clock) or "device"
+    source: str                    # "measured" (host clock), "device"
+                                   # (CUDA events) or "model"
 
     def to_dict(self) -> dict:
         return {"term": self.term, "constants": dict(self.constants),
@@ -114,6 +119,10 @@ def _constants_for(term: str, coef: tuple) -> dict:
         # effectively infinite bandwidth (overhead-bound host).
         hbm_bw = 2.0 / per_byte if per_byte > 1e-18 else 1e15
         return {"dispatch_s": max(dispatch, 0.0), "hbm_bw": hbm_bw}
+    if term == "contention":
+        base, slope_abs = coef
+        slope = slope_abs / base if base > 0 else 0.0
+        return {"band2_penalty_per_layer": max(slope, 0.0)}
     raise ValueError(f"unknown term {term!r}")
 
 
@@ -136,9 +145,10 @@ def fit_term(term: str, samples: list[Sample]) -> TermFit:
         inner = [s.regressors["inner_layers"] for s in rows]
         if coef[2] * (max(inner) - min(inner)) <= 2.0 * rms:
             del constants["fused_epilogue_s"]      # unresolved: stock stands
+    source = ("model" if term in _MODELLED
+              else "device" if device else "measured")
     return TermFit(term=term, constants=constants, coefficients=coef,
-                   residual_rel_rms=rel, n_samples=len(rows),
-                   source="device" if device else "measured")
+                   residual_rel_rms=rel, n_samples=len(rows), source=source)
 
 
 def fit_all(samples: list[Sample]) -> dict[str, TermFit]:

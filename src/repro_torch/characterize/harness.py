@@ -20,6 +20,12 @@ call's host part.  The input lies
 where :meth:`Deployment.bench`'s does, on the engine's device.  On the CPU
 the same step runs eagerly through the kernels' plain versions.
 
+One term is not timed at all: the AI-Engine array's band-2 contention
+(:func:`model_band2_point`) reads the paper-calibrated AIE model
+(:func:`repro_torch.core.tiling.aie_spatial_interval`), as the reference's
+does on hosts without the array, and its samples are labelled
+``src=model``.
+
 Every helper takes a ``timer`` hook so tests (and dry-run fits) can replace
 timing with a synthetic analytical cost: the whole sweep -> fit -> artifact
 machinery then runs deterministically in milliseconds.
@@ -224,3 +230,21 @@ def time_unfused_chain(n_launches: int, act_bytes: int, *, iters: int = 51,
     x = torch.ones((n,), dtype=torch.float32, device=device)
     t, t_dev = wall_timer(*_request(chain, x), iters=iters)
     return Sample("boundary", inputs, regs, t, t_dev)
+
+
+def model_band2_point(n_band2: int, *, shape=(8, 128, 128), aie=None,
+                      timer: Timer | None = None) -> Sample:
+    """One point of the band-2 contention sweep.
+
+    The AIE array is not on this machine, so the sweep reads the
+    paper-calibrated analytical curves (:mod:`repro_torch.core.tiling`)
+    instead of a clock, labelled ``src=model`` in the artifact's fit.  On a
+    real VEK280 the same fit consumes measured intervals."""
+    m, k, n = shape
+    regs = {"n_band2": float(n_band2), "one": 1.0}
+    inputs = {"n_band2": n_band2, "shape": list(shape)}
+    if timer is not None:
+        return Sample("contention", inputs, regs, timer("contention", regs))
+    t = tiling.aie_spatial_interval(m, k, n, 2, 2, layers_in_band_2=n_band2,
+                                    aie=aie or hwlib.AIE_ML)
+    return Sample("contention", inputs, regs, t)

@@ -13,9 +13,13 @@ machine model of the card::
 
     mm = characterize(sweep="quick")
     plan = plan_deployment(cfg, hw=mm.h100())
+    aie_plan = plan_deployment(cfg, target="aie", machine_model=mm)
 
 whose fitted constants enter every plan key (``plan/artifact.py``), so
-plans made under another model never answer for this one.
+plans made under another model never answer for this one.  ``h100()``
+carries the card's terms and ``aie()`` the AIE array's band-2 slope
+(``contention``); neither reads the other's, so a fitted slope moves no
+h100 plan.
 
 JSON schema (``MODEL_SCHEMA_VERSION``)::
 
@@ -92,6 +96,14 @@ class MachineModel:
                 kw[name] = value
         return dataclasses.replace(base, **kw) if kw else base
 
+    def aie(self, base: hwlib.AieMl = hwlib.AIE_ML) -> hwlib.AieMl:
+        """``base`` with every AIE-side fitted constant substituted (the
+        band-2 slope of ``contention``)."""
+        slope = self.constant("contention", "band2_penalty_per_layer")
+        if slope is None:
+            return base
+        return dataclasses.replace(base, band2_penalty_per_layer=slope)
+
     # -- serialization ----------------------------------------------------
     def to_dict(self) -> dict:
         return {"schema": self.schema, "version": self.version,
@@ -161,27 +173,28 @@ def _provenance(sweep: str, batch: int, iters: int, terms,
         "sweep": sweep,
         "batch": batch,
         "iters": iters,
-        "grids": {t: [list(g) for g in sweeplib.grid(t, sweep)]
-                  for t in terms},
+        "grids": {t: [list(g) if isinstance(g, tuple) else g
+                      for g in sweeplib.grid(t, sweep)] for t in terms},
     }
 
 
 def characterize(*, sweep: str = "quick", batch: int = 8, iters: int = 51,
-                 terms=sweeplib.TERMS, timer=None, device=None,
+                 terms=sweeplib.TERMS, timer=None, device=None, aie=None,
                  tracer=None) -> MachineModel:
     """Run the characterization sweeps on ``device`` (``None``: the card,
     raising when there is none) and fit the machine model.
 
     ``timer`` replaces measurement with a synthetic cost function (tests,
     dry runs; no device is touched); ``terms`` restricts the sweep (e.g.
-    only ``("gemm_int8",)``); ``tracer`` (a :class:`repro_torch.obs.Tracer`)
+    only ``("gemm_int8",)``); ``aie`` is the AIE model the ``contention``
+    points read; ``tracer`` (a :class:`repro_torch.obs.Tracer`)
     records one span per term sweep.
     """
     if timer is None:
         device = resolve_device(device)
     samples = sweeplib.run_sweep(sweep=sweep, batch=batch, iters=iters,
                                  terms=terms, timer=timer, device=device,
-                                 tracer=tracer)
+                                 aie=aie, tracer=tracer)
     fits = fitlib.fit_all(samples)
     prov = _provenance(sweep, batch, iters, terms,
                        None if timer is not None else device)

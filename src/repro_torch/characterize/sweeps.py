@@ -1,8 +1,9 @@
 """Parameterized sweep grids over the cost terms the h100 planner charges.
 
 Port of the JAX package's ``characterize/sweeps.py``, on its grids (the
-fused chain's cut to one block's shared memory).  Three
-terms, matching the constants the h100 planner reads:
+fused chain's cut to one block's shared memory).  Four terms: three
+matching the constants the h100 planner reads, one the ``"aie"`` planner
+reads:
 
 * ``gemm_int8``   -- multi-launch ``gemm_int8`` pipelines over a (depth,
   width) grid -> the fixed cost of one launch (``H100.kernel_overhead_s``)
@@ -16,10 +17,13 @@ terms, matching the constants the h100 planner reads:
 * ``boundary``    -- un-fused element-wise launch chains over an
   (n_launches, act_bytes) grid -> the DR7' crossing cost's fixed launch and
   per-byte parts (``hbm_bw``).
+* ``contention``  -- the band-2 spill population sweep -> the Fig.-6
+  contention slope (``AieMl.band2_penalty_per_layer``).  The array is not
+  on this machine, so its points read the analytical AIE curves (labelled
+  ``model``), as the reference's do; no h100 plan reads the slope.
 
 Left out: the reference's ``gemm_f32`` term, which fits the float rate that
-no edge plan of the port reads, and its ``contention`` term, the AIE
-array's band-2 slope, which comes with the AIE models.
+no edge plan of the port reads.
 
 Three grids: ``quick`` (CI-sized), ``full`` (denser, for committed
 artifacts) and ``calibrate`` (the 3-point grid
@@ -58,14 +62,20 @@ _BOUNDARY_GRIDS = {
              (8, 1 << 16), (2, 1 << 20), (4, 1 << 20), (8, 1 << 20)),
 }
 
-TERMS = ("gemm_int8", "fused_chain", "boundary")
+_CONTENTION_GRIDS = {
+    "calibrate": (0, 1, 2),
+    "quick": (0, 1, 2, 3),
+    "full": (0, 1, 2, 3, 4, 6),
+}
+
+TERMS = ("gemm_int8", "fused_chain", "boundary", "contention")
 SWEEPS = ("calibrate", "quick", "full")
 
 
 def grid(term: str, sweep: str):
     """The (term, sweep) coordinate grid, recorded in artifact provenance."""
     tables = {"gemm_int8": _GEMM_GRIDS, "fused_chain": _FUSED_GRIDS,
-              "boundary": _BOUNDARY_GRIDS}
+              "boundary": _BOUNDARY_GRIDS, "contention": _CONTENTION_GRIDS}
     if term not in tables:
         raise ValueError(f"unknown term {term!r}; choose from {TERMS}")
     if sweep not in tables[term]:
@@ -75,17 +85,21 @@ def grid(term: str, sweep: str):
 
 def run_term(term: str, *, sweep: str = "quick", batch: int = 8,
              iters: int = 51, timer: Timer | None = None, device=None,
-             tracer=None) -> list[Sample]:
+             aie=None, tracer=None) -> list[Sample]:
     """Run one cost term's sweep on ``device`` (a resolved device; the
-    synthetic ``timer`` needs none); returns its samples.  With ``tracer``
-    (a :class:`repro_torch.obs.Tracer`) the whole term sweep is timed as
-    one ``characterize/<term>`` span."""
+    synthetic ``timer`` and the ``contention`` term need none); returns its
+    samples.  ``aie`` is the AIE model the contention points read (default
+    ``hw.AIE_ML``).  With ``tracer`` (a :class:`repro_torch.obs.Tracer`)
+    the whole term sweep is timed as one ``characterize/<term>`` span."""
     if tracer is not None and tracer.enabled:
         with tracer.span(f"characterize/{term}", tenant="characterize",
                          sweep=sweep):
             return run_term(term, sweep=sweep, batch=batch, iters=iters,
-                            timer=timer, device=device)
+                            timer=timer, device=device, aie=aie)
     g = grid(term, sweep)
+    if term == "contention":
+        return [harness.model_band2_point(n, aie=aie, timer=timer)
+                for n in g]
     kw = {"iters": iters, "timer": timer, "device": device}
     if term == "gemm_int8":
         return [harness.time_int8_pipeline(w, d, batch=batch, **kw)
@@ -98,10 +112,11 @@ def run_term(term: str, *, sweep: str = "quick", batch: int = 8,
 
 def run_sweep(*, sweep: str = "quick", batch: int = 8, iters: int = 51,
               terms=TERMS, timer: Timer | None = None, device=None,
-              tracer=None) -> list[Sample]:
+              aie=None, tracer=None) -> list[Sample]:
     """Run every requested term's sweep (the CLI entry's workhorse)."""
     out: list[Sample] = []
     for term in terms:
         out.extend(run_term(term, sweep=sweep, batch=batch, iters=iters,
-                            timer=timer, device=device, tracer=tracer))
+                            timer=timer, device=device, aie=aie,
+                            tracer=tracer))
     return out

@@ -1,27 +1,31 @@
 """Layer 1: the plan verifier, with zero execution.
 
-Port of the JAX package's ``check/plan_rules.py`` for the fields the h100
+Port of the JAX package's ``check/plan_rules.py`` for the fields the port's
 plans carry (``plan/artifact.py``: layers, boundaries, fusion groups,
-totals, serve; ``plan/multinet.py``: tenant budgets):
+totals, serve; ``plan/multinet.py``: tenant columns and budgets), for both
+targets (``h100``, the card; ``aie``, the paper's VEK280 array):
 
 =======================  ==================================================
 rule                     invariant
 =======================  ==================================================
 plan.unknown-key         no unrecognized top-level artifact keys (info)
 plan.layer-chain         indices ascending; edge layers chain n_out -> n_in
-plan.tile-legal          each layer's tile is one ``gemm_int8`` takes
-                         (``core/tiling.tile_ok``)
+plan.tile-legal          h100: each layer's tile is one ``gemm_int8`` takes
+                         (``core/tiling.tile_ok``); aie: a legal
+                         ``aie::mmul`` i8 shape (DR1)
+plan.spatial-budget      aie: P_K*P_N cap, DR5 floors, band legality
+plan.column-budget       aie: fleet-wide band-1 columns fit usable_cols
 plan.fusion-groups       groups consecutive, uniform, partition the layers
 plan.vmem-budget         each group's working set fits one block's shared
                          memory (``hw.smem_bytes``)
-plan.boundary-structure  a boundary exactly where the fuse group changes
+plan.boundary-structure  a boundary exactly where the fuse group (h100) or
+                         the regime changes
 plan.latency-invariant   est == sum(parts) + crossings + overhead >= 0
 plan.serve-keys          the serve keys the planner writes are legal
+fleet.columns-overlap    aie: tenant column ranges disjoint, each tenant's
+                         cols its plan's band-1 columns (DR6)
 fleet.budget             budgets cover planned latency + crossing
 =======================  ==================================================
-
-The AIE rules (tile shapes of the array, column budgets) wait for the AIE
-target of the port's planner.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import pathlib
 from repro_torch import hw as hwlib
 from repro_torch.check import ArtifactError, Finding
 from repro_torch.core import tiling
+from repro_torch.plan.planner import _AIE_MAX_TILES_PER_LAYER as _AIE_MAX_TILES
 
 # Relative slack for float identities that calibration rescales under.
 _REL_TOL = 5e-3
@@ -54,7 +59,8 @@ _PLAN_KEYS = {"schema", "kind", "network", "target", "batch", "key",
               "layers", "boundaries", "fusion_groups", "totals", "serve"}
 _FLEET_KEYS = {"schema", "kind", "name", "target", "key", "tenants",
                "totals"}
-_TENANT_KEYS = {"net_id", "crossing_s", "latency_budget_s", "plan"}
+_TENANT_KEYS = {"net_id", "col_offset", "cols", "crossing_s",
+                "latency_budget_s", "plan"}
 
 
 def _close(a: float, b: float, *, rel: float = _REL_TOL,
@@ -125,11 +131,17 @@ def load_artifact(path):
 # Single-plan rules
 # ---------------------------------------------------------------------------
 
-def verify_plan(plan, *, tenant: str | None = None, hw=None) -> list:
-    """All layer-1 findings for one ``DeploymentPlan``."""
+def verify_plan(plan, *, tenant: str | None = None, hw=None,
+                aie=None) -> list:
+    """All layer-1 findings for one ``DeploymentPlan``: an ``aie`` plan's
+    tiles and splits against ``aie`` (default ``hw.AIE_ML``), any other's
+    against the card's kernels and ``hw`` (default ``hw.H100_SXM``)."""
     hw = hw if hw is not None else hwlib.H100_SXM
+    aie = aie if aie is not None else hwlib.AIE_ML
     tenant = tenant if tenant is not None else plan.network
-    return (_rule_layer_chain(plan, tenant) + _rule_tiles(plan, tenant)
+    tiles = (_rule_tiles_aie(plan, tenant, aie) if plan.target == "aie"
+             else _rule_tiles(plan, tenant))
+    return (_rule_layer_chain(plan, tenant) + tiles
             + _rule_fusion_groups(plan, tenant, hw)
             + _rule_boundaries(plan, tenant)
             + _rule_latency_invariant(plan, tenant)
@@ -165,6 +177,45 @@ def _rule_tiles(plan, tenant) -> list:
                f"{tiling.BLOCK_K}, block_n in {tiling.BLOCK_N})")
         for l in plan.layers
         if len(l.api_tile) != 3 or not tiling.tile_ok(*l.api_tile)]
+
+
+def _rule_tiles_aie(plan, tenant, aie) -> list:
+    """DR1 (legal aie::mmul shapes), DR3/DR5 (split caps and floors) and
+    band legality of every AIE-regime layer (PL layers hold no tile)."""
+    fs = []
+    for l in plan.layers:
+        if l.regime == "pl":
+            continue
+        if tuple(l.api_tile) not in aie.legal_api_tiles_i8:
+            fs.append(Finding(
+                rule="plan.tile-legal", severity="error", tenant=tenant,
+                layer=l.index,
+                detail=f"api tile {tuple(l.api_tile)} on {l.name!r} is not "
+                       f"a legal aie::mmul i8 shape"))
+        if l.p_k * l.p_n > _AIE_MAX_TILES or l.p_n > aie.rows \
+                or l.p_k > aie.usable_cols:
+            fs.append(Finding(
+                rule="plan.spatial-budget", severity="error", tenant=tenant,
+                layer=l.index,
+                detail=f"split {l.p_k}x{l.p_n} on {l.name!r} exceeds the "
+                       f"per-layer tile cap ({_AIE_MAX_TILES}) or array "
+                       f"dims"))
+        q_k = math.ceil(l.n_in / max(l.p_k, 1))
+        q_n = math.ceil(l.n_out / max(l.p_n, 1))
+        if (l.p_k > 1 and q_k < 16) or (l.p_n > 1 and q_n < 32):
+            fs.append(Finding(
+                rule="plan.spatial-budget", severity="error", tenant=tenant,
+                layer=l.index,
+                detail=f"DR5 floor violated on {l.name!r}: split "
+                       f"{l.p_k}x{l.p_n} leaves q_k={q_k}, q_n={q_n} "
+                       f"(need q_k>=16 when P_K>1, q_n>=32 when P_N>1)"))
+        if l.band not in (1, 2):
+            fs.append(Finding(
+                rule="plan.spatial-budget", severity="error", tenant=tenant,
+                layer=l.index,
+                detail=f"band {l.band} on {l.name!r} (AIE layers sit in "
+                       f"band 1 or the spill band 2)"))
+    return fs
 
 
 def _rule_fusion_groups(plan, tenant, hw) -> list:
@@ -221,17 +272,19 @@ def _rule_fusion_groups(plan, tenant, hw) -> list:
 
 def _rule_boundaries(plan, tenant) -> list:
     """DR7 structure: a boundary charge exists exactly where the fuse group
-    or the regime changes, and its regimes match the adjacent layers."""
+    or the regime changes (an AIE plan: where the regime changes), and its
+    regimes match the adjacent layers."""
     fs = []
     by_after = {b.after_layer: b for b in plan.boundaries}
     if len(by_after) != len(plan.boundaries):
         fs.append(Finding(
             rule="plan.boundary-structure", severity="error", tenant=tenant,
             detail="duplicate boundary after_layer entries"))
+    aie = plan.target == "aie"
     expected = {prev.index: (prev, nxt)
                 for prev, nxt in zip(plan.layers, plan.layers[1:])
-                if prev.fuse_group != nxt.fuse_group
-                or prev.regime != nxt.regime}
+                if prev.regime != nxt.regime
+                or (not aie and prev.fuse_group != nxt.fuse_group)}
     for after, (prev, nxt) in expected.items():
         b = by_after.get(after)
         if b is None:
@@ -267,9 +320,12 @@ def _rule_boundaries(plan, tenant) -> list:
 def _rule_latency_invariant(plan, tenant) -> list:
     """``est_latency == sum(layer est x repeat) + sum(crossings) +
     overhead`` with ``overhead >= 0``, and the fusion-group estimates sum to
-    the per-layer parts (each layer carries its share of its group)."""
+    the per-layer parts (each layer carries its share of its group).  An
+    AIE plan's totals sum its layers un-repeated and it has no groups."""
     fs = []
-    parts = sum(l.est_latency_s * l.repeat for l in plan.layers)
+    aie = plan.target == "aie"
+    parts = sum(l.est_latency_s * (1 if aie else l.repeat)
+                for l in plan.layers)
     crossings = sum(b.crossing_s for b in plan.boundaries)
     overhead = plan.est_latency_s - parts - crossings
     tol = _REL_TOL * max(plan.est_latency_s, 1e-12)
@@ -285,7 +341,7 @@ def _rule_latency_invariant(plan, tenant) -> list:
             detail=f"totals must be positive (est_latency_s="
                    f"{plan.est_latency_s}, est_interval_s="
                    f"{plan.est_interval_s})"))
-    if plan.fusion_groups:
+    if plan.fusion_groups and not aie:
         group_sum = sum(g.est_latency_s for g in plan.fusion_groups)
         if not _close(group_sum, parts, abs_tol=tol):
             fs.append(Finding(
@@ -391,12 +447,13 @@ def _check_resilience(res: dict, bad) -> None:
 # Fleet rules
 # ---------------------------------------------------------------------------
 
-def verify_fleet(fleet, *, hw=None) -> list:
-    """All layer-1 findings for a ``FleetPlan``: each tenant's plan rules
-    and the fleet's latency budgets."""
+def verify_fleet(fleet, *, hw=None, aie=None) -> list:
+    """All layer-1 findings for a ``FleetPlan``: each tenant's plan rules,
+    an AIE fleet's column budget, and the fleet's latency budgets."""
+    aie = aie if aie is not None else hwlib.AIE_ML
     fs: list = []
     for t in fleet.tenants:
-        fs += verify_plan(t.plan, tenant=t.net_id, hw=hw)
+        fs += verify_plan(t.plan, tenant=t.net_id, hw=hw, aie=aie)
         if t.crossing_s < 0:
             fs.append(Finding(
                 rule="fleet.budget", severity="error", tenant=t.net_id,
@@ -408,6 +465,8 @@ def verify_fleet(fleet, *, hw=None) -> list:
                 detail=f"latency budget {t.latency_budget_s:.3e}s is below "
                        f"the planned latency {planned:.3e}s - every request "
                        f"starts in violation"))
+    if fleet.target == "aie":
+        fs += _rule_fleet_columns(fleet, aie)
     if fleet.tenants:
         worst = max(t.total_latency_s for t in fleet.tenants)
         if not _close(fleet.est_latency_s, worst,
@@ -417,4 +476,39 @@ def verify_fleet(fleet, *, hw=None) -> list:
                 detail=f"fleet est_latency_s={fleet.est_latency_s:.3e} != "
                        f"worst tenant total {worst:.3e} (nets sharing the "
                        f"card are judged by the slowest)"))
+    return fs
+
+
+def _rule_fleet_columns(fleet, aie) -> list:
+    """DR6 fleet-wide: band-1 columns across ALL tenants fit usable_cols,
+    tenant ranges are disjoint, and each tenant's ``cols`` matches the
+    band-1 column sum of its own plan."""
+    fs = []
+    total = 0
+    spans = []
+    for t in fleet.tenants:
+        declared = sum(l.p_k for l in t.plan.layers
+                       if l.regime == "aie" and l.band == 1)
+        if t.cols != declared:
+            fs.append(Finding(
+                rule="fleet.columns-overlap", severity="error",
+                tenant=t.net_id,
+                detail=f"tenant declares cols={t.cols} but its plan's "
+                       f"band-1 layers occupy {declared}"))
+        if t.cols:
+            spans.append((t.col_offset, t.col_offset + t.cols, t.net_id))
+        total += t.cols
+    if total > aie.usable_cols:
+        fs.append(Finding(
+            rule="plan.column-budget", severity="error", tenant=fleet.name,
+            detail=f"fleet band-1 columns {total} exceed usable_cols="
+                   f"{aie.usable_cols} (DR6: spill must go to band 2, not "
+                   f"off the array)"))
+    spans.sort()
+    for (a0, a1, na), (b0, b1, nb) in zip(spans, spans[1:]):
+        if b0 < a1:
+            fs.append(Finding(
+                rule="fleet.columns-overlap", severity="error", tenant=nb,
+                detail=f"column range [{b0}, {b1}) overlaps {na!r}'s "
+                       f"[{a0}, {a1})"))
     return fs

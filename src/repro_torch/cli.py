@@ -10,7 +10,9 @@
     python -m repro_torch chaos jet_tagger tau_select --lm recurrentgemma_2b
     python -m repro_torch trace jet_tagger --lm recurrentgemma_2b
     python -m repro_torch profile jet_tagger --lm recurrentgemma_2b
+    python -m repro_torch plan jet_tagger vae --target both --pl-budget 100
     python -m repro_torch check [PLAN_JSON ...] [--json] [--no-kernels]
+    python -m repro_torch check --root . [--no-lint]
 
 Every subcommand runs on the card unless ``--device cpu`` is given (the
 plain PyTorch path on the CPU); without a card it exits with an error.
@@ -21,8 +23,13 @@ plain PyTorch path on the CPU); without a card it exits with an error.
 or the published one with ``--lm-config published``), ``--machine-model``
 picks the characterization (``auto`` by default; ``stock``, ``quick``,
 ``full`` or an artifact path).  ``plan`` writes its artifacts under
-``plans_torch/``, the others under ``deployments_torch/``; ``bench
---json PATH`` writes the planned-vs-measured rows as ``{"meta", "rows"}``.
+``plans_torch/``, the others under ``deployments_torch/``.  ``plan
+--target`` picks the card (``h100``, the default, since ``plan`` is a step
+of the deploy flow), the paper's VEK280 array (``aie``: LARE against
+``--pl-budget`` per layer, the spatial split, columns and bands) or
+``both`` (one artifact a target); an LM tenant is planned for ``h100``
+only.  ``bench --json PATH`` writes the planned-vs-measured rows as
+``{"meta", "rows"}``.
 
 ``replay`` serves the fleet and replays a scenario trace open loop
 (``steady``, ``bursty``, ``diurnal``, ``flash_crowd``; or ``--trace-file``),
@@ -42,11 +49,14 @@ model FLOPs against its served step (``--no-graph`` skips that, where the
 JAX package's ``--no-hlo`` skips its HLO analysis); ``--json-dir`` writes
 ``BENCH_profile_<net>.json``.  It exits 1 when no window was profiled.
 
-``check`` verifies the plan or fleet artifacts given, or, with none, plans
-the five Table-I edge nets as one fleet and verifies that; then it runs the
-kernel library self-check, one launch of each ported kernel on the device.
-The exit code is the report's: 0 clean, 1 error findings (or no device), 2
-an artifact that cannot be decoded.
+``check`` verifies the plan or fleet artifacts given, or, with none, checks
+the tree at ``--root``: the hazard lint over ``src/repro_torch`` (unless
+``--no-lint``), every plan artifact under ``deployments_torch/`` and every
+``bench/**/BENCH_*.json`` snapshot; then it plans the five Table-I edge
+nets as one fleet for ``h100`` and for ``aie`` and verifies both.  Last it
+runs the kernel library self-check, one launch of each ported kernel on the
+device.  The exit code is the report's: 0 clean, 1 error findings (or no
+device), 2 an artifact that cannot be decoded.
 """
 
 from __future__ import annotations
@@ -62,13 +72,19 @@ from repro_torch import check as checklib
 def cmd_check(argv) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch check",
-        description="Verify h100 plans against the design rules and the "
-                    "kernel contracts, then self-check the kernel library.")
+        description="Lint src/repro_torch, verify plans against the design "
+                    "rules and the kernel contracts, validate the BENCH "
+                    "snapshots, then self-check the kernel library.")
     ap.add_argument("artifacts", nargs="*", metavar="PLAN_JSON",
-                    help="plan or fleet artifacts to verify (default: plan "
-                         "the Table-I fleet and verify it)")
+                    help="plan or fleet artifacts to verify (default: check "
+                         "the tree at --root and the Table-I fleet planned "
+                         "for h100 and aie)")
+    ap.add_argument("--root", default=".",
+                    help="checkout for the tree check (default: .)")
     ap.add_argument("--json", action="store_true",
                     help="machine-readable report on stdout")
+    ap.add_argument("--no-lint", action="store_true",
+                    help="skip the src/repro_torch hazard lint")
     ap.add_argument("--no-kernels", action="store_true",
                     help="skip the kernel contracts and the library "
                          "self-check")
@@ -81,6 +97,7 @@ def cmd_check(argv) -> int:
     from repro_torch.kernels import ops
     from repro_torch.models import edge
     from repro_torch.plan import plan_fleet
+    from repro_torch.plan.planner import TARGETS
     kernels = not args.no_kernels
     report = checklib.CheckReport()
     try:
@@ -93,10 +110,15 @@ def cmd_check(argv) -> int:
             report.extend(checklib.check_artifact(p, kernels=kernels))
             report.checked.append(f"plan:{pathlib.Path(p).name}")
         if not args.artifacts:
-            fleet = plan_fleet([edge.edge_config(n) for n in edge.EDGE_NETS],
-                               device=device)
-            report.extend(checklib.check_fleet(fleet, kernels=kernels))
-            report.checked.append(f"fleet:{fleet.name}")
+            tree = checklib.check_tree(args.root, kernels=kernels,
+                                       lint=not args.no_lint)
+            report.extend(tree.findings)
+            report.checked += tree.checked
+            cfgs = [edge.edge_config(n) for n in edge.EDGE_NETS]
+            for target in TARGETS:
+                fleet = plan_fleet(cfgs, target=target, device=device)
+                report.extend(checklib.check_fleet(fleet, kernels=kernels))
+                report.checked.append(f"fleet:{fleet.name}:{target}")
         if kernels:
             before = ops.launch_counts()
             report.extend(kernel_contracts.verify_kernel_library(device))
@@ -164,16 +186,52 @@ def _specs(args) -> list:
     return specs
 
 
-def _build_deployment(args, *, stop_after=None, trace=False):
+def _build_deployment(args, *, stop_after=None, trace=False,
+                      target: str = "h100", pl_budget: float | None = None):
     from repro_torch.deploy import Deployment
     return Deployment.build(
-        _specs(args), target=getattr(args, "target", "h100"),
+        _specs(args), target=target,
         machine_model=_machine_model_spec(args.machine_model),
         device=args.device, artifact_dir=args.out, stop_after=stop_after,
-        batch=args.batch, trace=trace)
+        batch=args.batch, trace=trace, pl_budget=pl_budget)
+
+
+def _print_plan(plan) -> None:
+    """An AIE plan layer by layer, as the reference prints one: regime,
+    LARE, split, band, tile and interval, then its PL<->AIE crossings."""
+    print(f"# {plan.network} [{plan.target}]  batch={plan.batch}  "
+          f"key={plan.key[:12]}")
+    print(f"    {'layer':<10}{'shape':>12}  {'regime':<9}{'LARE':>8}"
+          f"{'P_KxP_N':>9}{'band':>5}  {'tile':<16}{'interval':>11}")
+    for l in plan.layers:
+        rep = f" x{l.repeat}" if l.repeat > 1 else ""
+        print(f"    {l.name:<10}{f'{l.n_in}->{l.n_out}{rep}':>12}  "
+              f"{l.regime:<9}{l.lare:>8.1f}{f'{l.p_k}x{l.p_n}':>9}"
+              f"{l.band:>5}  {str(l.api_tile):<16}"
+              f"{l.est_interval_s * 1e6:>9.3f}us")
+    for b in plan.boundaries:
+        print(f"    boundary after layer {b.after_layer}: "
+              f"{b.from_regime}->{b.to_regime} "
+              f"(+{b.crossing_s * 1e6:.3f}us)")
+    print(f"    totals: latency={plan.est_latency_s * 1e6:.3f}us  "
+          f"interval={plan.est_interval_s * 1e6:.3f}us  "
+          f"rate={plan.inferences_per_s / 1e6:.2f} MHz")
 
 
 def _print_fleet(fleet) -> None:
+    if fleet.target == "aie":
+        print(f"# fleet {fleet.name} [aie]  key={fleet.key[:12]}  "
+              f"band1_cols={fleet.band1_cols_used}")
+        for t in fleet.tenants:
+            cols = (f"{t.col_offset}..{t.col_offset + t.cols - 1}"
+                    if t.cols else "-")
+            print(f"{t.net_id:<18} cols={cols:<7} "
+                  f"planned={t.plan.est_latency_s * 1e6:10.3f}us "
+                  f"+cross={t.crossing_s * 1e6:.3f}us "
+                  f"budget={t.latency_budget_s * 1e6:10.3f}us")
+        for t in fleet.tenants:
+            _print_plan(t.plan)
+        return
     print(f"# fleet {fleet.name} [{fleet.target}]  key={fleet.key[:12]}")
     for t in fleet.tenants:
         p = t.plan
@@ -195,17 +253,29 @@ def cmd_plan(argv) -> int:
         "python -m repro_torch plan",
         "Plan the nets as one fleet for the card and write the plan (one "
         "net) or fleet artifact.", out="plans_torch")
-    ap.add_argument("--target", choices=("h100",), default="h100",
-                    help="the card planned for (the AIE target is not "
-                         "ported)")
+    ap.add_argument("--target", choices=("h100", "aie", "both"),
+                    default="h100",
+                    help="the card (h100, default), the paper's VEK280 "
+                         "array (aie), or both (one artifact a target)")
+    ap.add_argument("--pl-budget", type=float, default=400.0,
+                    help="PL DSP-equivalents per layer for the AIE target's "
+                         "LARE decision")
     args = ap.parse_args(argv)
+    from repro_torch.plan.planner import TARGETS
+    targets = TARGETS if args.target == "both" else (args.target,)
+    if args.lm and targets != ("h100",):
+        print("# --lm: an LM is planned for h100 only")
+        targets = ("h100",)
     try:
-        dep = _build_deployment(args, stop_after="plan")
+        for target in targets:
+            dep = _build_deployment(
+                args, stop_after="plan", target=target,
+                pl_budget=args.pl_budget if target == "aie" else None)
+            _print_fleet(dep.fleet)
+            print(f"wrote {dep.stage_results['plan'].artifact}")
     except RuntimeError as e:            # no CUDA device
         print(f"plan: {e}", file=sys.stderr)
         return 1
-    _print_fleet(dep.fleet)
-    print(f"wrote {dep.stage_results['plan'].artifact}")
     return 0
 
 

@@ -1,11 +1,17 @@
-"""Boundary-crossing cost model and the fusion planner (paper DR7').
+"""Boundary-crossing cost models and the planners over them (paper DR7).
 
 On the card the two sides of a layer boundary are *inside one fused kernel*
 (the int8 activation stays in shared memory) and *separate launches through
 device memory*.  An un-fused boundary costs the activation's round trip
-through HBM plus one more launch; a fused one costs the epilogue requantize.
-:func:`plan_fusion` groups a chain of stages to minimise the total, subject
-to the shared memory one block may hold.
+through HBM plus one more launch (:func:`crossing_cost`); a fused one costs
+the epilogue requantize.  :func:`plan_fusion` groups a chain of stages to
+minimise the total, subject to the shared memory one block may hold.
+
+The paper's own crossing, between the VEK280's programmable logic and its
+AI-Engine array, is the JAX package's copy: :func:`crossing_cost_aie` (the
+PLIO transfer and sync of Fig. 7) and :func:`plan_hybrid_split`, the DR7
+domain DP over stages that carry a time per domain (``Stage.domain_s``).
+The ``"aie"`` target of the planner reads them; no plan of the card does.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ class Stage:
     # Compute inside the fused kernel, which computes only its live row tile
     # where the per-layer kernel computes its whole block; None means "same".
     fused_compute_s: float | None = None
+    # For plan_hybrid_split: time in each domain (e.g. {'aie':..., 'pl':...}).
+    domain_s: dict | None = None
 
     @property
     def in_group_compute_s(self) -> float:
@@ -35,6 +43,15 @@ class Stage:
 def crossing_cost(act_bytes: int, hw: hwlib.H100 = hwlib.H100_SXM) -> float:
     """DR7' per-boundary cost: HBM round trip + one launch."""
     return 2.0 * act_bytes / hw.hbm_bw + hw.kernel_overhead_s
+
+
+def crossing_cost_aie(act_bytes: int, base_latency_s: float,
+                      aie: hwlib.AieMl = hwlib.AIE_ML) -> float:
+    """Paper-faithful PL<->AIE crossing: PLIO transfer + sync, calibrated so a
+    16-layer batch-8 model sees ~3.9% of baseline per crossing (Fig. 7)."""
+    transfer = act_bytes / aie.plio_bw
+    sync = 0.039 * base_latency_s - transfer
+    return transfer + max(sync, 0.0)
 
 
 def fused_group_cost(stages: Sequence[Stage],
@@ -108,3 +125,28 @@ def plan_fusion(stages: Sequence[Stage], *,
         for t in range(i, j):
             groups[t] = gid
     return groups
+
+
+def plan_hybrid_split(stages: Sequence[Stage], domains: Sequence[str], *,
+                      crossing_s: float) -> tuple[list[str], float]:
+    """Paper DR7 decision: assign each stage to a domain; each adjacent pair in
+    different domains pays ``crossing_s``.  DP over (stage, domain)."""
+    n = len(stages)
+    inf = float("inf")
+    cost = {d: [inf] * n for d in domains}
+    prev: dict[str, list[str | None]] = {d: [None] * n for d in domains}
+    for d in domains:
+        cost[d][0] = (stages[0].domain_s or {}).get(d, stages[0].compute_s)
+    for i in range(1, n):
+        for d in domains:
+            t = (stages[i].domain_s or {}).get(d, stages[i].compute_s)
+            for p in domains:
+                c = cost[p][i - 1] + t + (crossing_s if p != d else 0.0)
+                if c < cost[d][i]:
+                    cost[d][i], prev[d][i] = c, p
+    end = min(domains, key=lambda d: cost[d][n - 1])
+    assign = [end]
+    for i in range(n - 1, 0, -1):
+        assign.append(prev[assign[-1]][i])
+    assign.reverse()
+    return assign, cost[end][n - 1]

@@ -29,11 +29,14 @@ of a set with a roofline model of this card and keeps the cheapest;
 K stage.  All are memoised, since the kernel wrappers plan on every
 call.
 
-The paper's own single-tile model of one AI-Engine tile closes the module
-(:func:`aie_tile_latency`, :func:`aie_tile_interval`,
-:func:`aie_best_single_tile`): the JAX package's copy, framework-free, which
-:func:`repro_torch.core.lare.lare` reads for its default AIE interval.  No
-plan of the card reads it.
+The paper's own model of the AI-Engine array closes the module, the JAX
+package's copy, framework-free: one tile (:func:`aie_tile_latency`,
+:func:`aie_tile_interval`, :func:`aie_best_single_tile`), which
+:func:`repro_torch.core.lare.lare` reads for its default AIE interval, and a
+layer spread over ``P_K x P_N`` tiles (:func:`aie_spatial_latency`,
+:func:`aie_spatial_interval`, with the Fig.-6 band-spill contention, and
+:func:`aie_optimized_interval`), which the ``"aie"`` target of the planner
+reads.  No plan of the card reads them.
 """
 
 from __future__ import annotations
@@ -281,11 +284,12 @@ def plan_tiled(m: int, k: int, n: int, *, itemsize: int = 2,
 
 
 # --------------------------------------------------------------------------
-# The paper's AIE-ML single-tile model (calibrated to its Figs. 4-6)
+# The paper's AIE-ML model (calibrated to its Figs. 4-6)
 # --------------------------------------------------------------------------
 
 _AIE_CALL_OVERHEAD_CYC = 6        # per aie::mmul macro-call loop overhead
 _AIE_DMA_SETUP_CYC = 220          # per-tile DMA/lock setup per inference
+_AIE_CASCADE_HOP_CYC = 14         # partial-sum hop west->east
 _AIE_UNROLL = 2                   # manual 2x2x2 unrolling (paper IV-C)
 
 
@@ -330,6 +334,26 @@ def aie_tile_latency(m: int, q_k: int, q_n: int,
     return cyc / aie.clock_hz
 
 
+def aie_spatial_latency(m: int, k: int, n: int, p_k: int, p_n: int,
+                        s: tuple[int, int, int] = (4, 8, 8),
+                        layers_in_band_2: int = 0,
+                        aie: hwlib.AieMl = hwlib.AIE_ML) -> float:
+    """Latency (s) of spatially tiling an (m,k,n) GEMM over p_k x p_n tiles.
+
+    Adds: input streaming over the 32-bit per-tile port, cascade hops for the
+    K-direction partial sums, and the Fig.-6 band-spill contention penalty.
+    """
+    q_k, q_n = math.ceil(k / p_k), math.ceil(n / p_n)
+    t_tile = aie_tile_latency(m, q_k, q_n, s, aie)
+    stream_in_cyc = (m * q_k) / (aie.stream_bits / 8)      # bytes @ 4 B/cycle
+    cascade_cyc = (p_k - 1) * _AIE_CASCADE_HOP_CYC
+    stream_out_cyc = (m * q_n) / (aie.stream_bits / 8)
+    t = t_tile + (stream_in_cyc + cascade_cyc + stream_out_cyc) / aie.clock_hz
+    if layers_in_band_2 > 0:
+        t *= 1.0 + aie.band2_penalty_per_layer * layers_in_band_2
+    return t
+
+
 def aie_tile_interval(m: int, q_k: int, q_n: int,
                       s: tuple[int, int, int] = (4, 8, 8),
                       aie: hwlib.AieMl = hwlib.AIE_ML) -> float:
@@ -348,6 +372,49 @@ def aie_tile_interval(m: int, q_k: int, q_n: int,
     stream_in_cyc = (m * q_k) / (aie.stream_bits / 8)
     stream_out_cyc = (m * q_n) / (aie.stream_bits / 8)
     return max(compute_cyc, stream_in_cyc, stream_out_cyc) / aie.clock_hz
+
+
+def aie_spatial_interval(m: int, k: int, n: int, p_k: int, p_n: int,
+                         s: tuple[int, int, int] = (4, 8, 8),
+                         layers_in_band_2: int = 0,
+                         aie: hwlib.AieMl = hwlib.AIE_ML) -> float:
+    """Steady-state interval of a spatially tiled layer: per-tile interval on
+    its (q_k, q_n) slice + cascade chain + band-spill contention (DR6)."""
+    q_k, q_n = math.ceil(k / p_k), math.ceil(n / p_n)
+    cyc = aie_tile_interval(m, q_k, q_n, s, aie) * aie.clock_hz
+    cyc += (p_k - 1) * _AIE_CASCADE_HOP_CYC
+    t = cyc / aie.clock_hz
+    if layers_in_band_2 > 0:
+        t *= 1.0 + aie.band2_penalty_per_layer * layers_in_band_2
+    return t
+
+
+def aie_optimized_interval(layer_shapes, batch: int = 8, *,
+                           max_tiles_per_layer: int = 12,
+                           aie: hwlib.AieMl = hwlib.AIE_ML) -> float:
+    """Deploy a dense pipeline with the Section-IV design rules: per layer,
+    spatially tile over up to `max_tiles_per_layer` tiles, K-expansion first
+    (DR3), DR5 floor on split dims, one band (DR6).  Returns the steady-state
+    pipeline interval (slowest layer)."""
+    n_layers = len(layer_shapes)
+    t_worst = 0.0
+    for n_in, n_out in layer_shapes:
+        best = aie_tile_interval(batch, n_in, n_out, aie=aie)
+        for p_k in (1, 2, 3, 4, 6):
+            for p_n in (1, 2, 3, 4, 6):
+                if p_k * p_n > max_tiles_per_layer:
+                    continue
+                q_k, q_n = n_in / p_k, n_out / p_n
+                # DR5 floor applies to the dims being SPLIT (stream-bound
+                # narrow layers may still split K alone).
+                if (p_k > 1 and q_k < 16) or (p_n > 1 and q_n < 32):
+                    continue
+                if n_layers * p_k > aie.usable_cols:
+                    continue                     # DR6: one band
+                best = min(best, aie_spatial_interval(batch, n_in, n_out,
+                                                      p_k, p_n, aie=aie))
+        t_worst = max(t_worst, best)
+    return t_worst
 
 
 def aie_best_single_tile(m: int, k: int, n: int,

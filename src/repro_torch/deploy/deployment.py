@@ -126,7 +126,7 @@ class Deployment:
               max_len: int = 256, stop_after: str | None = None,
               artifact_dir=None, batch: int | None = None, plan=None,
               trace=False, check: bool = True, cache=None,
-              faults=None) -> "Deployment":
+              faults=None, pl_budget: float | None = None) -> "Deployment":
         """Characterize, plan ``configs`` as one fleet for ``target``,
         verify the plan, and build one engine per tenant.
 
@@ -140,6 +140,9 @@ class Deployment:
         stage writes the plan (or fleet) artifact there.  ``plan``: a
         ``FleetPlan``, ``DeploymentPlan`` or a path to one, served as it is
         (no characterize, no planning).  ``batch`` is the plans' batch.
+        ``target``: ``"h100"`` (the card) or ``"aie"`` (the paper's VEK280,
+        planned and verified only: the engines stage refuses it), whose
+        LARE decisions take ``pl_budget`` (default 400 DSP-equivalents).
 
         ``machine_model``: see :class:`~repro_torch.deploy.stages.
         CharacterizeStage`.  ``"auto"`` (default) fits the launch cost and
@@ -173,6 +176,11 @@ class Deployment:
             qparams=dict(qparams or {}), calib_x=dict(calib_x or {}),
             lm_params=dict(lm_params or {}), max_len=max_len,
             tracer=tracer, verify=check)
+        if pl_budget is not None:
+            if target != "aie":
+                raise ValueError(f"pl_budget prices the AIE target's LARE "
+                                 f"decisions; target is {target!r}")
+            ctx.plan_kw["pl_budget"] = pl_budget
         if plan is not None:
             ctx.fleet = _load_plan(plan)
         dep = cls(ctx)

@@ -2,16 +2,18 @@
 explicit objects.
 
 Port of the JAX package's ``deploy/stages.py`` for the edge nets and the
-ported LMs on the card.  Each stage reads its inputs off a
-:class:`StageContext`, writes one output back, and returns a
-:class:`StageResult`: output, wall time, whether it was served from a cache
-or memo, the artifact it loaded or wrote.
+ported LMs on the card, and for the paper's AIE target up to its verify
+stage (an AIE plan is planned and verified, never served).  Each stage
+reads its inputs off a :class:`StageContext`, writes one output back, and
+returns a :class:`StageResult`: output, wall time, whether it was served
+from a cache or memo, the artifact it loaded or wrote.
 :class:`repro_torch.deploy.Deployment` runs them in order.
 
 =============== =============================== =======================
 stage           inputs (ctx fields)             output (ctx field)
 =============== =============================== =======================
-characterize    machine_model spec, device      model + plan_kw["hw"]
+characterize    machine_model spec, device,     model + plan_kw["hw"]
+                target                          (aie: ["machine_model"])
 plan            configs, target, plan_kw, cache fleet (FleetPlan)
 verify          fleet, plan_kw, verify flag     findings (design rules)
 engines         fleet, configs, weights,        engines {net_id: engine}
@@ -149,6 +151,11 @@ class CharacterizeStage:
       (:func:`provenance_mismatch`);
     * a ``MachineModel``: used as-is (its ``h100()`` is planned under);
     * an ``hw.H100``: used as-is.
+
+    For ``target="aie"`` a fitted model goes to the planner whole
+    (``plan_kw["machine_model"]``): its ``aie()`` re-parameterizes the
+    array (the band-2 slope of ``contention``) and its version enters the
+    plan keys, as the reference's does; the card's constants are not read.
     """
 
     name = "characterize"
@@ -163,6 +170,8 @@ class CharacterizeStage:
             ctx.model = model
             if isinstance(model, hwlib.H100):
                 ctx.plan_kw.setdefault("hw", model)
+            elif model is not None and ctx.target == "aie":
+                ctx.plan_kw.setdefault("machine_model", model)
             elif model is not None:
                 ctx.plan_kw.setdefault("hw", model.h100())
             return ctx.record(StageResult(
@@ -284,7 +293,12 @@ class VerifyStage:
             if spec is not None:
                 from repro_torch.faults import InjectedFault
                 raise InjectedFault("verify stage: injected failure")
-        ctx.findings = check_fleet(ctx.fleet, hw=ctx.plan_kw.get("hw"))
+        from repro_torch.plan.planner import aie_options
+        aie = aie_options(
+            aie=ctx.plan_kw.get("aie"),
+            machine_model=ctx.plan_kw.get("machine_model"))["aie"]
+        ctx.findings = check_fleet(ctx.fleet, hw=ctx.plan_kw.get("hw"),
+                                   aie=aie)
         counts: dict[str, int] = {}
         for f in ctx.findings:
             counts[f.severity] = counts.get(f.severity, 0) + 1
@@ -307,7 +321,8 @@ class EngineStage:
     params, quantized params or calibration batch.  An LM tenant gets a
     plan-driven :class:`~repro_torch.serve.ContinuousBatcher` of
     ``ctx.max_len`` over ``ctx.lm_params[net_id] = (cfg, params)``.  Other
-    nets draw weights from ``ctx.seed``."""
+    nets draw weights from ``ctx.seed``.  A plan for the AIE array is
+    refused: no engine of the port runs one."""
 
     name = "engines"
 
@@ -317,6 +332,12 @@ class EngineStage:
         if ctx.fleet is None:
             raise ValueError("engine stage needs a planned fleet "
                              "(run the plan stage first)")
+        aie = [t.net_id for t in ctx.fleet.tenants if t.plan.target == "aie"]
+        if aie:
+            raise ValueError(
+                f"tenant(s) {aie} are planned for the AIE array (target "
+                f"'aie'), which no engine of the port runs: build with "
+                f"stop_after='plan' or 'verify', or plan for 'h100'")
         t0 = time.perf_counter()
         by_name = {c.name: c for c in ctx.configs}
         for tp in ctx.fleet.tenants:

@@ -1,5 +1,7 @@
-"""The deployment planner for the ``"h100"`` target: dataflow graphs in,
-serializable :class:`DeploymentPlan` / :class:`FleetPlan` out."""
+"""The deployment planner for the ``"h100"`` target (the card) and the
+paper's ``"aie"`` target (the VEK280's AIE-vs-PL decision): dataflow
+graphs in, serializable :class:`DeploymentPlan` / :class:`FleetPlan`
+out."""
 
 from repro_torch.plan.artifact import (BoundaryPlan, DeploymentPlan,
                                        FusionGroup, LayerPlan, PlanCache,

@@ -1,9 +1,10 @@
-"""Several nets served from one card: the fleet plan.
+"""Several nets on one device: the fleet plan.
 
-The nets (edge nets and LMs) time-share the card, so each is planned by the
-single-net search; the hand-off of each net's result is charged one DR7'
-crossing, and each tenant's latency budget is ``budget_factor x (planned +
-crossing)``, the budget the serving router measures against.  An LM
+``target="h100"`` (the default): the nets (edge nets and LMs) time-share
+the card, so each is planned by the single-net search; the hand-off of
+each net's result is charged one DR7' crossing, and each tenant's latency
+budget is ``budget_factor x (planned + crossing)``, the budget the serving
+router measures against.  An LM
 tenant's serve section also carries the continuous batcher's policy, as the
 reference's ``_plan_fleet_tpu`` writes it: a fair share of
 ``serve_slots_total`` slots across the LM tenants, the ``prefill_chunk``,
@@ -12,7 +13,20 @@ slot generations.  Every tenant's serve section carries its priority
 class (``critical`` edge, ``standard`` LM), its tail contract (``slo``:
 p95 at the budget, p99 at 1.5x) and the supervisor's ``resilience`` knobs
 (:data:`repro_torch.faults.RESILIENCE_DEFAULTS`), as the reference's
-``_with_slo`` writes them.
+``_with_slo`` writes them.  An h100 tenant holds no array columns
+(``col_offset`` and ``cols`` 0, as the reference's TPU tenants).
+
+``target="aie"``: the paper's Section V-C co-residency, the reference's
+``_plan_fleet_aie``.  Every net runs its own LARE pass, then ALL nets' AIE
+layers enter one :func:`planner._resolve_columns` call keyed by ``(tenant,
+layer)``: the shrink-vs-spill rule trades one net's split width against
+another net's spill penalty.  Tenants receive contiguous, non-overlapping
+band-1 column ranges (``col_offset``/``cols``), and each net's off-array
+hand-off is charged a DR7 crossing
+(:func:`repro_torch.core.boundary.crossing_cost_aie`).
+
+A fleet artifact written before tenants carried columns decodes with
+``col_offset`` and ``cols`` 0.
 """
 
 from __future__ import annotations
@@ -43,11 +57,21 @@ LM_SERVE_DEFAULTS = {
 }
 
 
+def _band1_cols(plan: DeploymentPlan) -> int:
+    """Band-1 array columns a plan occupies (0 off the AIE target)."""
+    if plan.target != "aie":
+        return 0
+    return sum(l.p_k for l in plan.layers
+               if l.regime == "aie" and l.band == 1)
+
+
 @dataclasses.dataclass(frozen=True)
 class TenantPlan:
-    """One net's slice of the fleet: its plan and its latency budget."""
+    """One net's slice of the fleet: its plan, its columns, its budget."""
     net_id: str
     plan: DeploymentPlan
+    col_offset: int              # first band-1 column on the array (aie)
+    cols: int                    # band-1 columns occupied (0 on h100)
     crossing_s: float
     latency_budget_s: float
 
@@ -56,7 +80,8 @@ class TenantPlan:
         return self.plan.est_latency_s + self.crossing_s
 
     def to_dict(self) -> dict:
-        return {"net_id": self.net_id, "crossing_s": self.crossing_s,
+        return {"net_id": self.net_id, "col_offset": self.col_offset,
+                "cols": self.cols, "crossing_s": self.crossing_s,
                 "latency_budget_s": self.latency_budget_s,
                 "plan": self.plan.to_dict()}
 
@@ -64,6 +89,7 @@ class TenantPlan:
     def from_dict(cls, d: dict) -> "TenantPlan":
         return cls(net_id=d["net_id"],
                    plan=DeploymentPlan.from_dict(d["plan"]),
+                   col_offset=d.get("col_offset", 0), cols=d.get("cols", 0),
                    crossing_s=d["crossing_s"],
                    latency_budget_s=d["latency_budget_s"])
 
@@ -87,11 +113,18 @@ class FleetPlan:
     def net_ids(self) -> list[str]:
         return [t.net_id for t in self.tenants]
 
+    @property
+    def band1_cols_used(self) -> int:
+        return sum(t.cols for t in self.tenants)
+
     def to_dict(self) -> dict:
+        totals = {"est_latency_s": self.est_latency_s}
+        if self.target == "aie":
+            totals["band1_cols_used"] = self.band1_cols_used
         return {"schema": self.schema, "kind": "fleet", "name": self.name,
                 "target": self.target, "key": self.key,
                 "tenants": [t.to_dict() for t in self.tenants],
-                "totals": {"est_latency_s": self.est_latency_s}}
+                "totals": totals}
 
     def to_json(self, indent: int | None = 2) -> str:
         return json.dumps(self.to_dict(), indent=indent, sort_keys=True)
@@ -121,7 +154,8 @@ class FleetPlan:
                   budget_factor: float = DEFAULT_BUDGET_FACTOR
                   ) -> "FleetPlan":
         """Wrap a single-net :class:`DeploymentPlan` as a one-tenant fleet."""
-        tenant = TenantPlan(net_id=plan.network, plan=plan, crossing_s=0.0,
+        tenant = TenantPlan(net_id=plan.network, plan=plan, col_offset=0,
+                            cols=_band1_cols(plan), crossing_s=0.0,
                             latency_budget_s=budget_factor
                             * plan.est_latency_s)
         return cls(name=plan.network, target=plan.target,
@@ -143,7 +177,10 @@ def _net_ids(graphs) -> list[str]:
 def fleet_key(cfgs, *, target: str = planner.TARGET,
               batch: int | None = None,
               budget_factor: float = DEFAULT_BUDGET_FACTOR,
-              hw: hwlib.H100 = hwlib.H100_SXM, **lm_serve) -> str:
+              hw: hwlib.H100 = hwlib.H100_SXM, pl_budget: float = 400.0,
+              pl: hwlib.PlFabric | None = None,
+              aie: hwlib.AieMl | None = None, machine_model=None,
+              **lm_serve) -> str:
     """The cache key :func:`plan_fleet` files these arguments' fleet under:
     every net's plan key (machine model included), the budget factor and,
     when the fleet has an LM tenant, the LM serve knobs (``lm_serve``,
@@ -152,8 +189,13 @@ def fleet_key(cfgs, *, target: str = planner.TARGET,
     if unknown:
         raise TypeError(f"unknown serve option(s): {sorted(unknown)}")
     graphs = [planner.as_graph(c, batch=batch) for c in cfgs]
+    if machine_model is not None:
+        hw = machine_model.h100(base=hw)
+    opts = planner.aie_options(pl_budget=pl_budget, pl=pl, aie=aie,
+                               machine_model=machine_model)
     payload = {"planner": PLANNER_VERSION, "target": target,
-               "fleet": [planner._key_for(g, target, hw) for g in graphs],
+               "fleet": [planner._key_for(g, target, hw, opts)
+                         for g in graphs],
                "budget_factor": budget_factor}
     if any(g.kind == "lm" for g in graphs):
         payload["lm_serve"] = {**LM_SERVE_DEFAULTS, **lm_serve}
@@ -178,6 +220,52 @@ def _with_slo(serve: dict, kind: str, budget_s: float) -> dict:
     }
 
 
+def _plan_fleet_aie(graphs, ids, *, key: str, budget_factor: float,
+                    opts: dict) -> FleetPlan:
+    pl, aie = opts["pl"], opts["aie"]
+    preps = [planner._aie_prepare(g, pl_budget=opts["pl_budget"], pl=pl,
+                                  aie=aie) for g in graphs]
+    # Joint column resolution: all nets' AIE layers in one pool, keyed by
+    # (tenant, layer) so band assignment walks tenants in placement order.
+    cands = {(ti, li): c
+             for ti, p in enumerate(preps) for li, c in p.cands.items()}
+    chosen = {k: c[0] for k, c in cands.items()}
+    bands = planner._resolve_columns(chosen, cands, aie)
+    n_band2 = sum(1 for b in bands.values() if b > 1)
+
+    tenants: list[TenantPlan] = []
+    col = 0
+    for ti, (g, prep, net_id) in enumerate(zip(graphs, preps, ids)):
+        t_chosen = {li: chosen[(ti, li)] for li in prep.cands}
+        t_bands = {li: bands[(ti, li)] for li in prep.cands}
+        layers = planner._aie_layers(g, prep, t_chosen, t_bands, n_band2,
+                                     aie=aie)
+        bounds, est_latency, est_interval = planner._aie_totals(g, layers,
+                                                                aie)
+        plan = DeploymentPlan(
+            network=g.name, target="aie", batch=g.batch,
+            key=f"{key}:{net_id}", layers=tuple(layers),
+            boundaries=tuple(bounds), est_latency_s=est_latency,
+            est_interval_s=est_interval,
+            serve={"quantize_weights": True, "prefill_chunk": None},
+            kind=g.kind)
+        # DR7 at the net boundary: the net's result streams off-array
+        # through the PLIO fabric shared by every co-resident tenant.
+        crossing = boundary.crossing_cost_aie(
+            g.nodes[-1].out_bytes(g.batch), plan.est_latency_s, aie=aie)
+        cols_used = _band1_cols(plan)
+        budget = budget_factor * (plan.est_latency_s + crossing)
+        plan = dataclasses.replace(plan, serve=_with_slo(plan.serve, g.kind,
+                                                         budget))
+        tenants.append(TenantPlan(
+            net_id=net_id, plan=plan, col_offset=col, cols=cols_used,
+            crossing_s=crossing, latency_budget_s=budget))
+        col += cols_used
+    return FleetPlan(name="+".join(ids), target="aie", key=key,
+                     tenants=tuple(tenants),
+                     est_latency_s=max(t.total_latency_s for t in tenants))
+
+
 def plan_fleet(cfgs, *, target: str = planner.TARGET,
                batch: int | None = None,
                budget_factor: float = DEFAULT_BUDGET_FACTOR,
@@ -185,25 +273,41 @@ def plan_fleet(cfgs, *, target: str = planner.TARGET,
                prefill_chunk: int | None = LM_SERVE_DEFAULTS["prefill_chunk"],
                queue_depth_factor: int = LM_SERVE_DEFAULTS[
                    "queue_depth_factor"],
-               hw: hwlib.H100 = hwlib.H100_SXM, cache=None,
-               device=None) -> FleetPlan:
-    """Plan N nets (EdgeConfigs, ModelConfigs or graphs) served from one
-    card.  ``device`` is where the fleet will run (``None``: the GPU,
-    raising when there is none).  Repeat calls with the same nets, machine
-    model, budget factor and LM serve knobs hit the cache."""
+               hw: hwlib.H100 = hwlib.H100_SXM, pl_budget: float = 400.0,
+               pl: hwlib.PlFabric | None = None,
+               aie: hwlib.AieMl | None = None, machine_model=None,
+               cache=None, device=None) -> FleetPlan:
+    """Plan N nets (EdgeConfigs, ModelConfigs or graphs) on one device:
+    ``target="h100"``, the card, under ``hw``; ``"aie"``, the paper's
+    VEK280 array, under ``pl_budget``, ``pl`` and ``aie`` (a fitted
+    ``machine_model`` re-parameterizes both, as in
+    :func:`~repro_torch.plan.planner.plan_deployment`).  ``device`` is
+    where the fleet will run (``None``: the GPU, raising when there is
+    none).  Repeat calls with the same nets, machine model, budget factor
+    and LM serve knobs hit the cache."""
     resolve_device(device)
     if not cfgs:
         raise ValueError("plan_fleet needs at least one network")
     graphs = [planner.as_graph(c, batch=batch) for c in cfgs]
     ids = _net_ids(graphs)
     key = fleet_key(graphs, target=target, budget_factor=budget_factor,
-                    hw=hw, serve_slots_total=serve_slots_total,
+                    hw=hw, pl_budget=pl_budget, pl=pl, aie=aie,
+                    machine_model=machine_model,
+                    serve_slots_total=serve_slots_total,
                     prefill_chunk=prefill_chunk,
                     queue_depth_factor=queue_depth_factor)
     cache = cache if cache is not None else default_cache()
     hit = cache.get_fleet(key)
     if hit is not None:
         return hit
+    if target == "aie":
+        opts = planner.aie_options(pl_budget=pl_budget, pl=pl, aie=aie,
+                                   machine_model=machine_model)
+        return cache.put_fleet(_plan_fleet_aie(
+            graphs, ids, key=key, budget_factor=budget_factor, opts=opts),
+            key=key)
+    if machine_model is not None:
+        hw = machine_model.h100(base=hw)
     n_lm = sum(1 for g in graphs if g.kind == "lm") or 1
     tenants = []
     for g, net_id in zip(graphs, ids):
@@ -218,8 +322,8 @@ def plan_fleet(cfgs, *, target: str = planner.TARGET,
         budget = budget_factor * (plan.est_latency_s + crossing)
         plan = dataclasses.replace(plan, serve=_with_slo(plan.serve, g.kind,
                                                          budget))
-        tenants.append(TenantPlan(net_id=net_id, plan=plan,
-                                  crossing_s=crossing,
+        tenants.append(TenantPlan(net_id=net_id, plan=plan, col_offset=0,
+                                  cols=0, crossing_s=crossing,
                                   latency_budget_s=budget))
     fleet = FleetPlan(name="+".join(ids), target=target, key=key,
                       tenants=tuple(tenants),

@@ -1,10 +1,11 @@
-"""The deployment planner for the ``"h100"`` target.
+"""The deployment planner, for two targets.
 
-Every layer runs ``tiled``: one ``gemm_int8`` launch with the block shape
+``target="h100"`` (the default, the card the port serves on): every layer
+runs ``tiled``: one ``gemm_int8`` launch with the block shape
 :func:`repro_torch.core.tiling.plan_api` picks, unless the DR7' fusion DP
 puts it in a multi-layer group, which runs as one ``fused_mlp_q8`` launch.
 The pipelined-spatial regime (layers spread over cores) is not offered on
-this target yet, so every layer carries ``lare = -1``.
+this target yet, so every h100 layer carries ``lare = -1``.
 
 A fusion group's working set is priced by
 :func:`repro_torch.kernels.fused_mlp.fused_smem_bytes`, the same function
@@ -17,6 +18,19 @@ launch term, each node its own group (a repeat- and regime-uniform
 partition, as the reference's ``_plan_tpu`` makes it).  Its tile is the one
 ``gemm_int8`` would take for the shape, the kernel the plan's
 ``quantize_weights`` points at.
+
+``target="aie"``: the paper's own planner, the JAX package's ``_plan_aie``
+over the framework-free models of the VEK280 (``hw.AIE_ML``,
+``hw.PL_FABRIC``).  Every layer runs LARE (Alg. 1) and is assigned PL (the
+cheapest reuse factor whose resources fit ``pl_budget``) or AIE (a ``P_K x
+P_N`` spatial split and the best ``aie::mmul`` tile).  AIE layers then
+compete for the array's columns: when the summed ``P_K`` exhausts
+``usable_cols`` the planner shrinks the split whose interval suffers least,
+and spills into a second band only when shrinking costs more than the
+Fig.-6 contention penalty.  PL<->AIE transitions are charged the Fig.-7
+crossing.  An AIE plan has no ``fusion_groups`` section (each layer its own
+group) and names no kernel of the port: it is planned and verified, never
+served.
 """
 
 from __future__ import annotations
@@ -25,7 +39,7 @@ import dataclasses
 import math
 
 from repro_torch import hw as hwlib
-from repro_torch.core import boundary, tiling
+from repro_torch.core import boundary, lare, tiling
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_mlp import ROWS, fused_smem_bytes
 from repro_torch.plan.artifact import (BoundaryPlan, DeploymentPlan,
@@ -34,6 +48,11 @@ from repro_torch.plan.artifact import (BoundaryPlan, DeploymentPlan,
 from repro_torch.plan.graph import DataflowGraph, edge_graph, model_graph
 
 TARGET = "h100"
+TARGETS = (TARGET, "aie")
+
+# Per-layer spatial split candidates on the AIE array (paper Fig. 5 sweep).
+_AIE_SPLITS = (1, 2, 3, 4, 6, 8)
+_AIE_MAX_TILES_PER_LAYER = 12
 
 
 def as_graph(cfg, *, batch: int | None = None) -> DataflowGraph:
@@ -165,37 +184,322 @@ def _plan_h100(graph: DataflowGraph, *, hw: hwlib.H100,
         kind=graph.kind, fusion_groups=tuple(fusion_groups))
 
 
-def _key_for(graph: DataflowGraph, target: str, hw: hwlib.H100) -> str:
+# ---------------------------------------------------------------------------
+# AIE path (paper-faithful)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _AieChoice:
+    """One (P_K, P_N, api tile) candidate for a layer, pre-penalty."""
+    interval_s: float
+    latency_s: float
+    p_k: int
+    p_n: int
+    s: tuple[int, int, int]
+
+
+def _aie_candidates(batch: int, n_in: int, n_out: int,
+                    aie: hwlib.AieMl) -> list[_AieChoice]:
+    """Legal split candidates sorted fastest-first (DR3/DR5 constraints)."""
+    out: list[_AieChoice] = []
+    for p_k in _AIE_SPLITS:
+        for p_n in _AIE_SPLITS:
+            if p_k * p_n > _AIE_MAX_TILES_PER_LAYER or p_n > aie.rows \
+                    or p_k > aie.usable_cols:
+                continue
+            q_k, q_n = math.ceil(n_in / p_k), math.ceil(n_out / p_n)
+            # DR5: floors on the dims being split.
+            if (p_k > 1 and q_k < 16) or (p_n > 1 and q_n < 32):
+                continue
+            best_s, best_i = None, float("inf")
+            for s in aie.legal_api_tiles_i8:
+                t = tiling.aie_tile_interval(batch, q_k, q_n, s, aie)
+                if t < best_i:
+                    best_s, best_i = s, t
+            out.append(_AieChoice(
+                interval_s=tiling.aie_spatial_interval(
+                    batch, n_in, n_out, p_k, p_n, best_s, aie=aie),
+                latency_s=tiling.aie_spatial_latency(
+                    batch, n_in, n_out, p_k, p_n, best_s, aie=aie),
+                p_k=p_k, p_n=p_n, s=best_s))
+    out.sort(key=lambda c: (c.interval_s, c.p_k * c.p_n))
+    return out
+
+
+def _resolve_columns(chosen: dict, cands: dict,
+                     aie: hwlib.AieMl) -> dict:
+    """Column-exhaustion resolution: shrink cheap splits until the summed
+    ``P_K`` fits one band, unless shrinking costs more than spilling
+    (Fig. 6).  Returns {layer key: band} and mutates ``chosen``.
+
+    Keys only need to sort stably (ints for a single net; ``(tenant,
+    layer)`` tuples when the fleet packer pools several nets' layers into
+    one joint resolution), so co-resident networks compete for the same
+    columns under the same shrink-vs-spill rule."""
+
+    def cols() -> int:
+        return sum(c.p_k for c in chosen.values())
+
+    spill_interval = _spilled_worst_interval(chosen, aie)
+    while cols() > aie.usable_cols:
+        # Cheapest single-layer shrink that reduces column usage.
+        best_li, best_alt, best_cost = None, None, float("inf")
+        for li, cur in chosen.items():
+            for alt in cands[li]:
+                if alt.p_k < cur.p_k:
+                    cost = alt.interval_s - cur.interval_s
+                    if cost < best_cost:
+                        best_li, best_alt, best_cost = li, alt, cost
+                    break            # candidates are sorted; first is cheapest
+        if best_li is None:
+            break                    # nothing shrinkable: must spill
+        # Worst interval if we shrink vs worst interval if we stop and spill.
+        trial = dict(chosen)
+        trial[best_li] = best_alt
+        shrink_worst = max(c.interval_s for c in trial.values())
+        if shrink_worst > spill_interval:
+            break                    # DR6: the band-2 penalty is cheaper
+        chosen[best_li] = best_alt
+    # Bands first-fit in layer order: only band-1 residents consume band-1
+    # columns, so one oversized layer spilling does not cascade every later
+    # layer (or tenant) into band 2 while band-1 columns sit free.
+    bands: dict = {}
+    col = 0
+    for li in sorted(chosen):
+        c = chosen[li]
+        if col + c.p_k <= aie.usable_cols:
+            bands[li] = 1
+            col += c.p_k
+        else:
+            bands[li] = 2
+    return bands
+
+
+def _spilled_worst_interval(chosen: dict, aie: hwlib.AieMl) -> float:
+    """Worst-layer interval if the current overflow goes to band 2 as-is
+    (same first-fit band rule as the final assignment)."""
+    spilled = []
+    col = 0
+    for li in sorted(chosen):
+        if col + chosen[li].p_k <= aie.usable_cols:
+            col += chosen[li].p_k
+        else:
+            spilled.append(li)
+    worst = 0.0
+    penalty = 1.0 + aie.band2_penalty_per_layer * len(spilled)
+    for li in sorted(chosen):
+        t = chosen[li].interval_s * (penalty if li in spilled else 1.0)
+        worst = max(worst, t)
+    return worst
+
+
+@dataclasses.dataclass
+class _AiePrep:
+    """Per-graph LARE decisions, PL picks and AIE candidate lists: what the
+    column allocator needs, before any columns are committed.  Shared by
+    the single-net path and the fleet packer
+    (:mod:`repro_torch.plan.multinet`), which pools several preps'
+    candidates into one joint :func:`_resolve_columns` call."""
+    lares: dict[int, lare.LareResult]
+    regimes: dict[int, str]
+    pl_plans: dict[int, tuple[int, float, float]]   # i -> (rf, ival, lat)
+    cands: dict[int, list[_AieChoice]]
+
+
+def _aie_prepare(graph: DataflowGraph, *, pl_budget: float,
+                 pl: hwlib.PlFabric, aie: hwlib.AieMl) -> _AiePrep:
+    batch = graph.batch
+    lares = {n.index: lare.lare(n.n_in, n.n_out, batch=batch, pl=pl, aie=aie)
+             for n in graph}
+    regimes = {i: r.decide(pl_budget) for i, r in lares.items()}
+
+    # PL layers: cheapest interval whose resources fit the budget.
+    pl_plans: dict[int, tuple[int, float, float]] = {}
+    for node in graph:
+        if regimes[node.index] != "pl":
+            continue
+        pick = None
+        for rf in pl.legal_reuse_factors(node.n_in, node.n_out):
+            res = pl.resources(node.n_in, node.n_out, rf)
+            if pl.fits(res) and pl.resource_scalar(res) <= pl_budget:
+                pick = rf
+                break                                   # rfs ascend: min II
+        if pick is None:        # the budget cannot host it: send it to AIE
+            regimes[node.index] = "aie"
+            continue
+        pl_plans[node.index] = (pick, pl.interval_s(pick),
+                                pl.latency_s(node.n_in, node.n_out, pick,
+                                             batch))
+
+    cands = {n.index: _aie_candidates(batch, n.n_in, n.n_out, aie)
+             for n in graph if regimes[n.index] == "aie"}
+    return _AiePrep(lares=lares, regimes=regimes, pl_plans=pl_plans,
+                    cands=cands)
+
+
+def _aie_layers(graph: DataflowGraph, prep: _AiePrep,
+                chosen: dict[int, _AieChoice], bands: dict[int, int],
+                n_band2: int, *,
+                aie: hwlib.AieMl = hwlib.AIE_ML) -> list[LayerPlan]:
+    """LayerPlans from resolved choices.  ``n_band2`` is the band-2
+    population of the WHOLE array (fleet-wide under co-residency), so
+    contention is priced against every spilled layer, not just this
+    net's."""
+    layers: list[LayerPlan] = []
+    for node in graph:
+        i = node.index
+        rules: list[str] = []
+        if prep.regimes[i] == "pl":
+            rf, ival, lat = prep.pl_plans[i]
+            rules.append(
+                f"LARE={prep.lares[i].lare:.1f}<=budget -> PL(rf={rf})")
+            layers.append(LayerPlan(
+                index=i, name=node.name, n_in=node.n_in, n_out=node.n_out,
+                regime="pl", lare=prep.lares[i].lare, p_k=1, p_n=1, band=0,
+                api_tile=(0, 0, 0), fuse_group=i, est_latency_s=lat,
+                est_interval_s=ival, act=node.act, repeat=node.repeat,
+                rules=tuple(rules)))
+            continue
+        c, band = chosen[i], bands[i]
+        penalty = (1.0 + aie.band2_penalty_per_layer * n_band2) \
+            if band > 1 else 1.0
+        rules.append(f"LARE={prep.lares[i].lare:.1f}>budget -> AIE")
+        if c.p_k > 1:
+            rules.append(f"DR3(K-expansion P_K={c.p_k})")
+        rules.append(f"DR1(api={c.s})")
+        if band > 1:
+            rules.append(f"DR6(band-2 spill, {n_band2} layers)")
+        layers.append(LayerPlan(
+            index=i, name=node.name, n_in=node.n_in, n_out=node.n_out,
+            regime="aie", lare=prep.lares[i].lare, p_k=c.p_k, p_n=c.p_n,
+            band=band, api_tile=c.s, fuse_group=i,
+            est_latency_s=c.latency_s * penalty,
+            est_interval_s=c.interval_s * penalty, act=node.act,
+            repeat=node.repeat, rules=tuple(rules)))
+    return layers
+
+
+def _aie_totals(graph: DataflowGraph, layers: list[LayerPlan],
+                aie: hwlib.AieMl
+                ) -> tuple[list[BoundaryPlan], float, float]:
+    """Boundary charges at every PL<->AIE transition (DR7 / Fig. 7) and the
+    resulting latency/interval totals."""
+    batch = graph.batch
+    base_latency = sum(l.est_latency_s for l in layers)
+    boundaries: list[BoundaryPlan] = []
+    for prev, nxt in zip(layers, layers[1:]):
+        if prev.regime != nxt.regime:
+            boundaries.append(BoundaryPlan(
+                after_layer=prev.index, from_regime=prev.regime,
+                to_regime=nxt.regime,
+                crossing_s=boundary.crossing_cost_aie(
+                    graph.nodes[prev.index].out_bytes(batch), base_latency,
+                    aie=aie)))
+    est_latency = base_latency + sum(b.crossing_s for b in boundaries)
+    est_interval = max(l.est_interval_s for l in layers)
+    return boundaries, est_latency, est_interval
+
+
+def _plan_aie(graph: DataflowGraph, *, pl_budget: float,
+              pl: hwlib.PlFabric, aie: hwlib.AieMl,
+              key: str) -> DeploymentPlan:
+    prep = _aie_prepare(graph, pl_budget=pl_budget, pl=pl, aie=aie)
+    chosen = {i: c[0] for i, c in prep.cands.items()}
+    bands = _resolve_columns(chosen, prep.cands, aie)
+    n_band2 = sum(1 for b in bands.values() if b > 1)
+    layers = _aie_layers(graph, prep, chosen, bands, n_band2, aie=aie)
+    boundaries, est_latency, est_interval = _aie_totals(graph, layers, aie)
+    return DeploymentPlan(
+        network=graph.name, target="aie", batch=graph.batch, key=key,
+        layers=tuple(layers), boundaries=tuple(boundaries),
+        est_latency_s=est_latency, est_interval_s=est_interval,
+        serve={"quantize_weights": True, "prefill_chunk": None},
+        kind=graph.kind)
+
+
+# ---------------------------------------------------------------------------
+# Public entry points
+# ---------------------------------------------------------------------------
+
+def aie_options(*, pl_budget: float = 400.0,
+                pl: hwlib.PlFabric | None = None,
+                aie: hwlib.AieMl | None = None, machine_model=None) -> dict:
+    """The AIE target's knobs with defaults applied, the one source of the
+    cache key and the search: a fitted ``machine_model``
+    (:class:`repro_torch.characterize.MachineModel`) re-parameterizes
+    ``aie`` through its ``aie()``, and its version enters the key."""
+    aie = aie if aie is not None else hwlib.AIE_ML
+    if machine_model is not None:
+        aie = machine_model.aie(base=aie)
+    return {"pl_budget": pl_budget,
+            "pl": pl if pl is not None else hwlib.PL_FABRIC, "aie": aie,
+            "machine_model": machine_model}
+
+
+def _key_for(graph: DataflowGraph, target: str, hw: hwlib.H100,
+             aie_opts: dict | None = None) -> str:
+    if target == "aie":
+        opts = aie_opts if aie_opts is not None else aie_options()
+        mm = opts["machine_model"]
+        return plan_key(graph, target, (opts["pl"], opts["aie"]),
+                        {"pl_budget": opts["pl_budget"],
+                         "machine_model": mm.version if mm is not None
+                         else None})
     if target != TARGET:
-        raise ValueError(f"unknown target {target!r} (want {TARGET!r})")
+        raise ValueError(f"unknown target {target!r} (want one of "
+                         f"{TARGETS})")
     # An LM plan also reads the bf16 rate, which edge plans leave out.
     extra = {"peak_bf16_ops": hw.peak_bf16_ops} if graph.kind == "lm" \
         else None
     return plan_key(graph, target, (hw,), extra)
 
 
+def _plan(graph: DataflowGraph, target: str, hw: hwlib.H100,
+          aie_opts: dict, key: str) -> DeploymentPlan:
+    if target == "aie":
+        return _plan_aie(graph, pl_budget=aie_opts["pl_budget"],
+                         pl=aie_opts["pl"], aie=aie_opts["aie"], key=key)
+    return _plan_h100(graph, hw=hw, key=key)
+
+
 def plan_deployment(cfg, *, target: str = TARGET, batch: int | None = None,
                     hw: hwlib.H100 = hwlib.H100_SXM,
+                    pl_budget: float = 400.0,
+                    pl: hwlib.PlFabric | None = None,
+                    aie: hwlib.AieMl | None = None, machine_model=None,
                     device=None) -> DeploymentPlan:
     """Plan one deployment of an EdgeConfig, a ModelConfig (its decode
-    step) or a graph for the card.
+    step) or a graph for ``target``: ``"h100"`` (the card, under ``hw``)
+    or ``"aie"`` (the paper's VEK280, under ``pl_budget``, ``pl`` and
+    ``aie``).  A fitted ``machine_model`` replaces ``hw`` with its
+    ``h100(base=hw)`` and ``aie`` with its ``aie(base=aie)``.
 
     ``device`` is where the plan will run: ``None`` means the GPU and raises
     when there is none (the plan itself does not depend on it)."""
     resolve_device(device)
     graph = as_graph(cfg, batch=batch)
-    return _plan_h100(graph, hw=hw, key=_key_for(graph, target, hw))
+    if machine_model is not None:
+        hw = machine_model.h100(base=hw)
+    opts = aie_options(pl_budget=pl_budget, pl=pl, aie=aie,
+                       machine_model=machine_model)
+    return _plan(graph, target, hw, opts, _key_for(graph, target, hw, opts))
 
 
 def get_or_plan(cfg, *, target: str = TARGET, batch: int | None = None,
-                hw: hwlib.H100 = hwlib.H100_SXM, cache=None,
-                device=None) -> DeploymentPlan:
+                hw: hwlib.H100 = hwlib.H100_SXM, pl_budget: float = 400.0,
+                pl: hwlib.PlFabric | None = None,
+                aie: hwlib.AieMl | None = None, machine_model=None,
+                cache=None, device=None) -> DeploymentPlan:
     """Cache-aware :func:`plan_deployment`."""
     resolve_device(device)
     cache = cache if cache is not None else default_cache()
     graph = as_graph(cfg, batch=batch)
-    key = _key_for(graph, target, hw)
+    if machine_model is not None:
+        hw = machine_model.h100(base=hw)
+    opts = aie_options(pl_budget=pl_budget, pl=pl, aie=aie,
+                       machine_model=machine_model)
+    key = _key_for(graph, target, hw, opts)
     hit = cache.get(key)
     if hit is not None:
         return hit
-    return cache.put(_plan_h100(graph, hw=hw, key=key))
+    return cache.put(_plan(graph, target, hw, opts, key))

@@ -626,8 +626,8 @@ class ContinuousBatcher:
         Deliberate sync: sampled tokens and the finiteness guard must reach
         the host; only two (slots,) vectors cross."""
         last = logits[:, -1]
-        finite = torch.isfinite(last).all(dim=-1).cpu().numpy()
-        return finite, last.argmax(dim=-1).cpu().numpy()
+        finite = torch.isfinite(last).all(dim=-1).cpu().numpy()  # repro: check-ok(lint.host-sync)
+        return finite, last.argmax(dim=-1).cpu().numpy()  # repro: check-ok(lint.host-sync)
 
     def _reset_slot(self, i: int):
         """Fresh state + position for a re-used slot (no stale cache or

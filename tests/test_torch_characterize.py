@@ -38,6 +38,8 @@ _TRUE = {
     "boundary_const": 2e-5,
     "boundary_dispatch": 2e-6,
     "boundary_per_byte": 6e-13,
+    "contention_base": 1.5e-7,
+    "band2_penalty": 0.085,
 }
 
 
@@ -53,6 +55,9 @@ def _synthetic_timer(term, regs):
         return (_TRUE["boundary_const"]
                 + _TRUE["boundary_dispatch"] * regs["launches"]
                 + _TRUE["boundary_per_byte"] * regs["launch_bytes"])
+    if term == "contention":
+        return _TRUE["contention_base"] * (
+            1.0 + _TRUE["band2_penalty"] * regs["n_band2"])
     raise AssertionError(term)
 
 
@@ -216,7 +221,7 @@ def test_fit_requires_enough_samples():
     with pytest.raises(ValueError):
         ch.fit_term("gemm_f32", samples)
     with pytest.raises(ValueError):
-        sweeps.run_term("contention", timer=_synthetic_timer)
+        sweeps.run_term("gemm_f32", timer=_synthetic_timer)
     with pytest.raises(ValueError):
         sweeps.run_term("gemm_int8", sweep="no_such_sweep")
 
@@ -328,6 +333,8 @@ def test_real_points_run_the_plain_path_on_the_cpu(term):
         s = harness.time_int8_pipeline(64, 2, iters=3, device=cpu)
     elif term == "fused_chain":
         s = harness.time_fused_chain(64, 2, iters=3, device=cpu)
+    elif term == "contention":
+        s = harness.model_band2_point(2)
     else:
         s = harness.time_unfused_chain(2, 1 << 12, iters=3, device=cpu)
     assert s.term == term and s.seconds > 0 and s.device_seconds is None

@@ -12,6 +12,7 @@ import dataclasses
 import json
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import types
@@ -161,9 +162,6 @@ NOT_PORTED = {
                    "undecodable, an ArtifactError and exit code 2",
     "plan.tile-divides": "the port's kernels mask ragged edges, so a block "
                          "need not divide the padded layer",
-    "plan.spatial-budget": "AIE splits and bands: waits for the AIE target",
-    "plan.column-budget": "AIE columns: waits for the AIE target",
-    "fleet.columns-overlap": "AIE columns: waits for the AIE target",
 }
 
 # Parts of plan.serve-keys the port leaves out: none.  The batch policy's
@@ -474,16 +472,28 @@ def test_check_false_records_the_stage_as_skipped(monkeypatch,
 # python -m repro_torch check
 # ---------------------------------------------------------------------------
 
-def test_cli_check_on_cpu_exits_clean():
+def test_cli_check_on_cpu_exits_clean(tmp_path):
+    """The tree mode on a copy of the committed sources with one plan
+    artifact in its deploy directory: the lint, the artifact, the Table-I
+    fleet for both targets and the library self-check."""
+    shutil.copytree(ROOT / "src" / "repro_torch",
+                    tmp_path / "src" / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__", "_build"))
+    n_files = len(list((tmp_path / "src" / "repro_torch").rglob("*.py")))
+    plan_deployment(edge.edge_config("qubit"), device="cpu").save(
+        tmp_path / "deployments_torch" / "qubit_h100.json")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-m", "repro_torch", "check",
-                          "--device", "cpu", "--json"], cwd=ROOT, env=env,
+                          "--device", "cpu", "--json", "--root",
+                          str(tmp_path)], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     report = json.loads(out.stdout)
     assert report["counts"]["error"] == 0
     assert report["checked"] == [
-        "fleet:jet_tagger+tau_select+vae+qubit+autoencoder",
+        f"lint:{n_files} files", "plan:qubit_h100.json",
+        "fleet:jet_tagger+tau_select+vae+qubit+autoencoder:h100",
+        "fleet:jet_tagger+tau_select+vae+qubit+autoencoder:aie",
         "kernels:library self-check on cpu"]
     assert set(report["launches"]) == set(ops.launch_counts())
 
@@ -572,3 +582,129 @@ def test_library_self_check_launches_every_kernel_on_card():
     assert kernel_contracts.verify_kernel_library() == []
     after = ops.launch_counts()
     assert {k: after[k] - before[k] for k in after} == dict.fromkeys(after, 1)
+
+
+# ---------------------------------------------------------------------------
+# The AIE target's rules, against the reference's on the same artifacts
+# ---------------------------------------------------------------------------
+
+def _aie_fleet(budget=0.0, names=NETS):
+    from repro_torch.plan import PlanCache
+    return plan_fleet([edge.edge_config(n) for n in names], target="aie",
+                      pl_budget=budget, device="cpu", cache=PlanCache())
+
+
+@pytest.mark.parametrize("budget", [0.0, 100.0, 400.0])
+def test_aie_plans_and_fleets_are_clean(budget):
+    """Including the kernel contracts, which an AIE plan skips: its tiles
+    are aie::mmul shapes, no kernel of the port's."""
+    assert checklib.check_fleet(_aie_fleet(budget)) == []
+    for name in NETS:
+        plan = plan_deployment(edge.edge_config(name), target="aie",
+                               pl_budget=budget, device="cpu")
+        assert checklib.check_fleet(plan) == []
+
+
+def _aie_findings(d):
+    """One AIE fleet dict verified by both packages, as comparable
+    tuples."""
+    from repro.check import plan_rules as ref_rules
+    from repro.plan.multinet import FleetPlan as RefFleetPlan
+
+    def key(fs):
+        return sorted((f.rule, f.severity, f.tenant, f.layer) for f in fs)
+    return (key(plan_rules.verify_fleet(FleetPlan.from_dict(d))),
+            key(ref_rules.verify_fleet(RefFleetPlan.from_dict(d))))
+
+
+def _tenant(d, net_id):
+    return next(t for t in d["tenants"] if t["net_id"] == net_id)
+
+
+def _first_aie(d, net_id="vae"):
+    return next(l for l in _tenant(d, net_id)["plan"]["layers"]
+                if l["regime"] == "aie")
+
+
+def _a_tile_and_split(d):                  # tests/test_check.py's case
+    _first_aie(d).update(api_tile=[5, 5, 5], p_k=7, p_n=4)
+
+
+def _a_cols_lie(d):                        # tests/test_check.py's case
+    _tenant(d, "qubit")["cols"] += 3
+
+
+def _a_dr5_floor(d):
+    layer = _first_aie(d, "jet_tagger")    # 16 inputs: P_K 2 leaves 8
+    layer.update(p_k=2)
+
+
+def _a_band_three(d):
+    _first_aie(d, "autoencoder")["band"] = 3
+
+
+def _a_overlap(d):
+    _tenant(d, "vae")["col_offset"] = 1
+
+
+def _a_over_budget(d):
+    _tenant(d, "autoencoder")["cols"] += 40
+
+
+def _a_pl_tile_ignored(d):
+    layer = next(l for l in _tenant(d, "jet_tagger")["plan"]["layers"]
+                 if l["regime"] == "pl")
+    layer["api_tile"] = [9, 9, 9]
+
+
+def _a_missing_boundary(d):
+    _tenant(d, "vae")["plan"]["boundaries"].pop()
+
+
+def _a_extra_boundary(d):
+    _tenant(d, "vae")["plan"]["boundaries"].append(
+        {"after_layer": 1, "from_regime": "aie", "to_regime": "aie",
+         "crossing_s": 1e-8})
+
+
+def _a_negative_overhead(d):
+    _tenant(d, "qubit")["plan"]["totals"]["est_latency_s"] *= 0.5
+
+
+@pytest.mark.parametrize("budget,fault", [
+    (0.0, None), (100.0, None), (0.0, _a_tile_and_split),
+    (0.0, _a_cols_lie), (0.0, _a_dr5_floor), (0.0, _a_band_three),
+    (0.0, _a_overlap), (0.0, _a_over_budget), (100.0, _a_pl_tile_ignored),
+    (100.0, _a_missing_boundary), (100.0, _a_extra_boundary),
+    (100.0, _a_negative_overhead)],
+    ids=lambda v: v.__name__[3:] if callable(v) else str(v))
+def test_aie_rules_agree_with_the_reference(budget, fault):
+    d = json.loads(_aie_fleet(budget).to_json())
+    if fault is not None:
+        fault(d)
+    got, want = _aie_findings(d)
+    assert got == want
+    assert (got == []) == (fault in (None, _a_pl_tile_ignored))
+
+
+def test_aie_rules_name_the_reference_rules():
+    d = json.loads(_aie_fleet().to_json())
+    _a_tile_and_split(d)
+    _a_cols_lie(d)
+    got, _ = _aie_findings(d)
+    # The five nets fill all 31 columns: three more pass the budget too.
+    assert {r for r, *_ in got} == {"plan.tile-legal", "plan.spatial-budget",
+                                    "fleet.columns-overlap",
+                                    "plan.column-budget"}
+    d = json.loads(_aie_fleet().to_json())
+    _a_over_budget(d)
+    got, _ = _aie_findings(d)
+    assert {r for r, *_ in got} == {"plan.column-budget",
+                                    "fleet.columns-overlap"}
+
+
+def test_aie_fleet_verifies_under_the_given_array():
+    """A narrower array than the plan's: its columns no longer fit."""
+    narrow = dataclasses.replace(hw.AIE_ML, usable_cols=10)
+    findings = checklib.check_fleet(_aie_fleet(), aie=narrow)
+    assert _rules(findings) == {"plan.column-budget"}

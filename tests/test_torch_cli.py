@@ -52,6 +52,51 @@ def test_plan_of_one_net_writes_its_plan(tmp_path, capsys):
     assert "check: clean" in capsys.readouterr().out
 
 
+def test_plan_target_both_writes_one_artifact_a_target(tmp_path, capsys):
+    """``--target both`` writes the h100 and the AIE fleet; the AIE one
+    equals the reference's fleet at the same budget, and check accepts
+    both."""
+    from repro.models import edge as ref_edge
+    from repro.plan import PlanCache as RefPlanCache
+    from repro.plan import multinet as ref_multinet
+    nets = ["jet_tagger", "vae", "qubit"]
+    assert cli.main(["plan", *nets, "--target", "both", "--pl-budget",
+                     "100", "--out", str(tmp_path)] + STOCK) == 0
+    text = capsys.readouterr().out
+    assert "[h100]" in text and "band1_cols=" in text and "LARE" in text
+    h100, aie = (tmp_path / f"fleet_jet_tagger+vae+qubit_{t}.json"
+                 for t in ("h100", "aie"))
+    d = json.loads(aie.read_text())
+    want = ref_multinet.plan_fleet([ref_edge.edge_config(n) for n in nets],
+                                   target="aie", pl_budget=100.0,
+                                   cache=RefPlanCache())
+    assert [(t["col_offset"], t["cols"], t["crossing_s"],
+             t["latency_budget_s"]) for t in d["tenants"]] == [
+        (t.col_offset, t.cols, t.crossing_s, t.latency_budget_s)
+        for t in want.tenants]
+    assert d["totals"]["band1_cols_used"] == want.band1_cols_used
+    assert [l["regime"] for t in d["tenants"] for l in t["plan"]["layers"]] \
+        == [l.regime for t in want.tenants for l in t.plan.layers]
+    assert json.loads(h100.read_text())["target"] == "h100"
+    assert cli.main(["check", str(h100), str(aie), "--device", "cpu"]) == 0
+    assert "check: clean" in capsys.readouterr().out
+
+
+def test_plan_target_aie_of_one_net_and_lm_stays_h100(tmp_path, capsys):
+    assert cli.main(["plan", "vae", "--target", "aie", "--pl-budget", "0",
+                     "--out", str(tmp_path)] + STOCK) == 0
+    assert [p.name for p in tmp_path.iterdir()] == ["vae_aie.json"]
+    plan = json.loads((tmp_path / "vae_aie.json").read_text())
+    assert {l["regime"] for l in plan["layers"]} == {"aie"}
+    assert plan["fusion_groups"] == []
+    lm_out = tmp_path / "lm"
+    assert cli.main(["plan", "jet_tagger", "--lm", "recurrentgemma_2b",
+                     "--target", "both", "--out", str(lm_out)] + STOCK) == 0
+    assert "planned for h100 only" in capsys.readouterr().out
+    assert [p.name for p in lm_out.iterdir()] == [
+        "fleet_jet_tagger+recurrentgemma-2b-smoke_h100.json"]
+
+
 def test_deploy_serves_a_mixed_fleet(tmp_path, capsys):
     rc = cli.main(["deploy", "tau_select", "--lm", "rwkv6_7b", "--iters",
                    "3", "--out", str(tmp_path)] + STOCK)
@@ -125,7 +170,7 @@ def test_every_subcommand_needs_a_card_unless_told_cpu(argv, monkeypatch,
 
 
 @pytest.mark.parametrize("argv", [["--lm", "qwen2_5_3b"],
-                                  ["--target", "aie"]])
+                                  ["--target", "tpu"]])
 def test_unknown_lm_arch_or_target_is_refused(argv, capsys):
     with pytest.raises(SystemExit):
         cli.main(["plan", "jet_tagger"] + argv + STOCK)

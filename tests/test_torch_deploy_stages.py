@@ -31,6 +31,8 @@ def _synthetic_timer(term, regs):
         return 8e-6 * regs["launches"] + 1e-13 * regs["padded_ops"]
     if term == "fused_chain":
         return 2e-5 + 1e-13 * regs["padded_ops"] + 5e-7 * regs["inner_layers"]
+    if term == "contention":
+        return 1.5e-7 * (1.0 + 0.085 * regs["n_band2"])
     return 2e-5 + 2e-6 * regs["launches"] + 6e-13 * regs["launch_bytes"]
 
 
