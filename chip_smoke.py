@@ -90,7 +90,11 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    ragged case in f32 and bf16, and a non-causal ragged case; a chunk of 8
    queries at ``q_offset`` 0, 1, 2047 and 2048 against the unrolled ring
    (Sk = q_offset + 8) and a 2056-key buffer, window 2048, with and
-   without softcap, in bf16 and f32;
+   without softcap, in bf16 and f32; the transformer family's shapes
+   (``TF_FLASH_CASES``: qwen2.5-3b's D=128 group of 8, gemma2-9b's and
+   -27b's local (window 4096) and global layers with softcap 50 at
+   S=8192, qwen2-vl-72b's 64 heads, a 3000-token prompt over a 4096-key
+   buffer and a chunk of 8 at ``q_offset`` 4088) in bf16 and f32;
    ``linear_scan`` at the forward shape (1,4096,2560), the decode shape
    (4,1,2560) and the ragged 3000-step prefill (2,3000,2560); each held
    against its plain version on the card;
@@ -222,14 +226,41 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    bound max(bytes / 3.35 TB/s, flops / 67 TFLOP/s f32): the recurrence
    is f32 arithmetic outside the tensor cores; the step-by-step kernel's
    time as ``was_ms``, and the sweep of T behind
-   ``rwkv6.CHUNKED_MIN_T`` (B = 1, 64 heads of 64, bf16).
+   ``rwkv6.CHUNKED_MIN_T`` (B = 1, 64 heads of 64, bf16);
+14. the dense transformer, ``gemma2-9b`` at full width and depth (42
+   layers): its float32 copy (37 GB) decodes 64 tokens against its own
+   forward's last row and is freed; then the bf16 model's ``api.forward``
+   at B=1, S=8192 (past the 4096 window): finite logits of shape (1, 8192,
+   256000) and 42 ``flash_attention`` launches.  ``build_serve_steps``
+   with ``prefill_chunk`` 8: a 3000-token prompt in 375 chunks on a
+   ``max_len`` 4096 cache (ring local layers, linear global ones), 42
+   launches a chunk, against the whole-prompt prefill (last logits, every
+   cache leaf, 8 decode steps; rtol 3e-2 / atol 3e-1);
+14b. serving ``gemma2-9b`` as phase 8 serves Griffin (the same runs,
+   trace, tick parity and 3000-token prefill against the forward; every
+   tick launches no LM kernel, its decode attention being plain), then
+   ``Deployment.build(["jet_tagger", <published gemma2-9b>])``: a clean
+   verify, 20 edge and 4 LM requests replayed through the router, the LM
+   tokens equal to a standalone batcher's under the plan's policy; and
+   ``python -m repro_torch.launch.serve --arch gemma2-9b`` (exit 0);
+14c. ``qwen2.5-3b`` at full width and depth: the float32 decode check and
+   the forward at S=4096 (36 launches, flash at D=128 and a group of 8),
+   then the launcher with and without ``--quant8`` (exit 0);
+14d. forwards only: ``gemma2-27b`` at full width and depth (54.4 GB of
+   bf16 weights) at S=4096, and ``qwen2-vl-72b`` at full width cut to 8
+   of its 80 layers, with seeded patch embeddings and M-RoPE ids (3, 1,
+   S); each phase's wall time printed.  Then phase 9's flash rows at each
+   transformer shape (device ms graph-replayed and eager, the plain
+   version, SDPA with the band mask (without softcap where the kernel
+   caps), the bound) and 256 queries over a 4096-key buffer against 256
+   over 256 (the tiles past the causal edge skipped).
 
 It prints a ``summary`` line (the fitted constants and each net's
 planned-vs-measured ratio, the edge p50/p95, the LM ticks eager and
-graphed, and the fleet's readings), one ``{"kernels": [...]}`` line (all
-seven kernels), the card line again, and last ``{"ok": true, "device":
-{...}}``.  It needs no
-network and one card.
+graphed, the fleet's and the transformer phases' readings), one
+``{"kernels": [...]}`` line (all seven kernels; flash with its rows at
+the transformer shapes), the card line again, and last ``{"ok": true,
+"device": {...}}``.  It needs no network and one card.
 """
 
 from __future__ import annotations
@@ -1710,7 +1741,7 @@ def fleet_phase(cfg, params, tokens, per_step, per_tick) -> dict:
     from repro_torch.characterize import characterize
     from repro_torch.deploy import Deployment
     from repro_torch.kernels import ops
-    from repro_torch.models import api, edge, tree
+    from repro_torch.models import edge
     from repro_torch.obs import workload
     from repro_torch.plan import PlanCache
     from repro_torch.serve import engine
@@ -1831,57 +1862,15 @@ def fleet_phase(cfg, params, tokens, per_step, per_tick) -> dict:
     torch.cuda.empty_cache()
 
     # Chunked prefill on the ring path against the whole-prompt prefill.
-    prompt = tokens[:, :LM_LONG_PROMPT]
-    chunk = lm_plan.serve["prefill_chunk"]
-    chunked, decode = engine.build_serve_steps(cfg, max_len=LM_SEQ,
-                                               plan=lm_plan)
-    whole, _ = engine.build_serve_steps(cfg, max_len=LM_SEQ)
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    last_c, state_c = chunked(params, prompt,
-                              api.init_decode_state(cfg, 1, LM_SEQ))
-    torch.cuda.synchronize()
-    chunked_s = time.perf_counter() - t0
-    chunk_launches = ops.launch_counts()
-    n_chunks = -(-LM_LONG_PROMPT // chunk)
-    want = {k: per_step[k] * n_chunks for k in ("flash_attention",
-                                                 "linear_scan")}
-    if lm_counts(chunk_launches) != {**want, "rwkv6_scan": 0}:
-        raise SmokeFailure(f"chunked prefill launched {chunk_launches}, "
-                           f"want {want}")
-    t0 = time.perf_counter()
-    last_w, state_w = whole(params, prompt,
-                            api.init_decode_state(cfg, 1, LM_SEQ))
-    torch.cuda.synchronize()
-    whole_s = time.perf_counter() - t0
-    errs = [check_close("chunked prefill vs whole-prompt prefill", last_c,
-                        last_w, tol=3e-2, atol=3e-1)]
-    state_err = max(check_close(f"state leaf {i} after chunked prefill", a,
-                                b, tol=3e-2, atol=3e-1)
-                    for i, (a, b) in enumerate(zip(tree.leaves(state_c),
-                                                   tree.leaves(state_w))))
-    fault = chunk_alone_fault(cfg, params, prompt, chunked, last_w, state_w)
-    tok = last_w[:, -1].argmax(dim=-1, keepdim=True)
-    for i in range(LM_LONG_DECODE):
-        got, state_c = decode(params, tok, state_c, LM_LONG_PROMPT + i)
-        want_l, state_w = decode(params, tok, state_w, LM_LONG_PROMPT + i)
-        errs.append(check_close(f"decode step {i} after chunked prefill",
-                                got, want_l, tol=3e-2, atol=3e-1))
-        tok = want_l[:, -1].argmax(dim=-1, keepdim=True)
-    fleet.update(chunked_prefill_s=chunked_s, whole_prefill_s=whole_s,
-                 chunks=n_chunks, chunk_launches=chunk_launches,
-                 chunked_max_abs_err=max(errs),
-                 chunked_state_max_abs_err=state_err,
-                 chunk_alone_fault=fault)
-    log(f"fleet chunked prefill {LM_LONG_PROMPT} tokens in {n_chunks} "
-        f"chunks of {chunk}: {chunked_s:.3f} s against {whole_s:.3f} s "
-        f"whole-prompt (host clock); last logits and {LM_LONG_DECODE} decode "
-        f"steps max_abs_err={max(errs)}, state leaves {state_err} (rtol "
-        f"3e-2 atol 3e-1); the chunk-alone fault {json.dumps(fault)}; "
-        f"launches {json.dumps(chunk_launches)}")
-    del state_c, state_w, last_c, last_w
-    gc.collect()
-    torch.cuda.empty_cache()
+    chunked = chunked_prefill_check(cfg, params, tokens, lm_plan, per_step,
+                                    fault=True)
+    chunk_launches = chunked.pop("launches")
+    fleet.update(chunked_prefill_s=chunked["chunked_prefill_s"],
+                 whole_prefill_s=chunked["whole_prefill_s"],
+                 chunks=chunked["chunks"], chunk_launches=chunk_launches,
+                 chunked_max_abs_err=chunked["max_abs_err"],
+                 chunked_state_max_abs_err=chunked["cache_max_abs_err"],
+                 chunk_alone_fault=chunked["chunk_alone_fault"])
 
     # The CLI, as a user runs it.
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -3108,6 +3097,8 @@ def lm_kernel_phase(device) -> dict:
                     log(f"kernel flash_attention chunk q={list(q.shape)} "
                         f"k={list(k.shape)} {dt} {kw}: max_abs_err={err} "
                         f"rtol={rtol} atol={atol}")
+    errs["flash_attention"] = max(errs["flash_attention"],
+                                  tf_flash_checks(gen, device))
     for label, shape in SCAN_CASES:
         a, b = _scan_inputs(gen, device, shape)
         err = check_close(f"linear_scan {label}", rg.linear_scan_cuda(a, b),
@@ -3126,8 +3117,12 @@ def lm_kernel_phase(device) -> dict:
 def layer_counts(cfg) -> tuple[dict, dict]:
     """LM kernel launches of one full-sequence step and of one decode tick.
     Griffin: flash per attention layer on the full sequence only, the scan
-    per recurrent layer on both; RWKV: ``rwkv6_scan`` per layer on both."""
+    per recurrent layer on both; RWKV: ``rwkv6_scan`` per layer on both;
+    the transformer: flash per layer on the full sequence only (its decode
+    attention is plain, as in the reference)."""
     zero = dict.fromkeys(LM_KERNELS, 0)
+    if cfg.family == "transformer":
+        return {**zero, "flash_attention": cfg.num_layers}, dict(zero)
     if cfg.family == "rwkv":
         step = {**zero, "rwkv6_scan": cfg.num_layers}
         return step, dict(step)
@@ -3142,7 +3137,13 @@ def lm_counts(launches) -> dict:
     return {k: launches[k] for k in LM_KERNELS}
 
 
-def lm_forward_phase(arch: str):
+def lm_forward_phase(arch: str, seq: int = LM_SEQ):
+    """``api.init`` of ``arch`` at full width and depth from a seeded CUDA
+    generator and ``api.forward`` at B=1 and ``seq``: finite logits of the
+    right shape and the family's launches.  Before it, the model's float32
+    copy decodes 64 tokens against its own forward's last row, and is
+    freed before the model in its own dtype is drawn (gemma2-9b's f32 copy
+    is 37 GB)."""
     import dataclasses
     import numpy as np
     import torch
@@ -3154,43 +3155,15 @@ def lm_forward_phase(arch: str):
     torch.backends.cudnn.allow_tf32 = False
     cfg = configs.get(arch).config
     per_step, per_tick = layer_counts(cfg)
-    t0 = time.perf_counter()
-    params = api.init(cfg, torch.Generator(device="cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in tree.leaves(params))
-    on_card(params["emb"], "api.init's model")
-    log(f"lm init {cfg.name}: {cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}, {n_params} params {cfg.dtype} in "
-        f"{time.perf_counter() - t0:.2f} s")
     tokens = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (1, LM_SEQ)).astype(np.int32)
-
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    logits = api.forward(params, cfg, {"tokens": tokens})["logits"]
-    torch.cuda.synchronize()
-    forward_s = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    want_shape = (1, LM_SEQ, cfg.padded_vocab)
-    if tuple(logits.shape) != want_shape:
-        raise SmokeFailure(f"forward logits {tuple(logits.shape)}, want "
-                           f"{want_shape}")
-    if not bool(torch.isfinite(logits).all()):
-        raise SmokeFailure("forward logits are not finite")
-    if lm_counts(launches) != per_step:
-        raise SmokeFailure(f"{cfg.name} forward launched {launches}, want "
-                           f"{per_step}")
-    log(f"lm {cfg.name} forward B=1 S={LM_SEQ}: {forward_s:.3f} s (first "
-        f"call, host clock), launches {json.dumps(launches)}, logits "
-        f"|max| {float(logits.abs().max())}")
-    del logits
+        0, cfg.vocab_size, (1, seq)).astype(np.int32)
 
     # Decode against the forward, in float32 on a 64-token prompt.
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params32 = api.init(cfg32, torch.Generator(device="cuda").manual_seed(0))
     toks = tokens[:, :LM_CONSISTENCY_TOKENS]
     full = api.forward(params32, cfg32, {"tokens": toks})["logits"][:, -1]
-    state = api.init_decode_state(cfg32, 1, LM_SEQ)
+    state = api.init_decode_state(cfg32, 1, seq)
     step_logits = None
     for t in range(LM_CONSISTENCY_TOKENS):
         step_logits, state = api.decode_step(params32, cfg32,
@@ -3201,6 +3174,37 @@ def lm_forward_phase(arch: str):
         f"forward over {LM_CONSISTENCY_TOKENS} tokens: max_abs_err={err} "
         f"tol={TOL_LM_F32}")
     del params32, state, full, step_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    params = api.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    on_card(params["emb"], "api.init's model")
+    log(f"lm init {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params} params {cfg.dtype} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits = api.forward(params, cfg, {"tokens": tokens})["logits"]
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    want_shape = (1, seq, cfg.padded_vocab)
+    if tuple(logits.shape) != want_shape:
+        raise SmokeFailure(f"forward logits {tuple(logits.shape)}, want "
+                           f"{want_shape}")
+    if not bool(torch.isfinite(logits).all()):
+        raise SmokeFailure("forward logits are not finite")
+    if lm_counts(launches) != per_step:
+        raise SmokeFailure(f"{cfg.name} forward launched {launches}, want "
+                           f"{per_step}")
+    log(f"lm {cfg.name} forward B=1 S={seq}: {forward_s:.3f} s (first "
+        f"call, host clock), launches {json.dumps(launches)}, logits "
+        f"|max| {float(logits.abs().max())}")
+    del logits
+    gc.collect()
     torch.cuda.empty_cache()
     return cfg, params, tokens, launches, per_step, per_tick
 
@@ -3350,7 +3354,13 @@ def decode_tick_trace(batcher, cfg, n_ticks: int) -> dict:
     return out
 
 
-def lm_serve_phase(cfg, params, tokens, per_step, per_tick) -> dict:
+def lm_serve_phase(cfg, params, tokens, per_step, per_tick, *,
+                   eager_gen: int = LM_LONG_GEN) -> dict:
+    """Phase 8's runs (12's for RWKV, 14b's for the transformer): the short
+    and decode-heavy runs graphed, the decode-heavy prompts again with the
+    tick run eagerly (``eager_gen`` new tokens each), a profiler trace of
+    each, the tick parity, and a 3000-token prefill against the forward
+    with 8 decode steps."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -3368,7 +3378,7 @@ def lm_serve_phase(cfg, params, tokens, per_step, per_tick) -> dict:
     del batcher
     # The same decode-heavy run and trace with the tick run eagerly.
     batcher, eager_heavy = serve_run(cfg, params, prompts[LM_REQUESTS:],
-                                     LM_LONG_GEN, per_tick,
+                                     eager_gen, per_tick,
                                      "decode-heavy eager", graphs=False)
     eager_trace = decode_tick_trace(batcher, cfg, LM_TRACED_TICKS)
     del batcher
@@ -3541,7 +3551,6 @@ def quant8_phase(cfg, params, tokens, per_tick, served) -> dict:
     bf16 (printed, not judged); and ``python -m repro_torch.launch.serve
     --arch <arch> --quant8`` in its own process.  Counters are zeroed just
     before each run and read just after."""
-    import os
     import numpy as np
     import torch
     from repro_torch import runtime
@@ -3649,21 +3658,7 @@ def quant8_phase(cfg, params, tokens, per_tick, served) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                           "--arch", cfg.name, "--quant8"], cwd=ROOT,
-                          env=env, capture_output=True, text=True,
-                          timeout=600)
-    out["launcher"] = {"rc": proc.returncode,
-                       "s": time.perf_counter() - t0,
-                       "stdout": proc.stdout.splitlines()[:2]}
-    log(f"quant8 {cfg.name} launcher: rc {proc.returncode} in "
-        f"{out['launcher']['s']:.1f} s\n{proc.stdout.strip()}")
-    if proc.returncode != 0 or "int8 weights" not in proc.stdout:
-        raise SmokeFailure(f"python -m repro_torch.launch.serve --arch "
-                           f"{cfg.name} --quant8 exited {proc.returncode}:\n"
-                           f"{proc.stderr}")
+    out["launcher"] = launcher_run(cfg.name, "--quant8")
     return {"readings": out,
             "launches": {f"quant8 {k}": r["launches"]
                          for k, r in runs.items()}}
@@ -3947,6 +3942,562 @@ def rwkv_timing_phase(device) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phases 14-14d: the dense transformer family
+# ---------------------------------------------------------------------------
+
+TF_ARCH = "gemma2-9b"
+TF_SEQ = 8192                  # gemma2's published context, past its window
+# The batcher's and the chunked prefill's cache: max_len == gemma2's window
+# (LM_SEQ, 4096), so the local layers keep rings and the global layers
+# linear buffers, as the reference's rule picks them.
+TF_CHUNK = 8
+# Phase 14's model-level check past the window: the first two layers (one
+# local, one global) over 512 tokens past the 4096 window.
+TF_WINDOW_LAYERS = 2
+TF_WINDOW_SEQ = 4608
+# The eager decode-heavy rerun's new tokens: an eager gemma2-9b tick takes
+# ~0.12 s (~5000 launches), so 32 ticks read its p50 and p95.
+TF_EAGER_GEN = 32
+# The mixed fleet's LM requests: the plan's 8-slot tick costs ~0.1-0.2 s
+# with gemma2-9b's caches, and the batcher feeds prompts a token a tick.
+TF_FLEET_EDGE_REQUESTS = 20
+TF_FLEET_PROMPTS = (8, 12, 16, 24)
+TF_FLEET_NEW = 16
+QWEN_ARCH = "qwen2.5-3b"
+QWEN_SEQ = 4096
+BIG_ARCH = "gemma2-27b"
+BIG_SEQ = 4096                 # 54.4 GB of bf16 weights leave room for it
+VL_ARCH = "qwen2-vl-72b"
+VL_LAYERS = 8                  # of 80: the 145 GB of bf16 weights need two
+VL_SEQ = 4096                  # cards; 8 layers are ~19 GB
+# Flash at the family's shapes, phase 6 (against the plain version, bf16 and
+# f32, TOL_FLASH) and phase 9 (bf16 times): (label, B, Hq, Hkv, S, Sk, D,
+# options).  The gemma2 cases run at S = 8192, where the 4096 window bites.
+TF_FLASH_CASES = (
+    ("qwen2.5-3b global", 1, 16, 2, 4096, 4096, 128, {"causal": True}),
+    ("gemma2-9b local", 1, 16, 8, 8192, 8192, 256,
+     {"causal": True, "window": 4096, "softcap": 50.0}),
+    ("gemma2-9b global", 1, 16, 8, 8192, 8192, 256,
+     {"causal": True, "softcap": 50.0}),
+    ("gemma2-27b local", 1, 32, 16, 8192, 8192, 128,
+     {"causal": True, "window": 4096, "softcap": 50.0}),
+    ("gemma2-27b global", 1, 32, 16, 8192, 8192, 128,
+     {"causal": True, "softcap": 50.0}),
+    ("qwen2-vl-72b global", 1, 64, 8, 4096, 4096, 128, {"causal": True}),
+    # A whole prompt over the max_len buffer (keys past the prompt masked by
+    # causal), and the last chunk of 8 of a full buffer.
+    ("qwen2.5-3b prefill over cache", 1, 16, 2, 3000, 4096, 128,
+     {"causal": True}),
+    ("qwen2.5-3b chunk at 4088", 1, 16, 2, 8, 4096, 128,
+     {"causal": True, "q_offset": 4088}),
+    ("gemma2-9b global prefill over cache", 1, 16, 8, 3000, 4096, 256,
+     {"causal": True, "softcap": 50.0}),
+    ("gemma2-9b global chunk at 4088", 1, 16, 8, 8, 4096, 256,
+     {"causal": True, "softcap": 50.0, "q_offset": 4088}),
+)
+# Phase 9's tile-skip check: 3000 queries over a 4096-key buffer do the work
+# of 3000 over 3000 (every tile past the causal edge skipped), at a size
+# well above the launch floor.  Without the skip the first would cost about
+# 4096 * 3000 / (3000^2 / 2) = 2.7 times the second; the check fails past
+# TF_SKIP_MAX_RATIO.
+TF_SKIP_CASES = (("prefill S=3000 over Sk=4096", 3000, 4096),
+                 ("prefill S=3000 over Sk=3000", 3000, 3000))
+TF_SKIP_MAX_RATIO = 1.25
+
+
+def _tf_qkv(gen, device, b, hq, hkv, s, sk, d, dtype):
+    import torch
+    return [torch.randn(shape, generator=gen, device=device).to(dtype)
+            for shape in ((b, hq, s, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+
+
+def tf_flash_checks(gen, device) -> float:
+    """Phase 6's transformer cases: each of ``TF_FLASH_CASES`` in bf16 and
+    f32 against the plain version at ``TOL_FLASH`` (f32 also within
+    ``TOL_FLASH_RMS`` of the output's RMS).  Returns the largest error."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    worst = 0.0
+    for label, b, hq, hkv, s, sk, d, kw in TF_FLASH_CASES:
+        for dt in ("bfloat16", "float32"):
+            q, k, v = _tf_qkv(gen, device, b, hq, hkv, s, sk, d,
+                              getattr(torch, dt))
+            rtol, atol = TOL_FLASH[dt]
+            want = fa.flash_attention_plain(q, k, v, **kw)
+            err = check_close(f"flash_attention {label} {dt}",
+                              fa.flash_attention_cuda(q, k, v, **kw), want,
+                              tol=rtol, atol=atol)
+            rms = float(want.float().square().mean().sqrt())
+            if dt == "float32" and err > TOL_FLASH_RMS * rms:
+                raise SmokeFailure(f"flash_attention {label}: max abs err "
+                                   f"{err} beyond {TOL_FLASH_RMS} of the "
+                                   f"output RMS {rms}")
+            worst = max(worst, err)
+            log(f"kernel flash_attention {label} q={list(q.shape)} "
+                f"k={list(k.shape)} {dt} {kw}: max_abs_err={err} rtol={rtol} "
+                f"atol={atol} out_rms={rms} err/rms={err / rms}")
+            del q, k, v, want
+    torch.cuda.synchronize(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _band(s, sk, kw, device):
+    """The (S, Sk) mask of the kernel's options, for SDPA."""
+    import torch
+    q_pos = kw.get("q_offset", 0) + torch.arange(s, device=device)[:, None]
+    k_pos = torch.arange(sk, device=device)[None, :]
+    band = k_pos <= q_pos
+    if kw.get("window"):
+        band &= k_pos > q_pos - kw["window"]
+    return band
+
+
+def tf_flash_row(gen, device, label, b, hq, hkv, s, sk, d, kw) -> dict:
+    """One bf16 timing row: the kernel graph-replayed and eager, the plain
+    version, SDPA with the band mask (the yardstick: it has no softcap, so
+    where the kernel caps its logits SDPA computes less, and its time is
+    ``sdpa_no_softcap_ms`` with ``library_ms`` null) and the bound
+    max(bytes / 3.35 TB/s, flops / 989 TFLOP/s)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _tf_qkv(gen, device, b, hq, hkv, s, sk, d, torch.bfloat16)
+    band = _band(s, sk, kw, device)
+    kx = k.repeat_interleave(hq // hkv, dim=1)
+    vx = v.repeat_interleave(hq // hkv, dim=1)
+
+    def kernel():
+        return fa.flash_attention_cuda(q, k, v, **kw)
+
+    def library():
+        return F.scaled_dot_product_attention(q, kx, vx, attn_mask=band)
+
+    inner = 20 if s * sk <= 2 ** 21 else 5
+    flops, nbytes = fa.work(b, hq, hkv, s, sk, d, 2,
+                            causal=kw.get("causal", True),
+                            window=kw.get("window"),
+                            q_offset=kw.get("q_offset", 0))
+    row = {"shape": f"{label}: q {list(q.shape)} k/v {list(k.shape)} "
+                    f"bfloat16 {kw}",
+           "ms": graph_ms(kernel, inner=inner, reps=11),
+           "eager_ms": event_ms(kernel, inner=inner, reps=11),
+           "plain_ms": graph_ms(lambda: fa.flash_attention_plain(
+               q, k, v, **kw), inner=1, reps=3),
+           **bound(nbytes, flops, PEAK_BF16)}
+    sdpa_ms = graph_ms(library, inner=inner, reps=11)
+    if kw.get("softcap"):
+        row.update(library_ms=None, sdpa_no_softcap_ms=sdpa_ms)
+    else:
+        check_close(f"flash {label} library vs kernel", library(), kernel(),
+                    tol=TOL_FLASH_LIBRARY)
+        row["library_ms"] = sdpa_ms
+    log("timing flash_attention " + json.dumps(row, sort_keys=True))
+    del q, k, v, kx, vx, band
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def tf_timing_phase(device) -> dict:
+    """Phase 9's transformer rows: flash at each of ``TF_FLASH_CASES`` in
+    bf16, and the tile-skip pair (qwen2.5-3b's heads, causal)."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(6)
+    rows = [tf_flash_row(gen, device, label, b, hq, hkv, s, sk, d, kw)
+            for label, b, hq, hkv, s, sk, d, kw in TF_FLASH_CASES]
+    skip = {}
+    for label, s, sk in TF_SKIP_CASES:
+        skip[label] = tf_flash_row(gen, device, label, 1, 16, 2, s, sk, 128,
+                                   {"causal": True})
+    (far, near) = (skip[label]["ms"] for label, _, _ in TF_SKIP_CASES)
+    log(f"timing flash tile skip: S=3000 over Sk=4096 {far} ms, over "
+        f"Sk=3000 {near} ms (ratio {far / near})")
+    if far > TF_SKIP_MAX_RATIO * near:
+        raise SmokeFailure(f"flash tile skip: 3000 queries over 4096 keys "
+                           f"took {far} ms, over 3000 keys {near} ms: more "
+                           f"than {TF_SKIP_MAX_RATIO}x, so tiles past the "
+                           f"causal edge are not skipped")
+    return {"rows": rows, "tile_skip": skip}
+
+
+def launcher_run(arch: str, *extra: str) -> dict:
+    """``python -m repro_torch.launch.serve --arch <arch> [extra]`` in its
+    own process, as a user runs it: exit 0 and a served line."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    argv = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+            *extra]
+    proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    out = {"rc": proc.returncode, "s": time.perf_counter() - t0,
+           "stdout": proc.stdout.splitlines()[:2]}
+    log(f"launcher {arch} {' '.join(extra)}: rc {proc.returncode} in "
+        f"{out['s']:.1f} s\n{proc.stdout.strip()}")
+    if proc.returncode != 0 or " tok/s)" not in proc.stdout \
+            or ("--quant8" in extra and "int8 weights" not in proc.stdout):
+        raise SmokeFailure(f"python -m repro_torch.launch.serve --arch {arch} "
+                           f"{' '.join(extra)} exited {proc.returncode}:\n"
+                           f"{proc.stderr}")
+    return out
+
+
+def chunked_prefill_check(cfg, params, tokens, plan, per_step, *,
+                          fault: bool = False) -> dict:
+    """``build_serve_steps`` with the plan's ``prefill_chunk``: the
+    3000-token prompt in chunks on a ``max_len`` 4096 cache (Griffin's ring
+    past its 2048 window; for gemma2 ring local layers and linear global
+    ones), each chunk launching what a forward does at its ``q_offset``,
+    against the whole-prompt prefill (last logits and every cache or state
+    leaf, rtol 3e-2 / atol 3e-1), then 8 decode steps from both.  With
+    ``fault``, the chunk-alone fault (the reference's ring prefill) must
+    lie outside that limit."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, tree
+    from repro_torch.serve import engine
+    prompt = tokens[:, :LM_LONG_PROMPT]
+    chunk = plan.serve["prefill_chunk"]
+    chunked, decode = engine.build_serve_steps(cfg, max_len=LM_SEQ, plan=plan)
+    whole, _ = engine.build_serve_steps(cfg, max_len=LM_SEQ)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    last_c, state_c = chunked(params, prompt,
+                              api.init_decode_state(cfg, 1, LM_SEQ))
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    n_chunks = -(-LM_LONG_PROMPT // chunk)
+    want = {k: per_step[k] * n_chunks for k in LM_KERNELS}
+    if lm_counts(launches) != want:
+        raise SmokeFailure(f"chunked prefill launched {launches}, want "
+                           f"{want}")
+    t0 = time.perf_counter()
+    last_w, state_w = whole(params, prompt,
+                            api.init_decode_state(cfg, 1, LM_SEQ))
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    errs = [check_close("chunked prefill vs whole-prompt prefill", last_c,
+                        last_w, tol=3e-2, atol=3e-1)]
+    state_err = max(check_close(f"state leaf {i} after chunked prefill", a,
+                                b, tol=3e-2, atol=3e-1)
+                    for i, (a, b) in enumerate(zip(tree.leaves(state_c),
+                                                   tree.leaves(state_w))))
+    out = {}
+    if fault:
+        out["chunk_alone_fault"] = chunk_alone_fault(
+            cfg, params, prompt, chunked, last_w, state_w)
+    tok = last_w[:, -1].argmax(dim=-1, keepdim=True)
+    for i in range(LM_LONG_DECODE):
+        got, state_c = decode(params, tok, state_c, LM_LONG_PROMPT + i)
+        want_l, state_w = decode(params, tok, state_w, LM_LONG_PROMPT + i)
+        errs.append(check_close(f"decode step {i} after chunked prefill",
+                                got, want_l, tol=3e-2, atol=3e-1))
+        tok = want_l[:, -1].argmax(dim=-1, keepdim=True)
+    out.update(chunked_prefill_s=chunked_s, whole_prefill_s=whole_s,
+               chunks=n_chunks, launches=launches, max_abs_err=max(errs),
+               cache_max_abs_err=state_err)
+    log(f"lm {cfg.name} chunked prefill {LM_LONG_PROMPT} tokens in "
+        f"{n_chunks} chunks of {chunk}: {chunked_s:.3f} s against "
+        f"{whole_s:.3f} s whole-prompt (host clock); last logits and "
+        f"{LM_LONG_DECODE} decode steps max_abs_err={max(errs)}, state "
+        f"leaves {state_err} (rtol 3e-2 atol 3e-1); "
+        + (f"the chunk-alone fault {json.dumps(out['chunk_alone_fault'])}; "
+           if fault else "")
+        + f"launches {json.dumps(launches)}")
+    del state_c, state_w, last_c, last_w
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tf_window_check(cfg) -> dict:
+    """Phase 14's model-level check past the window: gemma2-9b at full width
+    cut to its first two layers (one local, one global), seeded, over a
+    prompt of ``TF_WINDOW_SEQ`` tokens, forward through the flash kernel
+    against the same forward with flash's plain version, in bf16 (rtol 3e-2
+    / atol 3e-1) and float32 (``TOL_LM_F32``).  In float32 the plain
+    forward with the window dropped must lie outside ``TOL_LM_F32`` on the
+    rows past the window: the local mask is what the check holds."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, cfg.vocab_size, (1, TF_WINDOW_SEQ)).astype(
+        np.int32)
+    real = ops.flash_attention
+
+    def plain(q, k, v, *, drop_window=False, **kw):
+        if drop_window:
+            kw["window"] = None
+        return fa.flash_attention_plain(q, k, v, **kw)
+
+    def run(params, cut, flash):
+        ops.flash_attention = flash
+        try:
+            return api.forward(params, cut, {"tokens": tokens})["logits"]
+        finally:
+            ops.flash_attention = real
+
+    out = {"seq": TF_WINDOW_SEQ, "layers": TF_WINDOW_LAYERS}
+    for dt, (rtol, atol) in (("bfloat16", (3e-2, 3e-1)),
+                             ("float32", (TOL_LM_F32, TOL_LM_F32))):
+        cut = dataclasses.replace(cfg, num_layers=TF_WINDOW_LAYERS, dtype=dt)
+        params = api.init(cut, torch.Generator(device="cuda").manual_seed(4))
+        ops.reset_launches()
+        got = run(params, cut, real)
+        torch.cuda.synchronize()
+        n = ops.launch_counts()["flash_attention"]
+        if n != TF_WINDOW_LAYERS:
+            raise SmokeFailure(f"window check {dt}: {n} flash launches, "
+                               f"want {TF_WINDOW_LAYERS}")
+        want = run(params, cut, plain)
+        out[dt] = check_close(f"{cut.name} {dt} {TF_WINDOW_LAYERS}-layer "
+                              f"forward over {TF_WINDOW_SEQ} tokens, kernel "
+                              f"vs plain", got, want, tol=rtol, atol=atol)
+        del want
+        if dt == "float32":
+            past = slice(cfg.window, None)
+            nowin = run(params, cut, lambda *a, **kw: plain(
+                *a, drop_window=True, **kw))[:, past]
+            gap = float((got[:, past] - nowin).abs().max())
+            if torch.allclose(got[:, past], nowin, rtol=rtol, atol=atol):
+                raise SmokeFailure(f"window check: dropping the window "
+                                   f"moves the logits past it by {gap} "
+                                   f"only, inside rtol/atol {rtol}: the "
+                                   f"check cannot see the local mask")
+            out["no_window_gap"] = gap
+            del nowin
+        del params, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"lm {cfg.name} cut to {TF_WINDOW_LAYERS} layers, {TF_WINDOW_SEQ} "
+        f"tokens past the {cfg.window} window, kernel forward vs plain: "
+        + json.dumps(out, sort_keys=True))
+    return out
+
+
+def tf_fleet_phase(cfg, params) -> dict:
+    """``Deployment.build([jet_tagger, <published gemma2-9b>], lm_params=
+    ...)``: a clean verify, then a smoke trace through the router (every
+    record ``ok``; counters zeroed just before and read just after: one
+    ``fused_mlp_q8`` a edge request and no LM kernel, the decode tick
+    being plain), and the same LM requests through a standalone batcher
+    under the plan's policy: tokens equal."""
+    import dataclasses
+    import torch
+    from repro_torch.deploy import Deployment
+    from repro_torch.kernels import ops
+    from repro_torch.obs import workload
+    from repro_torch.serve import engine
+    edge_net = SERVED[0]
+    t0 = time.perf_counter()
+    dep = Deployment.build([edge_net, cfg],
+                           lm_params={cfg.name: (cfg, params)},
+                           max_len=LM_SEQ)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if dep.verify != "clean":
+        raise SmokeFailure(f"transformer fleet verify: {dep.verify} "
+                           f"{dep.findings}")
+    lm_plan = dep.plans[cfg.name]
+    batcher = dep.engines[cfg.name]
+    log(f"transformer fleet build {build_s:.2f} s: "
+        + dep.summary().replace("\n", " | "))
+    router = dep.serve()
+    inputs = router.warmup()
+    tenants = {t.net_id: t.plan.kind for t in dep.fleet.tenants}
+    trace = workload.smoke_trace(tenants, edge_iters=TF_FLEET_EDGE_REQUESTS,
+                                 lm_requests=len(TF_FLEET_PROMPTS),
+                                 new_tokens=TF_FLEET_NEW)
+    lengths = dict(zip([r.rid for r in trace if r.kind == "lm"],
+                       TF_FLEET_PROMPTS))
+    trace = [dataclasses.replace(r, prompt_tokens=lengths[r.rid])
+             if r.kind == "lm" else r for r in trace]
+    ops.reset_launches()
+    report = workload.replay(router, trace, inputs=inputs)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    bad = [r for r in report.records if r.status != "ok"]
+    if bad:
+        raise SmokeFailure(f"transformer fleet replay: {len(bad)} records "
+                           f"not ok: {bad[:3]}")
+    want = {"fused_mlp_q8": TF_FLEET_EDGE_REQUESTS}
+    others = {k: n for k, n in launches.items() if k not in want and n}
+    if {k: launches[k] for k in want} != want or others:
+        raise SmokeFailure(f"transformer fleet replay launched {launches}, "
+                           f"want {want} and nothing else")
+    summary = report.summary()
+    dec = batcher.span_stats()["decode_step"]
+    lm_records = [r for r in report.records if r.kind == "lm"]
+    out = {"build_s": build_s, "replay_wall_s": report.wall_s,
+           "edge_p50_us": summary[edge_net]["p50_s"] * 1e6,
+           "lm_request_p50_s": summary[cfg.name]["p50_s"],
+           "lm_tick_p50_ms": dec["p50_s"] * 1e3, "launches": launches}
+    del router, batcher, dep
+    gc.collect()
+    torch.cuda.empty_cache()
+    alone = engine.ContinuousBatcher(cfg, params, plan=lm_plan,
+                                     max_len=LM_SEQ)
+    reqs = {}
+    for tr in trace:
+        if tr.kind == "lm":
+            reqs[tr.rid] = engine.Request(
+                rid=tr.rid, prompt=workload._lm_prompt(tr, cfg.vocab_size),
+                max_new=tr.new_tokens)
+            alone.submit(reqs[tr.rid])
+    alone.run_until_drained()
+    for r in lm_records:
+        if reqs[r.rid].out != r.tokens:
+            raise SmokeFailure(f"transformer fleet request {r.rid}: router "
+                               f"tokens {r.tokens} != standalone "
+                               f"{reqs[r.rid].out}")
+    log(f"transformer fleet: {len(lm_records)} LM requests, router tokens "
+        f"equal to a standalone batcher's; " + json.dumps(out, sort_keys=True))
+    del alone
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tf_forward_only(arch: str, seq: int, layers: int | None = None) -> dict:
+    """Phase 14d: ``api.init`` from a seeded CUDA generator at the published
+    width (``layers`` cuts the depth), then ``api.forward`` at B=1 and
+    ``seq``: finite logits of the right shape and one flash launch a layer.
+    qwen2-vl's forward takes seeded patch ``embeddings`` and M-RoPE ids of
+    shape (3, 1, S), its vision frontend a stub in the reference too."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, tree
+    cfg = configs.get(arch).config
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    t0 = time.perf_counter()
+    params = api.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (1, seq))
+             .astype(np.int32)}
+    if cfg.mrope_sections is not None:
+        dev = params["emb"].device
+        gen = torch.Generator(device=dev).manual_seed(1)
+        batch["embeddings"] = torch.randn(
+            (1, seq, cfg.d_model), generator=gen, device=dev).to(
+            params["emb"].dtype)
+        # (t, h, w) ids of a 64 x 64 patch grid, time fixed.
+        pos = torch.arange(seq, device=dev)
+        batch["mrope_positions"] = torch.stack(
+            [torch.zeros_like(pos), pos // 64, pos % 64])[:, None]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits = api.forward(params, cfg, batch)["logits"]
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    want_shape = (1, seq, cfg.padded_vocab)
+    if tuple(logits.shape) != want_shape \
+            or not bool(torch.isfinite(logits).all()):
+        raise SmokeFailure(f"{cfg.name} forward logits {tuple(logits.shape)}"
+                           f" (want {want_shape}) or not finite")
+    want = {**dict.fromkeys(LM_KERNELS, 0),
+            "flash_attention": cfg.num_layers}
+    if lm_counts(launches) != want:
+        raise SmokeFailure(f"{cfg.name} forward launched {launches}, want "
+                           f"{want}")
+    out = {"arch": arch, "layers": cfg.num_layers, "seq": seq,
+           "params": n_params, "init_s": init_s, "forward_s": forward_s,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches}
+    log(f"lm {cfg.name} ({cfg.num_layers} layers, {n_params} params) "
+        f"forward B=1 S={seq}: {forward_s:.3f} s (first call, host clock), "
+        f"logits |max| {float(logits.abs().max())}; "
+        + json.dumps(out, sort_keys=True))
+    del params, logits, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def transformer_phases(device) -> dict:
+    """Phases 14-14d in order, each phase's wall time printed; every model
+    freed before the next is drawn."""
+    import types
+    import torch
+    walls, launches = {}, {}
+    log(f"transformer phases: {torch.cuda.memory_allocated()} bytes "
+        f"allocated at the start")
+    t0 = time.perf_counter()
+    cfg, params, tokens, fwd, per_step, per_tick = lm_forward_phase(
+        TF_ARCH, TF_SEQ)
+    launches[f"{TF_ARCH} forward"] = fwd
+    # Gemma2 at max_len == window: ring local layers, linear global ones.
+    chunked = chunked_prefill_check(
+        cfg, params, tokens,
+        types.SimpleNamespace(serve={"prefill_chunk": TF_CHUNK}), per_step)
+    launches[f"{TF_ARCH} chunked prefill"] = chunked["launches"]
+    window = tf_window_check(cfg)
+    walls["14"] = time.perf_counter() - t0
+    log(f"phase 14 ({TF_ARCH} forward, f32 decode, chunked prefill, the "
+        f"window check): {walls['14']:.1f} s")
+
+    t0 = time.perf_counter()
+    served = lm_serve_phase(cfg, params, tokens, per_step, per_tick,
+                            eager_gen=TF_EAGER_GEN)
+    for p, c in served["launches"].items():
+        launches[f"{TF_ARCH} {p}"] = c
+    fleet = tf_fleet_phase(cfg, params)
+    launches[f"{TF_ARCH} fleet replay"] = fleet["launches"]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    served["launcher"] = launcher_run(TF_ARCH)
+    walls["14b"] = time.perf_counter() - t0
+    log(f"phase 14b ({TF_ARCH} serving, fleet, launcher): "
+        f"{walls['14b']:.1f} s")
+
+    t0 = time.perf_counter()
+    _, qparams, _, qfwd, _, _ = lm_forward_phase(QWEN_ARCH, QWEN_SEQ)
+    launches[f"{QWEN_ARCH} forward"] = qfwd
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen = {"launcher": launcher_run(QWEN_ARCH),
+            "launcher_quant8": launcher_run(QWEN_ARCH, "--quant8")}
+    walls["14c"] = time.perf_counter() - t0
+    log(f"phase 14c ({QWEN_ARCH} forward, launcher, --quant8): "
+        f"{walls['14c']:.1f} s")
+
+    t0 = time.perf_counter()
+    log(f"phase 14d: {torch.cuda.memory_allocated()} bytes allocated "
+        f"before {BIG_ARCH}")
+    torch.cuda.reset_peak_memory_stats()
+    big = tf_forward_only(BIG_ARCH, BIG_SEQ)
+    launches[f"{BIG_ARCH} forward"] = big["launches"]
+    torch.cuda.reset_peak_memory_stats()
+    vl = tf_forward_only(VL_ARCH, VL_SEQ, layers=VL_LAYERS)
+    launches[f"{VL_ARCH} {VL_LAYERS}-layer forward"] = vl["launches"]
+    walls["14d"] = time.perf_counter() - t0
+    log(f"phase 14d ({BIG_ARCH} forward, {VL_ARCH} cut to {VL_LAYERS} "
+        f"layers): {walls['14d']:.1f} s")
+    return {"served": served, "chunked": chunked, "window": window,
+            "fleet": fleet, "qwen": qwen,
+            "forward_only": {BIG_ARCH: big, VL_ARCH: vl},
+            "walls_s": walls, "launches": launches,
+            "per_step": {TF_ARCH: lm_counts(fwd)["flash_attention"],
+                         QWEN_ARCH: lm_counts(qfwd)["flash_attention"]}}
+
+
 def kernels_line(errs, launches, timing) -> dict:
     """One entry per kernel at the first served net's shapes: the fused
     group of one request, and the per-layer rung of one degraded request
@@ -3980,22 +4531,31 @@ def kernels_line(errs, launches, timing) -> dict:
 
 
 def lm_kernel_entries(errs, launches_by_path, per_step, per_tick,
-                      timing) -> list:
+                      timing, tf_per_step) -> list:
     """One entry per LM kernel: flash at the served prefill shape, the scans
     at the forward shape (their decode-tick rows beside them).
     ``launches`` sums the LM paths' counts (each model's forward, serve
     runs, prefill + decode); ``per_step`` and ``per_tick`` are the launches
-    of one forward and one decode tick of the model that runs the
-    kernel."""
+    of one forward and one decode tick of the model that runs the kernel
+    (Griffin's for flash; ``tf_per_step`` the transformers' beside it).
+    Flash also carries its rows at the transformer family's shapes."""
+    keys = ("shape", "ms", "eager_ms", "plain_ms", "library_ms",
+            "sdpa_no_softcap_ms", "bound_ms", "bound_by")
     entries = []
     for name in LM_KERNELS:
         row = timing[name]
         extra = {}
         if name == "flash_attention":
             extra["library_causal_ms"] = row["library_causal_ms"]
-            extra["chunk"] = {k: row["chunk"][k] for k in (
-                "shape", "ms", "eager_ms", "plain_ms", "library_ms",
-                "bound_ms", "bound_by")}
+            extra["chunk"] = {k: row["chunk"][k] for k in keys
+                              if k in row["chunk"]}
+            extra["launches_per_transformer_forward"] = tf_per_step
+            tf_rows = row["transformer"]
+            extra["transformer"] = [{k: r[k] for k in keys if k in r}
+                                    for r in tf_rows["rows"]]
+            extra["tile_skip"] = {label: {k: r[k] for k in keys if k in r}
+                                  for label, r in
+                                  tf_rows["tile_skip"].items()}
         else:
             extra["decode_tick"] = {k: row["decode tick"][k] for k in (
                 "shape", "ms", "eager_ms", "plain_ms", "bound_ms",
@@ -4186,6 +4746,16 @@ def main(argv: list) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         lm_timing["rwkv6_scan"] = rwkv_timing_phase(device)
+        # Phase 4's deployment (7b's went with bench_after_profiler) makes
+        # room for gemma2-27b's 54.4 GB.
+        del dep
+        gc.collect()
+        torch.cuda.empty_cache()
+        tf = transformer_phases(device)
+        t0 = time.perf_counter()
+        lm_timing["flash_attention"]["transformer"] = tf_timing_phase(device)
+        log(f"phase 9 transformer flash rows: "
+            f"{time.perf_counter() - t0:.1f} s")
         paths = {}
         for arch, fwd, srv in ((LM_ARCH, fwd_launches, served),
                                (LM_ARCH, None, fleet),
@@ -4194,6 +4764,7 @@ def main(argv: list) -> int:
                 paths[f"{arch} forward"] = fwd
             paths.update({f"{arch} {p}": c
                           for p, c in srv["launches"].items()})
+        paths.update(tf["launches"])
         # The edge kernels of the fleet's paths (7b, and 7c's drift replan
         # and ladder) beside phase 4's.
         for entry in line["kernels"]:
@@ -4209,14 +4780,19 @@ def main(argv: list) -> int:
         line["kernels"] += lm_kernel_entries(
             lm_errs, paths,
             {**per_step, "rwkv6_scan": r_step["rwkv6_scan"]},
-            {**per_tick, "rwkv6_scan": r_tick["rwkv6_scan"]}, lm_timing)
+            {**per_tick, "rwkv6_scan": r_tick["rwkv6_scan"]}, lm_timing,
+            tf["per_step"])
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     log(f"chip_smoke: all phases in {time.perf_counter() - t_all:.1f} s")
     log("summary " + json.dumps({**summary_line(
-        characterized, served_edge, {LM_ARCH: served, RWKV_ARCH: r_served}),
+        characterized, served_edge, {LM_ARCH: served, RWKV_ARCH: r_served,
+                                     TF_ARCH: tf["served"]}),
+        "transformer": {k: tf[k] for k in ("chunked", "window", "fleet",
+                                            "qwen", "forward_only",
+                                            "walls_s")},
         "aie_plan": {k: v for k, v in aie_plan.items() if k != "launches"},
         "fleet": {k: v for k, v in fleet["fleet"].items()
                   if k not in ("launches", "chunk_launches")}},

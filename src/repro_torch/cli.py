@@ -5,6 +5,7 @@
     python -m repro_torch deploy jet_tagger tau_select --lm recurrentgemma_2b
     python -m repro_torch deploy vae --dry-run          # stop after planning
     python -m repro_torch serve jet_tagger --lm rwkv6_7b --requests 4
+    python -m repro_torch deploy jet_tagger --lm gemma2_9b
     python -m repro_torch bench jet_tagger tau_select --json BENCH_deploy.json
     python -m repro_torch replay jet_tagger tau_select --scenario bursty
     python -m repro_torch chaos jet_tagger tau_select --lm recurrentgemma_2b
@@ -19,8 +20,10 @@ plain PyTorch path on the CPU); without a card it exits with an error.
 ``plan``, ``deploy``, ``serve``, ``bench``, ``replay``, ``chaos``,
 ``trace`` and ``profile`` go through
 :class:`repro_torch.deploy.Deployment`: ``--lm ARCH`` adds an LM tenant
-(``recurrentgemma_2b`` or ``rwkv6_7b``, seeded weights; its smoke config,
-or the published one with ``--lm-config published``), ``--machine-model``
+(``gemma2_2b``, ``gemma2_9b``, ``gemma2_27b``, ``qwen2_5_3b``,
+``qwen2_vl_72b``, ``recurrentgemma_2b`` or ``rwkv6_7b``, seeded weights;
+its smoke config, or the published one with ``--lm-config published``),
+``--machine-model``
 picks the characterization (``auto`` by default; ``stock``, ``quick``,
 ``full`` or an artifact path).  ``plan`` writes its artifacts under
 ``plans_torch/``, the others under ``deployments_torch/``.  ``plan

@@ -12,7 +12,8 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_NAMES = ["recurrentgemma_2b", "rwkv6_7b"]
+ARCH_NAMES = ["gemma2_27b", "gemma2_9b", "gemma2_2b", "qwen2_5_3b",
+              "rwkv6_7b", "recurrentgemma_2b", "qwen2_vl_72b"]
 
 # Public --arch ids (hyphenated) -> module names.
 ALIASES = {n.replace("_", "-"): n for n in ARCH_NAMES}
@@ -27,7 +28,9 @@ class Arch:
 
 
 def get(name: str) -> Arch:
-    mod_name = ALIASES.get(name.replace(".", "_"))
+    """The architecture of an id, hyphenated or not (``qwen2.5-3b``,
+    ``qwen2_5_3b`` and ``qwen2-5-3b`` name one)."""
+    mod_name = ALIASES.get(name.replace(".", "_").replace("-", "_"))
     if mod_name is None:
         raise ValueError(f"architecture {name!r} is not ported to repro_torch "
                          f"(ported: {', '.join(ALIASES)})")

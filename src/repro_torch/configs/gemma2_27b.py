@@ -1,0 +1,44 @@
+"""gemma2-27b [dense]: 46L d_model=4608 32H (GQA kv=16) d_ff=36864
+vocab=256000 — local+global alternating attention, logit softcap.
+[arXiv:2408.00118; hf]"""
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="gemma2-27b",
+    family="transformer",
+    num_layers=46,
+    d_model=4608,
+    num_heads=32,
+    num_kv_heads=16,
+    head_dim=128,
+    d_ff=36864,
+    vocab_size=256000,
+    attn_pattern=("local", "global"),
+    window=4096,
+    attn_softcap=50.0,
+    logit_softcap=30.0,
+    rope_theta=10000.0,
+    tie_embeddings=True,
+    post_norms=True,
+    scale_embeddings=True,
+)
+
+SMOKE = ModelConfig(
+    name="gemma2-27b-smoke",
+    family="transformer",
+    num_layers=4,
+    d_model=64,
+    num_heads=4,
+    num_kv_heads=2,
+    head_dim=16,
+    d_ff=128,
+    vocab_size=512,
+    attn_pattern=("local", "global"),
+    window=16,
+    attn_softcap=50.0,
+    logit_softcap=30.0,
+    tie_embeddings=True,
+    post_norms=True,
+    scale_embeddings=True,
+)

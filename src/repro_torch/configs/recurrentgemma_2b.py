@@ -7,7 +7,7 @@ CONFIG = ModelConfig(
     num_layers=26, d_model=2560, num_heads=10, num_kv_heads=1, head_dim=256,
     d_ff=7680, vocab_size=256000,
     window=2048, logit_softcap=30.0, rope_theta=10000.0,
-    tie_embeddings=True, subquadratic=True,
+    tie_embeddings=True, scale_embeddings=True, subquadratic=True,
     griffin=GriffinConfig(lru_width=2560, conv_width=4,
                           pattern=("rec", "rec", "attn"), local_window=2048),
 )
@@ -17,7 +17,7 @@ SMOKE = ModelConfig(
     num_layers=3, d_model=64, num_heads=4, num_kv_heads=1, head_dim=16,
     d_ff=128, vocab_size=512,
     window=16, logit_softcap=30.0,
-    tie_embeddings=True, subquadratic=True,
+    tie_embeddings=True, scale_embeddings=True, subquadratic=True,
     griffin=GriffinConfig(lru_width=64, conv_width=4,
                           pattern=("rec", "rec", "attn"), local_window=16),
 )

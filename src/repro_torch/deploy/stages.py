@@ -105,9 +105,11 @@ class StageContext:
 def resolve_configs(specs) -> list:
     """One or many config specs as config objects.  A spec is an
     ``EdgeConfig`` or ``ModelConfig`` (passed through), an edge net name,
-    or an LM arch id, bare or as ``"lm:<arch>"``, which resolves to the
-    arch's smoke config; pass ``configs.get(arch).config`` to plan the
-    published shape."""
+    or an LM arch id, bare or as ``"lm:<arch>"`` (``gemma2_2b``,
+    ``gemma2_9b``, ``gemma2_27b``, ``qwen2_5_3b``, ``qwen2_vl_72b``,
+    ``recurrentgemma_2b``, ``rwkv6_7b``), which resolves to the arch's
+    smoke config; pass ``configs.get(arch).config`` to plan the published
+    shape."""
     from repro_torch import configs as configs_lib
     from repro_torch.models import edge
     if specs is None:

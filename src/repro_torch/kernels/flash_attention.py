@@ -77,11 +77,13 @@ def work(b: int, hq: int, hkv: int, s: int, sk: int, d: int, itemsize: int,
          *, causal: bool, window: int | None,
          q_offset: int) -> tuple[float, int]:
     """FLOPs and bytes of one launch: ``4 D`` a kept (query, key) pair and
-    query head (Q.K^T and P.V, :func:`band_pairs`); q, k and v read once,
-    the output written once."""
+    query head (Q.K^T and P.V, :func:`band_pairs`); q read once, the output
+    written once, and k and v read once up to the causal edge (a prompt
+    over a ``max_len`` buffer needs no key past ``q_offset + S``)."""
     pairs = band_pairs(s, sk, causal=causal, window=window,
                        q_offset=q_offset)
-    nbytes = itemsize * (2 * b * hq * s * d + 2 * b * hkv * sk * d)
+    keys = min(sk, q_offset + s) if causal else sk
+    nbytes = itemsize * (2 * b * hq * s * d + 2 * b * hkv * keys * d)
     return 4.0 * d * pairs * b * hq, nbytes
 
 

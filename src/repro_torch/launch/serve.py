@@ -1,6 +1,8 @@
 """Serving launcher: continuous batching of a language model on the card,
 with optional int8 weights.
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
@@ -8,10 +10,12 @@ with optional int8 weights.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --quant8
 
 ``--arch`` takes any architecture the port registers (``repro_torch.configs``:
-``recurrentgemma-2b``, ``rwkv6-7b``); ``--smoke`` serves its reduced
-same-family configuration.  ``--quant8`` serves int8 weights
-(``engine.quantize_params(params, min_size=1024)``, each layer expanded to
-bf16 as it runs) and prints the bytes before and after.
+``gemma2-2b``, ``gemma2-9b``, ``gemma2-27b``, ``qwen2.5-3b``,
+``qwen2-vl-72b``, ``recurrentgemma-2b``, ``rwkv6-7b``); ``--smoke`` serves
+its reduced same-family configuration.  qwen2-vl is served on text tokens
+(its vision frontend is a stub in the reference too).  ``--quant8`` serves
+int8 weights (``engine.quantize_params(params, min_size=1024)``, each layer
+expanded to bf16 as it runs) and prints the bytes before and after.
 
 Random weights from seed 0 (drawn on the serving device), requests with
 2-8 token prompts from numpy seed 0, greedy decoding.  ``--device`` left out

@@ -1,3 +1,3 @@
 """Model definitions of the port: the Table-I edge nets (``edge``) and the
-Griffin and RWKV-6 language models (``griffin``, ``rwkv``, behind
-``api``)."""
+dense transformer, Griffin and RWKV-6 language models (``transformer``,
+``griffin``, ``rwkv``, behind ``api``)."""

@@ -6,9 +6,9 @@
   init_decode_state(cfg, batch, max_len, device) -> zeroed state
   decode_step(params, cfg, tokens, state, pos)   -> (logits, new_state)
 
-Port of the JAX package's ``models/api.py`` for ``family == "griffin"`` and
-``family == "rwkv"``; every other family raises.  Forward and decode run
-where the parameters lie.
+Port of the JAX package's ``models/api.py`` for ``family ==
+"transformer"`` (the dense path), ``"griffin"`` and ``"rwkv"``; every other
+family raises.  Forward and decode run where the parameters lie.
 """
 
 from __future__ import annotations
@@ -16,10 +16,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import griffin, rwkv, tree
+from repro_torch.models import griffin, rwkv, transformer, tree
 from repro_torch.models.config import ModelConfig
 
-PORTED = ("griffin", "rwkv")
+PORTED = ("transformer", "griffin", "rwkv")
+# The transformer's extra inputs (qwen2-vl's M-RoPE ids and patch
+# embeddings); whisper's ``encoder_frames`` belongs to an unported family.
+EXTRAS = ("mrope_positions", "embeddings")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -31,14 +34,20 @@ def _check_family(cfg: ModelConfig) -> None:
 def init(cfg: ModelConfig, generator: torch.Generator, *,
          device=None) -> dict:
     _check_family(cfg)
+    if cfg.family == "transformer":
+        return transformer.init_lm(cfg, generator=generator, device=device)
     if cfg.family == "rwkv":
         return rwkv.init_rwkv(cfg, generator=generator, device=device)
     return griffin.init_griffin(cfg, generator=generator, device=device)
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict) -> dict:
-    """batch: {"tokens": (B,S)}."""
+    """batch: {"tokens": (B,S)} + the transformer's extras
+    (``mrope_positions``, ``embeddings``)."""
     _check_family(cfg)
+    if cfg.family == "transformer":
+        kw = {k: batch[k] for k in EXTRAS if k in batch}
+        return transformer.lm_forward(params, cfg, batch["tokens"], **kw)
     if cfg.family == "rwkv":
         return rwkv.rwkv_forward(params, cfg, batch["tokens"])
     return griffin.griffin_forward(params, cfg, batch["tokens"])
@@ -46,6 +55,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict) -> dict:
 
 def decode_state_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     _check_family(cfg)
+    if cfg.family == "transformer":
+        return transformer.lm_cache_specs(cfg, batch, max_len)
     if cfg.family == "rwkv":
         return rwkv.rwkv_state_specs(cfg, batch)
     return griffin.griffin_state_specs(
@@ -61,8 +72,13 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def decode_step(params: dict, cfg: ModelConfig, tokens, state: dict,
-                cache_pos):
+                cache_pos, *, extras: dict | None = None):
+    """One step of ``tokens`` (B, s) at ``cache_pos``; ``extras`` are the
+    transformer's extra inputs, passed through by name."""
     _check_family(cfg)
+    if cfg.family == "transformer":
+        return transformer.lm_decode_step(params, cfg, tokens, state,
+                                          cache_pos, **(extras or {}))
     if cfg.family == "rwkv":
         return rwkv.rwkv_decode_step(params, cfg, tokens, state, cache_pos)
     return griffin.griffin_decode_step(params, cfg, tokens, state, cache_pos)

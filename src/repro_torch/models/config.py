@@ -1,12 +1,16 @@
 """Model configuration schema of the port's language models.
 
 A copy of the JAX package's ``models/config.py`` (``GriffinConfig``,
-``ModelConfig``) with the fields the port's two families and its planner
-(``plan/graph.model_graph``) read: Griffin (``recurrentgemma``) and
-RWKV-6.  The dataclass, field names and defaults stay, so a configuration
-reads the same in both packages.  The Griffin
-family always ties and scales its embeddings; RWKV-6 reads
-``rwkv_head_dim`` and keeps a separate unembedding.
+``ModelConfig``) with the fields the port's three families and its planner
+(``plan/graph.model_graph``) read: the dense transformer (gemma2, qwen2.5,
+qwen2-vl), Griffin (``recurrentgemma``) and RWKV-6.  The dataclass, field
+names and defaults stay, so a configuration reads the same in both
+packages.  The Griffin family always ties and scales its embeddings,
+whatever ``scale_embeddings`` says, and runs every attention layer local;
+RWKV-6 reads ``rwkv_head_dim`` and keeps a separate unembedding.  The
+transformer reads the attention pattern, the biases, M-RoPE, the post
+norms and the MLP's activation.  The MoE, MLA and encoder-decoder
+sub-configs are not ported.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ class GriffinConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                       # griffin | rwkv
+    family: str                       # transformer | griffin | rwkv
     num_layers: int
     d_model: int
     num_heads: int
@@ -35,16 +39,23 @@ class ModelConfig:
     head_dim: int
     d_ff: int
     vocab_size: int
+    # Attention features.
+    attn_pattern: tuple[str, ...] = ("global",)   # cycle of local|global
     window: Optional[int] = None                   # sliding window for "local"
-    attn_softcap: Optional[float] = None
-    logit_softcap: Optional[float] = None
+    attn_softcap: Optional[float] = None           # gemma2 attn logit softcap
+    logit_softcap: Optional[float] = None          # gemma2 final logit softcap
+    qkv_bias: bool = False                         # qwen2.5
     rope_theta: float = 10000.0
+    mrope_sections: Optional[tuple[int, int, int]] = None  # qwen2-vl M-RoPE
     griffin: Optional[GriffinConfig] = None
     # RWKV.
     rwkv_head_dim: int = 64
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
+    post_norms: bool = False          # gemma2: post-attn/post-ffn rmsnorms
+    scale_embeddings: bool = False    # gemma family: x *= sqrt(d_model)
+    mlp_act: str = "silu"             # the transformer's MLP activation
     mlp_gated: bool = True            # the planner's graph: 2 input matrices
     # Whether a 500k-token decode is sub-quadratic-feasible (SSM/hybrid only).
     subquadratic: bool = False
@@ -61,3 +72,6 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+    def layer_kind(self, i: int) -> str:
+        return self.attn_pattern[i % len(self.attn_pattern)]

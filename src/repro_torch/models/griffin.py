@@ -189,10 +189,11 @@ def _apply_layer(pl: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         if state is not None \
                 and state["k"].shape[2] == cfg.griffin.local_window:
             ring = cfg.griffin.local_window
-        a, new_state = attention(pl["attn"], h, cfg, cache=state,
-                                 cache_pos=cache_pos, ring_window=ring)
+        a, new_state = attention(pl["attn"], h, cfg, kind="local",
+                                 cache=state, cache_pos=cache_pos,
+                                 ring_window=ring)
     x = x + a
-    x = x + mlp(pl["mlp"], rmsnorm(pl["ln2"], x, cfg.norm_eps))
+    x = x + mlp(pl["mlp"], rmsnorm(pl["ln2"], x, cfg.norm_eps), act="gelu")
     return x, new_state
 
 

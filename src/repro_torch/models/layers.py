@@ -1,9 +1,10 @@
 """Shared building blocks of the port's language models (plain tensors).
 
-Port of the parts of the JAX package's ``models/layers.py`` that the Griffin
-and RWKV-6 families run: dense init, the padded-vocab mask, RMSNorm,
-LayerNorm, RoPE, local GQA attention with its ring-buffer and cache
-branches, decode attention and the gated GELU MLP.
+Port of the parts of the JAX package's ``models/layers.py`` that the dense
+transformer, Griffin and RWKV-6 families run: dense init, the padded-vocab
+mask, RMSNorm, LayerNorm, RoPE and M-RoPE, GQA attention (local or global,
+with QKV biases) with its ring-buffer and cache branches, decode attention
+and the gated MLP (silu or gelu).
 Every block is a pair ``init_*(generator, cfg, ...) -> params`` and
 ``*(params, x, ...) -> y``; params are nested dicts of tensors in the JAX
 tree layout, so a JAX parameter tree converts leaf by leaf.
@@ -120,20 +121,52 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
+def mrope_table(positions: torch.Tensor, dim: int, theta: float,
+                sections: tuple[int, int, int]) -> tuple:
+    """M-RoPE (qwen2-vl): positions (3, B, S) for (t, h, w); the frequency
+    bands are split into three groups, each rotated by its own position
+    id.  Returns cos/sin (B, S, dim/2)."""
+    cos3, sin3 = rope_table(positions, dim, theta)     # (3, B, S, dim/2)
+    bounds = [0]
+    for sec in sections:
+        bounds.append(bounds[-1] + sec)
+    return (torch.cat([cos3[i, ..., bounds[i]:bounds[i + 1]]
+                       for i in range(3)], dim=-1),
+            torch.cat([sin3[i, ..., bounds[i]:bounds[i + 1]]
+                       for i in range(3)], dim=-1))
+
+
 # ---------------------------------------------------------------------------
-# Attention (GQA, softcap, sliding window)
+# Attention (GQA, softcap, sliding window, QKV bias)
 # ---------------------------------------------------------------------------
 
 def init_attention(generator: torch.Generator, cfg: ModelConfig, *,
                    device) -> dict:
     d, dt = cfg.d_model, dtype_of(cfg)
-    return {
+    p = {
         "wq": dense_init(generator, (d, cfg.q_dim), dt, device=device),
         "wk": dense_init(generator, (d, cfg.kv_dim), dt, device=device),
         "wv": dense_init(generator, (d, cfg.kv_dim), dt, device=device),
         "wo": dense_init(generator, (cfg.q_dim, d), dt,
                          scale=1.0 / math.sqrt(cfg.q_dim), device=device),
     }
+    if cfg.qkv_bias:
+        for name, n in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
+                        ("bv", cfg.kv_dim)):
+            p[name] = torch.zeros((n,), dtype=dt, device=device)
+    return p
+
+
+def _project(x: torch.Tensor, w: torch.Tensor, bias, heads: int,
+             dh: int) -> torch.Tensor:
+    """``x @ w (+ bias)`` as (B, heads, S, dh) in x's dtype: the bias is
+    added to the f32 product and the sum rounded once, as the reference
+    rounds it."""
+    y = mm(x, w)
+    if bias is not None:
+        y = y + bias.float()
+    b, s, _ = x.shape
+    return y.to(x.dtype).reshape(b, s, heads, dh).transpose(1, 2)
 
 
 def _slot_positions(cache_pos, b: int, device) -> torch.Tensor:
@@ -190,31 +223,40 @@ def _ring_chunk(q, k, v, cache: dict, start: int, window: int,
 
 
 def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              kind: str = "global",
+              mrope_positions: torch.Tensor | None = None,
               cache: dict | None = None, cache_pos=None,
               ring_window: int | None = None) -> tuple[torch.Tensor,
                                                        dict | None]:
-    """Local (``cfg.window``) GQA self-attention with RoPE.  Returns
-    (output, updated_cache).
+    """GQA self-attention with RoPE (M-RoPE when the config has sections
+    and ``mrope_positions`` (3, B, S) is given).  A ``"local"`` layer
+    attends over the last ``cfg.window`` keys, a ``"global"`` one over all.
+    Returns (output, updated_cache).
 
     No ``cache``: full-sequence causal attention.  With ``cache`` = {"k",
     "v"}: a multi-token step at the int ``cache_pos`` (a prompt, or a chunk
     of one after ``cache_pos`` cached tokens) or a one-token decode step at
     ``cache_pos``, an int or a (B,) tensor of per-row positions.
+    ``mrope_positions`` override the rotary positions those imply.
     ``ring_window``: the cache is a ring of the last ``ring_window`` keys.
     Caches are never written in place: the updated cache is a new tensor.
     """
     b, s, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = mm(x, params["wq"]).to(x.dtype).reshape(b, s, h, dh).transpose(1, 2)
-    k = mm(x, params["wk"]).to(x.dtype).reshape(b, s, hkv, dh).transpose(1, 2)
-    v = mm(x, params["wv"]).to(x.dtype).reshape(b, s, hkv, dh).transpose(1, 2)
+    q = _project(x, params["wq"], params.get("bq"), h, dh)
+    k = _project(x, params["wk"], params.get("bk"), hkv, dh)
+    v = _project(x, params["wv"], params.get("bv"), hkv, dh)
     pos = _slot_positions(cache_pos, b, x.device)
-    positions = pos[:, None] + torch.arange(s, device=x.device)[None, :]
-    cos, sin = rope_table(positions, dh, cfg.rope_theta)
+    if cfg.mrope_sections is not None and mrope_positions is not None:
+        cos, sin = mrope_table(mrope_positions, dh, cfg.rope_theta,
+                               cfg.mrope_sections)
+    else:
+        positions = pos[:, None] + torch.arange(s, device=x.device)[None, :]
+        cos, sin = rope_table(positions, dh, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    window = cfg.window
+    window = cfg.window if kind == "local" else None
     softcap = cfg.attn_softcap
     new_cache = None
     if cache is None:
@@ -296,7 +338,7 @@ def decode_attention(q, k, v, last_pos, *, window=None,
 
 
 # ---------------------------------------------------------------------------
-# Gated GELU MLP
+# Gated MLP
 # ---------------------------------------------------------------------------
 
 def init_mlp(generator: torch.Generator, cfg: ModelConfig, *,
@@ -308,9 +350,14 @@ def init_mlp(generator: torch.Generator, cfg: ModelConfig, *,
             "w_gate": dense_init(generator, (d, f), dt, device=device)}
 
 
-def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """``w_down(gelu(x w_gate) * (x w_up))``, gelu in its tanh form (the
-    reference's ``jax.nn.gelu`` default)."""
+_ACTS = {"silu": F.silu,
+         # The tanh form: the reference's jax.nn.gelu(approximate=True).
+         "gelu": lambda v: F.gelu(v, approximate="tanh")}
+
+
+def mlp(params: dict, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
+    """``w_down(act(x w_gate) * (x w_up))``, the activation on the f32
+    products."""
     up = mm(x, params["w_up"])
-    h = F.gelu(mm(x, params["w_gate"]), approximate="tanh") * up
+    h = _ACTS[act](mm(x, params["w_gate"])) * up
     return mm(h.to(x.dtype), params["w_down"]).to(x.dtype)

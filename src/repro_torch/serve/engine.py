@@ -12,10 +12,10 @@ Port of the JAX package's ``serve/engine.py``, two surfaces:
   changes a result.
 * **LM serving** (:func:`build_serve_steps`, :class:`ContinuousBatcher`):
   prefill (whole-prompt, or chunked as the plan's ``serve`` section says)
-  and decode steps of any ported LM family (Griffin, RWKV-6), and a
-  fixed-slot continuous batcher that advances every slot at its own
-  position in one batched decode step, under the plan's
-  :class:`BatchPolicy`.
+  and decode steps of any ported LM family (the dense transformer,
+  Griffin, RWKV-6), and a fixed-slot continuous batcher that advances
+  every slot at its own position in one batched decode step, under the
+  plan's :class:`BatchPolicy`.
 * **int8 LM weights** (:func:`quantize_params`): per-output-channel
   symmetric int8 for the large weight leaves, as ``{"q8", "scale"}``
   marker dicts the models expand a layer at a time
@@ -367,30 +367,36 @@ def build_serve_steps(cfg: ModelConfig, *, max_len: int | None = None,
     :func:`~repro_torch.models.api.init_decode_state` (``max_len`` is the
     state's; the steps read it from the state itself).
 
-    prefill_fn(params, tokens, state)        -> (logits_last, state)
-    decode_fn(params, tokens, state, pos)    -> (logits, state)
+    prefill_fn(params, tokens, state, extras=None)      -> (logits_last, state)
+    decode_fn(params, tokens, state, pos, extras=None)  -> (logits, state)
 
-    Prefill takes the whole prompt in one step from position 0, or, when
-    ``plan.serve["prefill_chunk"]`` is set and the prompt is longer, one
-    multi-token step per chunk at its offset.  A Griffin chunk runs the
-    ``flash_attention`` kernel with its queries at that offset, against the
-    cache's earlier keys (on a ring cache too, where the reference attends
-    over the chunk alone); an RWKV-6 chunk continues from the carried state.
+    ``extras`` are the family's extra inputs (the transformer's
+    ``mrope_positions`` and ``embeddings``), passed to every step as the
+    reference passes them.  Prefill takes the whole prompt in one step from
+    position 0, or, when ``plan.serve["prefill_chunk"]`` is set and the
+    prompt is longer, one multi-token step per chunk at its offset.  A
+    transformer or Griffin chunk runs the ``flash_attention`` kernel with
+    its queries at that offset, against the cache's earlier keys (on a ring
+    cache too, where the reference attends over the chunk alone); an RWKV-6
+    chunk continues from the carried state.
     """
     chunk = None if plan is None else plan.serve.get("prefill_chunk")
 
-    def prefill_fn(params, tokens, state):
+    def prefill_fn(params, tokens, state, extras=None):
         s = tokens.shape[1]
         if chunk is None or s <= chunk:
-            logits, state = api.decode_step(params, cfg, tokens, state, 0)
+            logits, state = api.decode_step(params, cfg, tokens, state, 0,
+                                            extras=extras)
             return logits[:, -1:], state
         for off in range(0, s, chunk):
             logits, state = api.decode_step(
-                params, cfg, tokens[:, off:off + chunk], state, off)
+                params, cfg, tokens[:, off:off + chunk], state, off,
+                extras=extras)
         return logits[:, -1:], state
 
-    def decode_fn(params, tokens, state, pos):
-        return api.decode_step(params, cfg, tokens, state, pos)
+    def decode_fn(params, tokens, state, pos, extras=None):
+        return api.decode_step(params, cfg, tokens, state, pos,
+                               extras=extras)
 
     return prefill_fn, decode_fn
 

@@ -67,7 +67,8 @@ def _serve(batcher, prompts, max_new=4):
     return [r.out for r in reqs]
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b",
+                                  "gemma2-9b", "qwen2.5-3b"])
 def test_static_state_batcher_serves_what_the_rebinding_one_did(arch):
     cfg, params = _smoke(arch)
     prompts = _prompts(cfg)
@@ -267,7 +268,8 @@ def test_graphed_guard_fails_a_poisoned_output():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b",
+                                  "gemma2-9b", "qwen2.5-3b"])
 def test_graphed_tick_equals_eager_tick(arch):
     dev = _card()
     cfg = configs.get(arch).smoke

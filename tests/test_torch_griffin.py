@@ -82,9 +82,9 @@ def test_configs_match_reference():
 
 def test_unported_architecture_and_family_raise():
     with pytest.raises(ValueError, match="not ported"):
-        configs.get("qwen2.5-3b")
+        configs.get("mixtral-8x22b")
     cfg = dataclasses.replace(configs.get("recurrentgemma-2b").smoke,
-                              family="transformer")
+                              family="encdec")
     with pytest.raises(ValueError, match="not ported"):
         api.init(cfg, torch.Generator().manual_seed(0), device="cpu")
 

@@ -53,6 +53,13 @@ FLASH_CASES = [
     ("ragged_causal", dict(b=1, hq=2, hkv=1, s=100, d=32), dict(causal=True)),
     ("mqa_ragged_window", dict(b=1, hq=10, hkv=1, s=70, d=16),
      dict(causal=True, window=16)),
+    # The transformer family's head dim 128: qwen2.5's group of 8 on a
+    # global layer, gemma2-27b's global softcap and its local window.
+    ("d128_gqa8", dict(b=1, hq=16, hkv=2, s=128, d=128), dict(causal=True)),
+    ("d128_global_softcap", dict(b=1, hq=4, hkv=2, s=100, d=128),
+     dict(causal=True, softcap=50.0)),
+    ("d128_window_softcap", dict(b=1, hq=4, hkv=2, s=160, d=128),
+     dict(causal=True, window=64, softcap=50.0)),
 ]
 
 
@@ -105,6 +112,10 @@ Q_OFFSET_CASES = [
      dict(causal=True, window=16, softcap=30.0), (0, 5, 32)),
     ("chunk13_causal", dict(b=1, hq=2, hkv=2, s=13, d=16, sk=77),
      dict(causal=True), (0, 17, 64)),
+    # A transformer prefill over its max_len buffer: group 8 at D = 128,
+    # keys past the chunk masked by causal.
+    ("chunk8_d128_gqa8_buffer", dict(b=1, hq=16, hkv=2, s=8, d=128, sk=96),
+     dict(causal=True), (0, 40, 88)),
 ]
 
 
