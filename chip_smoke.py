@@ -253,7 +253,32 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    transformer shape (device ms graph-replayed and eager, the plain
    version, SDPA with the band mask (without softcap where the kernel
    caps), the bound) and 256 queries over a 4096-key buffer against 256
-   over 256 (the tiles past the causal edge skipped).
+   over 256 (the tiles past the causal edge skipped);
+15. ``mixtral-8x22b`` at full width cut to 8 of its 56 layers (2.5 B
+   parameters, 5.0 GB of bf16, a layer): the forward at B=1, S=8192 (past
+   the 4096 window): finite logits, 8 flash launches (48 query heads over
+   8, groups of 6), and the (token, expert) assignments the published
+   capacity factor 1.25 drops.  A 2-layer float32 cut with capacity factor
+   E/top_k (capacity T: nothing drops) decodes 64 tokens against its
+   forward's rows (2e-3), and prefills 3000 tokens whole and in chunks of
+   8 at ``max_len`` 4096 (== the window: ring caches), held as phase 14
+   holds gemma2-9b's.  Then on the bf16 cut: a graph-replayed batcher
+   tick against an eager one (4 slots, bit for bit, an idle slot
+   untouched), ``Deployment.build(["jet_tagger", <the cut>])`` (as 14b:
+   clean verify, router tokens equal to a standalone batcher's, the
+   plan's decode step beside the measured tick) and ``launch.serve --arch
+   mixtral-8x22b --smoke``;
+15b. ``deepseek-v3-671b`` at full width cut to its 3 dense layers, 1
+   routed layer (256 experts and a shared one) and the MTP head: the
+   forward at S=4096 (4 flash launches at D=192, MLA's expanded form),
+   finite logits and ``mtp_hidden``, ``mtp_logits`` on them (one more
+   launch), the whole prefill against the forward's last row, a graphed
+   batcher tick against an eager one.  Then a float32 cut of 1 dense and
+   1 routed layer (capacity E/top_k) decodes 32 tokens through the
+   absorbed cache against its expanded forward (2e-3) and prefills 512
+   tokens in chunks of 8 against the whole prompt; and ``launch.serve
+   --arch deepseek-v3-671b --smoke``.  Each phase's wall time and peak
+   memory printed.
 
 It prints a ``summary`` line (the fitted constants and each net's
 planned-vs-measured ratio, the edge p50/p95, the LM ticks eager and
@@ -3995,6 +4020,16 @@ TF_FLASH_CASES = (
      {"causal": True, "softcap": 50.0}),
     ("gemma2-9b global chunk at 4088", 1, 16, 8, 8, 4096, 256,
      {"causal": True, "softcap": 50.0, "q_offset": 4088}),
+    # The MoE transformers: mixtral's 48 query heads over 8 (groups of 6),
+    # local past the window; deepseek's expanded MLA at D = 192 (128 + 64,
+    # v zero-padded to 192 in the model), which runs launch_tc<256> with
+    # the fourth 64-column block past d, and a chunk of it at 4088.
+    ("mixtral-8x22b local", 1, 48, 8, 8192, 8192, 128,
+     {"causal": True, "window": 4096}),
+    ("deepseek-v3 MLA expanded", 1, 128, 128, 4096, 4096, 192,
+     {"causal": True}),
+    ("deepseek-v3 MLA chunk at 4088", 1, 128, 128, 8, 4096, 192,
+     {"causal": True, "q_offset": 4088}),
 )
 # Phase 9's tile-skip check: 3000 queries over a 4096-key buffer do the work
 # of 3000 over 3000 (every tile past the causal edge skipped), at a size
@@ -4146,7 +4181,9 @@ def launcher_run(arch: str, *extra: str) -> dict:
 
 
 def chunked_prefill_check(cfg, params, tokens, plan, per_step, *,
-                          fault: bool = False) -> dict:
+                          fault: bool = False,
+                          prompt_len: int | None = None,
+                          max_len: int | None = None) -> dict:
     """``build_serve_steps`` with the plan's ``prefill_chunk``: the
     3000-token prompt in chunks on a ``max_len`` 4096 cache (Griffin's ring
     past its 2048 window; for gemma2 ring local layers and linear global
@@ -4154,30 +4191,34 @@ def chunked_prefill_check(cfg, params, tokens, plan, per_step, *,
     against the whole-prompt prefill (last logits and every cache or state
     leaf, rtol 3e-2 / atol 3e-1), then 8 decode steps from both.  With
     ``fault``, the chunk-alone fault (the reference's ring prefill) must
-    lie outside that limit."""
+    lie outside that limit.  ``prompt_len`` and ``max_len`` change the
+    prompt (``LM_LONG_PROMPT``) and the cache (``LM_SEQ``)."""
+    prompt_len = LM_LONG_PROMPT if prompt_len is None else prompt_len
+    max_len = LM_SEQ if max_len is None else max_len
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models import api, tree
     from repro_torch.serve import engine
-    prompt = tokens[:, :LM_LONG_PROMPT]
+    prompt = tokens[:, :prompt_len]
     chunk = plan.serve["prefill_chunk"]
-    chunked, decode = engine.build_serve_steps(cfg, max_len=LM_SEQ, plan=plan)
-    whole, _ = engine.build_serve_steps(cfg, max_len=LM_SEQ)
+    chunked, decode = engine.build_serve_steps(cfg, max_len=max_len,
+                                               plan=plan)
+    whole, _ = engine.build_serve_steps(cfg, max_len=max_len)
     ops.reset_launches()
     t0 = time.perf_counter()
     last_c, state_c = chunked(params, prompt,
-                              api.init_decode_state(cfg, 1, LM_SEQ))
+                              api.init_decode_state(cfg, 1, max_len))
     torch.cuda.synchronize()
     chunked_s = time.perf_counter() - t0
     launches = ops.launch_counts()
-    n_chunks = -(-LM_LONG_PROMPT // chunk)
+    n_chunks = -(-prompt_len // chunk)
     want = {k: per_step[k] * n_chunks for k in LM_KERNELS}
     if lm_counts(launches) != want:
         raise SmokeFailure(f"chunked prefill launched {launches}, want "
                            f"{want}")
     t0 = time.perf_counter()
     last_w, state_w = whole(params, prompt,
-                            api.init_decode_state(cfg, 1, LM_SEQ))
+                            api.init_decode_state(cfg, 1, max_len))
     torch.cuda.synchronize()
     whole_s = time.perf_counter() - t0
     errs = [check_close("chunked prefill vs whole-prompt prefill", last_c,
@@ -4192,15 +4233,15 @@ def chunked_prefill_check(cfg, params, tokens, plan, per_step, *,
             cfg, params, prompt, chunked, last_w, state_w)
     tok = last_w[:, -1].argmax(dim=-1, keepdim=True)
     for i in range(LM_LONG_DECODE):
-        got, state_c = decode(params, tok, state_c, LM_LONG_PROMPT + i)
-        want_l, state_w = decode(params, tok, state_w, LM_LONG_PROMPT + i)
+        got, state_c = decode(params, tok, state_c, prompt_len + i)
+        want_l, state_w = decode(params, tok, state_w, prompt_len + i)
         errs.append(check_close(f"decode step {i} after chunked prefill",
                                 got, want_l, tol=3e-2, atol=3e-1))
         tok = want_l[:, -1].argmax(dim=-1, keepdim=True)
     out.update(chunked_prefill_s=chunked_s, whole_prefill_s=whole_s,
                chunks=n_chunks, launches=launches, max_abs_err=max(errs),
                cache_max_abs_err=state_err)
-    log(f"lm {cfg.name} chunked prefill {LM_LONG_PROMPT} tokens in "
+    log(f"lm {cfg.name} chunked prefill {prompt_len} tokens in "
         f"{n_chunks} chunks of {chunk}: {chunked_s:.3f} s against "
         f"{whole_s:.3f} s whole-prompt (host clock); last logits and "
         f"{LM_LONG_DECODE} decode steps max_abs_err={max(errs)}, state "
@@ -4339,7 +4380,13 @@ def tf_fleet_phase(cfg, params) -> dict:
     out = {"build_s": build_s, "replay_wall_s": report.wall_s,
            "edge_p50_us": summary[edge_net]["p50_s"] * 1e6,
            "lm_request_p50_s": summary[cfg.name]["p50_s"],
-           "lm_tick_p50_ms": dec["p50_s"] * 1e3, "launches": launches}
+           "lm_tick_p50_ms": dec["p50_s"] * 1e3,
+           "lm_plan_decode_step_ms": lm_plan.est_latency_s * 1e3,
+           "lm_slots": batcher.slots, "launches": launches}
+    log(f"transformer fleet {cfg.name}: the plan's decode step "
+        f"{out['lm_plan_decode_step_ms']:.4f} ms against the measured "
+        f"{batcher.slots}-slot tick p50 {out['lm_tick_p50_ms']:.4f} ms "
+        f"(ratio {out['lm_tick_p50_ms'] / out['lm_plan_decode_step_ms']:.2f})")
     del router, batcher, dep
     gc.collect()
     torch.cuda.empty_cache()
@@ -4496,6 +4543,328 @@ def transformer_phases(device) -> dict:
             "walls_s": walls, "launches": launches,
             "per_step": {TF_ARCH: lm_counts(fwd)["flash_attention"],
                          QWEN_ARCH: lm_counts(qfwd)["flash_attention"]}}
+
+
+# ---------------------------------------------------------------------------
+# Phases 15 and 15b: the MoE transformers at full width, depth cut
+# ---------------------------------------------------------------------------
+
+MIXTRAL_ARCH = "mixtral-8x22b"
+MIXTRAL_LAYERS = 8             # of 56; a layer is 2.5 B parameters (5.0 GB)
+MIXTRAL_SEQ = 8192             # past the 4096 window
+MIXTRAL_F32_LAYERS = 2         # the float32 decode and chunked-prefill cut
+DEEPSEEK_ARCH = "deepseek-v3-671b"
+DEEPSEEK_LAYERS = 4            # the 3 dense layers and 1 routed one, + MTP
+DEEPSEEK_SEQ = 4096
+DEEPSEEK_F32_LAYERS = 2        # 1 dense + 1 routed, no MTP head (~56 GB)
+DEEPSEEK_DECODE = 32
+DEEPSEEK_CHUNKED_PROMPT = 512
+DEEPSEEK_CHUNKED_MAX_LEN = 1024
+# The batcher ticks' prompts: 4 slots prefilled a token a tick.
+MOE_TICK_PROMPTS = (8, 11, 13, 16)
+
+
+def moe_cut(arch: str, layers: int, *, dtype: str | None = None,
+            no_drop: bool = False, first_dense: int | None = None,
+            mtp: bool | None = None):
+    """The published config at full width cut to ``layers`` layers.
+    ``no_drop``: capacity factor E / top_k, so an expert's capacity is
+    every token and no assignment drops, whatever the token set (a chunk
+    of 8 and the whole prompt then route alike)."""
+    import dataclasses
+    from repro_torch import configs
+    cfg = configs.get(arch).config
+    mo_kw = {}
+    if no_drop:
+        mo_kw["capacity_factor"] = cfg.moe.num_experts / cfg.moe.top_k
+    if first_dense is not None:
+        mo_kw["first_k_dense"] = first_dense
+    kw = {"num_layers": layers,
+          "moe": dataclasses.replace(cfg.moe, **mo_kw)}
+    if dtype is not None:
+        kw["dtype"] = dtype
+    if mtp is not None:
+        kw["mtp"] = mtp
+    return dataclasses.replace(cfg, **kw)
+
+
+def moe_init(cfg) -> tuple:
+    """``api.init`` from a seeded CUDA generator; the parameter count and
+    bytes printed."""
+    import torch
+    from repro_torch.models import api, tree
+    t0 = time.perf_counter()
+    params = api.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    on_card(params["emb"], f"{cfg.name}'s api.init")
+    leaves = tree.leaves(params)
+    info = {"layers": cfg.num_layers, "dtype": cfg.dtype,
+            "capacity_factor": cfg.moe.capacity_factor,
+            "params": sum(t.numel() for t in leaves),
+            "bytes": sum(t.numel() * t.element_size() for t in leaves),
+            "init_s": time.perf_counter() - t0}
+    log(f"lm init {cfg.name} cut to {cfg.num_layers} layers "
+        f"({cfg.dtype}, mtp={cfg.mtp}): " + json.dumps(info, sort_keys=True))
+    return params, info
+
+
+@contextlib.contextmanager
+def counted_drops():
+    """The (token, expert) assignments the MoE blocks route and drop for
+    capacity while the block runs (read after, one sync a layer)."""
+    from repro_torch.models import moe
+    real, kept = moe._slots, []
+
+    def slots(flat_e, **kw):
+        slot, valid = real(flat_e, **kw)
+        kept.append((flat_e.numel(), valid.sum()))
+        return slot, valid
+    moe._slots = slots
+    out: dict = {}
+    try:
+        yield out
+    finally:
+        moe._slots = real
+        out["assigned"] = sum(n for n, _ in kept)
+        out["dropped_per_layer"] = [n - int(v) for n, v in kept]
+        out["dropped"] = sum(out["dropped_per_layer"])
+
+
+def decode_vs_forward(cfg, params, tokens, n: int) -> float:
+    """``n`` tokens decoded one by one against the forward's rows, each
+    step within ``TOL_LM_F32`` (float32; capacity T, so the forward and
+    each one-token step route alike)."""
+    from repro_torch.models import api
+    toks = tokens[:, :n]
+    full = api.forward(params, cfg, {"tokens": toks})["logits"]
+    state = api.init_decode_state(cfg, 1, n)
+    worst = 0.0
+    for t in range(n):
+        logits, state = api.decode_step(params, cfg, toks[:, t:t + 1],
+                                        state, t)
+        worst = max(worst, check_close(
+            f"{cfg.name} float32 decode step {t} vs forward row {t}",
+            logits[:, 0], full[:, t], tol=TOL_LM_F32))
+    log(f"lm {cfg.name} float32 ({cfg.num_layers} layers, capacity factor "
+        f"{cfg.moe.capacity_factor}) decode vs forward over {n} tokens: "
+        f"max_abs_err={worst} tol={TOL_LM_F32}")
+    return worst
+
+
+def moe_forward(cfg, params, tokens) -> dict:
+    """``api.forward`` at B=1 over ``tokens``: finite logits of the right
+    shape (and ``mtp_hidden`` with an MTP head), one flash launch a layer,
+    and the assignments the capacity drops."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    seq = tokens.shape[1]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with counted_drops() as drops:
+        out = api.forward(params, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    logits = out["logits"]
+    want_shape = (1, seq, cfg.padded_vocab)
+    if tuple(logits.shape) != want_shape \
+            or not bool(torch.isfinite(logits).all()):
+        raise SmokeFailure(f"{cfg.name} forward logits {tuple(logits.shape)}"
+                           f" (want {want_shape}) or not finite")
+    if cfg.mtp and (tuple(out["mtp_hidden"].shape) != (1, seq, cfg.d_model)
+                    or not bool(torch.isfinite(out["mtp_hidden"]).all())):
+        raise SmokeFailure(f"{cfg.name} mtp_hidden "
+                           f"{tuple(out['mtp_hidden'].shape)} or not finite")
+    want = {**dict.fromkeys(LM_KERNELS, 0), "flash_attention": cfg.num_layers}
+    if lm_counts(launches) != want:
+        raise SmokeFailure(f"{cfg.name} forward launched {launches}, want "
+                           f"{want}")
+    row = {"seq": seq, "forward_s": forward_s, "launches": launches,
+           "aux_loss": float(out["aux_loss"]),
+           "capacity_factor": cfg.moe.capacity_factor, **drops}
+    log(f"lm {cfg.name} forward B=1 S={seq}: {forward_s:.3f} s (first call, "
+        f"host clock), logits |max| {float(logits.abs().max())}; the "
+        f"capacity factor {cfg.moe.capacity_factor} drops {drops['dropped']}"
+        f" of {drops['assigned']} (token, expert) assignments; "
+        + json.dumps(row, sort_keys=True))
+    return {**row, "out": out}
+
+
+def _tick_prompts(cfg):
+    import numpy as np
+    rng = np.random.default_rng(5)
+    return [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+            for n in MOE_TICK_PROMPTS]
+
+
+def _phase_end(label: str, t0: float, out: dict) -> None:
+    import torch
+    out["wall_s"] = time.perf_counter() - t0
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"phase {label}: {out['wall_s']:.1f} s, peak memory "
+        f"{out['peak_memory_bytes']} bytes")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mixtral_phase() -> dict:
+    """Phase 15: ``mixtral-8x22b`` at full width, cut in depth."""
+    import types
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = {}, {}
+    base = moe_cut(MIXTRAL_ARCH, MIXTRAL_LAYERS)
+    tokens = np.random.default_rng(0).integers(
+        0, base.vocab_size, (1, MIXTRAL_SEQ)).astype(np.int32)
+
+    cfg32 = moe_cut(MIXTRAL_ARCH, MIXTRAL_F32_LAYERS, dtype="float32",
+                    no_drop=True)
+    params32, out["f32_cut"] = moe_init(cfg32)
+    out["f32_decode_max_abs_err"] = decode_vs_forward(
+        cfg32, params32, tokens, LM_CONSISTENCY_TOKENS)
+    per_step = {**dict.fromkeys(LM_KERNELS, 0),
+                "flash_attention": cfg32.num_layers}
+    chunked = chunked_prefill_check(
+        cfg32, params32, tokens,
+        types.SimpleNamespace(serve={"prefill_chunk": TF_CHUNK}), per_step)
+    out["chunked"] = chunked
+    launches[f"{MIXTRAL_ARCH} f32 cut chunked prefill"] = chunked["launches"]
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params, out["cut"] = moe_init(base)
+    fwd = moe_forward(base, params, tokens)
+    del fwd["out"]
+    out["forward"] = fwd
+    launches[f"{MIXTRAL_ARCH} {MIXTRAL_LAYERS}-layer forward"] = \
+        fwd["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["tick_parity"] = tick_parity(base, params, _tick_prompts(base))
+    fleet = tf_fleet_phase(base, params)
+    out["fleet"] = {k: v for k, v in fleet.items() if k != "launches"}
+    launches[f"{MIXTRAL_ARCH} fleet replay"] = fleet["launches"]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launcher"] = launcher_run(MIXTRAL_ARCH, "--smoke")
+    _phase_end("15 (mixtral-8x22b)", t0, out)
+    return {"readings": out, "launches": launches,
+            "per_step": base.num_layers}
+
+
+def deepseek_phase() -> dict:
+    """Phase 15b: ``deepseek-v3-671b`` at full width, cut in depth."""
+    import types
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, transformer
+    from repro_torch.serve import engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = {}, {}
+    cfg = moe_cut(DEEPSEEK_ARCH, DEEPSEEK_LAYERS)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, DEEPSEEK_SEQ)).astype(np.int32)
+    params, out["cut"] = moe_init(cfg)
+    fwd = moe_forward(cfg, params, tokens)
+    launches[f"{DEEPSEEK_ARCH} {DEEPSEEK_LAYERS}-layer forward"] = \
+        fwd["launches"]
+    hidden = fwd["out"]["mtp_hidden"]
+    last = fwd["out"]["logits"][:, -1:].clone()
+    del fwd["out"]
+    out["forward"] = fwd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ops.reset_launches()
+    mtp = transformer.mtp_logits(params, cfg, hidden,
+                                 np.roll(tokens, -1, axis=1))
+    torch.cuda.synchronize()
+    mtp_launches = ops.launch_counts()
+    if tuple(mtp.shape) != (1, DEEPSEEK_SEQ, cfg.padded_vocab) \
+            or not bool(torch.isfinite(mtp).all()) \
+            or lm_counts(mtp_launches)["flash_attention"] != 1:
+        raise SmokeFailure(f"mtp_logits {tuple(mtp.shape)}, finite "
+                           f"{bool(torch.isfinite(mtp).all())}, launches "
+                           f"{mtp_launches}")
+    out["mtp_logits_abs_max"] = float(mtp.abs().max())
+    launches[f"{DEEPSEEK_ARCH} mtp_logits"] = mtp_launches
+    del mtp, hidden
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    prefill, _ = engine.build_serve_steps(cfg)
+    ops.reset_launches()
+    t1 = time.perf_counter()
+    got, _ = prefill(params, tokens,
+                     api.init_decode_state(cfg, 1, DEEPSEEK_SEQ))
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t1
+    pre_launches = ops.launch_counts()
+    if lm_counts(pre_launches)["flash_attention"] != cfg.num_layers:
+        raise SmokeFailure(f"{cfg.name} prefill launched {pre_launches}")
+    launches[f"{DEEPSEEK_ARCH} whole prefill"] = pre_launches
+    out["prefill_vs_forward_max_abs_err"] = check_close(
+        f"{cfg.name} whole prefill vs the forward's last row", got, last,
+        tol=3e-2, atol=3e-1)
+    log(f"lm {cfg.name} whole prefill of {DEEPSEEK_SEQ} tokens: "
+        f"{out['prefill_s']:.3f} s (host clock), last logits vs the "
+        f"forward's max_abs_err={out['prefill_vs_forward_max_abs_err']} "
+        f"(rtol 3e-2 atol 3e-1)")
+    del got, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["tick_parity"] = tick_parity(cfg, params, _tick_prompts(cfg))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg32 = moe_cut(DEEPSEEK_ARCH, DEEPSEEK_F32_LAYERS, dtype="float32",
+                    no_drop=True, first_dense=1, mtp=False)
+    params32, out["f32_cut"] = moe_init(cfg32)
+    out["f32_decode_max_abs_err"] = decode_vs_forward(
+        cfg32, params32, tokens, DEEPSEEK_DECODE)
+    per_step = {**dict.fromkeys(LM_KERNELS, 0),
+                "flash_attention": cfg32.num_layers}
+    chunked = chunked_prefill_check(
+        cfg32, params32, tokens,
+        types.SimpleNamespace(serve={"prefill_chunk": TF_CHUNK}), per_step,
+        prompt_len=DEEPSEEK_CHUNKED_PROMPT,
+        max_len=DEEPSEEK_CHUNKED_MAX_LEN)
+    out["chunked"] = chunked
+    launches[f"{DEEPSEEK_ARCH} f32 cut chunked prefill"] = \
+        chunked["launches"]
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launcher"] = launcher_run(DEEPSEEK_ARCH, "--smoke")
+    _phase_end("15b (deepseek-v3-671b)", t0, out)
+    return {"readings": out, "launches": launches,
+            "per_step": cfg.num_layers}
+
+
+def moe_phases() -> dict:
+    """Phases 15 and 15b in order, every model freed before the next."""
+    import torch
+    log(f"moe phases: {torch.cuda.memory_allocated()} bytes allocated at "
+        f"the start")
+    mixtral = mixtral_phase()
+    deepseek = deepseek_phase()
+    return {"readings": {MIXTRAL_ARCH: mixtral["readings"],
+                         DEEPSEEK_ARCH: deepseek["readings"]},
+            "launches": {**mixtral["launches"], **deepseek["launches"]},
+            "per_step": {MIXTRAL_ARCH: mixtral["per_step"],
+                         DEEPSEEK_ARCH: deepseek["per_step"]}}
 
 
 def kernels_line(errs, launches, timing) -> dict:
@@ -4752,6 +5121,9 @@ def main(argv: list) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         tf = transformer_phases(device)
+        moe_run = moe_phases()
+        tf["launches"].update(moe_run["launches"])
+        tf["per_step"].update(moe_run["per_step"])
         t0 = time.perf_counter()
         lm_timing["flash_attention"]["transformer"] = tf_timing_phase(device)
         log(f"phase 9 transformer flash rows: "
@@ -4793,6 +5165,7 @@ def main(argv: list) -> int:
         "transformer": {k: tf[k] for k in ("chunked", "window", "fleet",
                                             "qwen", "forward_only",
                                             "walls_s")},
+        "moe": moe_run["readings"],
         "aie_plan": {k: v for k, v in aie_plan.items() if k != "launches"},
         "fleet": {k: v for k, v in fleet["fleet"].items()
                   if k not in ("launches", "chunk_launches")}},

@@ -21,7 +21,8 @@ plain PyTorch path on the CPU); without a card it exits with an error.
 ``trace`` and ``profile`` go through
 :class:`repro_torch.deploy.Deployment`: ``--lm ARCH`` adds an LM tenant
 (``gemma2_2b``, ``gemma2_9b``, ``gemma2_27b``, ``qwen2_5_3b``,
-``qwen2_vl_72b``, ``recurrentgemma_2b`` or ``rwkv6_7b``, seeded weights;
+``qwen2_vl_72b``, ``mixtral_8x22b``, ``deepseek_v3_671b``,
+``recurrentgemma_2b`` or ``rwkv6_7b``, seeded weights;
 its smoke config, or the published one with ``--lm-config published``),
 ``--machine-model``
 picks the characterization (``auto`` by default; ``stock``, ``quick``,

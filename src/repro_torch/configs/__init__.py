@@ -13,7 +13,8 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 ARCH_NAMES = ["gemma2_27b", "gemma2_9b", "gemma2_2b", "qwen2_5_3b",
-              "rwkv6_7b", "recurrentgemma_2b", "qwen2_vl_72b"]
+              "rwkv6_7b", "recurrentgemma_2b", "qwen2_vl_72b",
+              "mixtral_8x22b", "deepseek_v3_671b"]
 
 # Public --arch ids (hyphenated) -> module names.
 ALIASES = {n.replace("_", "-"): n for n in ARCH_NAMES}

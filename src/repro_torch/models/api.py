@@ -1,14 +1,15 @@
 """Family-dispatching model API of the port's language models.
 
   init(cfg, generator, device=None)              -> params
-  forward(params, cfg, batch)                    -> {"logits", "aux_loss"}
+  forward(params, cfg, batch)                    -> {"logits", "aux_loss",
+                                                     "mtp_hidden" (MTP)}
   decode_state_specs(cfg, batch, max_len)        -> meta-tensor tree
   init_decode_state(cfg, batch, max_len, device) -> zeroed state
   decode_step(params, cfg, tokens, state, pos)   -> (logits, new_state)
 
 Port of the JAX package's ``models/api.py`` for ``family ==
-"transformer"`` (the dense path), ``"griffin"`` and ``"rwkv"``; every other
-family raises.  Forward and decode run where the parameters lie.
+"transformer"`` (dense, MoE and MLA), ``"griffin"`` and ``"rwkv"``; every
+other family raises.  Forward and decode run where the parameters lie.
 """
 
 from __future__ import annotations
@@ -72,13 +73,19 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def decode_step(params: dict, cfg: ModelConfig, tokens, state: dict,
-                cache_pos, *, extras: dict | None = None):
+                cache_pos, *, extras: dict | None = None,
+                rows_alone: bool = False):
     """One step of ``tokens`` (B, s) at ``cache_pos``; ``extras`` are the
-    transformer's extra inputs, passed through by name."""
+    transformer's extra inputs, passed through by name.  ``rows_alone``:
+    each batch row is an independent sequence (the batcher's slots), so a
+    transformer's MoE layers route each row as its own token set, as the
+    reference's batcher steps each slot alone; the other families' rows
+    are independent anyway."""
     _check_family(cfg)
     if cfg.family == "transformer":
         return transformer.lm_decode_step(params, cfg, tokens, state,
-                                          cache_pos, **(extras or {}))
+                                          cache_pos, rows_alone=rows_alone,
+                                          **(extras or {}))
     if cfg.family == "rwkv":
         return rwkv.rwkv_decode_step(params, cfg, tokens, state, cache_pos)
     return griffin.griffin_decode_step(params, cfg, tokens, state, cache_pos)

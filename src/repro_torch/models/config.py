@@ -1,22 +1,59 @@
 """Model configuration schema of the port's language models.
 
-A copy of the JAX package's ``models/config.py`` (``GriffinConfig``,
-``ModelConfig``) with the fields the port's three families and its planner
-(``plan/graph.model_graph``) read: the dense transformer (gemma2, qwen2.5,
-qwen2-vl), Griffin (``recurrentgemma``) and RWKV-6.  The dataclass, field
-names and defaults stay, so a configuration reads the same in both
-packages.  The Griffin family always ties and scales its embeddings,
-whatever ``scale_embeddings`` says, and runs every attention layer local;
-RWKV-6 reads ``rwkv_head_dim`` and keeps a separate unembedding.  The
-transformer reads the attention pattern, the biases, M-RoPE, the post
-norms and the MLP's activation.  The MoE, MLA and encoder-decoder
-sub-configs are not ported.
+A copy of the JAX package's ``models/config.py`` (``MoEConfig``,
+``MLAConfig``, ``GriffinConfig``, ``ModelConfig``) with the fields the
+port's three families and its planner (``plan/graph.model_graph``) read:
+the transformer (gemma2, qwen2.5, qwen2-vl, mixtral, deepseek-v3), Griffin
+(``recurrentgemma``) and RWKV-6.  The dataclasses, field names and defaults
+stay, so a configuration reads the same in both packages.  The Griffin
+family always ties and scales its embeddings, whatever
+``scale_embeddings`` says, and runs every attention layer local; RWKV-6
+reads ``rwkv_head_dim`` and keeps a separate unembedding.  The transformer
+reads the attention pattern, the biases, M-RoPE, the post norms, the MLP's
+activation, the MoE and MLA sub-configs and the multi-token-prediction
+head.  ``MoEConfig.impl`` and ``router_aux_weight`` are kept for the
+training and multi-device paths, which the port does not have yet.  The
+encoder-decoder sub-config, ``use_rope`` and ``norm_type`` (whisper) are
+not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    num_shared_experts: int = 0
+    first_k_dense: int = 0            # leading layers use dense FFN (deepseek)
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.001
+    # deepseek-v3 sigmoid routing with bias correction; mixtral uses softmax
+    router_type: str = "softmax"      # "softmax" | "sigmoid"
+    # Dispatch implementation of the multi-device paths (not ported):
+    #  "gather_psum" -- tokens replicated over the model axis per DP shard;
+    #                   expert outputs psum-combined (baseline, works for any
+    #                   batch), comm ~ 2 x tokens x d_model per layer.
+    #  "a2a"         -- tokens sharded over (dp x model); capacity buffers
+    #                   all_to_all'd to expert owners and back, comm ~
+    #                   2 x tokens x k x cf / E_owners x d_model.  Falls back
+    #                   to gather_psum when tokens don't divide the mesh.
+    # One device runs the local path whatever this says.
+    impl: str = "gather_psum"
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (deepseek-v3)."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +84,9 @@ class ModelConfig:
     qkv_bias: bool = False                         # qwen2.5
     rope_theta: float = 10000.0
     mrope_sections: Optional[tuple[int, int, int]] = None  # qwen2-vl M-RoPE
+    # Family sub-configs.
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     griffin: Optional[GriffinConfig] = None
     # RWKV.
     rwkv_head_dim: int = 64
@@ -59,6 +99,8 @@ class ModelConfig:
     mlp_gated: bool = True            # the planner's graph: 2 input matrices
     # Whether a 500k-token decode is sub-quadratic-feasible (SSM/hybrid only).
     subquadratic: bool = False
+    # Multi-token prediction extra head (deepseek-v3); adds one extra layer.
+    mtp: bool = False
 
     @property
     def padded_vocab(self) -> int:

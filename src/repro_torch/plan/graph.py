@@ -59,17 +59,20 @@ def edge_graph(cfg, *, batch: int | None = None) -> DataflowGraph:
 
 def model_graph(cfg, *, batch: int = 1) -> DataflowGraph:
     """Graph of a ``ModelConfig`` decode step: the distinct per-block GEMMs
-    (``repeat`` = the layer count) and the unembedding, in bf16."""
+    (``repeat`` = the layer count) and the unembedding, in bf16.  An MoE
+    config's MLP nodes are one expert's (``d_ff_expert``), as the
+    reference prices them."""
     d, layers = cfg.d_model, cfg.num_layers
     n_mlp_in = 2 if cfg.mlp_gated else 1
+    d_ff = cfg.moe.d_ff_expert if cfg.moe is not None else cfg.d_ff
     nodes = (
         LayerNode(0, "attn.wq", d, cfg.q_dim, repeat=layers, itemsize=2),
         LayerNode(1, "attn.wk", d, cfg.kv_dim, repeat=layers, itemsize=2),
         LayerNode(2, "attn.wv", d, cfg.kv_dim, repeat=layers, itemsize=2),
         LayerNode(3, "attn.wo", cfg.q_dim, d, repeat=layers, itemsize=2),
-        LayerNode(4, "mlp.in", d, cfg.d_ff * n_mlp_in, repeat=layers,
+        LayerNode(4, "mlp.in", d, d_ff * n_mlp_in, repeat=layers,
                   itemsize=2),
-        LayerNode(5, "mlp.out", cfg.d_ff, d, repeat=layers, itemsize=2),
+        LayerNode(5, "mlp.out", d_ff, d, repeat=layers, itemsize=2),
         LayerNode(6, "unemb", d, cfg.padded_vocab, itemsize=2),
     )
     return DataflowGraph(name=cfg.name, batch=batch, nodes=nodes, kind="lm")

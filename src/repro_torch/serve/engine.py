@@ -279,6 +279,10 @@ _QUANT_EXCLUDE = ("emb", "unemb", "pos_emb", "scale", "bias",
                   "enc_final", "dec_final")
 
 
+# The subtrees whose leaves carry a leading layer axis.
+_STACKED = ("blocks", "dense_blocks")
+
+
 def _quantize_leaf(w: torch.Tensor) -> dict:
     """One >=2-D float leaf as ``{"q8", "scale"}``: ``scale = max|w| / 127
     + 1e-12`` over axis -2 (one scale per output channel), ``q8 =
@@ -314,11 +318,12 @@ def quantize_params(params, *, min_size: int = _QUANT_MIN_SIZE):
     layer, so at rest the card holds int8.  The q8 and scale equal the
     reference's bit for bit on the same f32 leaf.
 
-    A leaf under ``blocks`` is stacked on a leading layer axis, so its rank
-    is counted without that axis: a stacked vector (a bias, a gate's
-    decay) stays as it is.  The reference quantizes it over the layer axis,
-    into a scale that no longer stacks, and its own layer scan then refuses
-    the tree whenever there is more than one layer."""
+    A leaf under ``blocks`` or ``dense_blocks`` is stacked on a leading
+    layer axis, so its rank is counted without that axis: a stacked vector
+    (a bias, a gate's decay, a router's selection bias) stays as it is.
+    The reference quantizes it over the layer axis, into a scale that no
+    longer stacks, and its own layer scan then refuses the tree whenever
+    there is more than one layer."""
 
     def walk(node, keys):
         if isinstance(node, dict):
@@ -329,7 +334,7 @@ def quantize_params(params, *, min_size: int = _QUANT_MIN_SIZE):
         if any(k in _QUANT_EXCLUDE for k in keys) \
                 or not isinstance(node, torch.Tensor):
             return node
-        rank = node.dim() - ("blocks" in keys)
+        rank = node.dim() - any(k in _STACKED for k in keys)
         if rank < 2 or node.numel() < min_size \
                 or not node.is_floating_point():
             return node
@@ -583,8 +588,11 @@ class ContinuousBatcher:
         (slots, 1, padded_vocab)."""
         tokens = self._inputs[0].unsqueeze(1)
         live = self._inputs[2].bool()
+        # Each slot is its own sequence: an MoE layer routes it alone, with
+        # its own capacity, as the reference steps each slot alone.
         logits, new_state = api.decode_step(self.params, self.cfg, tokens,
-                                            self.state, self._inputs[1])
+                                            self.state, self._inputs[1],
+                                            rows_alone=True)
 
         def keep_idle(old, new, ax):
             mask = live.reshape((-1,) + (1,) * (old.dim() - ax - 1))

@@ -254,7 +254,7 @@ def test_resolve_configs_takes_lm_specs(spec, want):
     from repro_torch.deploy.stages import resolve_configs
     assert [c.name for c in resolve_configs(spec)] == [want]
     with pytest.raises(ValueError, match="unknown edge net or LM arch"):
-        resolve_configs(["lm:mixtral_8x22b"])
+        resolve_configs(["lm:whisper_medium"])
 
 
 def test_lm_params_reach_the_batcher():

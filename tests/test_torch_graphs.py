@@ -269,7 +269,8 @@ def test_graphed_guard_fails_a_poisoned_output():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b",
-                                  "gemma2-9b", "qwen2.5-3b"])
+                                  "gemma2-9b", "qwen2.5-3b",
+                                  "mixtral-8x22b", "deepseek-v3-671b"])
 def test_graphed_tick_equals_eager_tick(arch):
     dev = _card()
     cfg = configs.get(arch).smoke

@@ -82,7 +82,7 @@ def test_configs_match_reference():
 
 def test_unported_architecture_and_family_raise():
     with pytest.raises(ValueError, match="not ported"):
-        configs.get("mixtral-8x22b")
+        configs.get("whisper-medium")
     cfg = dataclasses.replace(configs.get("recurrentgemma-2b").smoke,
                               family="encdec")
     with pytest.raises(ValueError, match="not ported"):

@@ -35,7 +35,10 @@ from repro_torch.serve import engine
 
 ARCHS = ["qwen2_5_3b", "gemma2_2b", "gemma2_9b", "gemma2_27b",
          "qwen2_vl_72b"]
-UNPORTED = ["mixtral-8x22b", "deepseek-v3-671b", "whisper-medium"]
+# The MoE transformers' model tests are in tests/test_torch_moe.py; the
+# parametrised config, graph and launcher tests here take them too.
+MOE_ARCHS = ["mixtral_8x22b", "deepseek_v3_671b"]
+UNPORTED = ["whisper-medium"]
 TOKENS = 28          # past the smoke window of 16
 F32_TOL = dict(rtol=2e-3, atol=2e-3)
 
@@ -105,21 +108,29 @@ def _assert_trees_close(ref_tree, port_tree, tol):
 # Configs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+def _field(value):
+    """A field's value; a sub-config as its fields (the two packages'
+    dataclasses are different classes)."""
+    return dataclasses.asdict(value) if dataclasses.is_dataclass(value) \
+        else value
+
+
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_configs_match_reference(arch):
     for name in ("config", "smoke"):
         ref_cfg = getattr(ref_configs.get(arch), name)
         cfg = getattr(configs.get(arch), name)
         for field in dataclasses.fields(cfg):
-            assert getattr(cfg, field.name) == getattr(ref_cfg, field.name), \
-                (name, field.name)
+            assert _field(getattr(cfg, field.name)) == \
+                _field(getattr(ref_cfg, field.name)), (name, field.name)
         assert (cfg.padded_vocab, cfg.q_dim, cfg.kv_dim) == (
             ref_cfg.padded_vocab, ref_cfg.q_dim, ref_cfg.kv_dim)
         assert [cfg.layer_kind(i) for i in range(cfg.num_layers)] == \
             [ref_cfg.layer_kind(i) for i in range(cfg.num_layers)]
-        for unported in ("moe", "mla", "encdec", "mtp"):
-            assert not getattr(ref_cfg, unported), unported
-        assert ref_cfg.use_rope     # whisper's absolute positions: item 8
+        assert ref_cfg.encdec is None
+        assert ref_cfg.use_rope     # whisper's absolute positions: item 3
+        assert ref_cfg.norm_type == "rmsnorm"
+        assert (cfg.moe is None) == (arch in ARCHS)
     published = configs.get(arch).config.name
     assert configs.get(published).name == arch
 
@@ -135,9 +146,10 @@ def test_unported_archs_and_families_raise(arch):
             api.init(cfg, torch.Generator().manual_seed(0), device="cpu")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_model_graph_nodes_equal_the_references(arch):
-    """The planner's graph of each published config: the same nodes."""
+    """The planner's graph of each published config: the same nodes (an
+    MoE config's MLP nodes at one expert's ``d_ff_expert``)."""
     want = ref_graph.model_graph(ref_configs.get(arch).config, batch=4)
     got = graph.model_graph(configs.get(arch).config, batch=4)
     assert (got.name, got.batch, got.kind) == (want.name, want.batch,
@@ -497,7 +509,8 @@ def test_batcher_matches_reference_with_staggered_admissions(arch,
         ref_b.span_stats()["decode_step"]["count"]
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2.5-3b", "qwen2-vl-72b"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2.5-3b", "qwen2-vl-72b",
+                                  "mixtral-8x22b", "deepseek-v3-671b"])
 def test_launcher_serves_the_smoke_config_on_cpu(arch, capsys):
     assert launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                               "--requests", "3", "--max-new", "4"]) == 0
