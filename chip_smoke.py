@@ -95,6 +95,11 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    -27b's local (window 4096) and global layers with softcap 50 at
    S=8192, qwen2-vl-72b's 64 heads, a 3000-token prompt over a 4096-key
    buffer and a chunk of 8 at ``q_offset`` 4088) in bf16 and f32;
+   whisper-medium's (``WHISPER_FLASH_CASES``, D=64, 16 heads: the
+   encoder's bidirectional (1,16,1500,64), the cross-attention of 448
+   queries and of a 4-slot decode tick's one query a row over 1500 keys,
+   non-causal and ragged, the decoder's causal (1,16,448,64) and a chunk
+   of 8 at ``q_offset`` 440) in bf16 and f32;
    ``linear_scan`` at the forward shape (1,4096,2560), the decode shape
    (4,1,2560) and the ragged 3000-step prefill (2,3000,2560); each held
    against its plain version on the card;
@@ -278,13 +283,32 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    absorbed cache against its expanded forward (2e-3) and prefills 512
    tokens in chunks of 8 against the whole prompt; and ``launch.serve
    --arch deepseek-v3-671b --smoke``.  Each phase's wall time and peak
-   memory printed.
+   memory printed;
+16. ``whisper-medium`` at full width and depth (24 encoder and 24 decoder
+   layers, 791,662,592 parameters, seeded on the card) on every LM entry
+   point, over frames (1, 1500, 1024) from a seeded CUDA generator: the
+   bf16 forward of 448 tokens (finite logits, 72 flash launches: the
+   encoder's 24 bidirectional, the decoder's 24 causal and 24 cross), a
+   graph-replayed tick against an eager one (4 slots, ``max_len`` 448, the
+   cross K/V zeros as in the reference's batcher, bit for bit), phase 8's
+   short run (24 flash launches a tick, the cross-attention's one query
+   over 1500 keys) and a profiled trace of 5 ticks (device busy time by
+   kernel name, ``keep_idle``'s copies of the cross K/V among them),
+   ``--quant8`` (the bytes before and after, one tick's logits against
+   bf16), ``Deployment.build(["jet_tagger", <the model>])`` as 14b (the
+   plan's decode step beside the tick), ``launch.serve --arch
+   whisper-medium`` with and without ``--quant8``; then the float32 model:
+   ``whisper_init_cache`` from the frames and 64 tokens decoded one by one
+   within 1e-4 of the forward's rows, and the 64 tokens prefilled in chunks
+   of 8 within 1e-3 of the whole prefill.  Then phase 9's flash rows at
+   whisper's shapes, beside SDPA without a mask where one call computes
+   the same function.
 
 It prints a ``summary`` line (the fitted constants and each net's
 planned-vs-measured ratio, the edge p50/p95, the LM ticks eager and
-graphed, the fleet's and the transformer phases' readings), one
+graphed, the fleet's, the transformer phases' and whisper's readings), one
 ``{"kernels": [...]}`` line (all seven kernels; flash with its rows at
-the transformer shapes), the card line again, and last ``{"ok": true,
+the transformer's and whisper's shapes), the card line again, and last ``{"ok": true,
 "device": {...}}``.  It needs no network and one card.
 """
 
@@ -342,6 +366,10 @@ LM_REQUESTS = 8
 LM_MAX_NEW = 16
 LM_LONG_GEN = 256              # tokens per request in the decode-heavy run
 LM_TRACED_TICKS = 5
+# A traced tick's device activities by name, the largest first: whisper's
+# tick spreads its time over a dozen (the keep_idle copies of the cross
+# K/V among them).
+TRACE_TOP = 12
 LM_LONG_PROMPT = 3000
 LM_LONG_DECODE = 8
 # Flash against its plain version, as (rtol, atol).  Both sides do f32
@@ -3235,19 +3263,21 @@ def lm_forward_phase(arch: str, seq: int = LM_SEQ):
 
 
 def serve_run(cfg, params, prompts, max_new, per_tick, label,
-              graphs=None):
+              graphs=None, max_len: int | None = None):
     """Serve ``prompts`` through a fresh ``ContinuousBatcher`` (its tick a
     CUDA graph unless ``graphs=False``) until drained, counters zeroed just
     before and read just after.  Returns the batcher and a row of rates:
     overall, and prefill and decode apart from the batcher's own spans
     (``prefill_chunk``: a prompt fed token by token; ``decode_step``: one
     batched tick over the live slots).  A graphed tick's kernel nodes are
-    held to the scan launches a step makes."""
+    held to the LM kernels' launches a step makes.  ``max_len`` is the
+    state's (``LM_SEQ`` by default)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serve import engine
-    batcher = engine.ContinuousBatcher(cfg, params, slots=LM_SLOTS,
-                                       max_len=LM_SEQ, graphs=graphs)
+    batcher = engine.ContinuousBatcher(
+        cfg, params, slots=LM_SLOTS, graphs=graphs,
+        max_len=LM_SEQ if max_len is None else max_len)
     reqs = [engine.Request(rid=i, prompt=p, max_new=max_new)
             for i, p in enumerate(prompts)]
     ops.reset_launches()
@@ -3321,7 +3351,8 @@ def decode_tick_trace(batcher, cfg, n_ticks: int) -> dict:
     """The device's busy and idle time over ``n_ticks`` batched decode
     ticks with every slot live, from a ``torch.profiler`` trace: busy is
     the union of the device activities (kernels, copies) inside the host
-    span of the ticks, which ends in a synchronize."""
+    span of the ticks, which ends in a synchronize; the ``TRACE_TOP``
+    device activities by name with their ms a tick."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -3371,10 +3402,11 @@ def decode_tick_trace(batcher, cfg, n_ticks: int) -> dict:
     for e in dev:
         by_name[e.name[:80]] = (by_name.get(e.name[:80], 0.0)
                                 + e.time_range.end - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    names = sorted(by_name.items(), key=lambda kv: -kv[1])[:TRACE_TOP]
     out.update(device_busy_ms_per_tick=busy_us / n_ticks / 1e3,
                idle_share=1.0 - busy_us / window_us,
-               top_device_ms_per_tick={k: v / n_ticks / 1e3 for k, v in top})
+               top_device_ms_per_tick={k: v / n_ticks / 1e3
+                                       for k, v in names})
     log(f"lm {cfg.name} decode trace " + json.dumps(out, sort_keys=True))
     return out
 
@@ -3453,17 +3485,20 @@ def lm_serve_phase(cfg, params, tokens, per_step, per_tick, *,
             "tick_parity": parity}
 
 
-def tick_parity(cfg, params, prompts) -> dict:
+def tick_parity(cfg, params, prompts, max_len: int | None = None) -> dict:
     """One decode tick replayed from the graph and the same tick run
     eagerly from the same state must agree bit for bit: logits and every
     state leaf.  The batcher first admits and prefills ``prompts`` and
     decodes a few ticks (the graph is captured at the first), so the state
-    is a served one."""
+    is a served one.  ``max_len`` is the state's (``LM_SEQ`` by
+    default)."""
     import numpy as np
     import torch
     from repro_torch.models import tree
     from repro_torch.serve import engine
-    b = engine.ContinuousBatcher(cfg, params, slots=LM_SLOTS, max_len=LM_SEQ)
+    b = engine.ContinuousBatcher(
+        cfg, params, slots=LM_SLOTS,
+        max_len=LM_SEQ if max_len is None else max_len)
     for i, p in enumerate(prompts):
         b.submit(engine.Request(rid=20_000 + i, prompt=p, max_new=64))
     for _ in range(3):
@@ -4031,6 +4066,24 @@ TF_FLASH_CASES = (
     ("deepseek-v3 MLA chunk at 4088", 1, 128, 128, 8, 4096, 192,
      {"causal": True, "q_offset": 4088}),
 )
+# whisper-medium's flash calls (phase 16): 16 heads of 64, its encoder over
+# 1500 frames (not a multiple of a 64-key tile: the last holds 28 keys).
+# The encoder's bidirectional self-attention; the decoder's cross-attention
+# over the frames on a forward of 448 tokens (the published decoder length)
+# and on a decode tick of 4 slots (one query a row); its causal
+# self-attention on the forward; a chunk of 8 at q_offset 440.
+WHISPER_FLASH_CASES = (
+    ("whisper-medium encoder", 1, 16, 16, 1500, 1500, 64,
+     {"causal": False}),
+    ("whisper-medium cross forward", 1, 16, 16, 448, 1500, 64,
+     {"causal": False}),
+    ("whisper-medium decode cross", 4, 16, 16, 1, 1500, 64,
+     {"causal": False}),
+    ("whisper-medium decoder self", 1, 16, 16, 448, 448, 64,
+     {"causal": True}),
+    ("whisper-medium chunk at 440", 1, 16, 16, 8, 448, 64,
+     {"causal": True, "q_offset": 440}),
+)
 # Phase 9's tile-skip check: 3000 queries over a 4096-key buffer do the work
 # of 3000 over 3000 (every tile past the causal edge skipped), at a size
 # well above the launch floor.  Without the skip the first would cost about
@@ -4048,13 +4101,15 @@ def _tf_qkv(gen, device, b, hq, hkv, s, sk, d, dtype):
 
 
 def tf_flash_checks(gen, device) -> float:
-    """Phase 6's transformer cases: each of ``TF_FLASH_CASES`` in bf16 and
-    f32 against the plain version at ``TOL_FLASH`` (f32 also within
-    ``TOL_FLASH_RMS`` of the output's RMS).  Returns the largest error."""
+    """Phase 6's transformer and whisper cases: each of ``TF_FLASH_CASES``
+    and ``WHISPER_FLASH_CASES`` in bf16 and f32 against the plain version
+    at ``TOL_FLASH`` (f32 also within ``TOL_FLASH_RMS`` of the output's
+    RMS).  Returns the largest error."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     worst = 0.0
-    for label, b, hq, hkv, s, sk, d, kw in TF_FLASH_CASES:
+    for label, b, hq, hkv, s, sk, d, kw in (TF_FLASH_CASES
+                                            + WHISPER_FLASH_CASES):
         for dt in ("bfloat16", "float32"):
             q, k, v = _tf_qkv(gen, device, b, hq, hkv, s, sk, d,
                               getattr(torch, dt))
@@ -4090,12 +4145,16 @@ def _band(s, sk, kw, device):
     return band
 
 
-def tf_flash_row(gen, device, label, b, hq, hkv, s, sk, d, kw) -> dict:
+def tf_flash_row(gen, device, label, b, hq, hkv, s, sk, d, kw, *,
+                 mask_free: bool = False) -> dict:
     """One bf16 timing row: the kernel graph-replayed and eager, the plain
     version, SDPA with the band mask (the yardstick: it has no softcap, so
     where the kernel caps its logits SDPA computes less, and its time is
     ``sdpa_no_softcap_ms`` with ``library_ms`` null) and the bound
-    max(bytes / 3.35 TB/s, flops / 989 TFLOP/s)."""
+    max(bytes / 3.35 TB/s, flops / 989 TFLOP/s).  ``mask_free``: SDPA
+    without a mask where one call computes the kernel's function so (no
+    mask when non-causal, ``is_causal`` for a causal square at offset 0),
+    its form in the row's ``library_form``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -4103,12 +4162,18 @@ def tf_flash_row(gen, device, label, b, hq, hkv, s, sk, d, kw) -> dict:
     band = _band(s, sk, kw, device)
     kx = k.repeat_interleave(hq // hkv, dim=1)
     vx = v.repeat_interleave(hq // hkv, dim=1)
+    sdpa_kw, form = {"attn_mask": band}, "band mask"
+    if mask_free and not kw.get("window") and not kw.get("softcap"):
+        if not kw.get("causal", True):
+            sdpa_kw, form = {}, "no mask"
+        elif not kw.get("q_offset") and s == sk:
+            sdpa_kw, form = {"is_causal": True}, "is_causal"
 
     def kernel():
         return fa.flash_attention_cuda(q, k, v, **kw)
 
     def library():
-        return F.scaled_dot_product_attention(q, kx, vx, attn_mask=band)
+        return F.scaled_dot_product_attention(q, kx, vx, **sdpa_kw)
 
     inner = 20 if s * sk <= 2 ** 21 else 5
     flops, nbytes = fa.work(b, hq, hkv, s, sk, d, 2,
@@ -4116,7 +4181,7 @@ def tf_flash_row(gen, device, label, b, hq, hkv, s, sk, d, kw) -> dict:
                             window=kw.get("window"),
                             q_offset=kw.get("q_offset", 0))
     row = {"shape": f"{label}: q {list(q.shape)} k/v {list(k.shape)} "
-                    f"bfloat16 {kw}",
+                    f"bfloat16 {kw}", "library_form": form,
            "ms": graph_ms(kernel, inner=inner, reps=11),
            "eager_ms": event_ms(kernel, inner=inner, reps=11),
            "plain_ms": graph_ms(lambda: fa.flash_attention_plain(
@@ -4156,6 +4221,17 @@ def tf_timing_phase(device) -> dict:
                            f"than {TF_SKIP_MAX_RATIO}x, so tiles past the "
                            f"causal edge are not skipped")
     return {"rows": rows, "tile_skip": skip}
+
+
+def whisper_timing_phase(device) -> list:
+    """Phase 9's whisper rows: flash at each of ``WHISPER_FLASH_CASES`` in
+    bf16, beside SDPA without a mask where one call computes the same
+    function (the non-causal shapes; the causal square)."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(16)
+    return [tf_flash_row(gen, device, label, b, hq, hkv, s, sk, d, kw,
+                         mask_free=True)
+            for label, b, hq, hkv, s, sk, d, kw in WHISPER_FLASH_CASES]
 
 
 def launcher_run(arch: str, *extra: str) -> dict:
@@ -4324,13 +4400,16 @@ def tf_window_check(cfg) -> dict:
     return out
 
 
-def tf_fleet_phase(cfg, params) -> dict:
+def tf_fleet_phase(cfg, params, *, per_tick: dict | None = None,
+                   max_len: int | None = None) -> dict:
     """``Deployment.build([jet_tagger, <published gemma2-9b>], lm_params=
     ...)``: a clean verify, then a smoke trace through the router (every
     record ``ok``; counters zeroed just before and read just after: one
-    ``fused_mlp_q8`` a edge request and no LM kernel, the decode tick
-    being plain), and the same LM requests through a standalone batcher
-    under the plan's policy: tokens equal."""
+    ``fused_mlp_q8`` a edge request, and ``per_tick``'s LM launches each
+    time the batcher steps its slots (none by default: a transformer's
+    decode tick is plain)), and the same LM requests through a standalone
+    batcher under the plan's policy: tokens equal.  ``max_len`` is the
+    LM's state (``LM_SEQ`` by default)."""
     import dataclasses
     import torch
     from repro_torch.deploy import Deployment
@@ -4338,10 +4417,11 @@ def tf_fleet_phase(cfg, params) -> dict:
     from repro_torch.obs import workload
     from repro_torch.serve import engine
     edge_net = SERVED[0]
+    max_len = LM_SEQ if max_len is None else max_len
     t0 = time.perf_counter()
     dep = Deployment.build([edge_net, cfg],
                            lm_params={cfg.name: (cfg, params)},
-                           max_len=LM_SEQ)
+                           max_len=max_len)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     if dep.verify != "clean":
@@ -4361,15 +4441,26 @@ def tf_fleet_phase(cfg, params) -> dict:
                        TF_FLEET_PROMPTS))
     trace = [dataclasses.replace(r, prompt_tokens=lengths[r.rid])
              if r.kind == "lm" else r for r in trace]
+    steps = [0]                      # the batcher's batched decode steps
+    masked = batcher._decode_masked
+
+    def counted(tok, live):
+        steps[0] += 1
+        return masked(tok, live)
+    batcher._decode_masked = counted
     ops.reset_launches()
     report = workload.replay(router, trace, inputs=inputs)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
+    # The class's method again, and no name left holding the batcher: its
+    # graph pool must go with it before the standalone batcher is built.
+    del batcher._decode_masked, masked, counted
     bad = [r for r in report.records if r.status != "ok"]
     if bad:
         raise SmokeFailure(f"transformer fleet replay: {len(bad)} records "
                            f"not ok: {bad[:3]}")
-    want = {"fused_mlp_q8": TF_FLEET_EDGE_REQUESTS}
+    want = {"fused_mlp_q8": TF_FLEET_EDGE_REQUESTS,
+            **{k: n * steps[0] for k, n in (per_tick or {}).items() if n}}
     others = {k: n for k, n in launches.items() if k not in want and n}
     if {k: launches[k] for k in want} != want or others:
         raise SmokeFailure(f"transformer fleet replay launched {launches}, "
@@ -4382,7 +4473,8 @@ def tf_fleet_phase(cfg, params) -> dict:
            "lm_request_p50_s": summary[cfg.name]["p50_s"],
            "lm_tick_p50_ms": dec["p50_s"] * 1e3,
            "lm_plan_decode_step_ms": lm_plan.est_latency_s * 1e3,
-           "lm_slots": batcher.slots, "launches": launches}
+           "lm_slots": batcher.slots, "lm_steps": steps[0],
+           "launches": launches}
     log(f"transformer fleet {cfg.name}: the plan's decode step "
         f"{out['lm_plan_decode_step_ms']:.4f} ms against the measured "
         f"{batcher.slots}-slot tick p50 {out['lm_tick_p50_ms']:.4f} ms "
@@ -4391,7 +4483,7 @@ def tf_fleet_phase(cfg, params) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     alone = engine.ContinuousBatcher(cfg, params, plan=lm_plan,
-                                     max_len=LM_SEQ)
+                                     max_len=max_len)
     reqs = {}
     for tr in trace:
         if tr.kind == "lm":
@@ -4867,6 +4959,274 @@ def moe_phases() -> dict:
                          DEEPSEEK_ARCH: deepseek["per_step"]}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the encoder-decoder whisper-medium at full width and depth
+# ---------------------------------------------------------------------------
+
+WHISPER_ARCH = "whisper-medium"
+WHISPER_PARAMS = 791_662_592   # init_whisper's tree, as the reference's
+WHISPER_SEQ = 448              # the published decoder length: the forward's
+                               # tokens and the batcher's max_len
+WHISPER_DECODE = 64            # f32 tokens decoded against the forward
+WHISPER_CHUNK = 8
+TOL_WHISPER_DECODE = 1e-4      # absolute, f32: a step against its row
+TOL_WHISPER_CHUNKED = 1e-3     # absolute, f32: chunked against whole
+
+
+def whisper_counts(cfg) -> tuple[dict, dict, dict]:
+    """flash launches of a forward (every encoder layer's self-attention,
+    every decoder layer's self and cross), of a multi-token step (the
+    decoder's self and cross) and of a one-token tick (the cross alone: the
+    self-attention decode is plain)."""
+    e = cfg.encdec
+    zero = dict.fromkeys(LM_KERNELS, 0)
+    return ({**zero, "flash_attention": e.encoder_layers
+             + 2 * e.decoder_layers},
+            {**zero, "flash_attention": 2 * e.decoder_layers},
+            {**zero, "flash_attention": e.decoder_layers})
+
+
+def whisper_init(cfg) -> tuple:
+    """``api.init`` from a seeded CUDA generator (the parameter count held
+    to ``WHISPER_PARAMS``) and the bytes printed."""
+    import torch
+    from repro_torch.models import api, tree
+    t0 = time.perf_counter()
+    params = api.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    on_card(params["emb"], f"{cfg.name}'s api.init")
+    leaves = tree.leaves(params)
+    info = {"dtype": cfg.dtype, "params": sum(t.numel() for t in leaves),
+            "bytes": sum(t.numel() * t.element_size() for t in leaves),
+            "init_s": time.perf_counter() - t0}
+    if info["params"] != WHISPER_PARAMS:
+        raise SmokeFailure(f"{cfg.name} has {info['params']} parameters, "
+                           f"want {WHISPER_PARAMS}")
+    log(f"lm init {cfg.name} ({cfg.encdec.encoder_layers} + "
+        f"{cfg.encdec.decoder_layers} layers, {cfg.dtype}): "
+        + json.dumps(info, sort_keys=True))
+    return params, info
+
+
+def whisper_forward_check(cfg, params, tokens, frames, per_step) -> dict:
+    """(a) ``api.forward`` at B=1 over ``tokens`` and the frames: finite
+    logits of the right shape, one flash launch an encoder layer and two a
+    decoder layer; the time and the peak memory."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits = api.forward(params, cfg, {"tokens": tokens,
+                                       "encoder_frames": frames})["logits"]
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    want_shape = (1, tokens.shape[1], cfg.padded_vocab)
+    if tuple(logits.shape) != want_shape \
+            or not bool(torch.isfinite(logits).all()):
+        raise SmokeFailure(f"{cfg.name} forward logits {tuple(logits.shape)}"
+                           f" (want {want_shape}) or not finite")
+    if lm_counts(launches) != per_step:
+        raise SmokeFailure(f"{cfg.name} forward launched {launches}, want "
+                           f"{per_step}")
+    # Again, warm: the first call builds nothing here (the kernels are
+    # built), but allocates.
+    t0 = time.perf_counter()
+    api.forward(params, cfg, {"tokens": tokens, "encoder_frames": frames})
+    torch.cuda.synchronize()
+    row = {"seq": tokens.shape[1], "encoder_len": frames.shape[1],
+           "forward_s": forward_s,
+           "forward_again_s": time.perf_counter() - t0,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "logits_abs_max": float(logits[..., :cfg.vocab_size].abs().max()),
+           "launches": launches}
+    log(f"lm {cfg.name} forward B=1 S={tokens.shape[1]} over "
+        f"{frames.shape[1]} frames: " + json.dumps(row, sort_keys=True))
+    return row
+
+
+def whisper_f32_checks(cfg32, tokens, frames, per_multi) -> dict:
+    """(b) the float32 model: ``whisper_init_cache`` from the frames, then
+    ``WHISPER_DECODE`` tokens decoded one by one, each step within
+    ``TOL_WHISPER_DECODE`` of the teacher-forced forward's row; and the
+    same prompt prefilled through ``build_serve_steps`` in chunks of
+    ``WHISPER_CHUNK`` (the plan's ``prefill_chunk``) against the whole
+    prompt, the last logits within ``TOL_WHISPER_CHUNKED``."""
+    import types
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, encdec, tree
+    from repro_torch.serve import engine
+    params, info = whisper_init(cfg32)
+    toks = tokens[:, :WHISPER_DECODE]
+    full = api.forward(params, cfg32, {"tokens": toks,
+                                       "encoder_frames": frames})["logits"]
+    state0 = encdec.whisper_init_cache(params, cfg32, frames, WHISPER_SEQ)
+    state = state0
+    worst = 0.0
+    for t in range(WHISPER_DECODE):
+        logits, state = api.decode_step(params, cfg32, toks[:, t:t + 1],
+                                        state, t)
+        worst = max(worst, check_close(
+            f"{cfg32.name} float32 decode step {t} vs forward row {t}",
+            logits[:, 0], full[:, t], tol=0.0, atol=TOL_WHISPER_DECODE))
+    log(f"lm {cfg32.name} float32 decode from whisper_init_cache vs the "
+        f"forward over {WHISPER_DECODE} tokens: max_abs_err={worst} "
+        f"(atol {TOL_WHISPER_DECODE})")
+    del state, full
+    plan = types.SimpleNamespace(serve={"prefill_chunk": WHISPER_CHUNK})
+    chunked, _ = engine.build_serve_steps(cfg32, plan=plan)
+    whole, _ = engine.build_serve_steps(cfg32)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    last_c, state_c = chunked(params, toks, tree.tree_map(torch.clone,
+                                                          state0))
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    n_chunks = -(-WHISPER_DECODE // WHISPER_CHUNK)
+    want = {k: n * n_chunks for k, n in per_multi.items()}
+    if lm_counts(launches) != want:
+        raise SmokeFailure(f"{cfg32.name} chunked prefill launched "
+                           f"{launches}, want {want}")
+    last_w, state_w = whole(params, toks, state0)
+    err = check_close(f"{cfg32.name} chunked prefill vs whole prefill",
+                      last_c, last_w, tol=0.0, atol=TOL_WHISPER_CHUNKED)
+    cache_err = max(check_close(f"{cfg32.name} state leaf {k} after the "
+                                f"chunked prefill", state_c[k], state_w[k],
+                                tol=0.0, atol=TOL_WHISPER_CHUNKED)
+                    for k in ("k", "v", "xk", "xv"))
+    out = {"f32": info, "decode_max_abs_err": worst,
+           "chunked": {"prompt": WHISPER_DECODE, "chunks": n_chunks,
+                       "chunked_s": chunked_s, "max_abs_err": err,
+                       "cache_max_abs_err": cache_err,
+                       "launches": launches}}
+    log(f"lm {cfg32.name} float32 chunked prefill of {WHISPER_DECODE} "
+        f"tokens in {n_chunks} chunks of {WHISPER_CHUNK}: last logits "
+        f"max_abs_err={err}, state {cache_err} (atol "
+        f"{TOL_WHISPER_CHUNKED}); launches {json.dumps(launches)}")
+    del params, state0, state_c, state_w
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def whisper_quant8(cfg, params, prompts) -> dict:
+    """(e) ``--quant8`` on the published model: the bytes before and after,
+    and one graphed tick's logits over int8 weights against bf16 from
+    batchers that admitted and prefilled the same prompts."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import engine
+    qparams = engine.quantize_params(params, min_size=QUANT_MIN_SIZE)
+    torch.cuda.synchronize()
+    before, after = engine.quantized_bytes(qparams)
+    ticks, tok = [], None
+    for p in (params, qparams):
+        # Admit and prefill every slot, then one tick of every slot on the
+        # bf16 batcher's first tokens, so both ticks take the same inputs.
+        b = engine.ContinuousBatcher(cfg, p, slots=LM_SLOTS,
+                                     max_len=WHISPER_SEQ)
+        for i, prompt in enumerate(prompts):
+            b.submit(engine.Request(rid=30_000 + i, prompt=prompt,
+                                    max_new=4))
+        b._admit()
+        for i, req in enumerate(b.active):
+            b._prefill_tick(i, req)
+        if tok is None:
+            tok = np.array([[r.out[0]] for r in b.active], np.int32)
+        ticks.append(b._decode_masked(tok, np.ones((b.slots,), bool))
+                     .clone())
+        del b
+    bf, q8 = ticks
+    real = slice(0, cfg.vocab_size)
+    bf, q8 = bf[..., real].float(), q8[..., real].float()
+    if not bool(torch.isfinite(q8).all()):
+        raise SmokeFailure(f"quant8 {cfg.name}: non-finite tick logits")
+    out = {"quantized_bytes": {"before": before, "after": after},
+           "resident_bytes": {"bf16": _bytes(params),
+                              "int8": _bytes(qparams)},
+           "tick_gap": {"rel_rms": float((q8 - bf).norm() / bf.norm()),
+                        "max_abs_diff": float((q8 - bf).abs().max()),
+                        "argmax_agreement": float(
+                            (q8.argmax(-1) == bf.argmax(-1)).float().mean()),
+                        "bf16_max_abs": float(bf.abs().max())}}
+    log(f"lm {cfg.name} quant8: " + json.dumps(out, sort_keys=True))
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def whisper_phase() -> dict:
+    """Phase 16: ``whisper-medium`` at full width and depth (24 encoder and
+    24 decoder layers) through every LM entry point: (a) the bf16 forward
+    over 448 tokens and 1500 frames, (c) the batcher (graphed tick against
+    eager, a served run, a profiled trace), (e) ``--quant8``, (d) the
+    fleet, the launcher with and without ``--quant8``, then (b) the
+    float32 model's decode and chunked prefill from ``whisper_init_cache``.
+    Frames are drawn from a seeded CUDA generator, tokens from numpy."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get(WHISPER_ARCH).config
+    per_step, per_multi, per_tick = whisper_counts(cfg)
+    out, launches = {}, {}
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, WHISPER_SEQ)).astype(np.int32)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    frames = torch.randn((1, cfg.encdec.encoder_len, cfg.d_model),
+                         generator=gen, device=gen.device)
+
+    params, out["init"] = whisper_init(cfg)
+    fwd = whisper_forward_check(cfg, params, tokens, frames, per_step)
+    out["forward"] = fwd
+    launches[f"{WHISPER_ARCH} forward"] = fwd["launches"]
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size,
+                            int(rng.integers(16, 65))).astype(np.int32)
+               for _ in range(LM_REQUESTS)]
+    out["tick_parity"] = tick_parity(cfg, params, prompts[:LM_SLOTS],
+                                     max_len=WHISPER_SEQ)
+    batcher, out["serve"] = serve_run(cfg, params, prompts, LM_MAX_NEW,
+                                      {k: per_tick[k] for k in LM_KERNELS},
+                                      "short", max_len=WHISPER_SEQ)
+    launches[f"{WHISPER_ARCH} serve"] = out["serve"]["launches"]
+    out["trace"] = decode_tick_trace(batcher, cfg, LM_TRACED_TICKS)
+    del batcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["quant8"] = whisper_quant8(cfg, params, prompts[:LM_SLOTS])
+    fleet = tf_fleet_phase(cfg, params, per_tick=per_tick,
+                           max_len=WHISPER_SEQ)
+    out["fleet"] = {k: v for k, v in fleet.items() if k != "launches"}
+    launches[f"{WHISPER_ARCH} fleet replay"] = fleet["launches"]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launcher"] = launcher_run(WHISPER_ARCH)
+    out["launcher_quant8"] = launcher_run(WHISPER_ARCH, "--quant8")
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    f32 = whisper_f32_checks(cfg32, tokens, frames, per_multi)
+    launches[f"{WHISPER_ARCH} f32 chunked prefill"] = \
+        f32["chunked"]["launches"]
+    out.update(f32)
+    _phase_end("16 (whisper-medium)", t0, out)
+    return {"readings": out, "launches": launches,
+            "per_step": {"forward": per_step["flash_attention"],
+                         "multi_token_step": per_multi["flash_attention"],
+                         "decode_tick": per_tick["flash_attention"]}}
+
+
 def kernels_line(errs, launches, timing) -> dict:
     """One entry per kernel at the first served net's shapes: the fused
     group of one request, and the per-layer rung of one degraded request
@@ -4900,14 +5260,15 @@ def kernels_line(errs, launches, timing) -> dict:
 
 
 def lm_kernel_entries(errs, launches_by_path, per_step, per_tick,
-                      timing, tf_per_step) -> list:
+                      timing, tf_per_step, whisper_per_step) -> list:
     """One entry per LM kernel: flash at the served prefill shape, the scans
     at the forward shape (their decode-tick rows beside them).
     ``launches`` sums the LM paths' counts (each model's forward, serve
     runs, prefill + decode); ``per_step`` and ``per_tick`` are the launches
     of one forward and one decode tick of the model that runs the kernel
-    (Griffin's for flash; ``tf_per_step`` the transformers' beside it).
-    Flash also carries its rows at the transformer family's shapes."""
+    (Griffin's for flash; ``tf_per_step`` the transformers' and
+    ``whisper_per_step`` whisper-medium's beside it).  Flash also carries
+    its rows at the transformer family's and at whisper's shapes."""
     keys = ("shape", "ms", "eager_ms", "plain_ms", "library_ms",
             "sdpa_no_softcap_ms", "bound_ms", "bound_by")
     entries = []
@@ -4925,6 +5286,9 @@ def lm_kernel_entries(errs, launches_by_path, per_step, per_tick,
             extra["tile_skip"] = {label: {k: r[k] for k in keys if k in r}
                                   for label, r in
                                   tf_rows["tile_skip"].items()}
+            extra["launches_per_whisper_step"] = whisper_per_step
+            extra["whisper"] = [{k: r[k] for k in keys + ("library_form",)
+                                 if k in r} for r in row["whisper"]]
         else:
             extra["decode_tick"] = {k: row["decode tick"][k] for k in (
                 "shape", "ms", "eager_ms", "plain_ms", "bound_ms",
@@ -5124,10 +5488,16 @@ def main(argv: list) -> int:
         moe_run = moe_phases()
         tf["launches"].update(moe_run["launches"])
         tf["per_step"].update(moe_run["per_step"])
+        whisper = whisper_phase()
+        tf["launches"].update(whisper["launches"])
         t0 = time.perf_counter()
         lm_timing["flash_attention"]["transformer"] = tf_timing_phase(device)
         log(f"phase 9 transformer flash rows: "
             f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        lm_timing["flash_attention"]["whisper"] = \
+            whisper_timing_phase(device)
+        log(f"phase 9 whisper flash rows: {time.perf_counter() - t0:.1f} s")
         paths = {}
         for arch, fwd, srv in ((LM_ARCH, fwd_launches, served),
                                (LM_ARCH, None, fleet),
@@ -5153,7 +5523,7 @@ def main(argv: list) -> int:
             lm_errs, paths,
             {**per_step, "rwkv6_scan": r_step["rwkv6_scan"]},
             {**per_tick, "rwkv6_scan": r_tick["rwkv6_scan"]}, lm_timing,
-            tf["per_step"])
+            tf["per_step"], whisper["per_step"])
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -5166,6 +5536,7 @@ def main(argv: list) -> int:
                                             "qwen", "forward_only",
                                             "walls_s")},
         "moe": moe_run["readings"],
+        "whisper": whisper["readings"],
         "aie_plan": {k: v for k, v in aie_plan.items() if k != "launches"},
         "fleet": {k: v for k, v in fleet["fleet"].items()
                   if k not in ("launches", "chunk_launches")}},

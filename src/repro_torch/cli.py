@@ -6,6 +6,7 @@
     python -m repro_torch deploy vae --dry-run          # stop after planning
     python -m repro_torch serve jet_tagger --lm rwkv6_7b --requests 4
     python -m repro_torch deploy jet_tagger --lm gemma2_9b
+    python -m repro_torch deploy jet_tagger --lm whisper_medium
     python -m repro_torch bench jet_tagger tau_select --json BENCH_deploy.json
     python -m repro_torch replay jet_tagger tau_select --scenario bursty
     python -m repro_torch chaos jet_tagger tau_select --lm recurrentgemma_2b
@@ -22,7 +23,7 @@ plain PyTorch path on the CPU); without a card it exits with an error.
 :class:`repro_torch.deploy.Deployment`: ``--lm ARCH`` adds an LM tenant
 (``gemma2_2b``, ``gemma2_9b``, ``gemma2_27b``, ``qwen2_5_3b``,
 ``qwen2_vl_72b``, ``mixtral_8x22b``, ``deepseek_v3_671b``,
-``recurrentgemma_2b`` or ``rwkv6_7b``, seeded weights;
+``whisper_medium``, ``recurrentgemma_2b`` or ``rwkv6_7b``, seeded weights;
 its smoke config, or the published one with ``--lm-config published``),
 ``--machine-model``
 picks the characterization (``auto`` by default; ``stock``, ``quick``,

@@ -14,7 +14,7 @@ from repro_torch.models.config import ModelConfig
 
 ARCH_NAMES = ["gemma2_27b", "gemma2_9b", "gemma2_2b", "qwen2_5_3b",
               "rwkv6_7b", "recurrentgemma_2b", "qwen2_vl_72b",
-              "mixtral_8x22b", "deepseek_v3_671b"]
+              "mixtral_8x22b", "deepseek_v3_671b", "whisper_medium"]
 
 # Public --arch ids (hyphenated) -> module names.
 ALIASES = {n.replace("_", "-"): n for n in ARCH_NAMES}

@@ -107,8 +107,8 @@ def resolve_configs(specs) -> list:
     ``EdgeConfig`` or ``ModelConfig`` (passed through), an edge net name,
     or an LM arch id, bare or as ``"lm:<arch>"`` (``gemma2_2b``,
     ``gemma2_9b``, ``gemma2_27b``, ``qwen2_5_3b``, ``qwen2_vl_72b``,
-    ``mixtral_8x22b``, ``deepseek_v3_671b``, ``recurrentgemma_2b``,
-    ``rwkv6_7b``), which resolves to the arch's
+    ``mixtral_8x22b``, ``deepseek_v3_671b``, ``whisper_medium``,
+    ``recurrentgemma_2b``, ``rwkv6_7b``), which resolves to the arch's
     smoke config; pass ``configs.get(arch).config`` to plan the published
     shape."""
     from repro_torch import configs as configs_lib

@@ -8,13 +8,16 @@ with optional int8 weights.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --quant8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium
 
 ``--arch`` takes any architecture the port registers (``repro_torch.configs``:
 ``gemma2-2b``, ``gemma2-9b``, ``gemma2-27b``, ``qwen2.5-3b``,
 ``qwen2-vl-72b``, ``mixtral-8x22b``, ``deepseek-v3-671b``,
-``recurrentgemma-2b``, ``rwkv6-7b``); ``--smoke`` serves its reduced
-same-family configuration (the published MoE shapes do not fit one card).  qwen2-vl is served on text tokens
-(its vision frontend is a stub in the reference too).  ``--quant8`` serves
+``whisper-medium``, ``recurrentgemma-2b``, ``rwkv6-7b``); ``--smoke`` serves
+its reduced same-family configuration (the published MoE shapes do not fit
+one card).  qwen2-vl is served on text tokens (its vision frontend is a
+stub in the reference too); whisper's decoder from zero cross K/V, as the
+reference's batcher serves it (no encoder frames are admitted).  ``--quant8`` serves
 int8 weights (``engine.quantize_params(params, min_size=1024)``, each layer
 expanded to bf16 as it runs) and prints the bytes before and after.
 

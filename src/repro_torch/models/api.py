@@ -8,8 +8,12 @@
   decode_step(params, cfg, tokens, state, pos)   -> (logits, new_state)
 
 Port of the JAX package's ``models/api.py`` for ``family ==
-"transformer"`` (dense, MoE and MLA), ``"griffin"`` and ``"rwkv"``; every
-other family raises.  Forward and decode run where the parameters lie.
+"transformer"`` (dense, MoE and MLA), ``"encdec"`` (whisper), ``"griffin"``
+and ``"rwkv"``; every other family raises.  Forward and decode run where
+the parameters lie.  An encoder-decoder's decode state holds every
+decoder layer's cross K/V beside its self K/V: ``init_decode_state``
+zeroes them, as the reference's does, and
+``encdec.whisper_init_cache`` fills them from encoder frames.
 """
 
 from __future__ import annotations
@@ -17,13 +21,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import griffin, rwkv, transformer, tree
+from repro_torch.models import encdec, griffin, rwkv, transformer, tree
 from repro_torch.models.config import ModelConfig
 
-PORTED = ("transformer", "griffin", "rwkv")
-# The transformer's extra inputs (qwen2-vl's M-RoPE ids and patch
-# embeddings); whisper's ``encoder_frames`` belongs to an unported family.
-EXTRAS = ("mrope_positions", "embeddings")
+PORTED = ("transformer", "encdec", "griffin", "rwkv")
+# The forward's extra inputs by family: the transformer's (qwen2-vl's
+# M-RoPE ids and patch embeddings) and the encoder-decoder's (whisper's
+# encoder frames).
+EXTRAS = {"transformer": ("mrope_positions", "embeddings"),
+          "encdec": ("encoder_frames",)}
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -37,18 +43,23 @@ def init(cfg: ModelConfig, generator: torch.Generator, *,
     _check_family(cfg)
     if cfg.family == "transformer":
         return transformer.init_lm(cfg, generator=generator, device=device)
+    if cfg.family == "encdec":
+        return encdec.init_whisper(cfg, generator=generator, device=device)
     if cfg.family == "rwkv":
         return rwkv.init_rwkv(cfg, generator=generator, device=device)
     return griffin.init_griffin(cfg, generator=generator, device=device)
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict) -> dict:
-    """batch: {"tokens": (B,S)} + the transformer's extras
-    (``mrope_positions``, ``embeddings``)."""
+    """batch: {"tokens": (B,S)} + the family's extras (the transformer's
+    ``mrope_positions`` and ``embeddings``, the encoder-decoder's
+    ``encoder_frames`` (B, encoder_len, d_model))."""
     _check_family(cfg)
+    kw = {k: batch[k] for k in EXTRAS.get(cfg.family, ()) if k in batch}
     if cfg.family == "transformer":
-        kw = {k: batch[k] for k in EXTRAS if k in batch}
         return transformer.lm_forward(params, cfg, batch["tokens"], **kw)
+    if cfg.family == "encdec":
+        return encdec.whisper_forward(params, cfg, batch["tokens"], **kw)
     if cfg.family == "rwkv":
         return rwkv.rwkv_forward(params, cfg, batch["tokens"])
     return griffin.griffin_forward(params, cfg, batch["tokens"])
@@ -58,6 +69,8 @@ def decode_state_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     _check_family(cfg)
     if cfg.family == "transformer":
         return transformer.lm_cache_specs(cfg, batch, max_len)
+    if cfg.family == "encdec":
+        return encdec.whisper_cache_specs(cfg, batch, max_len)
     if cfg.family == "rwkv":
         return rwkv.rwkv_state_specs(cfg, batch)
     return griffin.griffin_state_specs(
@@ -76,7 +89,8 @@ def decode_step(params: dict, cfg: ModelConfig, tokens, state: dict,
                 cache_pos, *, extras: dict | None = None,
                 rows_alone: bool = False):
     """One step of ``tokens`` (B, s) at ``cache_pos``; ``extras`` are the
-    transformer's extra inputs, passed through by name.  ``rows_alone``:
+    transformer's extra inputs, passed through by name (the
+    encoder-decoder takes none: its state carries the cross K/V).  ``rows_alone``:
     each batch row is an independent sequence (the batcher's slots), so a
     transformer's MoE layers route each row as its own token set, as the
     reference's batcher steps each slot alone; the other families' rows
@@ -86,6 +100,9 @@ def decode_step(params: dict, cfg: ModelConfig, tokens, state: dict,
         return transformer.lm_decode_step(params, cfg, tokens, state,
                                           cache_pos, rows_alone=rows_alone,
                                           **(extras or {}))
+    if cfg.family == "encdec":
+        return encdec.whisper_decode_step(params, cfg, tokens, state,
+                                          cache_pos)
     if cfg.family == "rwkv":
         return rwkv.rwkv_decode_step(params, cfg, tokens, state, cache_pos)
     return griffin.griffin_decode_step(params, cfg, tokens, state, cache_pos)

@@ -1,20 +1,22 @@
 """Model configuration schema of the port's language models.
 
 A copy of the JAX package's ``models/config.py`` (``MoEConfig``,
-``MLAConfig``, ``GriffinConfig``, ``ModelConfig``) with the fields the
-port's three families and its planner (``plan/graph.model_graph``) read:
-the transformer (gemma2, qwen2.5, qwen2-vl, mixtral, deepseek-v3), Griffin
-(``recurrentgemma``) and RWKV-6.  The dataclasses, field names and defaults
+``MLAConfig``, ``GriffinConfig``, ``EncDecConfig``, ``ModelConfig``) with
+the fields the port's four families and its planner
+(``plan/graph.model_graph``) read: the transformer (gemma2, qwen2.5,
+qwen2-vl, mixtral, deepseek-v3), Griffin (``recurrentgemma``), RWKV-6 and
+the encoder-decoder (whisper).  The dataclasses, field names and defaults
 stay, so a configuration reads the same in both packages.  The Griffin
 family always ties and scales its embeddings, whatever
 ``scale_embeddings`` says, and runs every attention layer local; RWKV-6
 reads ``rwkv_head_dim`` and keeps a separate unembedding.  The transformer
 reads the attention pattern, the biases, M-RoPE, the post norms, the MLP's
 activation, the MoE and MLA sub-configs and the multi-token-prediction
-head.  ``MoEConfig.impl`` and ``router_aux_weight`` are kept for the
-training and multi-device paths, which the port does not have yet.  The
-encoder-decoder sub-config, ``use_rope`` and ``norm_type`` (whisper) are
-not ported.
+head.  The encoder-decoder reads ``encdec`` and always runs LayerNorm, no
+rotary embedding and the plain gelu MLP, whatever ``norm_type``,
+``use_rope`` and ``mlp_gated`` say, as the reference's does.
+``MoEConfig.impl`` and ``router_aux_weight`` are kept for the training and
+multi-device paths, which the port does not have yet.
 """
 
 from __future__ import annotations
@@ -66,9 +68,18 @@ class GriffinConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EncDecConfig:
+    """Encoder-decoder backbone (whisper): the frontend is a stub, the
+    encoder consumes precomputed frame embeddings."""
+    encoder_layers: int = 24
+    decoder_layers: int = 24
+    encoder_len: int = 1500           # whisper 30s @ 20ms after conv stride
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                       # transformer | griffin | rwkv
+    family: str                       # transformer | encdec | rwkv | griffin
     num_layers: int
     d_model: int
     num_heads: int
@@ -88,6 +99,7 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     griffin: Optional[GriffinConfig] = None
+    encdec: Optional[EncDecConfig] = None
     # RWKV.
     rwkv_head_dim: int = 64
     tie_embeddings: bool = True
@@ -95,8 +107,10 @@ class ModelConfig:
     dtype: str = "bfloat16"
     post_norms: bool = False          # gemma2: post-attn/post-ffn rmsnorms
     scale_embeddings: bool = False    # gemma family: x *= sqrt(d_model)
-    mlp_act: str = "silu"             # the transformer's MLP activation
-    mlp_gated: bool = True            # the planner's graph: 2 input matrices
+    use_rope: bool = True             # whisper: absolute positions instead
+    norm_type: str = "rmsnorm"        # "rmsnorm" | "layernorm" (whisper)
+    mlp_act: str = "silu"             # "gelu" for whisper
+    mlp_gated: bool = True            # whisper: plain 2-matrix MLP
     # Whether a 500k-token decode is sub-quadratic-feasible (SSM/hybrid only).
     subquadratic: bool = False
     # Multi-token prediction extra head (deepseek-v3); adds one extra layer.

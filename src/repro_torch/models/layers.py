@@ -1,10 +1,10 @@
 """Shared building blocks of the port's language models (plain tensors).
 
-Port of the parts of the JAX package's ``models/layers.py`` that the dense
-transformer, Griffin and RWKV-6 families run: dense init, the padded-vocab
-mask, RMSNorm, LayerNorm, RoPE and M-RoPE, GQA attention (local or global,
-with QKV biases) with its ring-buffer and cache branches, decode attention
-and the gated MLP (silu or gelu).
+Port of the JAX package's ``models/layers.py``: dense init, the
+padded-vocab mask, RMSNorm, LayerNorm, RoPE and M-RoPE, GQA attention
+(local, global or bidirectional, with QKV biases, with or without RoPE,
+over precomputed cross K/V) with its ring-buffer and cache branches,
+decode attention, and the gated or plain MLP (silu, gelu or relu).
 Every block is a pair ``init_*(generator, cfg, ...) -> params`` and
 ``*(params, x, ...) -> y``; params are nested dicts of tensors in the JAX
 tree layout, so a JAX parameter tree converts leaf by leaf.
@@ -12,7 +12,8 @@ tree layout, so a JAX parameter tree converts leaf by leaf.
 Compute conventions follow the reference: weights in ``cfg.dtype``, norms and
 softmax statistics in f32, matmul results in f32 (:func:`mm`).  Every
 multi-token attention (a forward, a prompt, a chunk of one at a later
-position) runs the ``flash_attention`` kernel through
+position) and every cross-attention, a one-token decode step's included,
+runs the ``flash_attention`` kernel through
 :func:`repro_torch.kernels.ops.flash_attention`.
 """
 
@@ -226,42 +227,59 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
               kind: str = "global",
               mrope_positions: torch.Tensor | None = None,
               cache: dict | None = None, cache_pos=None,
+              cross_kv: tuple | None = None, use_rope: bool = True,
               ring_window: int | None = None) -> tuple[torch.Tensor,
                                                        dict | None]:
-    """GQA self-attention with RoPE (M-RoPE when the config has sections
-    and ``mrope_positions`` (3, B, S) is given).  A ``"local"`` layer
-    attends over the last ``cfg.window`` keys, a ``"global"`` one over all.
-    Returns (output, updated_cache).
+    """GQA attention with RoPE (M-RoPE when the config has sections and
+    ``mrope_positions`` (3, B, S) is given; none with ``use_rope=False``).
+    A ``"local"`` layer attends over the last ``cfg.window`` keys, a
+    ``"global"`` one over all, a ``"bidir"`` one over all without the
+    causal mask.  Returns (output, updated_cache).
 
-    No ``cache``: full-sequence causal attention.  With ``cache`` = {"k",
-    "v"}: a multi-token step at the int ``cache_pos`` (a prompt, or a chunk
-    of one after ``cache_pos`` cached tokens) or a one-token decode step at
-    ``cache_pos``, an int or a (B,) tensor of per-row positions.
-    ``mrope_positions`` override the rotary positions those imply.
-    ``ring_window``: the cache is a ring of the last ``ring_window`` keys.
-    Caches are never written in place: the updated cache is a new tensor.
+    No ``cache``: full-sequence attention, causal unless ``"bidir"``.  With
+    ``cache`` = {"k", "v"}: a multi-token step at the int ``cache_pos`` (a
+    prompt, or a chunk of one after ``cache_pos`` cached tokens) or a
+    one-token decode step at ``cache_pos``, an int or a (B,) tensor of
+    per-row positions.  ``mrope_positions`` override the rotary positions
+    those imply.  ``ring_window``: the cache is a ring of the last
+    ``ring_window`` keys.  Caches are never written in place: the updated
+    cache is a new tensor.
+
+    ``cross_kv`` = (k, v), (B, Hkv, Sk, D) each (whisper's decoder): only
+    Q is projected from x, and it attends over all Sk keys without a mask,
+    on a forward and on a decode step alike; ``cache`` is returned as it
+    was.
     """
     b, s, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _project(x, params["wq"], params.get("bq"), h, dh)
+    window = cfg.window if kind == "local" else None
+    softcap = cfg.attn_softcap
+    if cross_kv is not None:
+        # The reference's cache-less branch, and its cache branch's
+        # decode_attention with no position: the same unmasked softmax.
+        out = ops.flash_attention(q, *cross_kv, causal=False, window=window,
+                                  softcap=softcap)
+        out = out.transpose(1, 2).reshape(b, s, h * dh)
+        return mm(out, params["wo"]).to(x.dtype), cache
     k = _project(x, params["wk"], params.get("bk"), hkv, dh)
     v = _project(x, params["wv"], params.get("bv"), hkv, dh)
     pos = _slot_positions(cache_pos, b, x.device)
-    if cfg.mrope_sections is not None and mrope_positions is not None:
-        cos, sin = mrope_table(mrope_positions, dh, cfg.rope_theta,
-                               cfg.mrope_sections)
-    else:
-        positions = pos[:, None] + torch.arange(s, device=x.device)[None, :]
-        cos, sin = rope_table(positions, dh, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if use_rope:
+        if cfg.mrope_sections is not None and mrope_positions is not None:
+            cos, sin = mrope_table(mrope_positions, dh, cfg.rope_theta,
+                                   cfg.mrope_sections)
+        else:
+            positions = pos[:, None] \
+                + torch.arange(s, device=x.device)[None, :]
+            cos, sin = rope_table(positions, dh, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
 
-    window = cfg.window if kind == "local" else None
-    softcap = cfg.attn_softcap
     new_cache = None
     if cache is None:
-        out = ops.flash_attention(q, k, v, causal=True, window=window,
-                                  softcap=softcap)
+        out = ops.flash_attention(q, k, v, causal=kind != "bidir",
+                                  window=window, softcap=softcap)
     elif ring_window is not None and s > 1:
         # A chunk against the ring: its cached keys unrolled in front of it.
         # (The reference attends over the chunk alone here, so a chunk after
@@ -338,26 +356,32 @@ def decode_attention(q, k, v, last_pos, *, window=None,
 
 
 # ---------------------------------------------------------------------------
-# Gated MLP
+# MLP (gated / plain)
 # ---------------------------------------------------------------------------
 
 def init_mlp(generator: torch.Generator, cfg: ModelConfig, *,
-             device) -> dict:
+             gated: bool = True, device) -> dict:
     d, f, dt = cfg.d_model, cfg.d_ff, dtype_of(cfg)
-    return {"w_up": dense_init(generator, (d, f), dt, device=device),
-            "w_down": dense_init(generator, (f, d), dt,
-                                 scale=1.0 / math.sqrt(f), device=device),
-            "w_gate": dense_init(generator, (d, f), dt, device=device)}
+    p = {"w_up": dense_init(generator, (d, f), dt, device=device),
+         "w_down": dense_init(generator, (f, d), dt,
+                              scale=1.0 / math.sqrt(f), device=device)}
+    if gated:
+        p["w_gate"] = dense_init(generator, (d, f), dt, device=device)
+    return p
 
 
 _ACTS = {"silu": F.silu,
          # The tanh form: the reference's jax.nn.gelu(approximate=True).
-         "gelu": lambda v: F.gelu(v, approximate="tanh")}
+         "gelu": lambda v: F.gelu(v, approximate="tanh"),
+         "relu": F.relu}
 
 
 def mlp(params: dict, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
-    """``w_down(act(x w_gate) * (x w_up))``, the activation on the f32
-    products."""
+    """``w_down(act(x w_gate) * (x w_up))``, or ``w_down(act(x w_up))``
+    without a ``w_gate``; the activation on the f32 products."""
     up = mm(x, params["w_up"])
-    h = _ACTS[act](mm(x, params["w_gate"])) * up
+    if "w_gate" in params:
+        h = _ACTS[act](mm(x, params["w_gate"])) * up
+    else:
+        h = _ACTS[act](up)
     return mm(h.to(x.dtype), params["w_down"]).to(x.dtype)

@@ -297,20 +297,13 @@ def _run_layers(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 # Public entry points
 # ---------------------------------------------------------------------------
 
-def _as_tensor(a, device) -> torch.Tensor:
-    """A tensor, or a numpy array (bfloat16 included), on ``device``."""
-    if not torch.is_tensor(a):
-        a = tree.from_numpy(a)
-    return a.to(device)
-
-
 def _embed(params: dict, cfg: ModelConfig, tokens=None,
            embeddings=None) -> torch.Tensor:
     emb = params["emb"]
     if embeddings is None:
-        x = F.embedding(_as_tensor(tokens, emb.device).long(), emb)
+        x = F.embedding(tree.as_tensor(tokens, emb.device).long(), emb)
     else:
-        x = _as_tensor(embeddings, emb.device).to(dtype_of(cfg))
+        x = tree.as_tensor(embeddings, emb.device).to(dtype_of(cfg))
     if cfg.scale_embeddings:
         # sqrt(d_model) rounded to the activation dtype first, as the
         # reference does; a fill on the device, not a host copy, so that a
@@ -333,7 +326,7 @@ def _unembed(params: dict, cfg: ModelConfig,
 
 
 def _extra(a, device):
-    return None if a is None else _as_tensor(a, device)
+    return None if a is None else tree.as_tensor(a, device)
 
 
 def lm_forward(params: dict, cfg: ModelConfig, tokens, *,

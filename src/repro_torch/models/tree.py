@@ -45,3 +45,10 @@ def from_numpy(a) -> torch.Tensor:
     if a.dtype.name == "bfloat16":     # ml_dtypes' bfloat16 from JAX
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
     return torch.from_numpy(np.array(a, copy=True))
+
+
+def as_tensor(a, device) -> torch.Tensor:
+    """A tensor, or a numpy array (bfloat16 included), on ``device``."""
+    if not torch.is_tensor(a):
+        a = from_numpy(a)
+    return a.to(device)

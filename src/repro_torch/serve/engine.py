@@ -12,8 +12,8 @@ Port of the JAX package's ``serve/engine.py``, two surfaces:
   changes a result.
 * **LM serving** (:func:`build_serve_steps`, :class:`ContinuousBatcher`):
   prefill (whole-prompt, or chunked as the plan's ``serve`` section says)
-  and decode steps of any ported LM family (the dense transformer,
-  Griffin, RWKV-6), and a fixed-slot continuous batcher that advances
+  and decode steps of any ported LM family (the transformer, the
+  encoder-decoder, Griffin, RWKV-6), and a fixed-slot continuous batcher that advances
   every slot at its own position in one batched decode step, under the
   plan's :class:`BatchPolicy`.
 * **int8 LM weights** (:func:`quantize_params`): per-output-channel
@@ -280,7 +280,7 @@ _QUANT_EXCLUDE = ("emb", "unemb", "pos_emb", "scale", "bias",
 
 
 # The subtrees whose leaves carry a leading layer axis.
-_STACKED = ("blocks", "dense_blocks")
+_STACKED = ("blocks", "dense_blocks", "enc_blocks", "dec_blocks")
 
 
 def _quantize_leaf(w: torch.Tensor) -> dict:
@@ -318,8 +318,9 @@ def quantize_params(params, *, min_size: int = _QUANT_MIN_SIZE):
     layer, so at rest the card holds int8.  The q8 and scale equal the
     reference's bit for bit on the same f32 leaf.
 
-    A leaf under ``blocks`` or ``dense_blocks`` is stacked on a leading
-    layer axis, so its rank is counted without that axis: a stacked vector
+    A leaf under ``blocks``, ``dense_blocks``, ``enc_blocks`` or
+    ``dec_blocks`` is stacked on a leading layer axis, so its rank is
+    counted without that axis: a stacked vector
     (a bias, a gate's decay, a router's selection bias) stays as it is.
     The reference quantizes it over the layer axis, into a scale that no
     longer stacks, and its own layer scan then refuses the tree whenever
@@ -377,7 +378,9 @@ def build_serve_steps(cfg: ModelConfig, *, max_len: int | None = None,
 
     ``extras`` are the family's extra inputs (the transformer's
     ``mrope_positions`` and ``embeddings``), passed to every step as the
-    reference passes them.  Prefill takes the whole prompt in one step from
+    reference passes them.  An encoder-decoder's state carries the cross
+    K/V (``encdec.whisper_init_cache``; zeros from ``init_decode_state``),
+    which every step reads.  Prefill takes the whole prompt in one step from
     position 0, or, when ``plan.serve["prefill_chunk"]`` is set and the
     prompt is longer, one multi-token step per chunk at its offset.  A
     transformer or Griffin chunk runs the ``flash_attention`` kernel with
@@ -466,8 +469,8 @@ class BatchPolicy:
 
 def _batch_axes(cfg: ModelConfig, max_len: int):
     """The batch axis of every state leaf (1 where the leaf is stacked on a
-    leading layer axis, 0 in Griffin's unstacked ``tail``), found by diffing
-    the specs at two batch sizes."""
+    leading layer axis, as whisper's self and cross K/V are, 0 in Griffin's
+    unstacked ``tail``), found by diffing the specs at two batch sizes."""
     def axis(a, b):
         for ax, (x, y) in enumerate(zip(a.shape, b.shape)):
             if x != y:
@@ -489,7 +492,9 @@ class ContinuousBatcher:
     Every tick runs ONE decode step over all slots with a per-slot position
     tensor; a ``live`` mask keeps the state of idle slots byte-identical
     (``torch.where(live, new, old)``).  Runs on ``device`` (``None``: the
-    device the parameters lie on; otherwise they are moved there).
+    device the parameters lie on; otherwise they are moved there).  An
+    encoder-decoder's slots start, and start again, from zero cross K/V,
+    as the reference's batcher does: it admits no encoder frames.
 
     The step reads its tokens, positions and ``live`` mask from one static
     ``(3, slots)`` tensor, refilled by one copy a step, and writes the new

@@ -169,7 +169,7 @@ def test_every_subcommand_needs_a_card_unless_told_cpu(argv, monkeypatch,
     assert not list(tmp_path.iterdir())
 
 
-@pytest.mark.parametrize("argv", [["--lm", "whisper_medium"],
+@pytest.mark.parametrize("argv", [["--lm", "whisper_large_v3"],
                                   ["--target", "tpu"]])
 def test_unknown_lm_arch_or_target_is_refused(argv, capsys):
     with pytest.raises(SystemExit):

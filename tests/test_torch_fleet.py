@@ -248,13 +248,14 @@ def test_partial_builds_artifacts_and_served_plans(tmp_path):
 @pytest.mark.parametrize("spec,want", [
     ("lm:recurrentgemma_2b", "recurrentgemma-2b-smoke"),
     ("rwkv6-7b", "rwkv6-7b-smoke"),
+    ("lm:whisper_medium", "whisper-medium-smoke"),
     (configs.get("recurrentgemma-2b").config, "recurrentgemma-2b"),
 ])
 def test_resolve_configs_takes_lm_specs(spec, want):
     from repro_torch.deploy.stages import resolve_configs
     assert [c.name for c in resolve_configs(spec)] == [want]
     with pytest.raises(ValueError, match="unknown edge net or LM arch"):
-        resolve_configs(["lm:whisper_medium"])
+        resolve_configs(["lm:whisper_large_v3"])
 
 
 def test_lm_params_reach_the_batcher():

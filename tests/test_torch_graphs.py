@@ -68,7 +68,8 @@ def _serve(batcher, prompts, max_new=4):
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b",
-                                  "gemma2-9b", "qwen2.5-3b"])
+                                  "gemma2-9b", "qwen2.5-3b",
+                                  "whisper-medium"])
 def test_static_state_batcher_serves_what_the_rebinding_one_did(arch):
     cfg, params = _smoke(arch)
     prompts = _prompts(cfg)
@@ -270,7 +271,8 @@ def test_graphed_guard_fails_a_poisoned_output():
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b",
                                   "gemma2-9b", "qwen2.5-3b",
-                                  "mixtral-8x22b", "deepseek-v3-671b"])
+                                  "mixtral-8x22b", "deepseek-v3-671b",
+                                  "whisper-medium"])
 def test_graphed_tick_equals_eager_tick(arch):
     dev = _card()
     cfg = configs.get(arch).smoke

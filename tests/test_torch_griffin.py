@@ -81,10 +81,12 @@ def test_configs_match_reference():
 
 
 def test_unported_architecture_and_family_raise():
+    # Every architecture of the JAX package is ported: an id neither
+    # package registers, and a family no dispatcher knows.
     with pytest.raises(ValueError, match="not ported"):
-        configs.get("whisper-medium")
+        configs.get("whisper-large-v3")
     cfg = dataclasses.replace(configs.get("recurrentgemma-2b").smoke,
-                              family="encdec")
+                              family="conformer")
     with pytest.raises(ValueError, match="not ported"):
         api.init(cfg, torch.Generator().manual_seed(0), device="cpu")
 

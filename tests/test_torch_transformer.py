@@ -38,7 +38,10 @@ ARCHS = ["qwen2_5_3b", "gemma2_2b", "gemma2_9b", "gemma2_27b",
 # The MoE transformers' model tests are in tests/test_torch_moe.py; the
 # parametrised config, graph and launcher tests here take them too.
 MOE_ARCHS = ["mixtral_8x22b", "deepseek_v3_671b"]
-UNPORTED = ["whisper-medium"]
+# Every architecture of the JAX package is ported (whisper's tests are in
+# tests/test_torch_whisper.py): the refusals take an id that neither
+# package registers and a family that no dispatcher knows.
+UNPORTED = [("whisper-large-v3", "conformer")]
 TOKENS = 28          # past the smoke window of 16
 F32_TOL = dict(rtol=2e-3, atol=2e-3)
 
@@ -127,23 +130,34 @@ def test_configs_match_reference(arch):
             ref_cfg.padded_vocab, ref_cfg.q_dim, ref_cfg.kv_dim)
         assert [cfg.layer_kind(i) for i in range(cfg.num_layers)] == \
             [ref_cfg.layer_kind(i) for i in range(cfg.num_layers)]
-        assert ref_cfg.encdec is None
-        assert ref_cfg.use_rope     # whisper's absolute positions: item 3
-        assert ref_cfg.norm_type == "rmsnorm"
+        # Every field of the reference's schema is in the port's, so the
+        # loop above compares the encoder-decoder fields too.
+        assert [f.name for f in dataclasses.fields(cfg)] == \
+            [f.name for f in dataclasses.fields(ref_cfg)]
+        assert (cfg.encdec, cfg.use_rope, cfg.norm_type) == (
+            None, True, "rmsnorm")
         assert (cfg.moe is None) == (arch in ARCHS)
     published = configs.get(arch).config.name
     assert configs.get(published).name == arch
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_archs_and_families_raise(arch):
+@pytest.mark.parametrize("arch,family", UNPORTED)
+def test_unported_archs_and_families_raise(arch, family):
     with pytest.raises(ValueError, match="not ported"):
         configs.get(arch)
-    family = ref_configs.get(arch.replace("-", "_")).config.family
+    with pytest.raises(ImportError):
+        ref_configs.get(arch)
     cfg = dataclasses.replace(configs.get("gemma2-2b").smoke, family=family)
-    if family != "transformer":
+    params = api.init(configs.get("gemma2-2b").smoke,
+                      torch.Generator().manual_seed(0), device="cpu")
+    for call in (
+            lambda: api.init(cfg, torch.Generator().manual_seed(0),
+                             device="cpu"),
+            lambda: api.forward(params, cfg, {"tokens": _tokens(cfg)}),
+            lambda: api.decode_state_specs(cfg, 1, 16),
+            lambda: api.decode_step(params, cfg, _tokens(cfg, s=1), {}, 0)):
         with pytest.raises(ValueError, match="not ported"):
-            api.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+            call()
 
 
 @pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
