@@ -9,7 +9,7 @@
 Phases, in order; any failure exits non-zero without the final ``ok`` line:
 
 1. the card, as ``nvidia-smi`` names it with its power limit;
-2. build all seven CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
+2. build all eight CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
    one process per source, started together); 2b: ``cuobjdump -sass`` of
    the ``flash_attention``, ``tiled_gemm``, ``fused_mlp_q8`` and
    ``gemm_int8`` libraries: every bf16 flash and bf16 GEMM instance must
@@ -302,14 +302,36 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    within 1e-4 of the forward's rows, and the 64 tokens prefilled in chunks
    of 8 within 1e-3 of the whole prefill.  Then phase 9's flash rows at
    whisper's shapes, beside SDPA without a mask where one call computes
-   the same function.
+   the same function;
+17. training.  17a: the flash backward kernel (``flash_attention_bwd``)
+   against its plain version in f32 and bf16 (``TOL_FLASH_BWD``) at
+   gemma2-2b's (2,8,4096,256)/(2,4,.) local and global with softcap 50,
+   Griffin's MQA window, qwen2.5-3b's GQA 8, whisper's bidirectional and
+   cross shapes at D=64 and MLA's D=192 (S cut to 1024 for the oracle),
+   each timed in bf16 beside its bound, the plain version and SDPA's
+   backward; the ``linear_scan`` gradient (the kernel run in reverse) at
+   (2,4096,2560).  17b: one f32 step of gemma2-2b cut to 2 layers and of
+   recurrentgemma-2b cut to one (rec, rec, attn) unit, both at full width
+   and S=1024, through the kernels against the same step through the
+   plain versions on the card (``TOL_TRAIN_STEP``: the loss and every
+   gradient leaf).  17c: the published gemma2-2b trained whole through
+   ``launch.train`` (bf16, AdamW with bf16 moments: ``TRAIN_STATE_DTYPE``,
+   ``--remat block``, the chunked loss, 2 x 4096): 8 steps, a checkpoint
+   every 4, one node
+   failure injected before step 7, so the driver restores step 4 and
+   replays 5-6, whose losses must equal the first pass's bit for bit;
+   each step's loss and ``grad_norm`` finite, the step's p50, tokens/s and
+   model FLOP/s against the bf16 dense peak, peak memory, snapshot and
+   restore seconds, flash's launches a step.  17d: recurrentgemma-2b
+   whole, 3 AdamW steps at 1 x 2048, ``linear_scan`` launches a step.
 
 It prints a ``summary`` line (the fitted constants and each net's
 planned-vs-measured ratio, the edge p50/p95, the LM ticks eager and
-graphed, the fleet's, the transformer phases' and whisper's readings), one
-``{"kernels": [...]}`` line (all seven kernels; flash with its rows at
-the transformer's and whisper's shapes), the card line again, and last ``{"ok": true,
-"device": {...}}``.  It needs no network and one card.
+graphed, the fleet's, the transformer phases', whisper's and training's
+readings), one ``{"kernels": [...]}`` line (all eight kernels; flash with
+its rows at the transformer's and whisper's shapes, its backward with its
+rows at the training shapes), the card line again, and last ``{"ok":
+true, "device": {...}}``.  It needs no network and one card.
 """
 
 from __future__ import annotations
@@ -319,6 +341,7 @@ import contextlib
 import gc
 import itertools
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -446,6 +469,13 @@ KERNEL_META = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_dense.cu",
         "replaces": "src/repro/kernels/fused_dense.py:59"},
+    # The gradient of the flash TPU kernel's function: the JAX package
+    # has no backward kernel and differentiates chunked_attention
+    # (src/repro/models/layers.py:139) with jax.grad.
+    "flash_attention_bwd": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:98"},
 }
 
 
@@ -3190,13 +3220,14 @@ def lm_counts(launches) -> dict:
     return {k: launches[k] for k in LM_KERNELS}
 
 
-def lm_forward_phase(arch: str, seq: int = LM_SEQ):
-    """``api.init`` of ``arch`` at full width and depth from a seeded CUDA
-    generator and ``api.forward`` at B=1 and ``seq``: finite logits of the
-    right shape and the family's launches.  Before it, the model's float32
-    copy decodes 64 tokens against its own forward's last row, and is
-    freed before the model in its own dtype is drawn (gemma2-9b's f32 copy
-    is 37 GB)."""
+def lm_forward_phase(arch: str, seq: int = LM_SEQ,
+                     layers: int | None = None):
+    """``api.init`` of ``arch`` at full width and depth (or its first
+    ``layers``) from a seeded CUDA generator and ``api.forward`` at B=1 and
+    ``seq``: finite logits of the right shape and the family's launches.
+    Before it, the model's float32 copy decodes 64 tokens against its own
+    forward's last row, and is freed before the model in its own dtype is
+    drawn (gemma2-9b's f32 copy is 37 GB whole)."""
     import dataclasses
     import numpy as np
     import torch
@@ -3207,6 +3238,8 @@ def lm_forward_phase(arch: str, seq: int = LM_SEQ):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = configs.get(arch).config
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     per_step, per_tick = layer_counts(cfg)
     tokens = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (1, seq)).astype(np.int32)
@@ -4008,6 +4041,11 @@ def rwkv_timing_phase(device) -> dict:
 
 TF_ARCH = "gemma2-9b"
 TF_SEQ = 8192                  # gemma2's published context, past its window
+# Phases 14-14b run gemma2-9b at full width, cut to 21 of its 42 layers (10
+# (local, global) blocks and a local tail layer) since phase 17 came in:
+# at full depth the whole script read 1,161 s before its last phase on a
+# slow host (PERF.md section 4).  The launcher's run stays whole.
+TF_LAYERS = 21
 # The batcher's and the chunked prefill's cache: max_len == gemma2's window
 # (LM_SEQ, 4096), so the local layers keep rings and the global layers
 # linear buffers, as the reference's rule picks them.
@@ -4578,7 +4616,7 @@ def transformer_phases(device) -> dict:
         f"allocated at the start")
     t0 = time.perf_counter()
     cfg, params, tokens, fwd, per_step, per_tick = lm_forward_phase(
-        TF_ARCH, TF_SEQ)
+        TF_ARCH, TF_SEQ, layers=TF_LAYERS)
     launches[f"{TF_ARCH} forward"] = fwd
     # Gemma2 at max_len == window: ring local layers, linear global ones.
     chunked = chunked_prefill_check(
@@ -5227,6 +5265,555 @@ def whisper_phase() -> dict:
                          "decode_tick": per_tick["flash_attention"]}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "gemma2-2b"
+TRAIN_BATCH = 2
+TRAIN_SEQ = 4096
+TRAIN_STEPS = 8
+TRAIN_CKPT_EVERY = 4
+TRAIN_FAIL_AT = 6              # the state's step: 1-based steps 5-6 replay
+# AdamW's moments in bf16: the run checkpoints twice (steps 4 and 8), and
+# with f32 moments a checkpoint is 26.1 GB (24.4 GiB), in bf16 15.7 GB
+# (14.6 GiB); two f32 ones overrun a 45 GiB budget of disk writes a run
+# (deleted files count).
+TRAIN_STATE_DTYPE = "bfloat16"
+GRIFFIN_TRAIN_SEQ = 2048
+GRIFFIN_TRAIN_STEPS = 3
+CUT_SEQ = 1024                 # 17b's f32 cuts, one sequence
+# The backward's kernel against its plain version, as max|err| / max|ref|
+# of each of dq, dk and dv.  f32: both sides do f32 arithmetic on the same
+# inputs (the kernel from the row's log-sum-exp, the plain version from
+# the normalised softmax) and differ in summation order: dk and dv sum up
+# to 8 x 4096 query rows one after another in the kernel, blocked in
+# cuBLAS, ~1e-6-1e-5 of the largest value.  bf16 (D a multiple of 32: the
+# tensor cores) rounds P and dS to bf16 before their products, each term
+# off by up to 2^-8 of itself, and its outputs to bf16: a few 1e-3 of the
+# largest value; held to 2e-2.
+TOL_FLASH_BWD = {"float32": 1e-5, "bfloat16": 2e-2}
+# The scan's gradient (f32, Griffin's state): the chunked kernel's carry
+# is rounded along another path than the reversed loop's (rglru.py), the
+# forward's own 1e-4 (TOL_SCAN) relative to the largest value.
+TOL_SCAN_BWD = 1e-4
+# 17b: one f32 step through the kernels against the same step through the
+# plain versions: the loss and every gradient leaf within 1e-4 of its
+# largest value, taken as at least 1e-3 of the largest gradient anywhere
+# (a leaf of near-zero gradients carries the f32 rounding of the others).
+# Each kernel agrees with its plain version to ~1e-6 (TOL_FLASH_BWD,
+# TOL_FLASH, TOL_SCAN's readings); two to three layers compound that.
+TOL_TRAIN_STEP = 1e-4
+TRAIN_FLASH_CASES = (
+    ("gemma2-2b local", 2, 8, 4, 4096, 4096, 256,
+     {"causal": True, "window": 4096, "softcap": 50.0}),
+    ("gemma2-2b global", 2, 8, 4, 4096, 4096, 256,
+     {"causal": True, "softcap": 50.0}),
+    ("recurrentgemma-2b local", 1, 10, 1, 2048, 2048, 256,
+     {"causal": True, "window": 2048}),
+    ("qwen2.5-3b", 1, 16, 2, 4096, 4096, 128, {"causal": True}),
+    ("whisper encoder", 1, 16, 16, 1500, 1500, 64, {"causal": False}),
+    ("whisper cross", 1, 16, 16, 448, 1500, 64, {"causal": False}),
+    # S cut to 1024 so that the plain oracle's (S, Sk) f32 tensors fit.
+    ("deepseek MLA", 1, 128, 128, 1024, 1024, 192, {"causal": True}),
+)
+SCAN_BWD_SHAPE = (2, 4096, 2560)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper of the training path swapped for its plain
+    version, on the card: the same step through plain PyTorch."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import rglru
+    swaps = [(fa, "flash_attention_cuda", fa.flash_attention_plain),
+             (fb, "flash_attention_bwd_cuda", fb.flash_attention_bwd_plain),
+             (rglru, "linear_scan_cuda", rglru.linear_scan_plain),
+             (rglru, "linear_scan_bwd_cuda", rglru.linear_scan_bwd_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _rel(got, want) -> tuple[float, float]:
+    """(max |got - want|, that over max |want|)."""
+    got, want = got.detach().float(), want.detach().float()
+    err = float((got - want).abs().max())
+    return err, err / max(float(want.abs().max()), 1e-30)
+
+
+def train_flash_checks(gen, device) -> dict:
+    """17a's checks: the backward kernel against its plain version at each
+    of ``TRAIN_FLASH_CASES`` in f32 and bf16, at ``TOL_FLASH_BWD``.
+    Returns the largest absolute and relative errors."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    worst = {"abs": 0.0, "rel": 0.0}
+    for label, b, hq, hkv, s, sk, d, kw in TRAIN_FLASH_CASES:
+        for dt in ("float32", "bfloat16"):
+            q, k, v = _tf_qkv(gen, device, b, hq, hkv, s, sk, d,
+                              getattr(torch, dt))
+            do = torch.randn((b, hq, s, d), generator=gen,
+                             device=device).to(q.dtype)
+            o = fa.flash_attention_cuda(q, k, v, **kw)
+            got = fb.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+            want = fb.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+            errs = {}
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                if not torch.isfinite(g).all():
+                    raise SmokeFailure(f"flash_attention_bwd {label} {dt}: "
+                                       f"{name} is not finite")
+                errs[name] = _rel(g, w)
+            log(f"kernel flash_attention_bwd {label} q={list(q.shape)} "
+                f"k={list(k.shape)} {dt} {kw}: " + ", ".join(
+                    f"{n} max_abs_err={a} rel={r}"
+                    for n, (a, r) in errs.items())
+                + f" tol={TOL_FLASH_BWD[dt]}")
+            for n, (a, r) in errs.items():
+                if r > TOL_FLASH_BWD[dt]:
+                    raise SmokeFailure(f"flash_attention_bwd {label} {dt}: "
+                                       f"{n} off by {r} of its largest "
+                                       f"value (tolerance "
+                                       f"{TOL_FLASH_BWD[dt]})")
+                worst["abs"] = max(worst["abs"], a)
+                worst["rel"] = max(worst["rel"], r)
+            del q, k, v, do, o, got, want
+            gc.collect()
+            torch.cuda.empty_cache()
+    return worst
+
+
+def train_flash_row(gen, device, label, b, hq, hkv, s, sk, d, kw) -> dict:
+    """One bf16 timing row of the backward: the kernel graph-replayed and
+    eager (and graph-replayed in f32, the CUDA-core path, as ``f32_ms``),
+    the plain version, SDPA's backward (the yardstick: with a band
+    mask, ``is_causal`` for a causal square, no mask when non-causal; it has
+    no softcap, so where the kernel caps its logits SDPA computes less and
+    its time is ``sdpa_no_softcap_ms`` with ``library_ms`` null) and the
+    bound max(bytes / 3.35 TB/s, flops / 989 TFLOP/s)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    q, k, v = _tf_qkv(gen, device, b, hq, hkv, s, sk, d, torch.bfloat16)
+    do = torch.randn((b, hq, s, d), generator=gen,
+                     device=device).to(torch.bfloat16)
+    o = fa.flash_attention_cuda(q, k, v, **kw)
+
+    def kernel():
+        return fb.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+
+    if not kw.get("causal", True):
+        sdpa_kw, form = {}, "no mask"
+    elif not kw.get("window") and s == sk:
+        sdpa_kw, form = {"is_causal": True}, "is_causal"
+    else:
+        sdpa_kw, form = {"attn_mask": _band(s, sk, kw, device)}, "band mask"
+    group = hq // hkv
+    lq, lk, lv = (t.detach().clone().requires_grad_() for t in (
+        q, k.repeat_interleave(group, dim=1),
+        v.repeat_interleave(group, dim=1)))
+    lout = F.scaled_dot_product_attention(lq, lk, lv, **sdpa_kw)
+
+    def library():
+        return torch.autograd.grad(lout, (lq, lk, lv), do,
+                                   retain_graph=True)
+
+    flops, nbytes = fb.work(b, hq, hkv, s, sk, d, 2,
+                            causal=kw.get("causal", True),
+                            window=kw.get("window"))
+    inner = 2 if flops > 5e10 else 10
+    row = {"shape": f"{label}: q {list(q.shape)} k/v {list(k.shape)} "
+                    f"bfloat16 {kw}", "library_form": form,
+           "ms": graph_ms(kernel, inner=inner, reps=5),
+           "eager_ms": event_ms(kernel, inner=inner, reps=5),
+           "plain_ms": event_ms(lambda: fb.flash_attention_bwd_plain(
+               q, k, v, o, do, **kw), inner=1, reps=3),
+           **bound(nbytes, flops, PEAK_BF16)}
+    sdpa_ms = event_ms(library, inner=inner, reps=5)
+    row["tflops"] = flops / row["ms"] / 1e9
+    q32, k32, v32, o32, do32 = (t.float() for t in (q, k, v, o, do))
+    row["f32_ms"] = graph_ms(lambda: fb.flash_attention_bwd_cuda(
+        q32, k32, v32, o32, do32, **kw), inner=inner, reps=3)
+    del q32, k32, v32, o32, do32
+    if kw.get("softcap"):
+        row.update(library_ms=None, sdpa_no_softcap_ms=sdpa_ms)
+    else:
+        # SDPA's backward rounds P and dS to bf16: its dq against the
+        # kernel's, relative to the largest, at the reference's bf16 3e-2.
+        err, rel = _rel(library()[0], kernel()[0])
+        if rel > TOL_FLASH_LIBRARY:
+            raise SmokeFailure(f"flash backward {label}: SDPA's dq off by "
+                               f"{rel} of the kernel's largest ({err})")
+        row["library_ms"], row["library_dq_rel_err"] = sdpa_ms, rel
+    log("timing flash_attention_bwd " + json.dumps(row, sort_keys=True))
+    del q, k, v, do, o, lq, lk, lv, lout
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def scan_bwd_row(gen, device) -> dict:
+    """17a's scan gradient: the ``linear_scan`` kernel run in reverse
+    (``linear_scan_bwd_cuda``) against the reversed loop at
+    ``SCAN_BWD_SHAPE`` in f32, and its time beside its bound (a, h and g
+    read once, da and db written once)."""
+    import torch
+    from repro_torch.kernels import rglru
+    a = torch.rand(SCAN_BWD_SHAPE, generator=gen, device=device) * 0.5 \
+        + 0.45
+    b_ = torch.randn(SCAN_BWD_SHAPE, generator=gen, device=device)
+    h = rglru.linear_scan_cuda(a, b_)
+    g = torch.randn(SCAN_BWD_SHAPE, generator=gen, device=device)
+    got = rglru.linear_scan_bwd_cuda(a, h, g)
+    want = rglru.linear_scan_bwd_plain(a, h, g)
+    errs = {n: _rel(x, w) for n, x, w in zip(("da", "db"), got, want)}
+    log(f"kernel linear_scan backward {list(a.shape)} float32: "
+        + ", ".join(f"{n} max_abs_err={e} rel={r}"
+                    for n, (e, r) in errs.items()) + f" tol={TOL_SCAN_BWD}")
+    for n, (_, r) in errs.items():
+        if r > TOL_SCAN_BWD:
+            raise SmokeFailure(f"linear_scan backward: {n} off by {r} of "
+                               f"its largest value (tolerance "
+                               f"{TOL_SCAN_BWD})")
+    row = {"shape": f"linear_scan backward {list(a.shape)} float32",
+           "ms": event_ms(lambda: rglru.linear_scan_bwd_cuda(a, h, g),
+                          inner=5, reps=5),
+           "plain_ms": event_ms(lambda: rglru.linear_scan_bwd_plain(a, h, g),
+                                inner=1, reps=3),
+           "max_abs_err": max(e for e, _ in errs.values()),
+           **bound(5 * 4 * a.numel(), 2.0 * a.numel(), PEAK_F32)}
+    log("timing linear_scan backward " + json.dumps(row, sort_keys=True))
+    return row
+
+
+def _cut(arch: str, layers: int):
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(arch).config, dtype="float32",
+                               num_layers=layers)
+
+
+def train_step_parity(arch: str, layers: int, device) -> dict:
+    """17b: one f32 step's loss and gradients, through the kernels and
+    through the plain versions on the card, from one seeded state."""
+    import torch
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, tree
+    from repro_torch.train import step as step_lib
+    cfg = _cut(arch, layers)
+    params = api.init(cfg, torch.Generator(device=device).manual_seed(0),
+                      device=device)
+    leaves = step_lib._trainable(params)
+    loss_fn = step_lib.make_loss_fn(cfg, step_lib.TrainOptions(
+        remat="block", chunked_loss=cfg.family == "transformer"))
+    batch = tree.tree_map(lambda a: tree.as_tensor(a, device), synth_batch(
+        cfg, batch=1, seq=CUT_SEQ, step=0))
+    before = ops.launch_counts()
+    loss, _ = loss_fn(params, batch)
+    grads = step_lib._grad(loss, leaves)
+    launched = {n: c - before[n] for n, c in ops.launch_counts().items()
+                if c - before[n]}
+    with plain_kernels():
+        before = ops.launch_counts()
+        p_loss, _ = loss_fn(params, batch)
+        p_grads = step_lib._grad(p_loss, leaves)
+        if ops.launch_counts() != before:
+            raise SmokeFailure(f"17b {arch}: the plain step launched a "
+                               f"kernel")
+    want_kernels = {"flash_attention", "flash_attention_bwd"} | (
+        {"linear_scan"} if cfg.family == "griffin" else set())
+    if set(launched) != want_kernels:
+        raise SmokeFailure(f"17b {arch}: the kernel step launched "
+                           f"{launched}, want {sorted(want_kernels)}")
+    gmax = max(float(g.abs().max()) for g in p_grads)
+    loss_err = _rel(loss, p_loss)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(grads, p_grads)):
+        err = float((g - w).abs().max())
+        scale = max(float(w.abs().max()), 1e-3 * gmax)
+        worst = max(worst, err / scale)
+        if err > TOL_TRAIN_STEP * scale or not torch.isfinite(g).all():
+            raise SmokeFailure(f"17b {arch}: gradient leaf {i} "
+                               f"{tuple(g.shape)} off by {err} of {scale} "
+                               f"(tolerance {TOL_TRAIN_STEP})")
+    if loss_err[1] > TOL_TRAIN_STEP:
+        raise SmokeFailure(f"17b {arch}: loss {float(loss)} against the "
+                           f"plain step's {float(p_loss)}")
+    out = {"arch": arch, "layers": layers, "seq": CUT_SEQ,
+           "loss": float(loss.detach()),
+           "plain_loss": float(p_loss.detach()),
+           "loss_rel_err": loss_err[1], "grad_leaves": len(grads),
+           "worst_leaf_rel_err": worst, "launches": launched}
+    log(f"17b {arch} f32 cut ({layers} layers, S={CUT_SEQ}): "
+        + json.dumps(out, sort_keys=True))
+    del params, leaves, grads, p_grads, loss, p_loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def model_flops(cfg, batch: int, seq: int) -> float:
+    """One training step's products, forward and backward, not the
+    recomputed ones: 6 flops a matmul weight and token (the layers' and
+    the unembedding's) and flash's 4 D a kept pair forward and 8 D
+    backward (dV, dP, dQ, dK) a query head."""
+    from repro_torch.kernels import flash_attention as fa
+    d = cfg.d_model
+    per_layer = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d \
+        + 3 * d * cfg.d_ff
+    dense = 6.0 * (cfg.num_layers * per_layer + d * cfg.padded_vocab) \
+        * batch * seq
+    attn = 0.0
+    for i in range(cfg.num_layers):
+        window = cfg.window if cfg.layer_kind(i) == "local" else None
+        pairs = fa.band_pairs(seq, seq, causal=True, window=window,
+                              q_offset=0)
+        attn += 12.0 * cfg.head_dim * pairs * batch * cfg.num_heads
+    return dense + attn
+
+
+def train_step_trace(driver, batch_fn) -> dict:
+    """One more step of ``driver`` under ``torch.profiler``: the device's
+    busy time and idle share inside the step's host span (which ends in a
+    synchronize), the ``TRACE_TOP`` device activities by name, and the
+    flash kernels' own ms (forward, backward)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    batch = batch_fn(driver.step)
+    torch.cuda.synchronize()
+    label = "train_step"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_host = time.perf_counter()
+        with record_function(label):
+            driver.state, metrics = driver.step_fn(driver.state, batch)
+            torch.cuda.synchronize()
+        t_host = time.perf_counter() - t_host
+    events = prof.events()
+    span = next(e for e in events
+                if e.name == label and e.device_type == DeviceType.CPU)
+    t0, t1 = span.time_range.start, span.time_range.end
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and not e.is_user_annotation and e.name != label]
+    out = {"host_clock_ms": t_host * 1e3, "loss": float(metrics["loss"]),
+           "device_ops": len(dev)}
+    if not dev:
+        out.update(device_busy_ms=None, idle_share=None)
+        log("17c step trace: the profiler recorded no device activity; "
+            "idle share not measured " + json.dumps(out))
+        return out
+    busy_us = _union_us((max(e.time_range.start, t0),
+                         min(e.time_range.end, t1)) for e in dev
+                        if e.time_range.end > t0 and e.time_range.start < t1)
+    by_name: dict = {}
+    for e in dev:
+        by_name[e.name[:80]] = (by_name.get(e.name[:80], 0.0)
+                                + e.time_range.end - e.time_range.start)
+
+    def ms_of(*parts):
+        return sum(v for k, v in by_name.items()
+                   if any(p in k for p in parts)) / 1e3
+    out.update(
+        device_busy_ms=busy_us / 1e3, idle_share=1.0 - busy_us / (t1 - t0),
+        flash_forward_ms=ms_of("flash_tc_kernel", "flash_kernel"),
+        flash_backward_ms=ms_of("flash_bwd_"),
+        top_device_ms={k: v / 1e3 for k, v in sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:TRACE_TOP]})
+    log("17c step trace " + json.dumps(out, sort_keys=True))
+    return out
+
+
+def train_run(argv: list, after=None) -> tuple[dict, dict]:
+    """``launch.train.run(argv)`` with every launch counter set to 0 just
+    before and read just after the steps (``after`` runs past that)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    counts = {}
+
+    def then(driver, batch_fn):
+        counts.update(ops.launch_counts())
+        return after(driver, batch_fn) if after is not None else None
+    report = launch_train.run(argv, after=then)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report, counts
+
+
+def gemma_train_phase() -> dict:
+    """17c: the published gemma2-2b trained whole through the launcher's
+    driver, with a failure injected and replayed."""
+    import shutil
+    import tempfile
+    from repro_torch import configs
+    cfg = configs.get(TRAIN_ARCH).config
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        report, counts = train_run([
+            "--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--opt", "adamw",
+            "--state-dtype", TRAIN_STATE_DTYPE, "--remat", "block",
+            "--ckpt-every", str(TRAIN_CKPT_EVERY),
+            "--fail-at", str(TRAIN_FAIL_AT), "--ckpt-dir", ckpt],
+            after=train_step_trace)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    steps = report["steps"]
+    runs = len(steps)
+    if [s for s, *_ in steps] != [1, 2, 3, 4, 5, 6, 5, 6, 7, 8]:
+        raise SmokeFailure(f"17c: steps ran {[s for s, *_ in steps]}")
+    if not all(math.isfinite(l) and math.isfinite(g)
+               for _, l, g, _ in steps):
+        raise SmokeFailure(f"17c: a loss or grad_norm is not finite: "
+                           f"{steps}")
+    kinds = [e[:2] for e in report["events"]]
+    if kinds != [("checkpoint", 4), ("failure", TRAIN_FAIL_AT),
+                 ("restored", 4), ("checkpoint", 8)]:
+        raise SmokeFailure(f"17c: driver events {report['events']}")
+    first = {s: (l, g) for s, l, g, _ in steps[:6]}
+    replay = {s: (l, g) for s, l, g, _ in steps[6:8]}
+    gaps = {s: (replay[s][0] - first[s][0], replay[s][1] - first[s][1])
+            for s in replay}
+    log(f"17c replay: first pass {[first[s] for s in (5, 6)]}, replayed "
+        f"{[replay[s] for s in (5, 6)]}, gaps (loss, grad_norm) {gaps}")
+    if any(replay[s][0] != first[s][0] for s in replay):
+        raise SmokeFailure(f"17c: the replayed losses differ from the "
+                           f"first pass's by {gaps}")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if counts[name] == 0:
+            raise SmokeFailure(f"17c: {name} launched no time in the "
+                               f"training run")
+    ms = [m for *_, m in steps]
+    p50 = statistics.median(ms[1:])      # the first step warms up
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    ev = {e[0]: e for e in report["events"]}
+    out = {"steps": steps, "step_p50_ms": p50, "tokens_per_s":
+           tokens / (p50 / 1e3), "model_flops_per_step": flops,
+           "model_tflops_per_s": flops / (p50 / 1e3) / 1e12,
+           "mfu_bf16_dense": flops / (p50 / 1e3) / PEAK_BF16,
+           "peak_memory_bytes": report["peak_bytes"],
+           "snapshot_s": [e[2] for e in report["events"]
+                          if e[0] == "checkpoint"],
+           "restore_s": ev["restored"][2], "wall_s": report["wall_s"],
+           "launches": counts,
+           # Under --remat block a step launches flash's forward twice a
+           # layer (the forward, the block's recompute) and its backward
+           # once: 52 and 26 for gemma2-2b's 26 layers.
+           "per_step": {n: counts[n] / runs for n in
+                        ("flash_attention", "flash_attention_bwd")},
+           "replay_gaps": gaps, "trace": report["after"]}
+    log("17c gemma2-2b trained whole: " + json.dumps(
+        {k: v for k, v in out.items() if k != "steps"}, sort_keys=True))
+    return out
+
+
+def griffin_train_phase() -> dict:
+    """17d: recurrentgemma-2b at full width and depth, a few AdamW steps
+    through the launcher."""
+    import tempfile
+    report, counts = train_run([
+        "--arch", LM_ARCH, "--batch", "1", "--seq", str(GRIFFIN_TRAIN_SEQ),
+        "--steps", str(GRIFFIN_TRAIN_STEPS), "--opt", "adamw", "--remat",
+        "block", "--ckpt-every", "1000000", "--ckpt-dir",
+        tempfile.mkdtemp(prefix="chip_smoke_griffin_")])
+    steps = report["steps"]
+    if len(steps) != GRIFFIN_TRAIN_STEPS or not all(
+            math.isfinite(l) and math.isfinite(g) for _, l, g, _ in steps):
+        raise SmokeFailure(f"17d: steps {steps}")
+    for name in ("flash_attention", "flash_attention_bwd", "linear_scan"):
+        if counts[name] == 0:
+            raise SmokeFailure(f"17d: {name} launched no time")
+    out = {"steps": steps, "step_p50_ms": statistics.median(
+               [m for *_, m in steps][1:]),
+           "peak_memory_bytes": report["peak_bytes"], "launches": counts,
+           "per_step": {n: counts[n] / len(steps) for n in
+                        ("flash_attention", "flash_attention_bwd",
+                         "linear_scan")}}
+    log("17d recurrentgemma-2b trained whole: " + json.dumps(
+        out, sort_keys=True))
+    return out
+
+
+def training_phases(device) -> dict:
+    """Phase 17: 17a the backward kernels against their plain versions and
+    timed, 17b one f32 step through the kernels against the plain step,
+    17c the published gemma2-2b trained whole with a restart, 17d
+    recurrentgemma-2b; each part's wall time printed."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"training phases: {torch.cuda.memory_allocated()} bytes allocated "
+        f"at the start")
+    walls = {}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(17)
+    worst = train_flash_checks(gen, device)
+    rows = [train_flash_row(gen, device, *case)
+            for case in TRAIN_FLASH_CASES]
+    scan = scan_bwd_row(gen, device)
+    walls["17a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parity = [train_step_parity(TRAIN_ARCH, 2, device),
+              train_step_parity(LM_ARCH, 3, device)]
+    walls["17b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gemma = gemma_train_phase()
+    walls["17c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    griffin = griffin_train_phase()
+    walls["17d"] = time.perf_counter() - t0
+    log(f"phase 17 (training): {json.dumps(walls, sort_keys=True)}, "
+        f"{sum(walls.values()):.1f} s in all")
+    return {"worst": worst, "rows": rows, "scan": scan, "parity": parity,
+            "gemma": gemma, "griffin": griffin, "walls_s": walls,
+            "launches": {f"{TRAIN_ARCH} train": gemma["launches"],
+                         f"{LM_ARCH} train": griffin["launches"]}}
+
+
+def train_kernel_entry(train: dict) -> dict:
+    """The ``flash_attention_bwd`` entry of the kernels line: its main-path
+    launches (the two training runs), its largest error against the plain
+    version, and its row at gemma2-2b's shape beside every other row."""
+    row = train["rows"][0]
+    keys = ("shape", "ms", "eager_ms", "f32_ms", "plain_ms", "library_ms",
+            "sdpa_no_softcap_ms", "library_form", "bound_ms", "bound_by",
+            "tflops")
+    return {"name": "flash_attention_bwd", **KERNEL_META[
+                "flash_attention_bwd"],
+            "launches": sum(c["flash_attention_bwd"]
+                            for c in train["launches"].values()),
+            "launches_by_path": {p: c["flash_attention_bwd"]
+                                 for p, c in train["launches"].items()},
+            "launches_per_step": {
+                TRAIN_ARCH: train["gemma"]["per_step"]["flash_attention_bwd"],
+                LM_ARCH: train["griffin"]["per_step"][
+                    "flash_attention_bwd"]},
+            "max_abs_err": train["worst"]["abs"],
+            "max_rel_err": train["worst"]["rel"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "sdpa_no_softcap_ms": row.get("sdpa_no_softcap_ms"),
+            "eager_ms": row["eager_ms"], "shape": row["shape"],
+            "rows": [{k: r[k] for k in keys if k in r}
+                     for r in train["rows"]],
+            "scan_backward": train["scan"]}
+
+
 def kernels_line(errs, launches, timing) -> dict:
     """One entry per kernel at the first served net's shapes: the fused
     group of one request, and the per-layer rung of one degraded request
@@ -5498,6 +6085,8 @@ def main(argv: list) -> int:
         lm_timing["flash_attention"]["whisper"] = \
             whisper_timing_phase(device)
         log(f"phase 9 whisper flash rows: {time.perf_counter() - t0:.1f} s")
+        train = training_phases(device)
+        tf["launches"].update(train["launches"])
         paths = {}
         for arch, fwd, srv in ((LM_ARCH, fwd_launches, served),
                                (LM_ARCH, None, fleet),
@@ -5524,6 +6113,7 @@ def main(argv: list) -> int:
             {**per_step, "rwkv6_scan": r_step["rwkv6_scan"]},
             {**per_tick, "rwkv6_scan": r_tick["rwkv6_scan"]}, lm_timing,
             tf["per_step"], whisper["per_step"])
+        line["kernels"].append(train_kernel_entry(train))
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -5537,6 +6127,11 @@ def main(argv: list) -> int:
                                             "walls_s")},
         "moe": moe_run["readings"],
         "whisper": whisper["readings"],
+        "training": {k: train[k] for k in ("parity", "walls_s")} | {
+            "gemma2-2b": {k: v for k, v in train["gemma"].items()
+                          if k != "launches"},
+            "recurrentgemma-2b": {k: v for k, v in train["griffin"].items()
+                                  if k != "launches"}},
         "aie_plan": {k: v for k, v in aie_plan.items() if k != "launches"},
         "fleet": {k: v for k, v in fleet["fleet"].items()
                   if k not in ("launches", "chunk_launches")}},

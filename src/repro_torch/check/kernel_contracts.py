@@ -22,7 +22,7 @@ device work.  Rules:
   (warning: the planner under-charges the group).
 
 :func:`verify_kernel_library` is the self-check of ``python -m repro_torch
-check``: it launches each of the seven ported kernels once on a canonical
+check``: it launches each of the eight kernels once on a canonical
 case on a device (the card by default) and checks what comes back.
 """
 
@@ -142,9 +142,10 @@ def _verify_int8_rejects_float(tenant) -> list:
 # ---------------------------------------------------------------------------
 
 def _library_cases(gen: torch.Generator, device: torch.device):
-    """(kernel, call, expected shape, expected dtype) per ported kernel:
-    the JAX package's four canonical cases as they are, and one each for
-    the edge kernels at the paper's batch of 8."""
+    """(kernel, call, expected shape, expected dtype) per kernel: the JAX
+    package's four canonical cases as they are, one each for the edge
+    kernels at the paper's batch of 8, and flash's backward on the flash
+    case (its dq)."""
     def randn(*shape, dtype=F32, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to(device, dtype)
 
@@ -165,6 +166,10 @@ def _library_cases(gen: torch.Generator, device: torch.device):
             randn(1, 8, 256, 64, dtype=bf16),
             randn(1, 2, 256, 64, dtype=bf16),
             randn(1, 2, 256, 64, dtype=bf16), causal=True),
+         (1, 8, 256, 64), bf16),
+        ("flash_attention_bwd", lambda: ops.flash_attention_bwd(
+            *(randn(1, h, 256, 64, dtype=bf16) for h in (8, 2, 2, 8, 8)),
+            causal=True)[0],
          (1, 8, 256, 64), bf16),
         ("rwkv6_scan", lambda: ops.rwkv6_scan(
             randn(4, 128, 64, scale=0.5), randn(4, 128, 64, scale=0.5),

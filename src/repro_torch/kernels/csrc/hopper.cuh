@@ -235,6 +235,33 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
                : "memory");
 }
 
+// ldmatrix_x4 with .trans: register j of lane l receives the 16-bit
+// elements (row 2 (l % 4), column l / 4) and (row 2 (l % 4) + 1, column
+// l / 4) of matrix j, i.e. lane l's share of the transposed matrix.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d += A (16 x 16, bf16, row-major) . B (16 x 8, bf16, column-major) in
+// f32.  With g = lane / 4, t = lane % 4: a0 = A[g][2t..2t+1], a1 =
+// A[g+8][2t..], a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]; b0 = B[2t..2t+1][g],
+// b1 = B[2t+8..][g]; d0, d1 = D[g][2t..2t+1], d2, d3 = D[g+8][2t..].
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // d += A (16 x 32, s8, K-contiguous rows) . B (32 x 8, s8, K-contiguous
 // columns) in s32.  With g = lane / 4, t = lane % 4: a = rows g, g + 8 at
 // k 4t.. and 16 + 4t.. (a0: g, 4t; a1: g + 8, 4t; a2: g, 16 + 4t; a3:

@@ -126,6 +126,9 @@ KERNEL_FUNCTIONS = {
     "rwkv6_scan": ("rwkv6_kernel", "rwkv6_chunk_kernel"),
     "tiled_gemm": ("tiled_gemm_f32_kernel", "tc_gemm_kernel"),
     "fused_dense": ("fused_dense_kernel",),
+    # One node of its two per call, so that a node counts a call.
+    "flash_attention_bwd": ("flash_bwd_dkdv_kernel",
+                            "flash_bwd_tc_dkdv_kernel"),
 }
 
 

@@ -3,6 +3,15 @@
 A CPU tensor runs the kernel's plain PyTorch version; any other tensor runs
 the CUDA kernel, which raises on what it cannot take.  There is no fallback
 from the kernel to the plain version.
+
+Autograd sees two kernels: where grad is enabled and an input requires it,
+``flash_attention`` and ``linear_scan`` run as a ``torch.autograd.Function``
+whose forward is the dispatch above and whose backward is the same
+dispatch of the backward (``flash_attention_bwd``; ``linear_scan`` run
+backwards in time), so the CPU runs the same Function, saved tensors and
+formulas as the card.  The other kernels have no backward and raise a
+``RuntimeError`` naming the kernel for such inputs, on every device.  With
+grad off (serving) nothing is recorded and every call runs as before.
 """
 
 from __future__ import annotations
@@ -11,6 +20,7 @@ import torch
 
 from repro_torch.core import tiling
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_attention_bwd as _fb
 from repro_torch.kernels import fused_dense as _fd
 from repro_torch.kernels import fused_mlp as _fm
 from repro_torch.kernels import gemm_int8 as _g8
@@ -31,7 +41,7 @@ from repro_torch.kernels.fused_mlp import FusedGroup, pack_group
 # a captured step's arithmetic visible.
 _COUNTERS = {"fused_mlp_q8": _fm, "gemm_int8": _g8, "flash_attention": _fa,
              "linear_scan": _rg, "rwkv6_scan": _rw, "tiled_gemm": _tg,
-             "fused_dense": _fd}
+             "fused_dense": _fd, "flash_attention_bwd": _fb}
 
 
 def reset_launches() -> None:
@@ -82,8 +92,23 @@ def work_since(before: dict[str, dict[str, float]]) -> dict:
             for name, w in work_counts().items()}
 
 
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        torch.is_tensor(t) and t.requires_grad for t in tensors)
+
+
+def _refuse_grad(kernel: str, *tensors) -> None:
+    """Raise when autograd would have to differentiate ``kernel``, which has
+    no backward."""
+    if _wants_grad(*tensors):
+        raise RuntimeError(f"{kernel}: the kernel has no backward; call it "
+                           f"under torch.no_grad() or with inputs that do "
+                           f"not require grad")
+
+
 def fused_group(x: torch.Tensor, g: FusedGroup) -> torch.Tensor:
     """Run a packed fusion group (see :func:`pack_group`) on ``x``."""
+    _refuse_grad("fused_mlp_q8", x, g.pack, g.xs)
     if x.device.type == "cpu":
         return _fm.fused_mlp_q8_plain(x, g)
     return _fm.fused_mlp_q8_cuda(x, g)
@@ -123,6 +148,7 @@ def gemm_int8(x, w, w_scale, x_scale: float = 1.0, *,
         "gemm_int8", lambda: tiling.plan_api(x.shape[0], x.shape[1],
                                              w.shape[1]),
         tiling.tile_ok, block_m, block_k, block_n)
+    _refuse_grad("gemm_int8", x, w, w_scale, x_scale)
     if x.device.type == "cpu":
         return _g8.gemm_int8_plain(x, w, w_scale, x_scale,
                                    out_dtype=out_dtype)
@@ -131,33 +157,99 @@ def gemm_int8(x, w, w_scale, x_scale: float = 1.0, *,
                               out_dtype=out_dtype)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """flash_attention with its gradient: the forward saves q, k, v and the
+    output; the backward is ``flash_attention_bwd`` (the CUDA kernel, or
+    its plain version on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        ctx.opts = {"causal": causal, "window": window, "softcap": softcap,
+                    "scale": scale}
+        out = _flash(q, k, v, q_offset=0, **ctx.opts)
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        return (*flash_attention_bwd(*ctx.saved_tensors, do, **ctx.opts),
+                None, None, None, None)
+
+
+def _flash(q, k, v, **kw) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return _fa.flash_attention_plain(q, k, v, **kw)
+    return _fa.flash_attention_cuda(q, k, v, **kw)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
                     softcap: float | None = None,
                     scale: float | None = None,
                     q_offset: int = 0) -> torch.Tensor:
     """Blocked attention, q ``(B, Hq, S, D)`` against k, v ``(B, Hkv, Sk,
     D)``; the queries sit at positions ``q_offset..q_offset+S-1`` of the
-    key timeline."""
+    key timeline.  Differentiable (at ``q_offset`` 0) where grad is on."""
+    if _wants_grad(q, k, v):
+        if q_offset != 0:
+            raise ValueError(f"flash_attention: q_offset must be 0 where "
+                             f"grad is on (no training caller offsets its "
+                             f"queries), got {q_offset}")
+        return _FlashAttention.apply(q, k, v, causal, window, softcap, scale)
+    return _flash(q, k, v, causal=causal, window=window, softcap=softcap,
+                  scale=scale, q_offset=q_offset)
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
+                        window: int | None = None,
+                        softcap: float | None = None,
+                        scale: float | None = None) -> tuple:
+    """(dq, dk, dv) of :func:`flash_attention` for its output ``o`` and the
+    upstream ``do``, as the autograd Function's backward computes them."""
+    kw = {"causal": causal, "window": window, "softcap": softcap,
+          "scale": scale}
     if q.device.type == "cpu":
-        return _fa.flash_attention_plain(q, k, v, causal=causal,
-                                         window=window, softcap=softcap,
-                                         scale=scale, q_offset=q_offset)
-    return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    softcap=softcap, scale=scale,
-                                    q_offset=q_offset)
+        return _fb.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+    if not _fb.strides_ok(do):
+        do = do.contiguous()
+    return _fb.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
 
 
-def linear_scan(a, b) -> torch.Tensor:
-    """``h_t = a_t * h_{t-1} + b_t`` along axis 1 from ``h = 0``."""
+class _LinearScan(torch.autograd.Function):
+    """linear_scan with its gradient, the same scan backwards in time."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = _scan(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h = ctx.saved_tensors
+        if a.device.type == "cpu":
+            return _rg.linear_scan_bwd_plain(a, h, g)
+        return _rg.linear_scan_bwd_cuda(a, h, g)
+
+
+def _scan(a, b) -> torch.Tensor:
     if a.device.type == "cpu":
         return _rg.linear_scan_plain(a, b)
     return _rg.linear_scan_cuda(a, b)
+
+
+def linear_scan(a, b) -> torch.Tensor:
+    """``h_t = a_t * h_{t-1} + b_t`` along axis 1 from ``h = 0``;
+    differentiable where grad is on."""
+    if _wants_grad(a, b):
+        return _LinearScan.apply(a, b)
+    return _scan(a, b)
 
 
 def rwkv6_scan(r, k, v, w, u, *, state0=None, return_state: bool = False):
     """The RWKV-6 recurrence over r, k, v, w ``(BH, T, D)`` with the bonus
     u ``(H, D)``, from ``state0`` (or zeros); with ``return_state`` returns
     (output, final f32 state)."""
+    _refuse_grad("rwkv6_scan", r, k, v, w, u, state0)
     if r.device.type == "cpu":
         return _rw.rwkv6_scan_plain(r, k, v, w, u, state0=state0,
                                     return_state=return_state)
@@ -178,6 +270,7 @@ def tiled_gemm(x, w, *, block_m: int | None = None,
         lambda: tiling.plan_tiled(x.shape[0], x.shape[1], w.shape[1],
                                   itemsize=size),
         lambda *t: tiling.tiled_tile_ok(*t, size), block_m, block_k, block_n)
+    _refuse_grad("tiled_gemm", x, w)
     if x.device.type == "cpu":
         return _tg.tiled_gemm_plain(x, w)
     return _tg.tiled_gemm_cuda(x, w, block_m=bm, block_k=bk, block_n=bn)
@@ -194,6 +287,7 @@ def fused_dense(x, w, b, residual=None, *, act: str = "relu",
         lambda: tiling.plan_fused_dense(x.shape[0], x.shape[1], w.shape[1],
                                         itemsize=x.element_size()),
         tiling.fused_dense_tile_ok, block_m, block_k, block_n)
+    _refuse_grad("fused_dense", x, w, b, residual)
     if x.device.type == "cpu":
         return _fd.fused_dense_plain(x, w, b, residual, act=act,
                                      out_dtype=out_dtype)

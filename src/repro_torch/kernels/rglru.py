@@ -9,7 +9,9 @@ and the two-pass chunked scan for longer T, which no longer matches the
 sequential walk bit for bit after its second chunk (each chunk's carry is
 rounded along another path; see the source).  :func:`linear_scan_plain` is
 the same function in plain PyTorch, used for CPU tensors and as the
-kernels' oracle on the card.
+kernels' oracle on the card.  The gradient is another such scan, run
+backwards in time: :func:`linear_scan_bwd_cuda` launches the same kernel
+on flipped inputs, :func:`linear_scan_bwd_plain` is its reversed loop.
 """
 
 from __future__ import annotations
@@ -57,6 +59,47 @@ def linear_scan_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         h = a32[:, t] * h + b32[:, t]
         out[:, t] = h
     return out.to(a.dtype)
+
+
+def _next(a: torch.Tensor) -> torch.Tensor:
+    """``a_{t+1}`` at step t, 0 at the last step."""
+    return torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+
+
+def _grads(a, h, lam) -> tuple[torch.Tensor, torch.Tensor]:
+    """(da, db) from the adjoint ``lam``: db = lam, da_t = lam_t h_{t-1}
+    with h_{-1} = 0."""
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    return (lam.float() * h_prev.float()).to(a.dtype), lam.to(a.dtype)
+
+
+def linear_scan_bwd_plain(a: torch.Tensor, h: torch.Tensor,
+                          g: torch.Tensor) -> tuple:
+    """The gradient of ``h = scan(a, b)`` for the upstream ``g``: the
+    adjoint runs backwards in time, ``lam_t = a_{t+1} lam_{t+1} + g_t``
+    from ``lam_{T-1} = g_{T-1}``, as a reversed loop in f32 (multiply, then
+    add); ``db = lam``, ``da_t = lam_t h_{t-1}``.  Returns (da, db) in a's
+    dtype."""
+    _check(a, h)
+    a_next, g32 = _next(a.float()), g.float()
+    lam = torch.zeros_like(g32[:, 0])
+    out = torch.empty_like(g32)
+    for t in range(a.shape[1] - 1, -1, -1):
+        lam = a_next[:, t] * lam + g32[:, t]
+        out[:, t] = lam
+    return _grads(a, h, out)
+
+
+def linear_scan_bwd_cuda(a: torch.Tensor, h: torch.Tensor,
+                         g: torch.Tensor) -> tuple:
+    """:func:`linear_scan_bwd_plain` on the card: the adjoint is the
+    ``linear_scan`` kernel itself (one counted launch) over flipped
+    contiguous copies of ``(a_{t+1}, g)``; the products are elementwise
+    torch."""
+    _check(a, h)
+    lam = linear_scan_cuda(torch.flip(_next(a), [1]),
+                           torch.flip(g.to(a.dtype), [1]))
+    return _grads(a, h, torch.flip(lam, [1]))
 
 
 @functools.cache

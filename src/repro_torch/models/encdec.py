@@ -16,6 +16,10 @@ families: the encoder's bidirectional self-attention, the decoder's causal
 self-attention on a forward or a multi-token step, and its cross-attention
 over the encoder's keys on every call, a decode step's included.
 
+Training wraps each encoder and decoder layer in
+:func:`repro_torch.runtime.maybe_remat`, where the reference wraps its scan
+bodies.
+
 Public entry points:
   init_whisper / whisper_forward           -- teacher-forced logits
   whisper_encode                           -- the encoder alone
@@ -40,7 +44,7 @@ from repro_torch.models.layers import (F32, _project, attention, dense_init,
                                        dtype_of, init_attention,
                                        init_layernorm, init_mlp, layernorm,
                                        mask_padded_vocab, mlp, mm)
-from repro_torch.runtime import maybe_dequant
+from repro_torch.runtime import maybe_dequant, maybe_remat
 
 DEC_MAX_POS = 32768     # the reference's learned decoder positions
 
@@ -129,13 +133,16 @@ def whisper_encode(params: dict, cfg: ModelConfig, frames) -> torch.Tensor:
     """frames (B, S_enc, D) -> the encoder's output (B, S_enc, D)."""
     x = tree.as_tensor(frames, params["emb"].device).to(dtype_of(cfg))
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
-    blocks = params["enc_blocks"]
-    for i in range(cfg.encdec.encoder_layers):
-        pl = maybe_dequant(tree.index(blocks, i))
-        a, _ = attention(pl["attn"], layernorm(pl["ln1"], x), cfg,
+
+    def layer(xx, pl):
+        pl = maybe_dequant(pl)
+        a, _ = attention(pl["attn"], layernorm(pl["ln1"], xx), cfg,
                          kind="bidir", use_rope=False)
-        x = x + a
-        x = x + mlp(pl["mlp"], layernorm(pl["ln2"], x), act="gelu")
+        xx = xx + a
+        return xx + mlp(pl["mlp"], layernorm(pl["ln2"], xx), act="gelu")
+
+    for pl in tree.unstack(params["enc_blocks"], cfg.encdec.encoder_layers):
+        x = maybe_remat(lambda xx, pl=pl: layer(xx, pl))(x)
     return layernorm(params["enc_final"], x)
 
 
@@ -184,9 +191,9 @@ def whisper_forward(params: dict, cfg: ModelConfig, tokens, *,
     toks = tree.as_tensor(tokens, emb.device).long()
     s = toks.shape[1]
     x = F.embedding(toks, emb) + params["pos_emb"][None, :s]
-    blocks = params["dec_blocks"]
-    for i in range(cfg.encdec.decoder_layers):
-        x, _ = _dec_layer(tree.index(blocks, i), x, cfg, enc=enc)
+    for pl in tree.unstack(params["dec_blocks"], cfg.encdec.decoder_layers):
+        x = maybe_remat(
+            lambda xx, pl=pl: _dec_layer(pl, xx, cfg, enc=enc)[0])(x)
     return {"logits": _unembed(params, cfg, x),
             "aux_loss": torch.zeros((), dtype=F32, device=x.device)}
 

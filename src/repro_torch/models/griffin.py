@@ -17,6 +17,10 @@ The gates are plain PyTorch; the scan is the ``linear_scan`` kernel
 layers run the ``flash_attention`` kernel on the forward and on whole-prompt
 prefill.
 
+Training wraps each stacked (rec, rec, attn) block in
+:func:`repro_torch.runtime.maybe_remat`, where the reference wraps its scan
+body; the tail layers are not wrapped, as there.
+
 Parameters and decode state are nested dicts in the reference's layout:
 ``blocks/slot{j}`` leaves carry a leading ``n_blocks`` axis, ``tail`` is a
 list of per-layer dicts.
@@ -37,8 +41,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (F32, attention, dense_init, dtype_of,
                                        init_attention, init_mlp,
                                        init_rmsnorm, mask_padded_vocab, mlp,
-                                       mm, rmsnorm)
-from repro_torch.runtime import maybe_dequant
+                                       mm, rmsnorm, softcap_logits)
+from repro_torch.runtime import maybe_dequant, maybe_remat
 
 _C_RGLRU = 8.0
 
@@ -93,7 +97,8 @@ def rglru(p: dict, u: torch.Tensor, *, h0: torch.Tensor | None = None):
         * (i * u.float())
     if h0 is not None:
         # Fold the initial state into the first input: the kernel starts
-        # from h = 0.
+        # from h = 0.  In place on a product's output, which autograd never
+        # saves (a multiply saves its inputs).
         gated[:, 0] += a[:, 0] * h0
     h = ops.linear_scan(a, gated)
     return h.to(u.dtype), h[:, -1]
@@ -210,11 +215,9 @@ def _embed(params: dict, cfg: ModelConfig, tokens) -> torch.Tensor:
 def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = mm(h, params["emb"].t())
-    if cfg.logit_softcap:
-        # In place: at S = 4096 the f32 logits are 4 GiB each.
-        cap = cfg.logit_softcap
-        logits.div_(cap).tanh_().mul_(cap)
-    return mask_padded_vocab(cfg, logits)
+    # In place where grad is off: at S = 4096 the f32 logits are 4 GiB.
+    return mask_padded_vocab(cfg, softcap_logits(logits,
+                                                 cfg.logit_softcap or None))
 
 
 def griffin_forward(params: dict, cfg: ModelConfig, tokens) -> dict:
@@ -223,11 +226,16 @@ def griffin_forward(params: dict, cfg: ModelConfig, tokens) -> dict:
     x = _embed(params, cfg, tokens)
     if "blocks" in params:
         n_blocks = tree.leaves(params["blocks"])[0].shape[0]
-        for bi in range(n_blocks):
+        slots = [tree.unstack(params["blocks"][f"slot{j}"], n_blocks)
+                 for j in range(len(pattern))]
+
+        def block(xx, bi):
             for j, kind in enumerate(pattern):
-                x, _ = _apply_layer(
-                    tree.index(params["blocks"][f"slot{j}"], bi), x, cfg,
-                    kind)
+                xx, _ = _apply_layer(slots[j][bi], xx, cfg, kind)
+            return xx
+
+        for bi in range(n_blocks):
+            x = maybe_remat(lambda xx, bi=bi: block(xx, bi))(x)
     for j, pl in enumerate(params.get("tail", [])):
         x, _ = _apply_layer(pl, x, cfg, pattern[j])
     return {"logits": _logits(params, cfg, x),

@@ -69,6 +69,18 @@ def mask_padded_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
                                   device=logits.device))
 
 
+def softcap_logits(logits: torch.Tensor, cap) -> torch.Tensor:
+    """``cap * tanh(logits / cap)`` (no-op without a cap): in place where
+    autograd does not record (the served logits are gigabytes), out of
+    place where it does (the in-place tanh would overwrite what its own
+    backward needs)."""
+    if cap is None:
+        return logits
+    if torch.is_grad_enabled() and logits.requires_grad:
+        return cap * torch.tanh(logits / cap)
+    return logits.div_(cap).tanh_().mul_(cap)
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------

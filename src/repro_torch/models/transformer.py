@@ -19,15 +19,20 @@ plain ``decode_attention`` (MLA: its absorbed form), as the reference does.
 deepseek-v3's multi-token-prediction head (``params["mtp"]``) predicts
 token t+2 from the final hidden state and token t+1 (``mtp_logits``).
 
+Training wraps each stacked block (the dense prefix a layer at a time) and
+the MTP block in :func:`repro_torch.runtime.maybe_remat`, where the
+reference wraps its scan bodies; the tail layers are not wrapped, as there.
+
 Public entry points:
-  init_lm / lm_forward                   -- full-sequence causal logits
+  init_lm / lm_forward                   -- full-sequence causal logits, or
+                                            the final hidden state (the
+                                            chunked training loss)
   mtp_logits                             -- the MTP head's logits
   lm_prefill / lm_decode_step (serving)  -- KV-cache paths
   lm_cache_specs / lm_init_cache         -- the cache layout
   params_from_numpy                      -- a JAX parameter tree carried over
 
-Not ported: the encoder-decoder, ``lm_forward(want_hidden=True)`` (the
-chunked training loss) and the MoE mesh paths (training and multi-device).
+Not ported: the MoE mesh paths (multi-device).
 """
 
 from __future__ import annotations
@@ -46,8 +51,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (F32, attention, dense_init, dtype_of,
                                        init_attention, init_mlp,
                                        init_rmsnorm, mask_padded_vocab, mlp,
-                                       mm, rmsnorm)
-from repro_torch.runtime import maybe_dequant
+                                       mm, rmsnorm, softcap_logits)
+from repro_torch.runtime import maybe_dequant, maybe_remat
 
 
 def _first_dense(cfg: ModelConfig) -> int:
@@ -253,31 +258,46 @@ def _run_layers(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     new_caches: dict = {}
     if "dense_blocks" in params:
         per_layer = []
+        layers = tree.unstack(params["dense_blocks"], first)
         for i in range(first):
-            x, aux, nc = _apply_layer(
-                tree.index(params["dense_blocks"], i), x, cfg,
-                cfg.layer_kind(0), is_moe=False,
-                cache=tree.index(caches["dense"], i) if caches else None,
-                **kw)
+            if caches:
+                x, aux, nc = _apply_layer(
+                    layers[i], x, cfg, cfg.layer_kind(0), is_moe=False,
+                    cache=tree.index(caches["dense"], i), **kw)
+                per_layer.append(nc)
+            else:
+                x, aux = maybe_remat(
+                    lambda xx, pl=layers[i]: _apply_layer(
+                        pl, xx, cfg, cfg.layer_kind(0), is_moe=False,
+                        **kw)[:2])(x)
             aux_total = aux_total + aux
-            per_layer.append(nc)
         if caches:
             new_caches["dense"] = tree.stack(per_layer)
     if "blocks" in params:
         blocks = params["blocks"]
         n_blocks = tree.leaves(blocks["slot0"])[0].shape[0]
+        slots = {key: tree.unstack(blocks[key], n_blocks) for key in blocks}
         per_block = []
-        for bi in range(n_blocks):
+
+        def block(xx, aux, bi, cb=None):
             ncs = {}
             for j in range(u):
                 key = f"slot{j}"
-                x, aux, ncs[key] = _apply_layer(
-                    tree.index(blocks[key], bi), x, cfg, cfg.attn_pattern[j],
+                xx, a, ncs[key] = _apply_layer(
+                    slots[key][bi], xx, cfg, cfg.attn_pattern[j],
                     is_moe=_is_moe_layer(cfg, first + j),
-                    cache=(tree.index(caches["blocks"][key], bi)
-                           if caches else None), **kw)
-                aux_total = aux_total + aux
-            per_block.append(ncs)
+                    cache=tree.index(cb[key], bi) if cb else None, **kw)
+                aux = aux + a
+            return xx, aux, ncs
+
+        for bi in range(n_blocks):
+            if caches:
+                x, aux_total, ncs = block(x, aux_total, bi, caches["blocks"])
+                per_block.append(ncs)
+            else:
+                x, aux_total = maybe_remat(
+                    lambda xx, aa, bi=bi: block(xx, aa, bi)[:2])(
+                        x, aux_total)
         if caches:
             new_caches["blocks"] = tree.stack(per_block)
     if "tail" in params:
@@ -318,11 +338,9 @@ def _unembed(params: dict, cfg: ModelConfig,
     h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     w = params.get("unemb")
     logits = mm(h, params["emb"].t() if w is None else w)
-    if cfg.logit_softcap is not None:
-        # In place: at S = 8192 the f32 logits of a 256k vocab are 8 GB.
-        cap = cfg.logit_softcap
-        logits.div_(cap).tanh_().mul_(cap)
-    return mask_padded_vocab(cfg, logits)
+    # In place where grad is off: at S = 8192 the f32 logits of a 256k
+    # vocab are 8 GB.
+    return mask_padded_vocab(cfg, softcap_logits(logits, cfg.logit_softcap))
 
 
 def _extra(a, device):
@@ -330,19 +348,26 @@ def _extra(a, device):
 
 
 def lm_forward(params: dict, cfg: ModelConfig, tokens, *,
-               mrope_positions=None, embeddings=None) -> dict:
+               mrope_positions=None, embeddings=None,
+               want_hidden: bool = False) -> dict:
     """tokens (B, S) -> {"logits": (B, S, padded_vocab) f32, "aux_loss"}
     (the MoE layers' load-balance aux over ``num_layers``), and with an MTP
     head "mtp_hidden", the final hidden state (B, S, d_model) that
     :func:`mtp_logits` takes.  ``embeddings`` (B, S, d_model) stand in for
     the token lookup (qwen2-vl's vision frontend is a stub in the reference
-    too); ``mrope_positions`` (3, B, S) are its M-RoPE position ids."""
+    too); ``mrope_positions`` (3, B, S) are its M-RoPE position ids.
+    ``want_hidden``: "hidden", the final hidden state before the final
+    norm, in place of the logits (the chunked training loss computes CE
+    from it without the (B, S, V) logits)."""
     x = _embed(params, cfg, tokens, embeddings)
     x, aux, _ = _run_layers(params, x, cfg,
                             mrope_positions=_extra(mrope_positions, x.device))
     out = {"aux_loss": aux / max(cfg.num_layers, 1)}
     if cfg.mtp and "mtp" in params:
         out["mtp_hidden"] = x
+    if want_hidden:
+        out["hidden"] = x
+        return out
     out["logits"] = _unembed(params, cfg, x)
     return out
 
@@ -357,8 +382,9 @@ def mtp_logits(params: dict, cfg: ModelConfig, hidden: torch.Tensor,
     h = torch.cat([rmsnorm(m["norm_h"], hidden, cfg.norm_eps),
                    rmsnorm(m["norm_e"], e, cfg.norm_eps)], dim=-1)
     h = mm(h, m["proj"]).to(hidden.dtype)
-    h, _, _ = _apply_layer(m["layer"], h, cfg, "global",
-                           is_moe=_is_moe_layer(cfg, cfg.num_layers))
+    h = maybe_remat(lambda hh: _apply_layer(
+        m["layer"], hh, cfg, "global",
+        is_moe=_is_moe_layer(cfg, cfg.num_layers))[0])(h)
     return _unembed(params, cfg, h)
 
 

@@ -33,6 +33,24 @@ def index(tree: Any, i: int) -> Any:
     return tree_map(lambda t: t[i], tree)
 
 
+def unstack(stacked: Any, n: int) -> list:
+    """The ``n`` layers of a stacked tree as views.  Where autograd records
+    (a leaf requires grad), each leaf is split by one ``unbind``, whose
+    backward stacks the layers' gradients in one pass; indexing layer by
+    layer would add a whole stack of zeros per layer to the leaf's
+    gradient.  Otherwise :func:`index`."""
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in leaves(stacked))):
+        return [index(stacked, i) for i in range(n)]
+    parts: dict = {}
+
+    def pick(t, i):
+        if id(t) not in parts:
+            parts[id(t)] = torch.unbind(t)
+        return parts[id(t)][i]
+    return [tree_map(lambda t: pick(t, i), stacked) for i in range(n)]
+
+
 def stack(trees: list) -> Any:
     """The inverse of :func:`index`: per-layer trees stacked on axis 0."""
     return tree_map(lambda *ts: torch.stack(ts), trees[0], *trees[1:])

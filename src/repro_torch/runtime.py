@@ -1,16 +1,73 @@
-"""Quantized parameters threaded through the model code.
+"""Runtime knobs threaded through the model code: the remat policy and
+quantized parameters.
 
-Port of the half of the JAX package's ``runtime.py`` that serving runs:
-:func:`maybe_dequant` expands int8-quantized weight leaves (``{"q8",
-"scale"}`` marker dicts, from
+Port of the JAX package's ``runtime.py``.  :func:`maybe_remat` wraps a
+block of layers (where the reference wraps its scan bodies) in activation
+checkpointing by the active policy: ``"none"``, ``"block"`` (keep the
+block's inputs, recompute the rest in the backward: non-reentrant
+``torch.utils.checkpoint``) or ``"dots"`` (also keep the outputs of the
+matmuls with no batch dimensions, the reference's
+``dots_with_no_batch_dims_saveable``: a selective checkpoint that saves
+``aten.mm``/``aten.addmm`` outputs).  A recomputed block runs its kernels
+again, so with remat a training step launches flash's forward twice a
+layer.  :func:`maybe_dequant` expands int8-quantized weight leaves
+(``{"q8", "scale"}`` marker dicts, from
 :func:`repro_torch.serve.engine.quantize_params`) at the top of each layer,
 so at rest the card holds int8 and only the layer being run exists in
-bf16.  The remat half serves training, which the port does not have yet.
+bf16.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
+from typing import Callable
+
 import torch
+from torch.utils import checkpoint as ckpt
+
+_REMAT: contextvars.ContextVar[str] = contextvars.ContextVar(
+    "repro_torch_remat", default="none")
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+@contextlib.contextmanager
+def remat_policy(policy: str):
+    if policy not in ("none", "block", "dots"):
+        raise ValueError(f"remat policy must be none, block or dots, got "
+                         f"{policy!r}")
+    tok = _REMAT.set(policy)
+    try:
+        yield
+    finally:
+        _REMAT.reset(tok)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    if op in _SAVED_DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def maybe_remat(f: Callable) -> Callable:
+    """``f`` checkpointed by the active policy; ``f`` itself under
+    ``"none"`` or where grad is off (nothing to keep for a backward)."""
+    pol = _REMAT.get()
+    if pol == "none":
+        return f
+
+    @functools.wraps(f)
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return f(*args)
+        kw = {}
+        if pol == "dots":
+            kw["context_fn"] = functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_saveable)
+        return ckpt.checkpoint(f, *args, use_reentrant=False,
+                               preserve_rng_state=False, **kw)
+    return wrapped
 
 
 def is_q8(leaf) -> bool:

@@ -144,11 +144,16 @@ def test_kernel_launches_read_the_graphs_own_nodes():
         "at::native::FillFunctor<float>>(int, T2_, T3_)": 7,
         "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize64x64x64": 5,
         "fused_dense_kernel": 1,
+        # A backward call is two nodes, of which the dkdv one counts.
+        "_ZN12_GLOBAL__N_121flash_bwd_dkdv_kernelI13__nv_bfloat16Li32E"
+        "Li256EEEvNS_4ArgsE": 2,
+        "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelI13__nv_bfloat16Li32E"
+        "Li256EEEvNS_4ArgsE": 2,
     }
     assert graph.kernel_launches(kernels) == {
         "fused_mlp_q8": 1, "gemm_int8": 4, "flash_attention": 0,
         "linear_scan": 20, "rwkv6_scan": 32, "tiled_gemm": 3,
-        "fused_dense": 1}
+        "fused_dense": 1, "flash_attention_bwd": 2}
     assert set(graph.KERNEL_FUNCTIONS) == set(ops.launch_counts())
 
 

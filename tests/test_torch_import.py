@@ -15,9 +15,12 @@ import torch
 from repro_torch import configs, resolve_device
 from repro_torch.characterize import characterize
 from repro_torch.deploy import Deployment
+from repro_torch.launch import train as launch_train
 from repro_torch.models import api, edge
 from repro_torch.plan import calibrate, plan_deployment, plan_fleet
 from repro_torch.serve import EdgeEngine, Router
+from repro_torch.train import optimizer as opt_lib
+from repro_torch.train import step as step_lib
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -96,7 +99,7 @@ def test_kernel_build_is_lazy():
     assert build.SOURCES.keys() == {"fused_mlp_q8", "gemm_int8",
                                     "flash_attention", "linear_scan",
                                     "rwkv6_scan", "tiled_gemm",
-                                    "fused_dense"}
+                                    "fused_dense", "flash_attention_bwd"}
     for src in build.SOURCES.values():
         assert (build.CSRC / src).is_file()
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
@@ -113,7 +116,8 @@ def no_cuda(monkeypatch):
     "EdgeEngine", "Router.from_fleet", "api.init", "api.init_decode_state",
     "api.init rwkv", "api.init_decode_state rwkv", "Deployment.build",
     "characterize", "calibrated_device_model", "plan_fleet lm",
-    "Deployment.build lm", "Router.from_fleet lm"])
+    "Deployment.build lm", "Router.from_fleet lm", "launch.train",
+    "build_train_step init_fn"])
 def test_entry_points_raise_without_gpu(no_cuda, entry):
     cfg = edge.edge_config("tau_select")
     lm = configs.get("recurrentgemma-2b").smoke
@@ -142,6 +146,10 @@ def test_entry_points_raise_without_gpu(no_cuda, entry):
         "Router.from_fleet lm": lambda: Router.from_fleet(
             plan_fleet([lm], device="cpu"),
             lm={lm.name: (lm, {"emb": torch.zeros(1)})}),
+        "launch.train": lambda: launch_train.run(
+            ["--arch", "gemma2-2b", "--smoke", "--steps", "1"]),
+        "build_train_step init_fn": lambda: step_lib.build_train_step(
+            lm, opt_lib.make("sgd"))[0](torch.Generator().manual_seed(0)),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

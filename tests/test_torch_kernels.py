@@ -415,7 +415,8 @@ def test_cpu_dispatch_runs_plain_and_counts_no_launch():
     assert ops.launch_counts() == {"fused_mlp_q8": 0, "gemm_int8": 0,
                                    "flash_attention": 0, "linear_scan": 0,
                                    "rwkv6_scan": 0, "tiled_gemm": 0,
-                                   "fused_dense": 0}
+                                   "fused_dense": 0,
+                                   "flash_attention_bwd": 0}
 
 
 def test_non_cpu_tensor_never_reaches_plain(monkeypatch):
@@ -437,7 +438,8 @@ def test_non_cpu_tensor_never_reaches_plain(monkeypatch):
     assert ops.launch_counts() == {"fused_mlp_q8": 0, "gemm_int8": 0,
                                    "flash_attention": 0, "linear_scan": 0,
                                    "rwkv6_scan": 0, "tiled_gemm": 0,
-                                   "fused_dense": 0}
+                                   "fused_dense": 0,
+                                   "flash_attention_bwd": 0}
 
 
 @pytest.mark.gpu
