@@ -9,7 +9,7 @@
 Phases, in order; any failure exits non-zero without the final ``ok`` line:
 
 1. the card, as ``nvidia-smi`` names it with its power limit;
-2. build all eight CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
+2. build all nine CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
    one process per source, started together); 2b: ``cuobjdump -sass`` of
    the ``flash_attention``, ``tiled_gemm``, ``fused_mlp_q8`` and
    ``gemm_int8`` libraries: every bf16 flash and bf16 GEMM instance must
@@ -71,7 +71,7 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    artifacts strict JSON), ``check --json`` of both artifacts (exit 0, no
    error) and ``check --json --root`` of a temporary tree holding a copy of
    ``src/repro_torch``, ``bench/`` and the two artifacts (exit 0, the lint,
-   both plans, every snapshot and one launch of each of the seven kernels
+   both plans, every snapshot and one launch of each of the nine kernels
    in ``checked``); each AIE tenant's regimes, bands, columns, estimate
    and crossing printed beside the h100 plan's estimate;
 5. times with CUDA events: ``fused_mlp_q8`` on the five nets at batch 8
@@ -127,10 +127,13 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
 7c. the router's drift watcher and faults, on 7b's deployment before any
    profiler session: ``serve(drift_threshold=3, drift_min_samples=20)``,
    50 edge calls a tenant and 4 LM requests of 16 prompt and 16 new
-   tokens: at least one replan, adopted by every tenant, engine and the
-   cache entry, no graph captured again and the same outputs bit for bit
-   (each replan printed with the tenant that tripped it, the plans before
-   and after beside the measured p50s, and the drift of 50 fresh calls).
+   tokens (the natural drift printed), then 51 calls of ``jet_tagger``
+   under a ``latency_spike`` of 2 x 3 x the larger of its measured p50 and
+   its plan, which must trip a replan: every replan adopted by every
+   tenant, engine and the cache entry, no graph captured again and the
+   same outputs bit for bit (each replan printed with the tenant that
+   tripped it, the plans before and after beside the measured p50s, and
+   the drift of 50 fresh calls, on which the fleet is replanned again).
    The ladder: an ``engine_exception`` burst on ``jet_tagger`` of
    ``breaker_k x (retries + 1)``: failures booked on it alone,
    ``tau_select`` bit-exact, the breaker open and refusing, the per-layer
@@ -324,13 +327,26 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    model FLOP/s against the bf16 dense peak, peak memory, snapshot and
    restore seconds, flash's launches a step.  17d: recurrentgemma-2b
    whole, 3 AdamW steps at 1 x 2048, ``linear_scan`` launches a step.
+   17e: the ``rwkv6_scan`` backward kernel (``rwkv6_scan_bwd``) against
+   its plain version in f32 and bf16 (``TOL_FLASH_BWD``'s limits) at the
+   training shape (64,2048,64), the forward's (64,4096,64), D=32 and 128,
+   decays down to 0.01 and near 1, timed in bf16 at the first two beside
+   its bound and the plain version.  17f: one f32 step of rwkv6-7b cut to 2
+   layers at full width and S=1024 through the kernels against the step
+   with the plain backward (``TOL_TRAIN_STEP``) and against the plain step
+   (the loss at ``TOL_TRAIN_STEP``, the leaves at ``TOL_TRAIN_STEP_RWKV``).
+   17g: the published rwkv6-7b trained whole
+   through ``launch.train`` (bf16, AdamW with int8 moments, ``--remat
+   block``, 1 x 2048, 3 steps): finite losses and ``grad_norm``, step p50,
+   tokens/s, model FLOP/s against the bf16 dense peak, peak memory, and
+   exactly 64 forward and 32 backward ``rwkv6_scan`` launches a step.
 
 It prints a ``summary`` line (the fitted constants and each net's
 planned-vs-measured ratio, the edge p50/p95, the LM ticks eager and
 graphed, the fleet's, the transformer phases', whisper's and training's
-readings), one ``{"kernels": [...]}`` line (all eight kernels; flash with
-its rows at the transformer's and whisper's shapes, its backward with its
-rows at the training shapes), the card line again, and last ``{"ok":
+readings), one ``{"kernels": [...]}`` line (all nine kernels; flash with
+its rows at the transformer's and whisper's shapes, the two backwards with
+their rows at the training shapes), the card line again, and last ``{"ok":
 true, "device": {...}}``.  It needs no network and one card.
 """
 
@@ -476,6 +492,13 @@ KERNEL_META = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:98"},
+    # The gradient of the rwkv6_scan TPU kernel's function: the JAX
+    # package differentiates rwkv6_chunked (src/repro/models/rwkv.py:79)
+    # with jax.grad.
+    "rwkv6_scan_bwd": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
+        "replaces": "src/repro/kernels/rwkv6.py:53"},
 }
 
 
@@ -1408,11 +1431,12 @@ def aie_plan_phase() -> dict:
 # Phase 5: times
 # ---------------------------------------------------------------------------
 
-def event_ms(fn, *, inner: int = 50, reps: int = 21) -> float:
+def event_ms(fn, *, inner: int = 50, reps: int = 21, warm: int = 5) -> float:
     """Median per-call time of ``inner`` back-to-back eager calls, by CUDA
-    events: what a caller that launches from Python sees."""
+    events, after ``warm`` calls: what a caller that launches from Python
+    sees."""
     import torch
-    for _ in range(5):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     samples = []
@@ -2038,15 +2062,23 @@ def chunk_alone_fault(cfg, params, prompt, chunked, last_w, state_w) -> dict:
 
 # The drift watcher's band and sample floor for this phase.  An edge call's
 # measured/planned ratio has read 1.27-2.04 on this card (host drift within
-# one process; PERF.md section 5), the LM tick 5-8x its plan: a band of 3
-# leaves the edge tenants' host drift alone and catches the LM, and 20
-# samples hold a p50 steady.  The router, like the reference, has no
-# hysteresis.
+# one process; PERF.md section 5), the LM tick 2.77-8x its plan: a band of 3
+# leaves the edge tenants' host drift alone, and 20 samples hold a p50
+# steady.  The router, like the reference, has no hysteresis.  Whether the
+# natural drive trips a replan rests on the LM plan's calibration, so the
+# phase logs that drift and then trips one for certain: a latency_spike on
+# DRIFT_SPIKE_TENANT's calls, each sleeping DRIFT_SPIKE_FACTOR x the band
+# times the larger of its p50 measured in the drive and its plan, for more
+# calls than its window holds from the drive: from then on its p50 is a
+# spiked call, over twice the band.
 DRIFT_THRESHOLD = 3.0
 DRIFT_MIN_SAMPLES = 20
 DRIFT_EDGE_CALLS = 50
 DRIFT_LM_PROMPTS = (16, 16, 16, 16)
 DRIFT_NEW_TOKENS = 16
+DRIFT_SPIKE_TENANT = "jet_tagger"
+DRIFT_SPIKE_FACTOR = 2.0
+DRIFT_SPIKE_CALLS = DRIFT_EDGE_CALLS + 1
 # The ladder: calls before the burst, and calls after the restore.
 LADDER_AFTER = 8
 LADDER_TAIL = 5
@@ -2174,12 +2206,38 @@ def fleet_resilience_phase(dep, cfg, params, per_tick, edge_dep) -> dict:
     rep = router.report()
     measured = {n: (batcher.measured_decode_p50_s if n == nid_lm
                     else rep[n]["p50_s"]) for n in router.net_ids}
+    natural = {"drift": {n: router.drift(n) for n in router.net_ids},
+               "replans": router.replans,
+               "planned_us": {n: router.tenant(n).plan.est_latency_s * 1e6
+                              for n in router.net_ids}}
+    log(f"drift: the natural drive: {json.dumps(natural, sort_keys=True)}")
+
+    # The certain trip: DRIFT_SPIKE_CALLS spiked calls of one edge tenant.
+    spiked = DRIFT_SPIKE_TENANT
+    magnitude = DRIFT_SPIKE_FACTOR * DRIFT_THRESHOLD * max(
+        measured[spiked], router.tenant(spiked).plan.est_latency_s)
+    router.arm_faults(FaultPlan(faults=(FaultSpec(
+        kind="latency_spike", tenant=spiked, after=0,
+        count=DRIFT_SPIKE_CALLS, magnitude_s=magnitude),)).injector())
+    ops.reset_launches()
+    for i in range(DRIFT_SPIKE_CALLS):
+        router.infer(spiked, inputs[spiked])
+        watch(spiked, f"spiked call {i}")
+    torch.cuda.synchronize()
+    router.arm_faults(None)
+    spike_launches = ops.launch_counts()
+    if {k: n for k, n in spike_launches.items() if n} != {
+            "fused_mlp_q8": DRIFT_SPIKE_CALLS}:
+        raise SmokeFailure(f"drift: the spiked calls launched "
+                           f"{spike_launches}")
+    launches["fleet drift spike"] = spike_launches
     planned_after = {n: router.tenant(n).plan.est_latency_s
                      for n in router.net_ids}
     drift_after = {n: router.drift(n) for n in router.net_ids}
-    if router.replans < 1:
-        raise SmokeFailure(f"drift: no replan (drift {drift_after}, "
-                           f"threshold {DRIFT_THRESHOLD})")
+    if router.replans < 1 or router.replans <= natural["replans"]:
+        raise SmokeFailure(f"drift: the spike tripped no replan (drift "
+                           f"{drift_after}, threshold {DRIFT_THRESHOLD}, "
+                           f"spike {magnitude * 1e6} us)")
     for n in router.net_ids:
         t = router.tenant(n)
         cached = dep.ctx.cache.get(t.plan.key)
@@ -2201,10 +2259,17 @@ def fleet_resilience_phase(dep, cfg, params, per_tick, edge_dep) -> dict:
             router.infer(n, x)
             watch(n, "fresh call")
     fresh = {n: router.drift(n) for n in router.net_ids}
+    # The spike's cost leaves the plans: a replan on the fresh calls.
+    router.replan_fleet()
     readings["drift"] = {
         "threshold": DRIFT_THRESHOLD, "min_samples": DRIFT_MIN_SAMPLES,
-        "after_warmup": warm_drift, "replans": router.replans,
-        "trips": trips, "ticks": ticks,
+        "after_warmup": warm_drift, "natural": natural,
+        "spike": {"tenant": spiked, "us": magnitude * 1e6,
+                  "calls": DRIFT_SPIKE_CALLS},
+        "planned_us_after_fresh": {
+            n: router.tenant(n).plan.est_latency_s * 1e6
+            for n in router.net_ids},
+        "replans": router.replans, "trips": trips, "ticks": ticks,
         "planned_us_before": {n: v * 1e6 for n, v in planned_before.items()},
         "planned_us_after": {n: v * 1e6 for n, v in planned_after.items()},
         "measured_p50_us": {n: v * 1e6 for n, v in measured.items()},
@@ -4041,11 +4106,12 @@ def rwkv_timing_phase(device) -> dict:
 
 TF_ARCH = "gemma2-9b"
 TF_SEQ = 8192                  # gemma2's published context, past its window
-# Phases 14-14b run gemma2-9b at full width, cut to 21 of its 42 layers (10
-# (local, global) blocks and a local tail layer) since phase 17 came in:
-# at full depth the whole script read 1,161 s before its last phase on a
-# slow host (PERF.md section 4).  The launcher's run stays whole.
-TF_LAYERS = 21
+# Phases 14-14b run gemma2-9b at full width, cut in depth since phase 17
+# came in: at full depth the whole script read 1,161 s before its last
+# phase on a slow host, and with 21 layers and phases 17e-17g 1,109 s
+# (PERF.md section 4).  11 of its 42 layers: 5 (local, global) blocks and
+# a local tail layer.  The launcher's run stays whole.
+TF_LAYERS = 11
 # The batcher's and the chunked prefill's cache: max_len == gemma2's window
 # (LM_SEQ, 4096), so the local layers keep rings and the global layers
 # linear buffers, as the reference's rule picks them.
@@ -5304,6 +5370,24 @@ TOL_SCAN_BWD = 1e-4
 # Each kernel agrees with its plain version to ~1e-6 (TOL_FLASH_BWD,
 # TOL_FLASH, TOL_SCAN's readings); two to three layers compound that.
 TOL_TRAIN_STEP = 1e-4
+# 17f: rwkv6-7b's kernel step against the plain step.  Each scan kernel
+# rounds its f32 sums in another order than its plain version (~1e-7 of
+# the largest value: 17e, phase 10); the per-head group norm (eps 64e-5)
+# divides each (token, head) row by its own spread, so a row of small
+# spread carries the forward kernel's rounding many times larger, and two
+# layers carry it back into the time-mix leaves.  On the card u_bonus's
+# gradient reads 1.19e-4 of its largest value off the plain step's, and
+# 1.69e-5 off the step with the same forward kernel and the plain backward
+# (this phase on an H100).  Neither f32 step is the exact one: against an
+# f64 witness of the same step (scripts/rwkv_grad_witness.py --layers 2
+# --seq 1024 --dtypes float32, on an H100) u_bonus reads 9.75e-4 off
+# through the kernels and 1.09e-3 off through the plain versions (the
+# whole gradient 1.47e-5 and 1.62e-5), so the 1.19e-4 between them lies
+# inside the f32 step's own error, the kernel step the nearer.  The
+# backward kernel is held to TOL_TRAIN_STEP against the step with the
+# plain backward; the whole kernel step to 5e-4 of each leaf against the
+# plain step, its loss to TOL_TRAIN_STEP.
+TOL_TRAIN_STEP_RWKV = 5e-4
 TRAIN_FLASH_CASES = (
     ("gemma2-2b local", 2, 8, 4, 4096, 4096, 256,
      {"causal": True, "window": 4096, "softcap": 50.0}),
@@ -5321,16 +5405,21 @@ SCAN_BWD_SHAPE = (2, 4096, 2560)
 
 
 @contextlib.contextmanager
-def plain_kernels():
-    """Every kernel wrapper of the training path swapped for its plain
-    version, on the card: the same step through plain PyTorch."""
+def plain_kernels(only=None):
+    """Every kernel wrapper of the training path (or those named in
+    ``only``) swapped for its plain version, on the card: the same step
+    through plain PyTorch."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
     from repro_torch.kernels import rglru
+    from repro_torch.kernels import rwkv6 as rw
     swaps = [(fa, "flash_attention_cuda", fa.flash_attention_plain),
              (fb, "flash_attention_bwd_cuda", fb.flash_attention_bwd_plain),
              (rglru, "linear_scan_cuda", rglru.linear_scan_plain),
-             (rglru, "linear_scan_bwd_cuda", rglru.linear_scan_bwd_plain)]
+             (rglru, "linear_scan_bwd_cuda", rglru.linear_scan_bwd_plain),
+             (rw, "rwkv6_scan_cuda", rw.rwkv6_scan_plain),
+             (rw, "rwkv6_scan_bwd_cuda", rw.rwkv6_scan_bwd_plain)]
+    swaps = [s for s in swaps if only is None or s[1] in only]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
         for mod, name, fn in swaps:
@@ -5501,9 +5590,13 @@ def _cut(arch: str, layers: int):
                                num_layers=layers)
 
 
-def train_step_parity(arch: str, layers: int, device) -> dict:
-    """17b: one f32 step's loss and gradients, through the kernels and
-    through the plain versions on the card, from one seeded state."""
+def train_step_parity(arch: str, layers: int, device, part: str = "17b",
+                      refs=(("plain step", None, TOL_TRAIN_STEP),)) -> dict:
+    """17b (17f for RWKV): one f32 step's loss and gradients, through the
+    kernels and through the plain versions on the card, from one seeded
+    state.  Each of ``refs`` is a reference step: (label, the wrappers
+    swapped for their plain versions, None for all of them, the gradient
+    leaves' tolerance); its loss is held to ``TOL_TRAIN_STEP``."""
     import torch
     from repro_torch.data.pipeline import synth_batch
     from repro_torch.kernels import ops
@@ -5517,45 +5610,59 @@ def train_step_parity(arch: str, layers: int, device) -> dict:
         remat="block", chunked_loss=cfg.family == "transformer"))
     batch = tree.tree_map(lambda a: tree.as_tensor(a, device), synth_batch(
         cfg, batch=1, seq=CUT_SEQ, step=0))
-    before = ops.launch_counts()
-    loss, _ = loss_fn(params, batch)
-    grads = step_lib._grad(loss, leaves)
-    launched = {n: c - before[n] for n, c in ops.launch_counts().items()
-                if c - before[n]}
-    with plain_kernels():
+
+    def step():
         before = ops.launch_counts()
-        p_loss, _ = loss_fn(params, batch)
-        p_grads = step_lib._grad(p_loss, leaves)
-        if ops.launch_counts() != before:
-            raise SmokeFailure(f"17b {arch}: the plain step launched a "
-                               f"kernel")
-    want_kernels = {"flash_attention", "flash_attention_bwd"} | (
-        {"linear_scan"} if cfg.family == "griffin" else set())
-    if set(launched) != want_kernels:
-        raise SmokeFailure(f"17b {arch}: the kernel step launched "
+        loss, _ = loss_fn(params, batch)
+        grads = step_lib._grad(loss, leaves)
+        return loss.detach(), [g.detach() for g in grads], {
+            n: c - before[n] for n, c in ops.launch_counts().items()
+            if c - before[n]}
+    loss, grads, launched = step()
+    if cfg.family == "rwkv":
+        want_kernels = {"rwkv6_scan": "rwkv6_scan_cuda",
+                        "rwkv6_scan_bwd": "rwkv6_scan_bwd_cuda"}
+    else:
+        want_kernels = {"flash_attention": "flash_attention_cuda",
+                        "flash_attention_bwd": "flash_attention_bwd_cuda"}
+        if cfg.family == "griffin":
+            want_kernels["linear_scan"] = "linear_scan_cuda"
+    if set(launched) != set(want_kernels):
+        raise SmokeFailure(f"{part} {arch}: the kernel step launched "
                            f"{launched}, want {sorted(want_kernels)}")
-    gmax = max(float(g.abs().max()) for g in p_grads)
-    loss_err = _rel(loss, p_loss)
-    worst = 0.0
-    for i, (g, w) in enumerate(zip(grads, p_grads)):
-        err = float((g - w).abs().max())
-        scale = max(float(w.abs().max()), 1e-3 * gmax)
-        worst = max(worst, err / scale)
-        if err > TOL_TRAIN_STEP * scale or not torch.isfinite(g).all():
-            raise SmokeFailure(f"17b {arch}: gradient leaf {i} "
-                               f"{tuple(g.shape)} off by {err} of {scale} "
-                               f"(tolerance {TOL_TRAIN_STEP})")
-    if loss_err[1] > TOL_TRAIN_STEP:
-        raise SmokeFailure(f"17b {arch}: loss {float(loss)} against the "
-                           f"plain step's {float(p_loss)}")
     out = {"arch": arch, "layers": layers, "seq": CUT_SEQ,
-           "loss": float(loss.detach()),
-           "plain_loss": float(p_loss.detach()),
-           "loss_rel_err": loss_err[1], "grad_leaves": len(grads),
-           "worst_leaf_rel_err": worst, "launches": launched}
-    log(f"17b {arch} f32 cut ({layers} layers, S={CUT_SEQ}): "
+           "loss": float(loss), "grad_leaves": len(grads),
+           "launches": launched, "refs": {}}
+    for label, only, tol in refs:
+        with plain_kernels(only):
+            p_loss, p_grads, p_launched = step()
+        want = {n for n, w in want_kernels.items()
+                if only is not None and w not in only}
+        if set(p_launched) != want:
+            raise SmokeFailure(f"{part} {arch}: the {label} launched "
+                               f"{p_launched}, want {sorted(want)}")
+        gmax = max(float(g.abs().max()) for g in p_grads)
+        loss_err = _rel(loss, p_loss)
+        worst = 0.0
+        for i, (g, w) in enumerate(zip(grads, p_grads)):
+            err = float((g - w).abs().max())
+            scale = max(float(w.abs().max()), 1e-3 * gmax)
+            worst = max(worst, err / scale)
+            if err > tol * scale or not torch.isfinite(g).all():
+                raise SmokeFailure(f"{part} {arch}: gradient leaf {i} "
+                                   f"{tuple(g.shape)} off by {err} of "
+                                   f"{scale} against the {label} "
+                                   f"(tolerance {tol})")
+        if loss_err[1] > TOL_TRAIN_STEP:
+            raise SmokeFailure(f"{part} {arch}: loss {float(loss)} against "
+                               f"the {label}'s {float(p_loss)}")
+        out["refs"][label] = {"loss": float(p_loss),
+                              "loss_rel_err": loss_err[1],
+                              "worst_leaf_rel_err": worst, "tolerance": tol}
+        del p_grads
+    log(f"{part} {arch} f32 cut ({layers} layers, S={CUT_SEQ}): "
         + json.dumps(out, sort_keys=True))
-    del params, leaves, grads, p_grads, loss, p_loss
+    del params, leaves, grads
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -5581,11 +5688,21 @@ def model_flops(cfg, batch: int, seq: int) -> float:
     return dense + attn
 
 
-def train_step_trace(driver, batch_fn) -> dict:
+FLASH_TRACE_KERNELS = (("flash_forward_ms", ("flash_tc_kernel",
+                                             "flash_kernel")),
+                       ("flash_backward_ms", ("flash_bwd_",)))
+RWKV_TRACE_KERNELS = (("scan_forward_ms", ("rwkv6_chunk_kernel",
+                                           "rwkv6_kernel")),
+                      ("scan_backward_ms", ("rwkv6_bwd_kernel",
+                                            "du_sum_kernel")))
+
+
+def train_step_trace(driver, batch_fn, *, part: str = "17c",
+                     kernels=FLASH_TRACE_KERNELS) -> dict:
     """One more step of ``driver`` under ``torch.profiler``: the device's
     busy time and idle share inside the step's host span (which ends in a
     synchronize), the ``TRACE_TOP`` device activities by name, and the
-    flash kernels' own ms (forward, backward)."""
+    step's own kernels' ms (``kernels``: key, name parts)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -5609,7 +5726,7 @@ def train_step_trace(driver, batch_fn) -> dict:
            "device_ops": len(dev)}
     if not dev:
         out.update(device_busy_ms=None, idle_share=None)
-        log("17c step trace: the profiler recorded no device activity; "
+        log(f"{part} step trace: the profiler recorded no device activity; "
             "idle share not measured " + json.dumps(out))
         return out
     busy_us = _union_us((max(e.time_range.start, t0),
@@ -5625,11 +5742,10 @@ def train_step_trace(driver, batch_fn) -> dict:
                    if any(p in k for p in parts)) / 1e3
     out.update(
         device_busy_ms=busy_us / 1e3, idle_share=1.0 - busy_us / (t1 - t0),
-        flash_forward_ms=ms_of("flash_tc_kernel", "flash_kernel"),
-        flash_backward_ms=ms_of("flash_bwd_"),
         top_device_ms={k: v / 1e3 for k, v in sorted(
-            by_name.items(), key=lambda kv: -kv[1])[:TRACE_TOP]})
-    log("17c step trace " + json.dumps(out, sort_keys=True))
+            by_name.items(), key=lambda kv: -kv[1])[:TRACE_TOP]},
+        **{key: ms_of(*parts) for key, parts in kernels})
+    log(f"{part} step trace " + json.dumps(out, sort_keys=True))
     return out
 
 
@@ -5748,11 +5864,179 @@ def griffin_train_phase() -> dict:
     return out
 
 
+# 17e-17g: RWKV training.  The backward kernel's cases (label, BH, T, D,
+# heads, w range): the 17g step's shape (1 x 2048, 64 heads of 64), the
+# forward's 4096, D = 32 and 128 at small shapes, decays down to 0.01 and
+# decays near 1.  Held to TOL_FLASH_BWD's limits (max|err| / max|ref| of
+# each of dr, dk, dv, dw and du): both sides do f32 arithmetic on the same
+# inputs in other summation orders; bf16 rounds dr, dk and dv once.
+RWKV_BWD_CASES = (
+    ("train step", 64, 2048, 64, 64, (0.5, 0.99)),
+    ("forward shape", 64, 4096, 64, 64, (0.5, 0.99)),
+    ("d32", 16, 300, 32, 4, (0.5, 0.99)),
+    ("d128", 16, 300, 128, 4, (0.5, 0.99)),
+    ("fast decay", 64, 1024, 64, 64, (0.01, 1.0)),
+    ("near one", 64, 1024, 64, 64, (0.999, 1.0)),
+)
+RWKV_BWD_TIMED = ("train step", "forward shape")
+RWKV_TRAIN_SEQ = 2048
+RWKV_TRAIN_STEPS = 3
+RWKV_TRAIN_STATE_DTYPE = "int8"
+
+
+def _rwkv_bwd_inputs(gen, device, bh, t, d, heads, w_range, dtype):
+    import torch
+    dt = getattr(torch, dtype)
+    r, k, v, do = [(torch.randn((bh, t, d), generator=gen, device=device)
+                    * 0.5).to(dt) for _ in range(4)]
+    lo, hi = w_range
+    w = torch.rand((bh, t, d), generator=gen, device=device) * (hi - lo) + lo
+    u = torch.randn((heads, d), generator=gen, device=device) * 0.3
+    return r, k, v, w, u, do
+
+
+def rwkv_bwd_checks(gen, device) -> dict:
+    """17e's checks: ``rwkv6_scan_bwd_cuda`` against
+    ``rwkv6_scan_bwd_plain`` at each of ``RWKV_BWD_CASES`` in f32 and bf16.
+    Returns the largest absolute and relative errors."""
+    import torch
+    from repro_torch.kernels import rwkv6 as rw
+    worst = {"abs": 0.0, "rel": 0.0}
+    for label, bh, t, d, heads, w_range in RWKV_BWD_CASES:
+        for dt in ("float32", "bfloat16"):
+            args = _rwkv_bwd_inputs(gen, device, bh, t, d, heads, w_range,
+                                    dt)
+            got = rw.rwkv6_scan_bwd_cuda(*args)
+            want = rw.rwkv6_scan_bwd_plain(*args)
+            errs = {}
+            for name, g, w in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+                if not torch.isfinite(g).all():
+                    raise SmokeFailure(f"rwkv6_scan_bwd {label} {dt}: {name} "
+                                       f"is not finite")
+                errs[name] = _rel(g, w)
+            log(f"kernel rwkv6_scan_bwd {label} r/k/v={[bh, t, d]} {dt} "
+                f"heads={heads} w in {list(w_range)}: " + ", ".join(
+                    f"{n} max_abs_err={a} rel={r}"
+                    for n, (a, r) in errs.items())
+                + f" tol={TOL_FLASH_BWD[dt]}")
+            for n, (a, r) in errs.items():
+                if r > TOL_FLASH_BWD[dt]:
+                    raise SmokeFailure(f"rwkv6_scan_bwd {label} {dt}: {n} off "
+                                       f"by {r} of its largest value "
+                                       f"(tolerance {TOL_FLASH_BWD[dt]})")
+                worst["abs"] = max(worst["abs"], a)
+                worst["rel"] = max(worst["rel"], r)
+            del args, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def rwkv_bwd_row(gen, device, label, bh, t, d, heads, w_range) -> dict:
+    """One bf16 timing row of the backward: the kernel graph-replayed and
+    eager, the plain version, and the bound max(bytes / 3.35 TB/s, flops /
+    67 TFLOP/s) of ``work_bwd`` (the f32 rate: the arithmetic is f32).  No
+    single PyTorch call computes this function: ``library_ms`` is null."""
+    from repro_torch.kernels import rwkv6 as rw
+    args = _rwkv_bwd_inputs(gen, device, bh, t, d, heads, w_range,
+                            "bfloat16")
+
+    def kernel():
+        return rw.rwkv6_scan_bwd_cuda(*args)
+    flops, nbytes = rw.work_bwd(bh, t, d, heads, 2)
+    row = {"shape": f"{label}: r/k/v/do {[bh, t, d]} bfloat16, w f32, "
+                    f"heads {heads}",
+           "ms": graph_ms(kernel, inner=3, reps=5),
+           "eager_ms": event_ms(kernel, inner=3, reps=5),
+           "plain_ms": event_ms(lambda: rw.rwkv6_scan_bwd_plain(*args),
+                                inner=1, reps=1, warm=1),
+           "library_ms": None, **bound(nbytes, flops, PEAK_F32)}
+    row["f32_flops_per_s"] = flops / row["ms"] * 1e3
+    log("timing rwkv6_scan_bwd " + json.dumps(row, sort_keys=True))
+    return row
+
+
+def rwkv_step_parity(device) -> dict:
+    """17f: a 2-layer f32 cut of rwkv6-7b, its step through the kernels
+    against the step with the plain backward and against the plain step
+    (``TOL_TRAIN_STEP_RWKV``)."""
+    return train_step_parity(
+        RWKV_ARCH, 2, device, part="17f",
+        refs=(("step with the plain backward", {"rwkv6_scan_bwd_cuda"},
+               TOL_TRAIN_STEP),
+              ("plain step", None, TOL_TRAIN_STEP_RWKV)))
+
+
+def rwkv_model_flops(cfg, batch: int, seq: int) -> float:
+    """One RWKV training step's work, forward and backward, not the
+    recomputed forward: 6 flops a matmul weight and token (time mix: the
+    five D x D projections and the two LoRAs; channel mix: its three
+    matrices; the unembedding) and the recurrence's 5 D^2 + 5 D a row-step
+    forward (``work``) and 10 D^2 + 12 D backward (``work_bwd``)."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.rwkv_head_dim
+    tmix = 5 * d * d + d * 5 * 32 + 5 * 32 * d + d * 64 + 64 * d
+    cmix = 2 * d * f + d * d
+    dense = 6.0 * (cfg.num_layers * (tmix + cmix) + d * cfg.padded_vocab) \
+        * batch * seq
+    rows = batch * (d // hd)
+    scan = cfg.num_layers * rows * seq * (15.0 * hd * hd + 17.0 * hd)
+    return dense + scan
+
+
+def rwkv_train_phase() -> dict:
+    """17g: the published rwkv6-7b trained whole through the launcher's
+    driver: ``RWKV_TRAIN_STEPS`` AdamW steps (int8 moments, ``--remat
+    block``) at 1 x ``RWKV_TRAIN_SEQ``."""
+    import tempfile
+    from repro_torch import configs
+    cfg = configs.get(RWKV_ARCH).config
+    report, counts = train_run([
+        "--arch", RWKV_ARCH, "--batch", "1", "--seq", str(RWKV_TRAIN_SEQ),
+        "--steps", str(RWKV_TRAIN_STEPS), "--opt", "adamw", "--state-dtype",
+        RWKV_TRAIN_STATE_DTYPE, "--remat", "block", "--ckpt-every",
+        "1000000", "--ckpt-dir", tempfile.mkdtemp(prefix="chip_smoke_rwkv_")],
+        after=lambda driver, batch_fn: train_step_trace(
+            driver, batch_fn, part="17g", kernels=RWKV_TRACE_KERNELS))
+    steps = report["steps"]
+    if len(steps) != RWKV_TRAIN_STEPS or not all(
+            math.isfinite(l) and math.isfinite(g) for _, l, g, _ in steps):
+        raise SmokeFailure(f"17g: steps {steps}")
+    runs = len(steps)
+    per_step = {n: counts[n] / runs for n in ("rwkv6_scan", "rwkv6_scan_bwd")}
+    # Under --remat block a step runs each layer's forward twice (the
+    # forward, the block's recompute) and its backward once.
+    want = {"rwkv6_scan": 2 * cfg.num_layers,
+            "rwkv6_scan_bwd": cfg.num_layers}
+    if per_step != want:
+        raise SmokeFailure(f"17g: launches a step {per_step}, want {want}")
+    others = {n: c for n, c in counts.items() if c and n not in want}
+    if others:
+        raise SmokeFailure(f"17g: the step launched {others} besides")
+    p50 = statistics.median([m for *_, m in steps][1:])
+    tokens = RWKV_TRAIN_SEQ
+    flops = rwkv_model_flops(cfg, 1, RWKV_TRAIN_SEQ)
+    out = {"steps": steps, "step_p50_ms": p50,
+           "tokens_per_s": tokens / (p50 / 1e3),
+           "model_flops_per_step": flops,
+           "model_tflops_per_s": flops / (p50 / 1e3) / 1e12,
+           "mfu_bf16_dense": flops / (p50 / 1e3) / PEAK_BF16,
+           "peak_memory_bytes": report["peak_bytes"],
+           "wall_s": report["wall_s"], "launches": counts,
+           "per_step": per_step, "state_dtype": RWKV_TRAIN_STATE_DTYPE,
+           "trace": report["after"]}
+    log("17g rwkv6-7b trained whole: " + json.dumps(
+        {k: v for k, v in out.items() if k != "launches"}, sort_keys=True))
+    return out
+
+
 def training_phases(device) -> dict:
     """Phase 17: 17a the backward kernels against their plain versions and
     timed, 17b one f32 step through the kernels against the plain step,
     17c the published gemma2-2b trained whole with a restart, 17d
-    recurrentgemma-2b; each part's wall time printed."""
+    recurrentgemma-2b, 17e the RWKV backward kernel against its plain
+    version and timed, 17f one f32 rwkv6-7b step against the plain step,
+    17g the published rwkv6-7b trained whole; each part's wall time
+    printed."""
     import torch
     gc.collect()
     torch.cuda.empty_cache()
@@ -5776,12 +6060,26 @@ def training_phases(device) -> dict:
     t0 = time.perf_counter()
     griffin = griffin_train_phase()
     walls["17d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rwkv_worst = rwkv_bwd_checks(gen, device)
+    rwkv_rows = [rwkv_bwd_row(gen, device, *case) for case in RWKV_BWD_CASES
+                 if case[0] in RWKV_BWD_TIMED]
+    walls["17e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parity.append(rwkv_step_parity(device))
+    walls["17f"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rwkv = rwkv_train_phase()
+    walls["17g"] = time.perf_counter() - t0
     log(f"phase 17 (training): {json.dumps(walls, sort_keys=True)}, "
         f"{sum(walls.values()):.1f} s in all")
     return {"worst": worst, "rows": rows, "scan": scan, "parity": parity,
-            "gemma": gemma, "griffin": griffin, "walls_s": walls,
+            "gemma": gemma, "griffin": griffin, "rwkv": rwkv,
+            "rwkv_worst": rwkv_worst, "rwkv_rows": rwkv_rows,
+            "walls_s": walls,
             "launches": {f"{TRAIN_ARCH} train": gemma["launches"],
-                         f"{LM_ARCH} train": griffin["launches"]}}
+                         f"{LM_ARCH} train": griffin["launches"],
+                         f"{RWKV_ARCH} train": rwkv["launches"]}}
 
 
 def train_kernel_entry(train: dict) -> dict:
@@ -5812,6 +6110,30 @@ def train_kernel_entry(train: dict) -> dict:
             "rows": [{k: r[k] for k in keys if k in r}
                      for r in train["rows"]],
             "scan_backward": train["scan"]}
+
+
+def rwkv_bwd_kernel_entry(train: dict) -> dict:
+    """The ``rwkv6_scan_bwd`` entry of the kernels line: its main-path
+    launches (17g's run), its largest error against the plain version
+    (17e), and its row at 17g's shape beside the forward's."""
+    row = train["rwkv_rows"][0]
+    keys = ("shape", "ms", "eager_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "f32_flops_per_s")
+    return {"name": "rwkv6_scan_bwd", **KERNEL_META["rwkv6_scan_bwd"],
+            "launches": sum(c["rwkv6_scan_bwd"]
+                            for c in train["launches"].values()),
+            "launches_by_path": {p: c["rwkv6_scan_bwd"]
+                                 for p, c in train["launches"].items()},
+            "launches_per_step": {
+                RWKV_ARCH: train["rwkv"]["per_step"]["rwkv6_scan_bwd"]},
+            "max_abs_err": train["rwkv_worst"]["abs"],
+            "max_rel_err": train["rwkv_worst"]["rel"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "eager_ms": row["eager_ms"],
+            "shape": row["shape"],
+            "rows": [{k: r[k] for k in keys if k in r}
+                     for r in train["rwkv_rows"]]}
 
 
 def kernels_line(errs, launches, timing) -> dict:
@@ -6114,6 +6436,7 @@ def main(argv: list) -> int:
             {**per_tick, "rwkv6_scan": r_tick["rwkv6_scan"]}, lm_timing,
             tf["per_step"], whisper["per_step"])
         line["kernels"].append(train_kernel_entry(train))
+        line["kernels"].append(rwkv_bwd_kernel_entry(train))
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -6131,7 +6454,9 @@ def main(argv: list) -> int:
             "gemma2-2b": {k: v for k, v in train["gemma"].items()
                           if k != "launches"},
             "recurrentgemma-2b": {k: v for k, v in train["griffin"].items()
-                                  if k != "launches"}},
+                                  if k != "launches"},
+            "rwkv6-7b": {k: v for k, v in train["rwkv"].items()
+                         if k != "launches"}},
         "aie_plan": {k: v for k, v in aie_plan.items() if k != "launches"},
         "fleet": {k: v for k, v in fleet["fleet"].items()
                   if k not in ("launches", "chunk_launches")}},

@@ -22,7 +22,7 @@ device work.  Rules:
   (warning: the planner under-charges the group).
 
 :func:`verify_kernel_library` is the self-check of ``python -m repro_torch
-check``: it launches each of the eight kernels once on a canonical
+check``: it launches each of the nine kernels once on a canonical
 case on a device (the card by default) and checks what comes back.
 """
 
@@ -144,8 +144,8 @@ def _verify_int8_rejects_float(tenant) -> list:
 def _library_cases(gen: torch.Generator, device: torch.device):
     """(kernel, call, expected shape, expected dtype) per kernel: the JAX
     package's four canonical cases as they are, one each for the edge
-    kernels at the paper's batch of 8, and flash's backward on the flash
-    case (its dq)."""
+    kernels at the paper's batch of 8, and the backwards of flash and of
+    rwkv6_scan on their forwards' cases (dq, dr)."""
     def randn(*shape, dtype=F32, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to(device, dtype)
 
@@ -175,6 +175,11 @@ def _library_cases(gen: torch.Generator, device: torch.device):
             randn(4, 128, 64, scale=0.5), randn(4, 128, 64, scale=0.5),
             randn(4, 128, 64, scale=0.5), decay(4, 128, 64),
             randn(64, scale=0.3)),
+         (4, 128, 64), F32),
+        ("rwkv6_scan_bwd", lambda: ops.rwkv6_scan_bwd(
+            randn(4, 128, 64, scale=0.5), randn(4, 128, 64, scale=0.5),
+            randn(4, 128, 64, scale=0.5), decay(4, 128, 64),
+            randn(64, scale=0.3), randn(4, 128, 64))[0],
          (4, 128, 64), F32),
         ("linear_scan", lambda: ops.linear_scan(
             decay(2, 256, 128), randn(2, 256, 128)),

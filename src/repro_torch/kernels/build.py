@@ -23,7 +23,8 @@ SOURCES = {"fused_mlp_q8": "fused_mlp_q8.cu", "gemm_int8": "gemm_int8.cu",
            "flash_attention": "flash_attention.cu",
            "linear_scan": "linear_scan.cu", "rwkv6_scan": "rwkv6_scan.cu",
            "tiled_gemm": "tiled_gemm.cu", "fused_dense": "fused_dense.cu",
-           "flash_attention_bwd": "flash_attention_bwd.cu"}
+           "flash_attention_bwd": "flash_attention_bwd.cu",
+           "rwkv6_scan_bwd": "rwkv6_scan_bwd.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

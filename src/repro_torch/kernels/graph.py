@@ -129,6 +129,8 @@ KERNEL_FUNCTIONS = {
     # One node of its two per call, so that a node counts a call.
     "flash_attention_bwd": ("flash_bwd_dkdv_kernel",
                             "flash_bwd_tc_dkdv_kernel"),
+    # One node of its two per call (``du_sum_kernel`` is the other).
+    "rwkv6_scan_bwd": ("rwkv6_bwd_kernel",),
 }
 
 

@@ -4,14 +4,15 @@ A CPU tensor runs the kernel's plain PyTorch version; any other tensor runs
 the CUDA kernel, which raises on what it cannot take.  There is no fallback
 from the kernel to the plain version.
 
-Autograd sees two kernels: where grad is enabled and an input requires it,
-``flash_attention`` and ``linear_scan`` run as a ``torch.autograd.Function``
-whose forward is the dispatch above and whose backward is the same
-dispatch of the backward (``flash_attention_bwd``; ``linear_scan`` run
-backwards in time), so the CPU runs the same Function, saved tensors and
-formulas as the card.  The other kernels have no backward and raise a
-``RuntimeError`` naming the kernel for such inputs, on every device.  With
-grad off (serving) nothing is recorded and every call runs as before.
+Autograd sees three kernels: where grad is enabled and an input requires
+it, ``flash_attention``, ``linear_scan`` and ``rwkv6_scan`` run as a
+``torch.autograd.Function`` whose forward is the dispatch above and whose
+backward is the same dispatch of the backward (``flash_attention_bwd``;
+``linear_scan`` run backwards in time; ``rwkv6_scan_bwd``), so the CPU runs
+the same Function, saved tensors and formulas as the card.  The other
+kernels have no backward and raise a ``RuntimeError`` naming the kernel
+for such inputs, on every device.  With grad off (serving) nothing is
+recorded and every call runs as before.
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ from repro_torch.kernels.fused_mlp import FusedGroup, pack_group
 # a captured step's arithmetic visible.
 _COUNTERS = {"fused_mlp_q8": _fm, "gemm_int8": _g8, "flash_attention": _fa,
              "linear_scan": _rg, "rwkv6_scan": _rw, "tiled_gemm": _tg,
-             "fused_dense": _fd, "flash_attention_bwd": _fb}
+             "fused_dense": _fd, "flash_attention_bwd": _fb,
+             "rwkv6_scan_bwd": _rw.bwd}
 
 
 def reset_launches() -> None:
@@ -245,16 +247,47 @@ def linear_scan(a, b) -> torch.Tensor:
     return _scan(a, b)
 
 
+class _RWKV6Scan(torch.autograd.Function):
+    """rwkv6_scan from zeros with its gradient: the forward saves r, k, v,
+    w and u; the backward is ``rwkv6_scan_bwd`` (the CUDA kernel, or its
+    plain version on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.save_for_backward(r, k, v, w, u)
+        return _rwkv(r, k, v, w, u)
+
+    @staticmethod
+    def backward(ctx, do):
+        return rwkv6_scan_bwd(*ctx.saved_tensors, do)
+
+
+def _rwkv(r, k, v, w, u, **kw):
+    if r.device.type == "cpu":
+        return _rw.rwkv6_scan_plain(r, k, v, w, u, **kw)
+    return _rw.rwkv6_scan_cuda(r, k, v, w, u, **kw)
+
+
 def rwkv6_scan(r, k, v, w, u, *, state0=None, return_state: bool = False):
     """The RWKV-6 recurrence over r, k, v, w ``(BH, T, D)`` with the bonus
     u ``(H, D)``, from ``state0`` (or zeros); with ``return_state`` returns
-    (output, final f32 state)."""
-    _refuse_grad("rwkv6_scan", r, k, v, w, u, state0)
+    (output, final f32 state).  Differentiable (from zeros, no state out)
+    where grad is on."""
+    if _wants_grad(r, k, v, w, u, state0):
+        if state0 is not None or return_state:
+            raise ValueError("rwkv6_scan: state0 and return_state must be "
+                             "unset where grad is on (no training caller "
+                             "carries a state)")
+        return _RWKV6Scan.apply(r, k, v, w, u)
+    return _rwkv(r, k, v, w, u, state0=state0, return_state=return_state)
+
+
+def rwkv6_scan_bwd(r, k, v, w, u, do) -> tuple:
+    """(dr, dk, dv, dw, du) of :func:`rwkv6_scan` from zeros for the
+    upstream ``do``, as the autograd Function's backward computes them."""
     if r.device.type == "cpu":
-        return _rw.rwkv6_scan_plain(r, k, v, w, u, state0=state0,
-                                    return_state=return_state)
-    return _rw.rwkv6_scan_cuda(r, k, v, w, u, state0=state0,
-                               return_state=return_state)
+        return _rw.rwkv6_scan_bwd_plain(r, k, v, w, u, do)
+    return _rw.rwkv6_scan_bwd_cuda(r, k, v, w, u, do)
 
 
 def tiled_gemm(x, w, *, block_m: int | None = None,

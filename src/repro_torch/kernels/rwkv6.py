@@ -22,12 +22,19 @@ state), chosen by ``CHUNKED_MIN_T``.  Both take r, k, v, w as strided views
 head-transposed projections need no copy where they form a ``(BH, T, D)``
 view.  :func:`rwkv6_scan_plain` is the same function in plain PyTorch, used
 for CPU tensors and as the kernels' oracle on the card.
+
+The gradient (r, k, v, w and u; no state in or out) is the kernel of
+``csrc/rwkv6_scan_bwd.cu`` (:func:`rwkv6_scan_bwd_cuda`, counted in
+:data:`bwd`), beside its plain version :func:`rwkv6_scan_bwd_plain`: the
+state S forward, then the adjoint G backwards beside each kept S, so that
+dw is summed from S and G of one step.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import types
 
 import torch
 
@@ -47,6 +54,9 @@ F32 = torch.float32
 # (chip_smoke.py's threshold sweep; PERF.md).
 CHUNKED_MIN_T = 32
 CHUNK = {32: 64, 64: 64, 128: 32}
+# The backward's launch counter and work record (``work_bwd``), beside the
+# forward's: a kernel of its own in the port's counts.
+bwd = types.SimpleNamespace(launches=0, flops=0.0, bytes_moved=0.0)
 
 
 def _check(r, k, v, w, u, state0) -> int:
@@ -82,6 +92,19 @@ def work(bh: int, t: int, d: int, heads: int, itemsize: int, *,
     return bh * t * (5.0 * d * d + 5.0 * d), nbytes
 
 
+def work_bwd(bh: int, t: int, d: int, heads: int,
+             itemsize: int) -> tuple[float, int]:
+    """FLOPs and bytes of one backward call over ``(bh, t, d)``: ``10 D^2
+    + 12 D`` a row and step (S rebuilt, S do, the G update, G v and G^T k
+    at 2 D^2 each; v.do, r.(u k), the bonus terms of dr, dk, dv and du at
+    2 D each); r, k, v and do read and dr, dk, dv written at ``itemsize``,
+    w read and dw written in f32, u read and du written once a head.  The
+    kernel's own recomputation and its anchors are not counted."""
+    n = bh * t * d
+    nbytes = 7 * n * itemsize + 8 * n + 8 * heads * d
+    return bh * t * (10.0 * d * d + 12.0 * d), nbytes
+
+
 def rwkv6_scan_plain(r, k, v, w, u, *, state0=None,
                      return_state: bool = False):
     """A loop over T in f32.  Returns the output, or (output, final state)
@@ -102,6 +125,50 @@ def rwkv6_scan_plain(r, k, v, w, u, *, state0=None,
     return (out, s) if return_state else out
 
 
+def rwkv6_scan_bwd_plain(r, k, v, w, u, do):
+    """(dr, dk, dv, dw, du) of :func:`rwkv6_scan_plain` from zeros, no state
+    out, for the upstream ``do``: loops over T in f32, S forward keeping
+    every S_{t-1}, then the adjoint G backwards:
+
+        dr_t = S_{t-1} do_t + u k_t (v_t . do_t)
+        dk_t = G_t v_t + u r_t (v_t . do_t)
+        dv_t = G_t^T k_t + (r_t . u k_t) do_t
+        dw_t = rowsum(G_t * S_{t-1})
+        G_{t-1} = diag(w_t) G_t + r_t do_t^T
+        du = sum_t r_t k_t (v_t . do_t)
+
+    dr, dk, dv in r's dtype, dw and du (u's shape) in f32; du sums the rows
+    of each head."""
+    h = _check(r, k, v, w, u, None)
+    if do.shape != r.shape:
+        raise ValueError(f"rwkv6_scan_bwd: want do shaped as r "
+                         f"{tuple(r.shape)}, got {tuple(do.shape)}")
+    bh, t_len, d = r.shape
+    r32, k32, v32, w32, do32 = (x.float() for x in (r, k, v, w, do))
+    u32 = u.float().reshape(h, d).repeat(bh // h, 1)[:, None]   # (BH,1,D)
+    hist = [torch.zeros((bh, d, d), dtype=F32, device=r.device)]
+    for t in range(t_len - 1):
+        hist.append(w32[:, t, :, None] * hist[-1]
+                    + k32[:, t, :, None] * v32[:, t, None, :])
+    drs, dks, dvs, dw = (torch.empty((bh, t_len, d), dtype=F32,
+                                     device=r.device) for _ in range(4))
+    g = torch.zeros((bh, d, d), dtype=F32, device=r.device)
+    for t in reversed(range(t_len)):
+        s_prev = hist.pop()
+        drs[:, t] = torch.bmm(s_prev, do32[:, t, :, None])[..., 0]
+        dks[:, t] = torch.bmm(g, v32[:, t, :, None])[..., 0]
+        dvs[:, t] = torch.bmm(k32[:, t, None, :], g)[:, 0]
+        dw[:, t] = (g * s_prev).sum(-1)
+        g = w32[:, t, :, None] * g + r32[:, t, :, None] * do32[:, t, None, :]
+    vdo = (v32 * do32).sum(-1, keepdim=True)
+    dr = drs + u32 * k32 * vdo
+    dk = dks + u32 * r32 * vdo
+    dv = dvs + (r32 * u32 * k32).sum(-1, keepdim=True) * do32
+    du = (r32 * k32 * vdo).sum(1).reshape(bh // h, h, d).sum(0)
+    return (dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dw,
+            du.reshape(u.shape))
+
+
 def _aligned16(t: torch.Tensor) -> bool:
     """Whether every row of t starts on a 16-byte boundary."""
     es = t.element_size()
@@ -119,6 +186,18 @@ def _lib() -> ctypes.CDLL:
     lib.repro_rwkv6_scan_chunked.argtypes = (
         [vp] * 8 + [ci] * 6 + [ll] * 8 + [vp])
     lib.repro_rwkv6_scan_chunked.restype = ci
+    return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.library("rwkv6_scan_bwd")
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.repro_rwkv6_scan_bwd.argtypes = (
+        [vp] * 13 + [ci] * 5 + [ll] * 10 + [vp])
+    lib.repro_rwkv6_scan_bwd.restype = ci
+    lib.repro_rwkv6_scan_bwd_chunk.argtypes = ()
+    lib.repro_rwkv6_scan_bwd_chunk.restype = ci
     return lib
 
 
@@ -188,3 +267,64 @@ def rwkv6_scan_cuda(r, k, v, w, u, *, state0=None,
                 state_out=return_state)
     flops, bytes_moved = flops + f, bytes_moved + nb
     return (out, s_fin) if return_state else out
+
+
+def rwkv6_scan_bwd_cuda(r, k, v, w, u, do):
+    """Launch ``csrc/rwkv6_scan_bwd.cu`` on r's device and stream: the
+    gradient of :func:`rwkv6_scan_cuda` from zeros, as
+    :func:`rwkv6_scan_bwd_plain` returns it.  r, k, v, w and do may be
+    strided views with a contiguous last axis and 16-byte aligned rows
+    (others are copied); the outputs are new contiguous tensors.  Two
+    launches (the scan and du's sum over the batch), no host sync; the
+    states it keeps are a scratch of ``(BH, ceil(T/C) - 1, D, D)`` f32, C
+    the kernel's chunk (16)."""
+    h = _check(r, k, v, w, u, None)
+    ts = (r, k, v, w, u, do)
+    if not all(t.is_cuda and t.device == r.device for t in ts):
+        raise ValueError("rwkv6_scan_bwd_cuda: every input must lie on one "
+                         "CUDA device")
+    if do.shape != r.shape:
+        raise ValueError(f"rwkv6_scan_bwd: want do shaped as r "
+                         f"{tuple(r.shape)}, got {tuple(do.shape)}")
+    if r.dtype not in _DTYPES or any(t.dtype != r.dtype for t in (k, v, do)):
+        raise ValueError(f"rwkv6_scan_bwd_cuda: want r, k, v, do all f32 or "
+                         f"all bf16, got {r.dtype}, {k.dtype}, {v.dtype}, "
+                         f"{do.dtype}")
+    if w.dtype != F32 or u.dtype != F32:
+        raise ValueError("rwkv6_scan_bwd_cuda: w and u must be f32")
+    bh, t_len, d = r.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"rwkv6_scan_bwd_cuda: head dim {d} is not one the "
+                         f"kernel takes {HEAD_DIMS}")
+    if bh > 2 ** 24:
+        raise ValueError(f"rwkv6_scan_bwd_cuda: BH={bh} exceeds the grid "
+                         f"limit")
+    r, k, v, w, do = (
+        t if t.stride(2) == 1 and _aligned16(t)
+        else t.clone(memory_format=torch.contiguous_format)
+        for t in (r, k, v, w, do))
+    u_in = u.reshape(h, d).contiguous()
+    dev = r.device
+    dr, dk, dv = (torch.empty((bh, t_len, d), dtype=r.dtype, device=dev)
+                  for _ in range(3))
+    dw = torch.empty((bh, t_len, d), dtype=F32, device=dev)
+    du = torch.empty((h, d), dtype=F32, device=dev)
+    du_part = torch.empty((bh, d), dtype=F32, device=dev)
+    n_anchor = -(-t_len // _bwd_lib().repro_rwkv6_scan_bwd_chunk()) - 1
+    anchors = torch.empty((bh, n_anchor, d, d), dtype=F32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _bwd_lib().repro_rwkv6_scan_bwd(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+        u_in.data_ptr(), do.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dw.data_ptr(), du.data_ptr(), du_part.data_ptr(),
+        anchors.data_ptr() if n_anchor else 0,
+        int(r.dtype == torch.bfloat16), bh, h, t_len, d,
+        r.stride(0), r.stride(1), k.stride(0), k.stride(1), v.stride(0),
+        v.stride(1), w.stride(0), w.stride(1), do.stride(0), do.stride(1),
+        stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan_bwd: CUDA error {err}")
+    bwd.launches += 1
+    f, nb = work_bwd(bh, t_len, d, h, r.element_size())
+    bwd.flops, bwd.bytes_moved = bwd.flops + f, bwd.bytes_moved + nb
+    return dr, dk, dv, dw, du.reshape(u.shape)

@@ -5,14 +5,15 @@ mixing (the RWKV-6 recurrence behind a 5-way data-dependent token-shift
 interpolation) and channel mixing (a squared-ReLU FFN with token shift).
 
 Every time-mix recurrence runs the ``rwkv6_scan`` kernel
-(``ops.rwkv6_scan``).  A multi-token step (the forward, a whole-prompt
-prefill, or a later chunk: the state carries, so any start position works)
-is one launch from the carried state, where the reference runs the
-chunk-recurrent form ``rwkv6_chunked``; a one-token decode step is a T = 1
-launch with the state in and out, where the reference takes one plain
-step.  Each launch gets the dtypes of the reference branch it replaces:
-r, k, v in the model's dtype on the multi-token branch, r rounded to it and
-k, v in f32 on the one-token branch, w and u in f32 on both.
+(``ops.rwkv6_scan``; where grad is on, its backward kernel too).  A
+multi-token step (the forward, a whole-prompt prefill, or a later chunk:
+the state carries, so any start position works) is one launch from the
+carried state, where the reference runs the chunk-recurrent form
+``rwkv6_chunked``; a one-token decode step is a T = 1 launch with the
+state in and out, where the reference takes one plain step.  Each launch
+gets the dtypes of the reference branch it replaces: r, k, v in the
+model's dtype on the multi-token branch, r rounded to it and k, v in f32
+on the one-token branch, w and u in f32 on both.
 
 Parameters and decode state are nested dicts in the reference's layout, the
 per-block leaves stacked on a leading layer axis: ``blocks/{ln1, tmix, ln2,
@@ -35,7 +36,7 @@ from repro_torch.models.layers import (F32, dense_init, dtype_of,
                                        init_layernorm, init_rmsnorm,
                                        layernorm, mask_padded_vocab, mm,
                                        rmsnorm)
-from repro_torch.runtime import maybe_dequant
+from repro_torch.runtime import maybe_dequant, maybe_remat
 
 _LORA_MIX = 32
 _LORA_DECAY = 64
@@ -245,10 +246,13 @@ def _depth(params: dict) -> int:
 
 
 def rwkv_forward(params: dict, cfg: ModelConfig, tokens) -> dict:
-    """tokens (B,S) -> {"logits": (B,S,padded_vocab) f32, "aux_loss"}."""
+    """tokens (B,S) -> {"logits": (B,S,padded_vocab) f32, "aux_loss"}.
+    Each block runs under ``maybe_remat``, as the reference's scan body
+    does; the layers come from one ``tree.unstack``, so that where autograd
+    records a stacked leaf's gradient is built in one pass."""
     x = _embed(params, cfg, tokens)
-    for i in range(_depth(params)):
-        x, _ = _rwkv_block(tree.index(params["blocks"], i), x, cfg, None)
+    for pl in tree.unstack(params["blocks"], _depth(params)):
+        x = maybe_remat(lambda xx, pl=pl: _rwkv_block(pl, xx, cfg, None)[0])(x)
     return {"logits": _logits(params, cfg, x),
             "aux_loss": torch.zeros((), dtype=F32, device=x.device)}
 

@@ -17,9 +17,14 @@ API: ``opt = make(name, **hp)``; ``state = opt.init(params)``;
 clip into it).  Unlike the reference, ``update`` writes the new values into
 the params and the state in place (under ``torch.no_grad``) and returns the
 same trees: the card never holds two copies of a 2.6 B-parameter model's
-moments.  The arithmetic is the reference's, leaf by leaf in f32.  The
-reference's slice-wise update of huge stacked leaves (``_maybe_map_update``)
-is disabled there (its threshold is ``1 << 62``) and is not ported.
+moments.  The arithmetic is the reference's, leaf by leaf in f32.  AdamW
+takes each leaf ``_CHUNK`` elements at a time (whole int8 blocks), so that
+its f32 temporaries stay a few hundred MB where a stacked leaf is billions
+of elements (rwkv6-7b's channel-mix matrices are 1.9 G each); every
+operation is elementwise or within a block, so the values are the
+reference's bit for bit.  The reference's own slice-wise update of huge
+stacked leaves (``_maybe_map_update``) is disabled there (its threshold is
+``1 << 62``) and is not ported.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from repro_torch.models import tree
 
 F32 = torch.float32
 _BLOCK = 256
+_CHUNK = 1 << 26        # AdamW's elements a leaf at a time, whole blocks
+_Q8_EPS = 1e-12         # added to every int8 block's scale
 
 
 # ---------------------------------------------------------------------------
@@ -47,7 +54,7 @@ def _q8_encode(x: torch.Tensor) -> dict:
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
     blocks = flat.reshape(-1, _BLOCK)
-    scale = blocks.abs().amax(dim=1, keepdim=True) / 127.0 + 1e-12
+    scale = blocks.abs().amax(dim=1, keepdim=True) / 127.0 + _Q8_EPS
     q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
     return {"q": q, "s": scale}
 
@@ -60,33 +67,33 @@ def _q8_decode(enc: dict, shape) -> torch.Tensor:
     return blocks.reshape(-1)[:n].reshape(shape)
 
 
-def _is_enc(x) -> bool:
-    return isinstance(x, dict) and set(x) == {"q", "s"}
-
-
 def _moment_store(x: torch.Tensor, dtype: str):
+    """A float moment stored as ``dtype`` (int8 goes by ``_chunk_store``)."""
     if dtype == "float32":
         return x.to(F32)
     if dtype == "bfloat16":
         return x.to(torch.bfloat16)
-    if dtype == "int8":
-        return _q8_encode(x)
     raise ValueError(dtype)
 
 
-def _moment_load(m, dtype: str, shape) -> torch.Tensor:
+def _chunk_load(m, dtype: str, a: int, b: int) -> torch.Tensor:
+    """Elements [a, b) of a flattened moment in f32; a stored f32 moment
+    gives a view of itself."""
     if dtype == "int8":
-        return _q8_decode(m, shape)
-    return m.to(F32)
+        lo, hi = a // _BLOCK, -(-b // _BLOCK)
+        return _q8_decode({"q": m["q"][lo:hi], "s": m["s"][lo:hi]}, (b - a,))
+    flat = m.view(-1)[a:b]
+    return flat if dtype == "float32" else flat.to(F32)
 
 
-def _write(dst, new) -> None:
-    """Write a moment's new value into its stored tensor(s) in place."""
-    if _is_enc(dst):
-        dst["q"].copy_(new["q"])
-        dst["s"].copy_(new["s"])
+def _chunk_store(m, dtype: str, a: int, x: torch.Tensor) -> None:
+    """Write ``x`` as elements [a, a + len(x)) of a flattened moment."""
+    if dtype == "int8":
+        enc, lo = _q8_encode(x), a // _BLOCK
+        m["q"][lo:lo + enc["q"].shape[0]].copy_(enc["q"])
+        m["s"][lo:lo + enc["s"].shape[0]].copy_(enc["s"])
     else:
-        dst.copy_(new)
+        m.view(-1)[a:a + x.numel()].copy_(x)
 
 
 def _flat(state_tree, params) -> list:
@@ -141,8 +148,16 @@ def make_adamw(*, lr: Callable | float = 1e-3, b1: float = 0.9,
 
     def init(params):
         def zeros(p):
-            return _moment_store(torch.zeros(p.shape, dtype=F32,
-                                             device=p.device), state_dtype)
+            if state_dtype != "int8":
+                return _moment_store(torch.zeros(p.shape, dtype=F32,
+                                                 device=p.device),
+                                     state_dtype)
+            # What _q8_encode gives a block of zeros.
+            blocks = -(-p.numel() // _BLOCK)
+            return {"q": torch.zeros((blocks, _BLOCK), dtype=torch.int8,
+                                     device=p.device),
+                    "s": torch.full((blocks, 1), _Q8_EPS, dtype=F32,
+                                    device=p.device)}
         return {"m": tree.tree_map(zeros, params),
                 "v": tree.tree_map(zeros, params)}
 
@@ -156,35 +171,39 @@ def make_adamw(*, lr: Callable | float = 1e-3, b1: float = 0.9,
         t = _step_f32(step, dev) + 1.0
         c1 = 1.0 - torch.pow(torch.full((), b1, dtype=F32, device=dev), t)
         c2 = 1.0 - torch.pow(torch.full((), b2, dtype=F32, device=dev), t)
-        for g, m_s, v_s, p in zip(tree.leaves(grads),
-                                  _flat(state["m"], params),
-                                  _flat(state["v"], params), p_leaves):
-            # The reference's expressions, each operation rounded as there,
-            # written in place on the f32 moments (``_moment_load`` gives
-            # the stored f32 tensor itself) and on fresh temporaries: a
-            # leaf costs three f32 copies of itself at most.
-            g = _scaled(g, scale)
-            m = _moment_load(m_s, state_dtype, p.shape).mul_(b1)
-            m.add_(g * (1 - b1))
-            v = _moment_load(v_s, state_dtype, p.shape)
-            v = torch.square(v) if state_dtype == "int8" else v
-            v.mul_(b2).add_(g.mul(1 - b2).mul_(g))
-            del g
-            upd = torch.div(m, c1)
-            upd.div_(torch.div(v, c2).sqrt_().add_(eps))
-            if weight_decay:
-                upd.add_(weight_decay * p.to(F32))
-            upd.mul_(lr_t)
-            if p.dtype == F32:
-                p.sub_(upd)
-            else:
-                p.copy_(p.to(F32).sub_(upd))
-            del upd
-            if state_dtype != "float32":
-                _write(m_s, _moment_store(m, state_dtype))
-                _write(v_s, _moment_store(
-                    torch.sqrt(v) if state_dtype == "int8" else v,
-                    state_dtype))
+        for g_leaf, m_s, v_s, p_leaf in zip(tree.leaves(grads),
+                                            _flat(state["m"], params),
+                                            _flat(state["v"], params),
+                                            p_leaves):
+            g_flat, p_flat = g_leaf.reshape(-1), p_leaf.view(-1)
+            for a in range(0, p_flat.numel(), _CHUNK):
+                b_ = min(a + _CHUNK, p_flat.numel())
+                p = p_flat[a:b_]
+                # The reference's expressions, each operation rounded as
+                # there, written in place on the f32 moments
+                # (``_chunk_load`` gives the stored f32 tensor itself) and
+                # on fresh temporaries of the chunk.
+                g = _scaled(g_flat[a:b_], scale)
+                m = _chunk_load(m_s, state_dtype, a, b_).mul_(b1)
+                m.add_(g * (1 - b1))
+                v = _chunk_load(v_s, state_dtype, a, b_)
+                v = torch.square(v) if state_dtype == "int8" else v
+                v.mul_(b2).add_(g.mul(1 - b2).mul_(g))
+                del g
+                upd = torch.div(m, c1)
+                upd.div_(torch.div(v, c2).sqrt_().add_(eps))
+                if weight_decay:
+                    upd.add_(weight_decay * p.to(F32))
+                upd.mul_(lr_t)
+                if p.dtype == F32:
+                    p.sub_(upd)
+                else:
+                    p.copy_(p.to(F32).sub_(upd))
+                del upd
+                if state_dtype != "float32":
+                    _chunk_store(m_s, state_dtype, a, m)
+                    _chunk_store(v_s, state_dtype, a, torch.sqrt(v)
+                                 if state_dtype == "int8" else v)
         return params, state
 
     return Optimizer(init=init, update=update, name=f"adamw[{state_dtype}]")

@@ -99,7 +99,8 @@ def test_kernel_build_is_lazy():
     assert build.SOURCES.keys() == {"fused_mlp_q8", "gemm_int8",
                                     "flash_attention", "linear_scan",
                                     "rwkv6_scan", "tiled_gemm",
-                                    "fused_dense", "flash_attention_bwd"}
+                                    "fused_dense", "flash_attention_bwd",
+                                    "rwkv6_scan_bwd"}
     for src in build.SOURCES.values():
         assert (build.CSRC / src).is_file()
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)

@@ -416,7 +416,8 @@ def test_cpu_dispatch_runs_plain_and_counts_no_launch():
                                    "flash_attention": 0, "linear_scan": 0,
                                    "rwkv6_scan": 0, "tiled_gemm": 0,
                                    "fused_dense": 0,
-                                   "flash_attention_bwd": 0}
+                                   "flash_attention_bwd": 0,
+                                   "rwkv6_scan_bwd": 0}
 
 
 def test_non_cpu_tensor_never_reaches_plain(monkeypatch):
@@ -439,7 +440,8 @@ def test_non_cpu_tensor_never_reaches_plain(monkeypatch):
                                    "flash_attention": 0, "linear_scan": 0,
                                    "rwkv6_scan": 0, "tiled_gemm": 0,
                                    "fused_dense": 0,
-                                   "flash_attention_bwd": 0}
+                                   "flash_attention_bwd": 0,
+                                   "rwkv6_scan_bwd": 0}
 
 
 @pytest.mark.gpu

@@ -171,6 +171,33 @@ def test_optimizers_equal_reference(name, kw):
         _close(g.float(), np.asarray(w, np.float32), TOL_OPT)
 
 
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16", "int8"])
+def test_adamw_takes_a_leaf_in_chunks_bit_for_bit(monkeypatch, state_dtype):
+    """AdamW over a leaf ``_CHUNK`` elements at a time (here 512, two int8
+    blocks: leaves of 960, 7200 and 24 elements end mid-chunk and
+    mid-block) gives the whole-leaf update's params and moments exactly."""
+    def run():
+        rng = np.random.default_rng(1)
+        params = {k: torch.from_numpy(v.copy())
+                  for k, v in _opt_params(rng).items()}
+        params["b"] = params["b"].to(torch.bfloat16)
+        opt = opt_lib.make("adamw", lr=0.05, state_dtype=state_dtype,
+                           weight_decay=0.1)
+        state = opt.init(params)
+        for step in range(3):
+            grads = {k: torch.from_numpy(rng.standard_normal(
+                tuple(v.shape)).astype(np.float32))
+                for k, v in params.items()}
+            params, state = opt.update(grads, state, params,
+                                       torch.tensor(step), scale=None
+                                       if step < 2 else torch.tensor(0.5))
+        return tree.leaves(params) + _flat_sorted(state)
+    whole = run()
+    monkeypatch.setattr(opt_lib, "_CHUNK", 512)
+    for a, b in zip(run(), whole):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 def _flat_sorted(t):
     """Leaves in JAX's order (dict keys sorted)."""
     if isinstance(t, dict):
@@ -272,6 +299,7 @@ STEP_CASES = [
      dict(remat="block", chunked_loss=True)),
     ("whisper_medium", "whisper_medium", dict(remat="block")),
     ("recurrentgemma_2b", "recurrentgemma_2b", dict(remat="block")),
+    ("rwkv6_7b", "rwkv6_7b", dict(remat="block")),
 ]
 SEQ = 24          # past the smoke windows of 16
 
@@ -512,3 +540,17 @@ def test_launcher_trains_the_smoke_model_on_the_cpu(tmp_path, capsys):
     assert launch_train.main(["--arch", "gemma2-2b", "--smoke", "--device",
                               "cpu", "--steps", "3", "--state-dtype", "int8",
                               "--ckpt-dir", str(tmp_path / "again")]) == 0
+
+
+def test_launcher_trains_the_rwkv_smoke_model_on_the_cpu(tmp_path, capsys):
+    """rwkv6-7b through the launcher's driver: the gradient of every
+    time-mix recurrence is ``rwkv6_scan``'s backward (its plain version
+    on the CPU)."""
+    out = launch_train.run(["--arch", "rwkv6-7b", "--smoke", "--device",
+                            "cpu", "--steps", "3", "--batch", "2", "--seq",
+                            "40", "--ckpt-every", "100", "--ckpt-dir",
+                            str(tmp_path)])
+    assert [s for s, *_ in out["steps"]] == [1, 2, 3]
+    assert all(np.isfinite(l) and np.isfinite(g) and g > 0
+               for _, l, g, _ in out["steps"])
+    assert "[train] arch=rwkv6_7b smoke=True" in capsys.readouterr().out

@@ -1,19 +1,24 @@
 """Gradients through the port's kernels, against the JAX package.
 
-``ops.flash_attention`` and ``ops.linear_scan`` run as autograd Functions
-where grad is on; on the CPU their backward is the plain backward
-(``flash_attention_bwd_plain``, ``linear_scan_bwd_plain``), the same
-Function, saved tensors and formulas as the card runs.  The same seeded
-numpy inputs go through ``jax.vjp`` of the reference's oracles
-(``repro.kernels.ref.attention``, ``ref.linear_scan``) and through the
-port.  Tolerances: f32 gradients within 2e-5 of the largest reference
-gradient (both sides sum f32 products in other orders; the backward's
-scale is O(1) values over at most 64 keys), the scan's within 1e-5.  The
-kernels without a backward raise on grad on every device, and the serve
-paths record nothing.  The ``gpu`` cases hold the CUDA backward to the
-plain one on a card (1e-5 of the largest value in f32; 2e-2 in bf16, where
-the tensor-core path rounds P and dS to bf16 before their products and
-every output to bf16) and need no JAX.
+``ops.flash_attention``, ``ops.linear_scan`` and ``ops.rwkv6_scan`` run as
+autograd Functions where grad is on; on the CPU their backward is the
+plain backward (``flash_attention_bwd_plain``, ``linear_scan_bwd_plain``,
+``rwkv6_scan_bwd_plain``), the same Function, saved tensors and formulas
+as the card runs.  The same seeded numpy inputs go through ``jax.vjp`` of
+the reference's oracles (``repro.kernels.ref.attention``,
+``ref.linear_scan``, ``ref.rwkv6_scan``, and the model's
+``rwkv6_chunked``) and through the port.  Tolerances: f32 gradients within
+2e-5 of the largest reference gradient (both sides sum f32 products in
+other orders; the backward's scale is O(1) values over at most 64 keys or
+steps' worth of state), the linear scan's within 1e-5.  The RWKV
+gradient's bf16 case is held to autograd of the plain forward at the
+card's bf16 2e-2: both round the same f32 values to bf16 once, one bf16
+ulp (2^-8 of a value) apart at most.  The kernels without a backward raise
+on grad on every device, and the serve paths record nothing.  The ``gpu``
+cases hold the CUDA backward to the plain one on a card (1e-5 of the
+largest value in f32; 2e-2 in bf16, where the tensor-core path rounds P
+and dS to bf16 before their products and every output to bf16) and need no
+JAX.
 """
 
 import dataclasses
@@ -26,6 +31,7 @@ from repro_torch import configs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_attention_bwd as fb
 from repro_torch.kernels import ops, rglru
+from repro_torch.kernels import rwkv6 as rw
 from repro_torch.models import api
 
 try:
@@ -33,6 +39,7 @@ try:
     import jax.numpy as jnp
 
     from repro.kernels import ref
+    from repro.models import rwkv as ref_rwkv
 except ImportError:          # the card's machine has no JAX
     jax = None
 
@@ -164,14 +171,253 @@ def test_linear_scan_backward_is_the_reversed_scan():
     assert torch.equal(da, rglru._grads(a, h, lam)[0])
 
 
+# ---------------------------------------------------------------------------
+# The gradient of rwkv6_scan
+# ---------------------------------------------------------------------------
+
+def _rwkv_np(shape, *, heads=1, w_range=(0.1, 1.0), seed=0):
+    """r, k, v, do (scale 0.5), w in ``w_range`` and u (heads, D) x 0.3."""
+    rng = np.random.default_rng(seed)
+    r, k, v, do = (rng.normal(size=shape).astype(np.float32) * 0.5
+                   for _ in range(4))
+    w = rng.uniform(*w_range, size=shape).astype(np.float32)
+    u = (rng.normal(size=(heads, shape[-1])) * 0.3).astype(np.float32)
+    return r, k, v, w, u, do
+
+
+def _rwkv_port_grads(r, k, v, w, u, do, dtype=torch.float32):
+    """The Function's output and (dr, dk, dv, dw, du) on the CPU; r, k, v
+    and do in ``dtype``."""
+    ts = [torch.from_numpy(a).to(dt).requires_grad_() for a, dt in zip(
+        (r, k, v, w, u), (dtype, dtype, dtype, torch.float32,
+                          torch.float32))]
+    out = ops.rwkv6_scan(*ts)
+    grads = torch.autograd.grad(out, ts, torch.from_numpy(do).to(dtype))
+    return out.detach(), grads
+
+
+# (bh, t, d): one step, one chunk of the kernel's 16 steps exactly and one
+# past it, several chunks.
+RWKV_REF_CASES = [(2, 1, 8), (3, 16, 16), (2, 17, 16), (2, 53, 32)]
+
+
+@needs_reference
+@pytest.mark.parametrize("shape", RWKV_REF_CASES,
+                         ids=["x".join(map(str, c)) for c in RWKV_REF_CASES])
+def test_rwkv6_backward_matches_jax_grad_of_ref_scan(shape):
+    """u of shape (D,): the TPU kernel's function and its sequential
+    oracle, differentiated by jax.vjp."""
+    r, k, v, w, u, do = _rwkv_np(shape, seed=shape[1])
+    u = u[0]
+    out, grads = _rwkv_port_grads(r, k, v, w, u, do)
+    want_out, vjp = jax.vjp(ref.rwkv6_scan,
+                            *(jnp.asarray(a) for a in (r, k, v, w, u)))
+    _close(out.numpy(), want_out, TOL_F32)
+    plain = rw.rwkv6_scan_bwd_plain(*(torch.from_numpy(a) for a in
+                                      (r, k, v, w, u, do)))
+    for got, again, want in zip(grads, plain, vjp(jnp.asarray(do))):
+        assert got.shape == want.shape
+        assert torch.equal(got, again)
+        _close(got.numpy(), want, TOL_F32)
+
+
+@needs_reference
+@pytest.mark.parametrize("b,h,t", [(1, 2, 45), (2, 3, 70)])
+def test_rwkv6_backward_matches_jax_grad_of_rwkv6_chunked(b, h, t):
+    """The model's chunk-recurrent form (chunk 32: T not a multiple of it)
+    with per-head u (H, D), in its (B, H, T, D) layout, against the port's
+    (B H, T, D) rows.  Decays in [0.1, 1), where the reference's exp(-L)
+    factors stay finite; it clamps w at 1e-12 inside its log, so the two
+    are held together only where w >= 1e-12 (every w here)."""
+    d = 16
+    r, k, v, w, u, do = _rwkv_np((b * h, t, d), heads=h, seed=t)
+    out, grads = _rwkv_port_grads(r, k, v, w, u, do)
+
+    def chunked(*xs):
+        heads = [a.reshape(b, h, t, d) for a in xs[:4]]
+        return ref_rwkv.rwkv6_chunked(*heads, xs[4])[0].reshape(b * h, t, d)
+    want_out, vjp = jax.vjp(chunked,
+                            *(jnp.asarray(a) for a in (r, k, v, w, u)))
+    _close(out.numpy(), want_out, TOL_F32)
+    for got, want in zip(grads, vjp(jnp.asarray(do))):
+        assert np.isfinite(np.asarray(want)).all()
+        _close(got.numpy(), want, TOL_F32)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_backward_matches_autograd_of_plain(dtype, d):
+    """The written-out backward against autograd of the plain forward, at
+    each head dim the kernel takes, with two heads, decays that include
+    exact 0 and 1 (dw is taken from G and S directly: finite at w = 0)."""
+    dt = getattr(torch, dtype)
+    r, k, v, w, u, do = _rwkv_np((4, 21, d), heads=2, w_range=(0.0, 1.0),
+                                 seed=d)
+    w[0, 3, :4], w[1, 7, 4:9] = 0.0, 1.0
+    _, grads = _rwkv_port_grads(r, k, v, w, u, do, dt)
+    ts = [torch.from_numpy(a).to(x).requires_grad_() for a, x in zip(
+        (r, k, v, w, u), (dt, dt, dt, torch.float32, torch.float32))]
+    want = torch.autograd.grad(rw.rwkv6_scan_plain(*ts), ts,
+                               torch.from_numpy(do).to(dt))
+    tol = TOL_F32 if dt == torch.float32 else TOL_CARD["bfloat16"]
+    for got, w_ in zip(grads, want):
+        assert got.dtype == w_.dtype and torch.isfinite(got).all()
+        _close(got.float().numpy(), w_.float().numpy(), tol)
+
+
+def _line_sum(p):
+    """Sums over the last axis (D) in the CUDA kernel's order: eight lanes,
+    lane q holding elements 4 (q + 8 m) + c, each summing over m and c,
+    then three xor shuffles."""
+    *lead, d = p.shape
+    p = p.reshape(*lead, d // 32, 8, 4)
+    acc = torch.zeros((*lead, 8), dtype=p.dtype)
+    for m in range(d // 32):
+        for c in range(4):
+            acc = acc + p[..., m, :, c]
+    for o in (1, 2, 4):
+        acc = acc + acc[..., [q ^ o for q in range(8)]]
+    return acc[..., 0]
+
+
+def _kernel_formulation(r, k, v, w, u, do, *, identity=False):
+    """``csrc/rwkv6_scan_bwd.cu``'s arithmetic in f32 on the CPU: pass A
+    keeps S at every 16th step, pass B rebuilds S a chunk at a time
+    backwards beside G, dw from the history; the columns' G^T k and the
+    rows' sums in the kernel's lane order.  ``identity`` takes dw instead
+    through the cumulative-decay identity (dlogw_t = X_t - k_t (G_t v_t),
+    X carried back over T, dw = dlogw / w), which the kernel avoids."""
+    bh, t_len, d = r.shape
+    h = u.shape[0]
+    r, k, v, w, do = (torch.from_numpy(a).float() for a in (r, k, v, w, do))
+    u = torch.from_numpy(u).float().repeat(bh // h, 1)[:, None]
+    c_len = 16                   # the kernel's kChunk
+    n = -(-t_len // c_len)
+
+    def step(s, t):
+        return w[:, t, :, None] * s + k[:, t, :, None] * v[:, t, None, :]
+    s, anchors = torch.zeros((bh, d, d)), [torch.zeros((bh, d, d))]
+    for t in range((n - 1) * c_len):
+        s = step(s, t)
+        if (t + 1) % c_len == 0:
+            anchors.append(s)
+    drs, dks, dvs, dw = (torch.zeros((bh, t_len, d)) for _ in range(4))
+    g, x = torch.zeros((bh, d, d)), torch.zeros((bh, d))
+    for c in reversed(range(n)):
+        span = range(c * c_len, min((c + 1) * c_len, t_len))
+        s, hist = anchors[c], []
+        for t in span:
+            hist.append(s)
+            drs[:, t] = _line_sum(s * do[:, t, None, :])
+            s = step(s, t)
+        for t, s_prev in zip(reversed(span), reversed(hist)):
+            dks[:, t] = _line_sum(g * v[:, t, None, :])
+            dvs[:, t] = _line_sum((g * k[:, t, :, None]).transpose(1, 2))
+            if identity:
+                dl = x - k[:, t] * dks[:, t]
+                dw[:, t] = dl / w[:, t]
+                x = dl + r[:, t] * drs[:, t]
+            else:
+                dw[:, t] = _line_sum(g * s_prev)
+            g = w[:, t, :, None] * g + r[:, t, :, None] * do[:, t, None, :]
+    vdo = (v * do).sum(-1, keepdim=True)
+    du = torch.zeros((bh, d))
+    for t in range(t_len):
+        du = du + r[:, t] * k[:, t] * vdo[:, t]
+    return (drs + u * k * vdo, dks + u * r * vdo,
+            dvs + (r * u * k).sum(-1, keepdim=True) * do, dw,
+            du.reshape(bh // h, h, d).sum(0))
+
+
+@pytest.mark.parametrize("label,w_range", [
+    ("slow", (0.45, 0.95)), ("fast_to_0.01", (0.01, 1.0)),
+    ("all_0.01", (0.01, 0.01))])
+def test_rwkv6_backward_kernel_formulation_matches_plain(label, w_range):
+    """The card's two passes (S forward with a state kept every 16 steps;
+    chunks backwards, S rebuilt beside G) against the plain loop, over 200
+    steps, also at w = 0.01, where the reference's chunked form overflows
+    (exp(-L) over a chunk of 32 is 0.01^-32)."""
+    r, k, v, w, u, do = _rwkv_np((4, 200, 32), heads=2, w_range=w_range,
+                                 seed=7)
+    got = _kernel_formulation(r, k, v, w, u, do)
+    want = rw.rwkv6_scan_bwd_plain(*(torch.from_numpy(a) for a in
+                                     (r, k, v, w, u, do)))
+    for g_, w_ in zip(got, want):
+        _close(g_.numpy(), w_.numpy(), TOL_F32)
+
+
+def test_rwkv6_decay_identity_loses_digits_at_fast_decay():
+    """Why the kernel takes dw from G and S of one step: through the
+    cumulative-decay identity it cancels to w dw and divides by w, so at
+    decays down to 0.01 over 512 steps it misses the plain loop by more
+    than the f32 tolerance, which the direct sum meets."""
+    r, k, v, w, u, do = _rwkv_np((2, 512, 32), w_range=(0.01, 1.0), seed=3)
+    want = rw.rwkv6_scan_bwd_plain(*(torch.from_numpy(a) for a in
+                                     (r, k, v, w, u, do)))[3].numpy()
+    direct = _kernel_formulation(r, k, v, w, u, do)[3].numpy()
+    ident = _kernel_formulation(r, k, v, w, u, do, identity=True)[3].numpy()
+    scale = np.abs(want).max()
+    _close(direct, want, TOL_F32)
+    assert np.abs(ident - want).max() > TOL_F32 * scale
+
+
+def test_rwkv6_backward_refuses_a_state_under_grad():
+    r, k, v, w, u, _ = (torch.from_numpy(a) for a in
+                        _rwkv_np((2, 5, 8), heads=2))
+    s0 = torch.zeros((2, 8, 8))
+    rg = r.clone().requires_grad_()
+    with pytest.raises(ValueError, match="state0 and return_state"):
+        ops.rwkv6_scan(rg, k, v, w, u, state0=s0)
+    with pytest.raises(ValueError, match="state0 and return_state"):
+        ops.rwkv6_scan(rg, k, v, w, u, return_state=True)
+    with torch.no_grad():       # a carried state, as served
+        out, s = ops.rwkv6_scan(rg, k, v, w, u, state0=s0,
+                                return_state=True)
+    assert out.grad_fn is None and s.shape == (2, 8, 8)
+
+
+def test_rwkv6_backward_work_record():
+    """10 D^2 + 12 D flops a row and step; r, k, v, do read and dr, dk, dv
+    written at the item size, w and dw in f32, u and du once a head."""
+    flops, nbytes = rw.work_bwd(64, 4096, 64, 64, 2)
+    n = 64 * 4096 * 64
+    assert flops == 64 * 4096 * (10 * 64 * 64 + 12 * 64)
+    assert nbytes == 7 * 2 * n + 8 * n + 8 * 64 * 64
+    # About 0.16 ms at 67 TFLOP/s, above the bytes' 0.11 ms at 3.35 TB/s.
+    assert 0.16e-3 < flops / 67e12 < 0.17e-3
+    assert nbytes / 3.35e12 < flops / 67e12
+
+
+def test_rwkv_grad_witness_agrees_at_smoke_size():
+    """``scripts/rwkv_grad_witness.py`` at rwkv6-7b's smoke width on the
+    CPU: every f32 variant of the step's gradient (the plain versions
+    here) within ``TOL_F32`` of its f64 witness, the witness's own loss
+    the f32 step's, and the witness restoring what it patched."""
+    import importlib.util
+    import pathlib
+    path = (pathlib.Path(__file__).resolve().parent.parent / "scripts"
+            / "rwkv_grad_witness.py")
+    spec = importlib.util.spec_from_file_location("rwkv_grad_witness", path)
+    witness = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(witness)
+    real = (torch.Tensor.float, ops.rwkv6_scan)
+    out = witness.run(configs.get("rwkv6-7b").smoke, "float32", 2, 24,
+                      torch.device("cpu"), list(witness.VARIANTS))
+    assert (torch.Tensor.float, ops.rwkv6_scan) == real
+    assert set(out["variants"]) == {"f64", *witness.VARIANTS}
+    for label, row in out["variants"].items():
+        assert np.isfinite(row["grad_norm"]) and row["grad_norm"] > 0
+        if label != "f64":
+            assert row["global_rel_dist_to_f64"] < TOL_F32, label
+            assert row["loss_rel_to_f64"] < TOL_F32, label
+            assert len(row["pos0_layer_rel_to_f64"]) == 2
+
+
 def _refusal_calls():
     def f32(*shape):
         return torch.randn(shape, requires_grad=True)
     w8 = torch.randint(-127, 128, (16, 8), dtype=torch.int8)
     return {
-        "rwkv6_scan": lambda: ops.rwkv6_scan(
-            f32(2, 4, 8), f32(2, 4, 8), f32(2, 4, 8),
-            torch.rand(2, 4, 8), torch.randn(1, 8)),
         "fused_mlp_q8": lambda: ops.fused_mlp_q8(
             f32(8, 16), [w8], [torch.ones(8)], [torch.zeros(8)], [0.1]),
         "gemm_int8": lambda: ops.gemm_int8(
@@ -305,3 +551,69 @@ def test_linear_scan_backward_cuda_matches_plain_on_card(cuda_device, t):
     want = rglru.linear_scan_bwd_plain(a, h, g)
     for x, w in zip(got, want):
         _close(x.cpu().numpy(), w.cpu().numpy(), 1e-4)
+
+
+# (name, (bh, t, d), decay range): one step, one chunk of 16 and past it,
+# each head dim, fast decay and decay near 1.
+RWKV_CARD_CASES = [
+    ("t1", (4, 1, 64), (0.45, 0.95)),
+    ("one_chunk", (4, 16, 64), (0.45, 0.95)),
+    ("ragged", (4, 117, 64), (0.45, 0.95)),
+    ("d32", (6, 70, 32), (0.45, 0.95)),
+    ("d128", (4, 50, 128), (0.45, 0.95)),
+    ("fast_decay", (4, 300, 64), (0.01, 1.0)),
+    ("near_one", (4, 300, 64), (0.999, 1.0)),
+    ("forward_shape", (64, 1024, 64), (0.45, 0.95)),
+]
+
+
+def _rwkv_card(device, shape, w_range, dtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    r, k, v, do = (torch.randn(shape, generator=gen, device=device)
+                   .mul(0.5).to(dtype) for _ in range(4))
+    lo, hi = w_range
+    w = torch.rand(shape, generator=gen, device=device) * (hi - lo) + lo
+    u = torch.randn((2, shape[-1]), generator=gen, device=device) * 0.3
+    return r, k, v, w, u, do
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,shape,w_range", RWKV_CARD_CASES,
+                         ids=[c[0] for c in RWKV_CARD_CASES])
+def test_rwkv6_backward_cuda_matches_plain_on_card(cuda_device, name, shape,
+                                                   w_range, dtype):
+    args = _rwkv_card(cuda_device, shape, w_range, getattr(torch, dtype),
+                      seed=len(name))
+    before = rw.bwd.launches
+    got = rw.rwkv6_scan_bwd_cuda(*args)
+    want = rw.rwkv6_scan_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert rw.bwd.launches == before + 1
+    for x, w_ in zip(got, want):
+        assert x.dtype == w_.dtype and x.shape == w_.shape
+        assert torch.isfinite(x).all()
+        _close(x.float().cpu().numpy(), w_.float().cpu().numpy(),
+               TOL_CARD[dtype])
+
+
+@pytest.mark.gpu
+def test_rwkv6_function_on_card_takes_head_transposed_views(cuda_device):
+    """The model's (1, T, H, D) projections viewed as (H, T, D), through
+    the autograd Function, against autograd of the plain forward."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = [torch.randn((1, 90, 4, 64), generator=gen, device=cuda_device) * 0.5
+         for _ in range(3)]
+    w = torch.rand((1, 90, 4, 64), generator=gen, device=cuda_device) * 0.5 \
+        + 0.45
+    ts = [t.transpose(1, 2).reshape(4, 90, 64) for t in
+          (a.clone().requires_grad_() for a in x + [w])]
+    u = (torch.randn((4, 64), generator=gen, device=cuda_device) * 0.3
+         ).requires_grad_()
+    g = torch.randn((4, 90, 64), generator=gen, device=cuda_device)
+    before = rw.bwd.launches
+    got = torch.autograd.grad(ops.rwkv6_scan(*ts, u), ts + [u], g)
+    assert rw.bwd.launches == before + 1
+    want = torch.autograd.grad(rw.rwkv6_scan_plain(*ts, u), ts + [u], g)
+    for a, b in zip(got, want):
+        _close(a.cpu().numpy(), b.cpu().numpy(), TOL_CARD["float32"])
