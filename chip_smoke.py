@@ -4108,10 +4108,11 @@ TF_ARCH = "gemma2-9b"
 TF_SEQ = 8192                  # gemma2's published context, past its window
 # Phases 14-14b run gemma2-9b at full width, cut in depth since phase 17
 # came in: at full depth the whole script read 1,161 s before its last
-# phase on a slow host, and with 21 layers and phases 17e-17g 1,109 s
-# (PERF.md section 4).  11 of its 42 layers: 5 (local, global) blocks and
-# a local tail layer.  The launcher's run stays whole.
-TF_LAYERS = 11
+# phase on a slow host, and with 21 layers and phases 17e-17g 1,109 s;
+# with 11 layers and phase 18, 1,247 s on a slow host (PERF.md section
+# 4).  5 of its 42 layers: 2 (local, global) blocks and a local tail
+# layer.  The launcher's run stays whole.
+TF_LAYERS = 5
 # The batcher's and the chunked prefill's cache: max_len == gemma2's window
 # (LM_SEQ, 4096), so the local layers keep rings and the global layers
 # linear buffers, as the reference's rule picks them.
@@ -4746,7 +4747,8 @@ def transformer_phases(device) -> dict:
 # ---------------------------------------------------------------------------
 
 MIXTRAL_ARCH = "mixtral-8x22b"
-MIXTRAL_LAYERS = 8             # of 56; a layer is 2.5 B parameters (5.0 GB)
+MIXTRAL_LAYERS = 4             # of 56 (8 before phase 18); a layer is
+                               # 2.5 B parameters (5.0 GB)
 MIXTRAL_SEQ = 8192             # past the 4096 window
 MIXTRAL_F32_LAYERS = 2         # the float32 decode and chunked-prefill cut
 DEEPSEEK_ARCH = "deepseek-v3-671b"
@@ -6136,6 +6138,556 @@ def rwkv_bwd_kernel_entry(train: dict) -> dict:
                      for r in train["rwkv_rows"]]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the multi-device paths (torch.distributed)
+# ---------------------------------------------------------------------------
+
+MD_TIMED_STEPS = 3             # 18a: p50 of this many steps of each kind
+MD_W2_SEQ = 1024               # 18b(i): the f32 cut's sequence, 1 a rank
+MD_W2_LAYERS = 2
+MD_W2_COMPRESSED_STEPS = 3
+MD_MOE_ARCH = "mixtral-8x22b"
+MD_MOE_TOKENS = (2, 512)       # 18b(ii): the f32 check's (B, S)
+MD_MOE_TIMED = (1, 4096)       # 18b(ii): the timed bf16 run's (B, S)
+MD_PIPE_LAYERS = 4             # 18b(iii): rwkv6-7b's first 4 of 32
+MD_PIPE_MICRO = 4
+MD_PIPE_SEQ = 1024
+MD_WORLD_S = 600               # 18b's wall limit, process start included
+# 18a holds the reduced gradients and the loss bit-equal (NCCL at world 1
+# adds nothing and the step's kernels use no atomics).  18b(i): the mean of
+# two ranks' one-row gradients against the two-row one, f32, summation
+# order apart; (ii) the reference's own 2e-4 for the sharded MoE block
+# (tests/test_moe_distributed.py), of the largest value; (iii) the 4 layers
+# pipelined against the
+# same layers in sequence, a microbatch at a time.
+TOL_MD_GRAD = 1e-5
+TOL_MD_LOSS = 1e-6
+TOL_MD_MOE = 2e-4
+TOL_MD_PIPE = 1e-5
+
+
+def _md_batch(cfg, device, batch: int, seq: int, step: int) -> dict:
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models import tree
+    return tree.tree_map(lambda a: tree.as_tensor(a, device), synth_batch(
+        cfg, batch=batch, seq=seq, step=step))
+
+
+def _plain_grads(loss_fn, params, batch):
+    """The loss and gradients of one batch with no process group."""
+    from repro_torch.train import step as step_lib
+    leaves = step_lib._trainable(params)
+    loss, _ = loss_fn(params, batch)
+    grads = step_lib._grad(loss, leaves)
+    del leaves
+    return loss.detach(), [g.detach() for g in grads]
+
+
+def _quantized(c):
+    """The compressed reduction's formula at one rank: (q * scale,
+    c - q * scale) of the f32 ``c``."""
+    import torch
+    scale = c.abs().max() / 127.0 + 1e-12
+    q = torch.clamp(torch.round(c / scale), -127, 127).to(torch.int8)
+    return q.float() * scale, c - q.float() * scale
+
+
+def _synced_ms(fn) -> float:
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def dp_world1_phase(device) -> dict:
+    """18a: the published gemma2-2b at 17c's 2 x 4096 through
+    ``build_manual_dp_step`` on a (1, 1) mesh, NCCL at world 1 in this
+    process: the uncompressed step's reduced gradients and loss bit-equal
+    to the step with no process group, the compressed step's reduced
+    gradients and residuals bit-equal to ``q * scale`` and ``c - q *
+    scale`` recomputed here; then each kind timed."""
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import api, tree
+    from repro_torch.train import compression, optimizer
+    from repro_torch.train import step as step_lib
+    t_all = time.perf_counter()
+    cfg = configs.get(TRAIN_ARCH).config
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_lib.init_world(0, 1, device=device.type,
+                            store_path=str(pathlib.Path(tmp) / "store"))
+        try:
+            mesh = mesh_lib.make_host_mesh()
+            params = api.init(cfg, torch.Generator(device=device).manual_seed(
+                0), device=device)
+            n_params = sum(t.numel() for t in tree.leaves(params))
+            opt = optimizer.make("adamw", state_dtype=TRAIN_STATE_DTYPE)
+            state = step_lib.train_state(params, opt)
+            state["residual"] = compression.ErrorFeedback.init(
+                params, world=1, mesh=mesh)
+            loss_fn = step_lib.make_loss_fn(cfg, step_lib.TrainOptions(
+                remat="block", chunked_loss=True))
+            want: dict = {}
+            held: dict = {}
+
+            def held_uncompressed(loss, reduced, new_res):
+                if not torch.equal(loss, want["loss"]):
+                    raise SmokeFailure(f"18a: the DP step's loss "
+                                       f"{float(loss)} is not the plain "
+                                       f"step's {float(want['loss'])}")
+                for i, (g, w) in enumerate(zip(tree.leaves(reduced),
+                                               want["grads"])):
+                    if not torch.equal(g, w.float()):
+                        raise SmokeFailure(
+                            f"18a: reduced gradient leaf {i} "
+                            f"{tuple(g.shape)} differs from the plain "
+                            f"step's by {float((g - w.float()).abs().max())}")
+                held["uncompressed_leaves"] = len(want["grads"])
+
+            def held_compressed(loss, reduced, new_res):
+                if not torch.equal(loss, want["loss"]):
+                    raise SmokeFailure("18a: the compressed step's loss is "
+                                       "not the plain step's")
+                for i, (g, e, w) in enumerate(zip(
+                        tree.leaves(reduced), tree.leaves(new_res),
+                        want["grads"])):
+                    # The residual was zero: c = g.
+                    q_scale, res = _quantized(w.float())
+                    if not (torch.equal(g, q_scale) and torch.equal(e, res)):
+                        raise SmokeFailure(
+                            f"18a: compressed leaf {i} {tuple(g.shape)}: "
+                            f"reduced off q*scale by "
+                            f"{float((g - q_scale).abs().max())}, residual "
+                            f"off c - q*scale by "
+                            f"{float((e - res).abs().max())}")
+                held["compressed_leaves"] = len(want["grads"])
+
+            def plain(step):
+                want.clear()
+                want["loss"], want["grads"] = _plain_grads(
+                    loss_fn, params, _md_batch(cfg, device, TRAIN_BATCH,
+                                               TRAIN_SEQ, step))
+
+            build = compression.build_manual_dp_step
+            counts = collections.Counter()
+
+            def drive(step_fn, s):
+                nonlocal state
+                before = ops.launch_counts()
+                batch = _md_batch(cfg, device, TRAIN_BATCH, TRAIN_SEQ, s)
+                ms = _synced_ms(lambda: state.update(step_fn(state, batch)))
+                counts.update({n: c - before[n]
+                               for n, c in ops.launch_counts().items()})
+                return ms
+            plain(0)
+            ops.reset_launches()
+            drive(build(loss_fn, opt, mesh, compress=True,
+                        observe=held_compressed), 0)
+            plain(1)
+            drive(build(loss_fn, opt, mesh, compress=False,
+                        observe=held_uncompressed), 1)
+            want.clear()
+            gc.collect()
+            times, peaks = {}, {}
+            for kind, compress in (("uncompressed", False),
+                                   ("compressed", True)):
+                step_fn = build(loss_fn, opt, mesh, compress=compress)
+                torch.cuda.reset_peak_memory_stats()
+                times[kind] = [drive(step_fn, 2 + i)
+                               for i in range(MD_TIMED_STEPS)]
+                peaks[kind] = torch.cuda.max_memory_allocated()
+            steps = 2 + 2 * MD_TIMED_STEPS
+            if int(state["step"]) != steps:
+                raise SmokeFailure(f"18a: the state's step is "
+                                   f"{int(state['step'])}, want {steps}")
+            for name in ("flash_attention", "flash_attention_bwd"):
+                if counts[name] == 0:
+                    raise SmokeFailure(f"18a: {name} launched no time in "
+                                       f"the DP steps")
+            residual_bytes = sum(r.to_local().numel() * 4
+                                 for r in tree.leaves(state["residual"]))
+            del state, params, opt
+        finally:
+            mesh_lib.close_world()
+    gc.collect()
+    torch.cuda.empty_cache()
+    p50 = {k: statistics.median(v) for k, v in times.items()}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {"arch": TRAIN_ARCH, "params": n_params,
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "held": held,
+           "step_ms": times, "step_p50_ms": p50,
+           "tokens_per_s": {k: tokens / (v / 1e3) for k, v in p50.items()},
+           "peak_memory_bytes": peaks,
+           "compressed_extra_ms": p50["compressed"] - p50["uncompressed"],
+           "compressed_extra_peak_bytes":
+               peaks["compressed"] - peaks["uncompressed"],
+           "residual_bytes": residual_bytes,
+           "launches": dict(counts), "steps": steps,
+           "per_step": {n: counts[n] / steps for n in
+                        ("flash_attention", "flash_attention_bwd")},
+           "wall_s": time.perf_counter() - t_all}
+    log("18a gemma2-2b manual DP step, NCCL world 1: "
+        + json.dumps(out, sort_keys=True))
+    return out
+
+
+def _md_probe(mesh, device) -> dict:
+    """Each op of the collectives module on CUDA tensors over gloo: the
+    native form (where gloo carries it) bit-equal to the composed one;
+    ``ppermute`` (composed on CUDA) against the values it must move."""
+    import torch
+    from repro_torch import collectives as coll
+    rank = coll.axis_index("model", mesh)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16, torch.int32):
+        x = (torch.arange(24, device=device).reshape(4, 6) * 7
+             + 100 * rank).to(dt)
+        for name, fn in (
+                ("all_gather", lambda: coll.all_gather(
+                    x, "model", dim=1, tiled=True, mesh=mesh)),
+                ("all_to_all", lambda: coll.all_to_all(
+                    x, "model", split_axis=0, concat_axis=1, mesh=mesh))):
+            native = fn()
+            with coll.force_composed():
+                composed = fn()
+            if not torch.equal(native, composed):
+                raise SmokeFailure(f"18b: gloo's native {name} on CUDA "
+                                   f"{dt} differs from the composed form")
+            out[f"{name} {dt}"] = "native = composed"
+        got = coll.ppermute(x, "model", [(0, 1), (1, 0)], mesh=mesh)
+        want = (torch.arange(24, device=device).reshape(4, 6) * 7
+                + 100 * (1 - rank)).to(dt)
+        if not torch.equal(got, want):
+            raise SmokeFailure(f"18b: ppermute on CUDA {dt} moved the "
+                               f"wrong values")
+        out[f"ppermute {dt}"] = "composed, held"
+    return out
+
+
+def _md_dp(device, mesh) -> dict:
+    """18b(i): a 2-layer f32 cut of gemma2-2b at full width, a row a
+    rank: the pmean'd gradients and loss against the whole batch's with no
+    group; then compressed steps, after which both ranks' parameters must
+    be bit-equal."""
+    import torch
+    from repro_torch import collectives as coll
+    from repro_torch.models import api, tree
+    from repro_torch.train import compression, optimizer
+    from repro_torch.train import step as step_lib
+    cfg = _cut(TRAIN_ARCH, MD_W2_LAYERS)
+    params = api.init(cfg, torch.Generator(device=device).manual_seed(0),
+                      device=device)
+    opt = optimizer.make("adamw", state_dtype="bfloat16")
+    state = step_lib.train_state(params, opt)
+    state["residual"] = compression.ErrorFeedback.init(params, world=2,
+                                                       mesh=mesh)
+    loss_fn = step_lib.make_loss_fn(cfg, step_lib.TrainOptions(
+        remat="block", chunked_loss=True))
+    whole = _md_batch(cfg, device, 2, MD_W2_SEQ, 0)
+    w_loss, w_grads = _plain_grads(loss_fn, params, whole)
+    seen = {}
+
+    def held(loss, reduced, new_res):
+        mean = coll.pmean(loss, "data")
+        seen["loss_rel_err"] = float((mean - w_loss).abs() / w_loss.abs())
+        worst = 0.0
+        for g, w in zip(tree.leaves(reduced), w_grads):
+            worst = max(worst, float((g - w).abs().max())
+                        / max(float(w.abs().max()), 1e-30))
+        seen["grad_worst_rel_err"] = worst
+    state = compression.build_manual_dp_step(
+        loss_fn, opt, mesh, compress=False, observe=held)(state, whole)
+    del w_grads
+    step_c = compression.build_manual_dp_step(loss_fn, opt, mesh,
+                                              compress=True)
+    ms = [_synced_ms(lambda: state.update(step_c(
+        state, _md_batch(cfg, device, 2, MD_W2_SEQ, 1 + i))))
+        for i in range(MD_W2_COMPRESSED_STEPS)]
+    unequal = [i for i, t in enumerate(tree.leaves(state["params"]))
+               if not torch.equal(*coll.all_gather(t.detach(), "data",
+                                                   mesh=mesh).unbind(0))]
+    seen.update(compressed_step_ms=ms, params_unequal_leaves=unequal,
+                leaves=len(tree.leaves(state["params"])))
+    del state, params
+    return seen
+
+
+def _md_moe(device, mesh) -> dict:
+    """18b(ii): one mixtral-8x22b MoE layer at full width, EP and a2a on a
+    (1, 2) mesh, against the local block; then bf16, timed."""
+    import dataclasses
+    import torch
+    from repro_torch import sharding
+    from repro_torch.models import moe as moe_lib
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = moe_cut(MD_MOE_ARCH, 1, dtype=dtype, no_drop=True)
+        gen = torch.Generator(device=device).manual_seed(1)
+        p = moe_lib.init_moe(gen, cfg, device=device)
+        b, s = MD_MOE_TOKENS if dtype == "float32" else MD_MOE_TIMED
+        x = torch.randn((b, s, cfg.d_model), generator=gen, device=device
+                        ).to(getattr(torch, dtype))
+        local = moe_lib.moe_block(p, x, cfg)[0] if dtype == "float32" \
+            else None
+        for impl in ("gather_psum", "a2a"):
+            c = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, impl=impl))
+            with sharding.use_rules(mesh, sharding.train_rules(mesh)):
+                box = {}
+                ms = _synced_ms(lambda: box.update(
+                    y=moe_lib.moe_block(p, x, c)[0]))
+            y = box["y"]
+            if local is not None:
+                # Of the largest value: at full width the outputs run to
+                # the hundreds, and an f32 sum over 6144 or 16384 terms in
+                # another order moves a near-zero output by ~1e-2.
+                err = float((y - local).abs().max())
+                scale = float(local.abs().max())
+                if not (torch.isfinite(y).all()
+                        and err <= TOL_MD_MOE * scale):
+                    raise SmokeFailure(f"18b: the {impl} MoE block is "
+                                       f"{err} off the local block, whose "
+                                       f"largest value is {scale} (limit "
+                                       f"{TOL_MD_MOE} of it)")
+                out[f"{impl} f32 max_abs_err"] = err
+                out[f"{impl} f32 rel_err"] = err / scale
+            else:
+                if not torch.isfinite(y.float()).all():
+                    raise SmokeFailure(f"18b: the bf16 {impl} MoE block "
+                                       f"is not finite")
+                out[f"{impl} bf16 ms"] = ms
+        del p, x, local
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _md_pipeline(device) -> dict:
+    """18b(iii): rwkv6-7b's first 4 layers at full width in f32 through
+    ``pipeline_apply`` over two stages, against the layers in sequence."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import rwkv, tree
+    from repro_torch.train import pipeline_par
+    cfg = _cut(RWKV_ARCH, MD_PIPE_LAYERS)
+    gen = torch.Generator(device=device).manual_seed(2)
+    blocks = rwkv.init_rwkv(cfg, generator=gen, device=device)["blocks"]
+    x = torch.randn((MD_PIPE_MICRO, MD_PIPE_SEQ, cfg.d_model),
+                    generator=gen, device=device)
+
+    def layer(pl, h):
+        return rwkv._rwkv_block(pl, h, cfg, None)[0]
+    def in_sequence(h):
+        for pl in tree.unstack(blocks, MD_PIPE_LAYERS):
+            h = layer(pl, h)
+        return h
+    with torch.no_grad():
+        # A microbatch at a time, as the stages see them: the same shapes
+        # to every kernel and GEMM.
+        seq = torch.cat([in_sequence(m) for m in x.split(
+            x.shape[0] // MD_PIPE_MICRO)])
+        pmesh = mesh_lib.make_mesh((2,), ("pod",))
+        before = ops.launch_counts()
+        box = {}
+        ms = _synced_ms(lambda: box.update(y=pipeline_par.pipeline_apply(
+            layer, blocks, x, mesh=pmesh, axis="pod",
+            microbatches=MD_PIPE_MICRO)))
+        counts = {n: c - before[n] for n, c in ops.launch_counts().items()
+                  if c - before[n]}
+    err = float((box["y"] - seq).abs().max() / seq.abs().max())
+    if not err <= TOL_MD_PIPE:
+        raise SmokeFailure(f"18b: the pipelined layers are {err} of the "
+                           f"largest value off the layers in sequence")
+    if counts.get("rwkv6_scan", 0) == 0:
+        raise SmokeFailure("18b: the pipeline launched no rwkv6_scan")
+    return {"rel_err": err, "ms": ms, "launches": counts}
+
+
+def _md_elastic_state(device):
+    """18b(iv)'s state: a 2-layer cut of gemma2-2b (f32 params, AdamW's
+    bf16 moments, drawn), the same from the same seeds on every rank."""
+    import torch
+    from repro_torch.models import api, tree
+    from repro_torch.train import optimizer
+    from repro_torch.train import step as step_lib
+    cfg = _cut(TRAIN_ARCH, MD_W2_LAYERS)
+    params = api.init(cfg, torch.Generator(device=device).manual_seed(3),
+                      device=device)
+    state = step_lib.train_state(params, optimizer.make(
+        "adamw", state_dtype="bfloat16"), step=7)
+    gen = torch.Generator(device=device).manual_seed(4)
+    with torch.no_grad():
+        for leaf in tree.leaves(state["opt"]):
+            leaf.normal_(generator=gen)
+    return cfg, state
+
+
+def md_rank(rank: int, ckpt_dir: str) -> dict:
+    """Phase 18b on one of two ranks sharing the card over gloo."""
+    import torch
+    from repro_torch import collectives as coll
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import tree
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import step as step_lib
+    device = mesh_lib.world_device()
+    out, walls = {}, {}
+    t0 = time.perf_counter()
+    mesh = mesh_lib.make_host_mesh(model=2)
+    out["probe"] = _md_probe(mesh, device)
+    coll.COMPOSED.clear()           # what the paths below compose
+    walls["probe"] = time.perf_counter() - t0
+    dmesh = mesh_lib.make_host_mesh()
+    for part, fn in (("dp", lambda: _md_dp(device, dmesh)),
+                     ("moe", lambda: _md_moe(device, mesh)),
+                     ("pipeline", lambda: _md_pipeline(device))):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        out[part] = fn()
+        out[part]["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        gc.collect()
+        torch.cuda.empty_cache()
+        walls[part] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg, state = _md_elastic_state(device)
+    sh = step_lib.state_shardings(state, cfg, dmesh)
+    laid = tree.tree_map(lambda t, s: coll.distribute(t.detach(), s.spec,
+                                                      s.mesh), state, sh)
+    del state
+    out["elastic"] = {
+        "sharded_leaves": sum(1 for t in tree.leaves(laid)
+                              if t.to_local().numel() < t.numel()),
+        "local_bytes": sum(t.to_local().numel() * t.element_size()
+                           for t in tree.leaves(laid))}
+    ckpt_lib.save(ckpt_dir, laid, 7)
+    walls["elastic save"] = time.perf_counter() - t0
+    out["walls_s"] = walls
+    out["composed"] = sorted(coll.COMPOSED)
+    return out
+
+
+def elastic_restore(device, ckpt_dir: str) -> dict:
+    """18b(iv) in this process: the checkpoint the two ranks saved,
+    restored onto a (1, 1) mesh at world 1 by ``resume_elastic``; every
+    leaf bit-equal to the state they laid out."""
+    import tempfile
+    import torch
+    from repro_torch import collectives as coll
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import tree
+    from repro_torch.train import fault
+    from repro_torch.train import step as step_lib
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_lib.init_world(0, 1, device=device.type,
+                            store_path=str(pathlib.Path(tmp) / "store"))
+        try:
+            cfg, state = _md_elastic_state(device)
+            mesh = mesh_lib.make_host_mesh()
+            like = tree.tree_map(lambda t: torch.empty(
+                t.shape, dtype=t.dtype, device="meta"), state)
+            drv = fault.TrainDriver(fault.DriverConfig(ckpt_dir=ckpt_dir),
+                                    step_fn=None, batch_fn=None,
+                                    state=state)
+            got = drv.resume_elastic(like, step_lib.state_shardings(
+                state, cfg, mesh))
+            unequal = [i for i, (a, b) in enumerate(zip(
+                tree.leaves(got), tree.leaves(state)))
+                if not torch.equal(coll.gather(a), b.detach())]
+            n = len(tree.leaves(state))
+            event = drv.events[-1]
+            del got, state, drv
+        finally:
+            mesh_lib.close_world()
+    if unequal or event != ("elastic_resume", 7):
+        raise SmokeFailure(f"18b: the elastic restore: leaves {unequal} of "
+                           f"{n} differ, event {event}")
+    return {"leaves": n, "event": list(event),
+            "s": time.perf_counter() - t0}
+
+
+def multi_device_phases(device) -> dict:
+    """Phase 18: 18a the manual DP step at world 1 (NCCL, this process);
+    18b two processes on the card over gloo: the collective probe, the DP
+    step, the MoE layouts, the pipeline, and the elastic save restored
+    here onto world 1."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_all = time.perf_counter()
+    walls = {}
+    dp = dp_world1_phase(device)
+    walls["18a"] = dp["wall_s"]
+    t0 = time.perf_counter()
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        ranks = mesh_lib.spawn_host_world(
+            md_rank, 2, backend="gloo", device=device.type,
+            timeout_s=MD_WORLD_S, args=(ckpt,))
+        written = sum(f.stat().st_size
+                      for f in pathlib.Path(ckpt).rglob("*") if f.is_file())
+        restored = elastic_restore(device, ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    walls["18b"] = time.perf_counter() - t0
+    for r, out in enumerate(ranks):
+        log(f"18b rank {r}: " + json.dumps(out, sort_keys=True))
+        dp_r = out["dp"]
+        if not (dp_r["grad_worst_rel_err"] <= TOL_MD_GRAD
+                and dp_r["loss_rel_err"] <= TOL_MD_LOSS):
+            raise SmokeFailure(f"18b rank {r}: the DP step's gradients "
+                               f"{dp_r['grad_worst_rel_err']} and loss "
+                               f"{dp_r['loss_rel_err']} off the whole "
+                               f"batch's (limits {TOL_MD_GRAD}, "
+                               f"{TOL_MD_LOSS})")
+        if dp_r["params_unequal_leaves"]:
+            raise SmokeFailure(f"18b rank {r}: after the compressed steps "
+                               f"the ranks' params differ on leaves "
+                               f"{dp_r['params_unequal_leaves']}")
+    composed = ranks[0]["composed"]
+    log(f"18b collectives: gloo on CUDA composed {composed}, native the "
+        f"rest; probe {json.dumps(ranks[0]['probe'], sort_keys=True)}")
+    log(f"18b elastic: {written} bytes written, restored "
+        + json.dumps(restored, sort_keys=True))
+    walls["all"] = time.perf_counter() - t_all
+    log(f"phase 18 (multi-device): {json.dumps(walls, sort_keys=True)}")
+    pipe = [out["pipeline"]["launches"] for out in ranks]
+    return {"dp": dp, "ranks": ranks, "restored": restored,
+            "checkpoint_bytes": written, "composed": composed,
+            "walls_s": walls,
+            "launches": {f"{TRAIN_ARCH} dp step": dp["launches"],
+                         f"{RWKV_ARCH} pipeline": dict(
+                             collections.Counter(pipe[0])
+                             + collections.Counter(pipe[1]))}}
+
+
+def multi_device_readings(md: dict) -> dict:
+    """Phase 18's block of the summary line."""
+    dp = md["dp"]
+    return {
+        "18a": {k: dp[k] for k in (
+            "held", "step_p50_ms", "tokens_per_s", "peak_memory_bytes",
+            "compressed_extra_ms", "compressed_extra_peak_bytes",
+            "residual_bytes", "per_step")},
+        "18b": {"composed": md["composed"],
+                "dp": [r["dp"] for r in md["ranks"]],
+                "moe": [r["moe"] for r in md["ranks"]],
+                "pipeline": [r["pipeline"] for r in md["ranks"]],
+                "elastic": {"saved": [r["elastic"] for r in md["ranks"]],
+                            "checkpoint_bytes": md["checkpoint_bytes"],
+                            "restored": md["restored"]}},
+        "walls_s": md["walls_s"]}
+
+
 def kernels_line(errs, launches, timing) -> dict:
     """One entry per kernel at the first served net's shapes: the fused
     group of one request, and the per-layer rung of one degraded request
@@ -6409,6 +6961,7 @@ def main(argv: list) -> int:
         log(f"phase 9 whisper flash rows: {time.perf_counter() - t0:.1f} s")
         train = training_phases(device)
         tf["launches"].update(train["launches"])
+        md = multi_device_phases(device)
         paths = {}
         for arch, fwd, srv in ((LM_ARCH, fwd_launches, served),
                                (LM_ARCH, None, fleet),
@@ -6437,6 +6990,12 @@ def main(argv: list) -> int:
             tf["per_step"], whisper["per_step"])
         line["kernels"].append(train_kernel_entry(train))
         line["kernels"].append(rwkv_bwd_kernel_entry(train))
+        for entry in line["kernels"]:
+            for path, counts in md["launches"].items():
+                n = counts.get(entry["name"], 0)
+                if n:
+                    entry.setdefault("launches_by_path", {})[path] = n
+                    entry["launches"] += n
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -6457,6 +7016,7 @@ def main(argv: list) -> int:
                                   if k != "launches"},
             "rwkv6-7b": {k: v for k, v in train["rwkv"].items()
                          if k != "launches"}},
+        "multi_device": multi_device_readings(md),
         "aie_plan": {k: v for k, v in aie_plan.items() if k != "launches"},
         "fleet": {k: v for k, v in fleet["fleet"].items()
                   if k not in ("launches", "chunk_launches")}},

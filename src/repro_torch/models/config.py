@@ -36,7 +36,7 @@ class MoEConfig:
     router_aux_weight: float = 0.001
     # deepseek-v3 sigmoid routing with bias correction; mixtral uses softmax
     router_type: str = "softmax"      # "softmax" | "sigmoid"
-    # Dispatch implementation of the multi-device paths (not ported):
+    # Dispatch implementation of the multi-device paths (models/moe.py):
     #  "gather_psum" -- tokens replicated over the model axis per DP shard;
     #                   expert outputs psum-combined (baseline, works for any
     #                   batch), comm ~ 2 x tokens x d_model per layer.

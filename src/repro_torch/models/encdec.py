@@ -45,6 +45,7 @@ from repro_torch.models.layers import (F32, _project, attention, dense_init,
                                        init_layernorm, init_mlp, layernorm,
                                        mask_padded_vocab, mlp, mm)
 from repro_torch.runtime import maybe_dequant, maybe_remat
+from repro_torch.sharding import shard
 
 DEC_MAX_POS = 32768     # the reference's learned decoder positions
 
@@ -133,6 +134,7 @@ def whisper_encode(params: dict, cfg: ModelConfig, frames) -> torch.Tensor:
     """frames (B, S_enc, D) -> the encoder's output (B, S_enc, D)."""
     x = tree.as_tensor(frames, params["emb"].device).to(dtype_of(cfg))
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
+    x = shard(x, "batch", None, None)
 
     def layer(xx, pl):
         pl = maybe_dequant(pl)
@@ -168,7 +170,7 @@ def _dec_layer(pl: dict, x: torch.Tensor, cfg: ModelConfig, *, enc=None,
                      kind="bidir", use_rope=False, cross_kv=kv)
     x = x + a
     x = x + mlp(pl["mlp"], layernorm(pl["ln2"], x), act="gelu")
-    return x, new_self
+    return shard(x, "batch", "seq", None), new_self
 
 
 def _unembed(params: dict, cfg: ModelConfig,
@@ -191,10 +193,12 @@ def whisper_forward(params: dict, cfg: ModelConfig, tokens, *,
     toks = tree.as_tensor(tokens, emb.device).long()
     s = toks.shape[1]
     x = F.embedding(toks, emb) + params["pos_emb"][None, :s]
+    x = shard(x, "batch", "seq", None)
     for pl in tree.unstack(params["dec_blocks"], cfg.encdec.decoder_layers):
         x = maybe_remat(
             lambda xx, pl=pl: _dec_layer(pl, xx, cfg, enc=enc)[0])(x)
-    return {"logits": _unembed(params, cfg, x),
+    return {"logits": shard(_unembed(params, cfg, x), "batch", None,
+                            "vocab"),
             "aux_loss": torch.zeros((), dtype=F32, device=x.device)}
 
 

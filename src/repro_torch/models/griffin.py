@@ -43,6 +43,7 @@ from repro_torch.models.layers import (F32, attention, dense_init, dtype_of,
                                        init_rmsnorm, mask_padded_vocab, mlp,
                                        mm, rmsnorm, softcap_logits)
 from repro_torch.runtime import maybe_dequant, maybe_remat
+from repro_torch.sharding import shard
 
 _C_RGLRU = 8.0
 
@@ -110,6 +111,7 @@ def recurrent_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     (B,lru)}."""
     y = F.gelu(mm(x, p["w_y"]), approximate="tanh")
     u = mm(x, p["w_x"]).to(x.dtype)
+    u = shard(u, "batch", None, "lru")
     u, conv_state = _causal_conv1d(
         p, u, state=state["conv"] if state is not None else None)
     h, h_fin = rglru(p, u.to(x.dtype),
@@ -199,7 +201,7 @@ def _apply_layer(pl: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                                  ring_window=ring)
     x = x + a
     x = x + mlp(pl["mlp"], rmsnorm(pl["ln2"], x, cfg.norm_eps), act="gelu")
-    return x, new_state
+    return shard(x, "batch", "seq", None), new_state
 
 
 def _embed(params: dict, cfg: ModelConfig, tokens) -> torch.Tensor:
@@ -223,7 +225,7 @@ def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def griffin_forward(params: dict, cfg: ModelConfig, tokens) -> dict:
     """tokens (B,S) -> {"logits": (B,S,padded_vocab) f32, "aux_loss"}."""
     pattern = cfg.griffin.pattern
-    x = _embed(params, cfg, tokens)
+    x = shard(_embed(params, cfg, tokens), "batch", "seq", None)
     if "blocks" in params:
         n_blocks = tree.leaves(params["blocks"])[0].shape[0]
         slots = [tree.unstack(params["blocks"][f"slot{j}"], n_blocks)
@@ -238,7 +240,8 @@ def griffin_forward(params: dict, cfg: ModelConfig, tokens) -> dict:
             x = maybe_remat(lambda xx, bi=bi: block(xx, bi))(x)
     for j, pl in enumerate(params.get("tail", [])):
         x, _ = _apply_layer(pl, x, cfg, pattern[j])
-    return {"logits": _logits(params, cfg, x),
+    return {"logits": shard(_logits(params, cfg, x), "batch", None,
+                            "vocab"),
             "aux_loss": torch.zeros((), dtype=F32, device=x.device)}
 
 

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import NEG
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import shard
 
 F32 = torch.float32
 
@@ -45,17 +46,58 @@ def dense_init(generator: torch.Generator, shape, dtype: torch.dtype,
     return w.to(device=device, dtype=dtype)
 
 
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The f32 product of two 16-bit operands on the card: ``torch.mm``
+    (``bmm`` for an expert bank) with ``out_dtype=torch.float32``, so the
+    GEMM's f32 accumulator is the result, never rounded to 16 bits."""
+    if w.dim() == 3:
+        return torch.bmm(x, w, out_dtype=F32)
+    lead = x.shape[:-1]
+    y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=F32)
+    return y.reshape(*lead, w.shape[-1])
+
+
+class _MmF32(torch.autograd.Function):
+    """``_mm_f32`` with its gradient: ``dx = g @ wᵀ`` and ``dw = xᵀ @ g``,
+    the cotangent in the operands' dtype, each product's f32 output cast
+    to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm_f32(g, w.transpose(-1, -2)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            if w.dim() == 2:        # the leading dims fold into the rows
+                x, g = x.reshape(-1, x.shape[-1]), g.reshape(-1, g.shape[-1])
+            dw = _mm_f32(x.transpose(-1, -2), g).to(w.dtype)
+        return dx, dw
+
+
 def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` as an f32 tensor, the reference's
-    ``preferred_element_type=F32``.  f32 operands multiply in f32; bf16
-    operands go to the bf16 GEMM, which accumulates in f32 and rounds its
-    output to bf16 once before the widening.  Mixed operands (an f32 model
-    with int8 weights expanded to bf16) are promoted first, as ``jnp.dot``
-    promotes them."""
+    ``preferred_element_type=F32``.  f32 operands multiply in f32.  bf16
+    operands keep the f32 product: on the card the bf16 GEMM writes its f32
+    accumulator (:class:`_MmF32`); on the CPU the operands are widened to
+    f32 first, which is exact for a bf16 x bf16 product, so both equal the
+    reference's f32-accumulated dot up to summation order.  Mixed operands
+    (an f32 model with int8 weights expanded to bf16) are promoted first,
+    as ``jnp.dot`` promotes them."""
     if x.dtype != w.dtype:
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
-    return torch.matmul(x, w).float()
+    if x.dtype == F32:
+        return torch.matmul(x, w)
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
+        return _MmF32.apply(x, w)
+    return torch.matmul(x.float(), w.float())
 
 
 def mask_padded_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
@@ -264,7 +306,8 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     """
     b, s, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = _project(x, params["wq"], params.get("bq"), h, dh)
+    q = shard(_project(x, params["wq"], params.get("bq"), h, dh),
+              "batch", "heads", None, None)
     window = cfg.window if kind == "local" else None
     softcap = cfg.attn_softcap
     if cross_kv is not None:
@@ -396,4 +439,5 @@ def mlp(params: dict, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
         h = _ACTS[act](mm(x, params["w_gate"])) * up
     else:
         h = _ACTS[act](up)
-    return mm(h.to(x.dtype), params["w_down"]).to(x.dtype)
+    h = shard(h.to(x.dtype), "batch", None, "mlp")
+    return mm(h, params["w_down"]).to(x.dtype)

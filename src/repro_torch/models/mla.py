@@ -30,6 +30,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (_chunk_start, _slot_positions,
                                        apply_rope, dense_init, dtype_of,
                                        init_rmsnorm, mm, rmsnorm, rope_table)
+from repro_torch.sharding import shard
 
 
 def init_mla(generator: torch.Generator, cfg: ModelConfig, *,
@@ -70,6 +71,7 @@ def _queries(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
     cq = rmsnorm(p["q_norm"], mm(x, p["wdq"]).to(x.dtype), cfg.norm_eps)
     q = mm(cq, p["wuq"]).to(x.dtype).reshape(b, s, h, qk).transpose(1, 2)
+    q = shard(q, "batch", "heads", None, None)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     cos, sin = rope_table(positions, m.qk_rope_head_dim, cfg.rope_theta)
     return q_nope, apply_rope(q_rope, cos, sin), (cos, sin)

@@ -37,6 +37,7 @@ from repro_torch.models.layers import (F32, dense_init, dtype_of,
                                        layernorm, mask_padded_vocab, mm,
                                        rmsnorm)
 from repro_torch.runtime import maybe_dequant, maybe_remat
+from repro_torch.sharding import shard
 
 _LORA_MIX = 32
 _LORA_DECAY = 64
@@ -118,17 +119,19 @@ def time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         # (B,T,D) -> (B*H,T,hd): a view when B == 1 or T == 1.
         return a.reshape(b, t, h, hd).transpose(1, 2).reshape(b * h, t, hd)
 
+    rh = shard(r.to(x.dtype).reshape(b, t, h, hd).transpose(1, 2),
+               "batch", "heads", None, None)
     u = p["u_bonus"].float().reshape(h, hd)
     s0 = state["s"].reshape(b * h, hd, hd) if state is not None else None
     if state is None or t > 1:
-        res = ops.rwkv6_scan(to_heads(r.to(x.dtype)), to_heads(k.to(x.dtype)),
+        res = ops.rwkv6_scan(rh.reshape(b * h, t, hd), to_heads(k.to(x.dtype)),
                              to_heads(v.to(x.dtype)), to_heads(w), u,
                              state0=s0, return_state=state is not None)
         out, s_fin = res if state is not None else (res, None)
     else:
         # One-token decode: r rounded to the model's dtype, k and v in f32,
         # as the reference's plain step takes them.
-        out, s_fin = ops.rwkv6_scan(to_heads(r.to(x.dtype).float()),
+        out, s_fin = ops.rwkv6_scan(rh.float().reshape(b * h, t, hd),
                                     to_heads(k), to_heads(v), to_heads(w), u,
                                     state0=s0, return_state=True)
         out = out.to(x.dtype)
@@ -151,6 +154,7 @@ def channel_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     xk = x + xx * p["mu_k"].to(x.dtype)
     xr = x + xx * p["mu_r"].to(x.dtype)
     k = torch.square(torch.clamp_min(mm(xk, p["wk"]), 0.0)).to(x.dtype)
+    k = shard(k, "batch", None, "mlp")
     v = mm(k, p["wv"])
     r = torch.sigmoid(mm(xr, p["wr"]))
     y = (r * v).to(x.dtype)
@@ -225,6 +229,7 @@ def _rwkv_block(pl: dict, x: torch.Tensor, cfg: ModelConfig,
                           cfg,
                           state=state["cmix"] if state is not None else None)
     x = x + f
+    x = shard(x, "batch", "seq", None)
     new_state = ({"cmix": st_c, "tmix": st_t} if state is not None
                  else None)
     return x, new_state
@@ -250,10 +255,10 @@ def rwkv_forward(params: dict, cfg: ModelConfig, tokens) -> dict:
     Each block runs under ``maybe_remat``, as the reference's scan body
     does; the layers come from one ``tree.unstack``, so that where autograd
     records a stacked leaf's gradient is built in one pass."""
-    x = _embed(params, cfg, tokens)
+    x = shard(_embed(params, cfg, tokens), "batch", "seq", None)
     for pl in tree.unstack(params["blocks"], _depth(params)):
         x = maybe_remat(lambda xx, pl=pl: _rwkv_block(pl, xx, cfg, None)[0])(x)
-    return {"logits": _logits(params, cfg, x),
+    return {"logits": shard(_logits(params, cfg, x), "batch", None, "vocab"),
             "aux_loss": torch.zeros((), dtype=F32, device=x.device)}
 
 

@@ -53,6 +53,7 @@ from repro_torch.models.layers import (F32, attention, dense_init, dtype_of,
                                        init_rmsnorm, mask_padded_vocab, mlp,
                                        mm, rmsnorm, softcap_logits)
 from repro_torch.runtime import maybe_dequant, maybe_remat
+from repro_torch.sharding import shard
 
 
 def _first_dense(cfg: ModelConfig) -> int:
@@ -240,7 +241,7 @@ def _apply_layer(pl: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         aux = torch.zeros((), dtype=F32, device=x.device)
     if cfg.post_norms:
         f = rmsnorm(pl["post_ln2"], f, cfg.norm_eps)
-    return x + f, aux, new_cache
+    return shard(x + f, "batch", "seq", None), aux, new_cache
 
 
 def _run_layers(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -330,7 +331,7 @@ def _embed(params: dict, cfg: ModelConfig, tokens=None,
         # decode step captures into a CUDA graph.
         x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype,
                            device=x.device)
-    return x
+    return shard(x, "batch", "seq", None)
 
 
 def _unembed(params: dict, cfg: ModelConfig,
@@ -340,7 +341,8 @@ def _unembed(params: dict, cfg: ModelConfig,
     logits = mm(h, params["emb"].t() if w is None else w)
     # In place where grad is off: at S = 8192 the f32 logits of a 256k
     # vocab are 8 GB.
-    return mask_padded_vocab(cfg, softcap_logits(logits, cfg.logit_softcap))
+    return shard(mask_padded_vocab(
+        cfg, softcap_logits(logits, cfg.logit_softcap)), "batch", None, "vocab")
 
 
 def _extra(a, device):

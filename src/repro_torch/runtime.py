@@ -8,10 +8,12 @@ block's inputs, recompute the rest in the backward: non-reentrant
 ``torch.utils.checkpoint``) or ``"dots"`` (also keep the outputs of the
 matmuls with no batch dimensions, the reference's
 ``dots_with_no_batch_dims_saveable``: a selective checkpoint that saves
-``aten.mm``/``aten.addmm`` outputs).  A recomputed block runs its kernels
-again, so with remat a training step launches flash's forward twice a
-layer.  :func:`maybe_dequant` expands int8-quantized weight leaves
-(``{"q8", "scale"}`` marker dicts, from
+the outputs of ``aten.mm``, of its ``out_dtype`` overload (the 16-bit
+GEMM with an f32 result that :func:`repro_torch.models.layers.mm` runs on
+the card) and of ``aten.addmm``; a batched ``bmm`` is recomputed).  A
+recomputed block runs its kernels again, so with remat a training step
+launches flash's forward twice a layer.  :func:`maybe_dequant` expands
+int8-quantized weight leaves (``{"q8", "scale"}`` marker dicts, from
 :func:`repro_torch.serve.engine.quantize_params`) at the top of each layer,
 so at rest the card holds int8 and only the layer being run exists in
 bf16.
@@ -29,7 +31,8 @@ from torch.utils import checkpoint as ckpt
 
 _REMAT: contextvars.ContextVar[str] = contextvars.ContextVar(
     "repro_torch_remat", default="none")
-_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.mm.dtype,
+               torch.ops.aten.addmm.default)
 
 
 @contextlib.contextmanager

@@ -19,8 +19,12 @@ layout, so that either package restores the other's checkpoints::
   "bfloat16"`` in the manifest (numpy has no bf16), as the reference
   stores them.
 
-``restore`` takes the ``device`` to place the leaves on where the reference
-takes shardings.
+A state of ``DTensor`` leaves (laid out on a mesh) is saved as its global
+arrays: every rank gathers each leaf, rank 0 writes, so the layout on disk
+stays the reference's.  ``restore`` places each leaf on ``device``, or with
+``shardings`` (a tree of :class:`repro_torch.sharding.NamedSharding`) as a
+``DTensor`` of that layout on its mesh, whatever mesh wrote it: the
+elastic restore.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import collectives as coll
 from repro_torch.device import resolve_device
 
 
@@ -67,7 +72,7 @@ def _host(leaf) -> np.ndarray:
     """A leaf as numpy, bf16 as its uint16 bits; returns (array, the
     logical dtype's name)."""
     if torch.is_tensor(leaf):
-        t = leaf.detach().cpu()
+        t = coll.gather(leaf.detach()).cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         return t.numpy(), str(t.numpy().dtype)
@@ -78,8 +83,14 @@ def _host(leaf) -> np.ndarray:
 
 
 def save(ckpt_dir: str, state: Any, step: int) -> str:
-    """Synchronous atomic checkpoint.  Returns the published path."""
+    """Synchronous atomic checkpoint.  Returns the published path.  Every
+    rank of a world calls it (a ``DTensor`` leaf is gathered); rank 0
+    writes."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if not coll.is_writer():
+        for _, leaf in _tree_paths(state):
+            _host(leaf)
+        return final
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -105,7 +116,7 @@ def snapshot(state: Any) -> Any:
     """The state copied to host memory (CPU tensors), structure kept."""
     def copy(leaf):
         if torch.is_tensor(leaf):
-            return leaf.detach().to("cpu", copy=True)
+            return coll.gather(leaf.detach()).to("cpu", copy=True)
         return np.array(leaf, copy=True)
     return _rebuild(state, {p: copy(l) for p, l in _tree_paths(state)})
 
@@ -161,11 +172,12 @@ def latest_steps(ckpt_dir: str) -> list[int]:
 
 
 def restore(ckpt_dir: str, state_like: Any, *, step: int | None = None,
-            device=None) -> tuple[Any, int]:
+            device=None, shardings: Any = None) -> tuple[Any, int]:
     """The checkpoint of ``step`` (default: the latest) in the structure of
     ``state_like`` (its leaves may be meta tensors), as tensors on
-    ``device`` (``None``: the GPU, raising when there is none).  Returns
-    (state, step)."""
+    ``device`` (``None``: the GPU, raising when there is none); with
+    ``shardings``, each leaf as a ``DTensor`` laid out by its sharding
+    (each rank keeps its block).  Returns (state, step)."""
     device = resolve_device(device)
     steps = latest_steps(ckpt_dir)
     if not steps:
@@ -175,6 +187,7 @@ def restore(ckpt_dir: str, state_like: Any, *, step: int | None = None,
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     by_path = {e["path"]: e for e in manifest["leaves"]}
+    sh = dict(_tree_paths(shardings)) if shardings is not None else {}
     leaves = {}
     for name, _ in _tree_paths(state_like):
         e = by_path[name]
@@ -183,5 +196,8 @@ def restore(ckpt_dir: str, state_like: Any, *, step: int | None = None,
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
-        leaves[name] = t.to(device)
+        t = t.to(device)
+        if name in sh:
+            t = coll.distribute(t, sh[name].spec, sh[name].mesh)
+        leaves[name] = t
     return _rebuild(state_like, leaves), manifest["step"]

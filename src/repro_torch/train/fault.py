@@ -15,8 +15,8 @@ wraps the step with:
   ``time.perf_counter``), read after the step's device work has finished,
   so a test can drive a fake clock.
 
-``resume_elastic`` (a restore onto another mesh) waits for the
-multi-device slice.
+``resume_elastic`` restores the latest checkpoint onto another mesh (its
+leaves as ``DTensor``s of the new layouts).
 """
 
 from __future__ import annotations
@@ -61,6 +61,7 @@ class TrainDriver:
     state: Any
     clock: Callable[[], float] = time.perf_counter
     on_step: Callable | None = None       # (step, metrics) after each step
+    shardings: Any = None                 # restore layouts (elastic resume)
     events: list = field(default_factory=list)
     step_ms: list = field(default_factory=list)   # each step run, replays in
     _times: list = field(default_factory=list)
@@ -139,6 +140,19 @@ class TrainDriver:
             torch.cuda.empty_cache()
         t0 = self.clock()
         self.state, step = ckpt_lib.restore(self.cfg.ckpt_dir, like,
-                                            device=self.device)
+                                            device=self.device,
+                                            shardings=self.shardings)
         _finish(self.state["step"])
         self.events.append(("restored", step, self.clock() - t0))
+
+    def resume_elastic(self, state_like: Any, shardings: Any):
+        """Elastic restart: the latest checkpoint restored onto a new mesh
+        (another rank count or layout), each leaf laid out by
+        ``shardings``."""
+        self._ckpt.wait()
+        self.shardings = shardings
+        self.state, step = ckpt_lib.restore(self.cfg.ckpt_dir, state_like,
+                                            device=self.device,
+                                            shardings=shardings)
+        self.events.append(("elastic_resume", step))
+        return self.state

@@ -9,7 +9,9 @@ included: ``ops.flash_attention`` and ``ops.linear_scan`` are autograd
 Functions), clips by the global norm through ``opt.update(scale=)``, and
 updates the params and the optimizer state in place (the reference donates
 its state to the jitted step); it returns the state and the metrics.
-The partitioner's ``state_shardings`` waits for the multi-device slice.
+:func:`state_shardings` lays a state out on a mesh: params by
+:func:`repro_torch.partition.param_shardings`, each optimizer moment like
+the param it belongs to.
 """
 
 from __future__ import annotations
@@ -19,11 +21,12 @@ from typing import Callable
 
 import torch
 
-from repro_torch import runtime
+from repro_torch import partition, runtime
 from repro_torch.device import resolve_device
 from repro_torch.models import (api, encdec, griffin, rwkv, transformer,
                                 tree)
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import NamedSharding, P
 from repro_torch.train import loss as loss_lib
 from repro_torch.train.optimizer import Optimizer
 
@@ -218,3 +221,38 @@ def train_state_from_numpy(cfg: ModelConfig, state: dict, *,
             "opt": tree.tree_map(lambda a: tree.as_tensor(a, device),
                                  state["opt"]),
             "step": tree.as_tensor(state["step"], device).to(torch.int32)}
+
+
+def state_shardings(state, cfg: ModelConfig, mesh, *, regime: str = "train"):
+    """Shardings for the whole train state (ZeRO: moments follow params).
+
+    A moment (an optimizer leaf whose path, less one or two leading keys,
+    is a param's) takes that param's sharding; Adafactor's factored
+    ``vr``/``vc`` take it less the dim they reduce; everything else, and
+    ``step``, is replicated."""
+    param_sh = partition.param_shardings(state["params"], cfg, mesh,
+                                         regime=regime)
+    flat_p = {}
+    partition.map_with_path(
+        lambda path, sh: flat_p.__setitem__(tuple(path.split("/")), sh),
+        param_sh)
+
+    def match_moment(path, _leaf):
+        keys = tuple(path.split("/"))
+        for skip in (1, 2):      # drop leading "m"/"v"/"mu" keys
+            cand = keys[skip:]
+            if cand in flat_p:
+                return flat_p[cand]
+            # Adafactor's factored slots: vr = param less its last dim,
+            # vc = less its second-to-last.
+            if cand and cand[-1] in ("vr", "vc") and cand[:-1] in flat_p:
+                new = list(flat_p[cand[:-1]].spec)
+                drop = -1 if cand[-1] == "vr" else -2
+                if len(new) >= abs(drop):
+                    del new[drop]
+                return NamedSharding(mesh, P(*new))
+        return NamedSharding(mesh, P())
+
+    return {"params": param_sh,
+            "opt": partition.map_with_path(match_moment, state["opt"]),
+            "step": NamedSharding(mesh, P())}

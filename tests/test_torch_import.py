@@ -77,6 +77,28 @@ def test_characterize_and_graph_modules_import_alone(module):
     assert out.returncode == 0, out.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.launch.mesh", "repro_torch.sharding",
+    "repro_torch.collectives", "repro_torch.partition",
+    "repro_torch.train.compression", "repro_torch.train.pipeline_par"])
+def test_multi_device_modules_import_alone(module):
+    """Each module of the multi-device layer imports in a fresh process
+    with ``jax`` and the JAX package blocked, joins no process world and
+    loads no kernel."""
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            f"importlib.import_module({module!r})\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n"
+            "from repro_torch.kernels import build\n"
+            "assert not build._loaded\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import_in_source(path):

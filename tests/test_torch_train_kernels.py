@@ -617,3 +617,117 @@ def test_rwkv6_function_on_card_takes_head_transposed_views(cuda_device):
     want = torch.autograd.grad(rw.rwkv6_scan_plain(*ts, u), ts + [u], g)
     for a, b in zip(got, want):
         _close(a.cpu().numpy(), b.cpu().numpy(), TOL_CARD["float32"])
+
+
+# ---------------------------------------------------------------------------
+# layers.mm: a bf16 product keeps its f32 result, forward and backward
+# ---------------------------------------------------------------------------
+
+def _mm_operands(device, w_shape):
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = torch.randn((3, 37, w_shape[-2]), generator=gen, device=device)
+    if len(w_shape) == 3:
+        x = torch.randn((w_shape[0], 37, w_shape[1]), generator=gen,
+                        device=device)
+    w = torch.randn(w_shape, generator=gen, device=device) * 0.1
+    return x.bfloat16(), w.bfloat16()
+
+
+@pytest.mark.parametrize("w_shape", [(96, 80), (4, 96, 80)],
+                         ids=["dense", "expert_bank"])
+def test_mm_keeps_the_f32_product_on_cpu(w_shape):
+    """On the CPU the bf16 operands are widened first: bit-equal to the
+    f32 product, never rounded to bf16."""
+    from repro_torch.models.layers import mm
+    x, w = _mm_operands(torch.device("cpu"), w_shape)
+    got = mm(x, w)
+    want = torch.matmul(x.float(), w.float())
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert not torch.equal(got, torch.matmul(x, w).float())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w_shape", [(96, 80), (4, 96, 80)],
+                         ids=["dense", "expert_bank"])
+def test_mm_keeps_the_f32_product_on_card(cuda_device, w_shape):
+    """On the card the bf16 GEMM writes its f32 accumulator
+    (``out_dtype``): within f32 summation order of the f32 product of the
+    same operands, far inside a bf16 rounding; its gradients are the bf16
+    casts of the f32 products of the cotangent."""
+    from repro_torch.models.layers import mm
+    x, w = _mm_operands(cuda_device, w_shape)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    got = mm(xg, wg)
+    want = torch.matmul(x.float(), w.float())
+    assert got.dtype == torch.float32
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+    g = torch.randn_like(got)
+    dx, dw = torch.autograd.grad(got, (xg, wg), g)
+    gb = g.bfloat16().float()
+    want_dx = torch.matmul(gb, w.float().transpose(-1, -2)).bfloat16()
+    lead = x.float().reshape(-1, x.shape[-1]) if len(w_shape) == 2 \
+        else x.float()
+    want_dw = (torch.matmul(lead.transpose(-1, -2), gb.reshape(
+        lead.shape[:-1] + (gb.shape[-1],))) if len(w_shape) == 3
+        else lead.t() @ gb.reshape(-1, gb.shape[-1])).bfloat16()
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    for a, b in ((dx, want_dx), (dw, want_dw)):
+        assert float((a.float() - b.float()).abs().max()) \
+            <= 8e-3 * float(b.float().abs().max())
+
+
+# ---------------------------------------------------------------------------
+# remat "dots": the f32 products of 16-bit GEMMs are kept
+# ---------------------------------------------------------------------------
+
+def test_remat_dots_saves_the_products_of_mm():
+    """``dots`` keeps the outputs of ``mm`` in both overloads (the card's
+    16-bit GEMM writes its f32 result through ``aten.mm.dtype``) and of
+    ``addmm``; a batched ``bmm`` is recomputed, the reference's
+    no-batch-dims rule."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    from repro_torch import runtime
+    aten = torch.ops.aten
+    for op in (aten.mm.default, aten.mm.dtype, aten.addmm.default):
+        assert runtime._dots_saveable(None, op) == CheckpointPolicy.MUST_SAVE
+    for op in (aten.bmm.default, aten.bmm.dtype):
+        assert runtime._dots_saveable(None, op) \
+            == CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@pytest.mark.gpu
+def test_remat_dots_saves_the_bf16_products_on_card(cuda_device,
+                                                    monkeypatch):
+    """gemma2-2b's bf16 smoke loss and gradients under ``remat="dots"``:
+    the card's products go through ``aten.mm.dtype``, and each is saved,
+    none recomputed."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    from repro_torch import runtime
+    from repro_torch.train import step as step_lib
+    real, seen = runtime._dots_saveable, []
+
+    def counting(ctx, op, *args, **kwargs):
+        policy = real(ctx, op, *args, **kwargs)
+        seen.append((op, policy))
+        return policy
+    monkeypatch.setattr(runtime, "_dots_saveable", counting)
+    cfg = configs.get("gemma2_2b").smoke
+    assert cfg.dtype == "bfloat16"
+    params = api.init(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                      device=cuda_device)
+    rng = np.random.default_rng(0)
+    batch = step_lib._batch_on(
+        {k: rng.integers(0, cfg.vocab_size, (2, 24), dtype=np.int32)
+         for k in ("tokens", "labels")}, cuda_device)
+    loss_fn = step_lib.make_loss_fn(cfg, step_lib.TrainOptions(remat="dots"))
+    leaves = step_lib._trainable(params)
+    loss, _ = loss_fn(params, batch)
+    grads = step_lib._grad(loss, leaves)
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all()
+                                        for g in grads)
+    mm_f32 = [policy for op, policy in seen if op == torch.ops.aten.mm.dtype]
+    assert mm_f32 and all(p == CheckpointPolicy.MUST_SAVE for p in mm_f32)
