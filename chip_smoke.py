@@ -186,8 +186,9 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    reports its prefill and decode rates apart.  A ``torch.profiler`` trace
    of 5 batched decode ticks gives the device's busy and idle time per
    tick.  The tick is a CUDA graph (its kernel nodes held to 18 or 32 scan
-   launches a step); the decode-heavy run and the trace are repeated with
-   the tick run eagerly (``graphs=False``), and one replayed tick is held
+   launches a step); the decode-heavy requests (the same prompts, 32 new
+   tokens each: ``LM_EAGER_GEN``) and the trace are repeated with the tick
+   run eagerly (``graphs=False``), and one replayed tick is held
    bit for bit (logits and every state leaf, an idle slot untouched) to an
    eager tick from the same state.  ``build_serve_steps`` prefill of a
    3000-token prompt (past the 2048 window: the ring roll) held against
@@ -404,6 +405,11 @@ LM_SLOTS = 4
 LM_REQUESTS = 8
 LM_MAX_NEW = 16
 LM_LONG_GEN = 256              # tokens per request in the decode-heavy run
+# The eager decode-heavy rerun: the graphed run's prompts and 32 new tokens
+# each.  31 eager ticks read a tick's p50 and p95 (an eager Griffin tick
+# takes ~53 ms on an H100, an RWKV one ~91 ms); 255 would cost their phases
+# ~32 s more.
+LM_EAGER_GEN = 32
 LM_TRACED_TICKS = 5
 # A traced tick's device activities by name, the largest first: whisper's
 # tick spreads its time over a dozen (the keep_idle copies of the cross
@@ -548,18 +554,20 @@ def check_close(what: str, got, want, *, tol: float = TOL,
 # ---------------------------------------------------------------------------
 
 # (library, mark in the instance's mangled name, the instruction it must
-# issue, instances): bf16 flash and GEMM issue HGMMA (bf16 wgmma), int8 GEMM
-# IGMMA (int8 wgmma), the edge kernels IMMA (int8 mma.sync): the fused group
-# and every one of gemm_int8's 36 tiles.
+# issue, instances): bf16 flash, its backward (the dq and dkdv kernels at
+# D = 64, 128, 256) and GEMM issue HGMMA (bf16 wgmma), int8 GEMM IGMMA
+# (int8 wgmma), the edge kernels IMMA (int8 mma.sync): the fused group and
+# every one of gemm_int8's 36 tiles.
 TC_INSTANCES = (
     ("flash_attention", "flash_tc_kernel", "HGMMA", 3),
+    ("flash_attention_bwd", "flash_bwd_wg_", "HGMMA", 6),
     ("tiled_gemm", "tc_gemm_kernelI13__nv_bfloat16", "HGMMA", 6),
     ("tiled_gemm", "tc_gemm_kernelIa", "IGMMA", 6),
     ("fused_mlp_q8", "fused_mlp_q8_kernel", "IMMA", 1),
     ("gemm_int8", "gemm_int8_kernel", "IMMA", 36),
 )
 # Libraries whose instances must not spill (ptxas -v).
-NO_SPILL = ("fused_mlp_q8", "gemm_int8")
+NO_SPILL = ("fused_mlp_q8", "gemm_int8", "flash_attention_bwd")
 SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA")
 
 
@@ -606,11 +614,11 @@ def ptxas_rows(report: str) -> dict:
 
 def tensor_core_phase(libs: dict) -> None:
     """Counts of HGMMA/IGMMA (HMMA/IMMA) in every tensor-core instance of
-    ``flash_attention``, ``tiled_gemm``, ``fused_mlp_q8`` and
-    ``gemm_int8``, beside ptxas's registers, spills and shared memory, and
-    ptxas's notes on wgmma serialization or setmaxnreg; fails if an
-    instance issues none of its instruction, if an instance is missing, or
-    if an edge kernel's instance spills."""
+    ``flash_attention``, ``flash_attention_bwd``, ``tiled_gemm``,
+    ``fused_mlp_q8`` and ``gemm_int8``, beside ptxas's registers, spills
+    and shared memory, and ptxas's notes on wgmma serialization or
+    setmaxnreg; fails if an instance issues none of its instruction, if an
+    instance is missing, or if an instance of ``NO_SPILL`` spills."""
     from repro_torch.kernels import build
     for lib, mark, op, want in TC_INSTANCES:
         counts = sass_counts(libs[lib])
@@ -3510,7 +3518,7 @@ def decode_tick_trace(batcher, cfg, n_ticks: int) -> dict:
 
 
 def lm_serve_phase(cfg, params, tokens, per_step, per_tick, *,
-                   eager_gen: int = LM_LONG_GEN) -> dict:
+                   eager_gen: int = LM_EAGER_GEN) -> dict:
     """Phase 8's runs (12's for RWKV, 14b's for the transformer): the short
     and decode-heavy runs graphed, the decode-heavy prompts again with the
     tick run eagerly (``eager_gen`` new tokens each), a profiler trace of
@@ -3531,7 +3539,8 @@ def lm_serve_phase(cfg, params, tokens, per_step, per_tick, *,
                                LM_LONG_GEN, per_tick, "decode-heavy")
     trace = decode_tick_trace(batcher, cfg, LM_TRACED_TICKS)
     del batcher
-    # The same decode-heavy run and trace with the tick run eagerly.
+    # The decode-heavy prompts and a trace with the tick run eagerly, fewer
+    # new tokens each.
     batcher, eager_heavy = serve_run(cfg, params, prompts[LM_REQUESTS:],
                                      eager_gen, per_tick,
                                      "decode-heavy eager", graphs=False)
@@ -4121,9 +4130,6 @@ TF_CHUNK = 8
 # local, one global) over 512 tokens past the 4096 window.
 TF_WINDOW_LAYERS = 2
 TF_WINDOW_SEQ = 4608
-# The eager decode-heavy rerun's new tokens: an eager gemma2-9b tick takes
-# ~0.12 s (~5000 launches), so 32 ticks read its p50 and p95.
-TF_EAGER_GEN = 32
 # The mixed fleet's LM requests: the plan's 8-slot tick costs ~0.1-0.2 s
 # with gemma2-9b's caches, and the batcher feeds prompts a token a tick.
 TF_FLEET_EDGE_REQUESTS = 20
@@ -4696,8 +4702,7 @@ def transformer_phases(device) -> dict:
         f"window check): {walls['14']:.1f} s")
 
     t0 = time.perf_counter()
-    served = lm_serve_phase(cfg, params, tokens, per_step, per_tick,
-                            eager_gen=TF_EAGER_GEN)
+    served = lm_serve_phase(cfg, params, tokens, per_step, per_tick)
     for p, c in served["launches"].items():
         launches[f"{TF_ARCH} {p}"] = c
     fleet = tf_fleet_phase(cfg, params)
@@ -5361,6 +5366,10 @@ CUT_SEQ = 1024                 # 17b's f32 cuts, one sequence
 # off by up to 2^-8 of itself, and its outputs to bf16: a few 1e-3 of the
 # largest value; held to 2e-2.
 TOL_FLASH_BWD = {"float32": 1e-5, "bfloat16": 2e-2}
+# The forward's row statistics against the plain forward's, relative to
+# the largest finite value: both take f32 sums of the same products (exact
+# in bf16) and of unrounded probabilities, in other orders.
+TOL_FLASH_LSE = 1e-5
 # The scan's gradient (f32, Griffin's state): the chunked kernel's carry
 # is rounded along another path than the reversed loop's (rglru.py), the
 # forward's own 1e-4 (TOL_SCAN) relative to the largest value.
@@ -5440,33 +5449,58 @@ def _rel(got, want) -> tuple[float, float]:
 
 
 def train_flash_checks(gen, device) -> dict:
-    """17a's checks: the backward kernel against its plain version at each
-    of ``TRAIN_FLASH_CASES`` in f32 and bf16, at ``TOL_FLASH_BWD``.
-    Returns the largest absolute and relative errors."""
+    """17a's checks: the forward's row statistics against the plain
+    forward's (``TOL_FLASH_LSE``, +inf on the same rows), and the backward
+    kernel against its plain version (both from the kernel's statistics)
+    at each of ``TRAIN_FLASH_CASES`` in f32 and bf16, at
+    ``TOL_FLASH_BWD``, and a second call on the same inputs bit for bit
+    the first.  Returns the largest absolute and relative errors."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
-    worst = {"abs": 0.0, "rel": 0.0}
+    worst = {"abs": 0.0, "rel": 0.0, "lse_rel": 0.0}
     for label, b, hq, hkv, s, sk, d, kw in TRAIN_FLASH_CASES:
         for dt in ("float32", "bfloat16"):
             q, k, v = _tf_qkv(gen, device, b, hq, hkv, s, sk, d,
                               getattr(torch, dt))
             do = torch.randn((b, hq, s, d), generator=gen,
                              device=device).to(q.dtype)
-            o = fa.flash_attention_cuda(q, k, v, **kw)
-            got = fb.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
-            want = fb.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+            o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            want_lse = fa.flash_attention_plain(q, k, v, return_lse=True,
+                                                **kw)[1]
+            inf = torch.isinf(want_lse)
+            if not torch.equal(torch.isinf(lse), inf):
+                raise SmokeFailure(f"flash_attention {label} {dt}: the "
+                                   f"statistics' +inf rows differ from the "
+                                   f"plain forward's")
+            _, lse_rel = _rel(lse[~inf], want_lse[~inf])
+            del want_lse
+            if lse_rel > TOL_FLASH_LSE:
+                raise SmokeFailure(f"flash_attention {label} {dt}: lse off "
+                                   f"by {lse_rel} of its largest value "
+                                   f"(tolerance {TOL_FLASH_LSE})")
+            worst["lse_rel"] = max(worst["lse_rel"], lse_rel)
+            got = fb.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+            again = fb.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise SmokeFailure(f"flash_attention_bwd {label} {dt}: two "
+                                   f"calls on the same inputs differ")
+            del again
+            want = fb.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
             errs = {}
             for name, g, w in zip(("dq", "dk", "dv"), got, want):
                 if not torch.isfinite(g).all():
                     raise SmokeFailure(f"flash_attention_bwd {label} {dt}: "
                                        f"{name} is not finite")
                 errs[name] = _rel(g, w)
+            splits = fb.card_splits(b, hq, hkv, sk, d, device) \
+                if dt == "bfloat16" else 1
             log(f"kernel flash_attention_bwd {label} q={list(q.shape)} "
                 f"k={list(k.shape)} {dt} {kw}: " + ", ".join(
                     f"{n} max_abs_err={a} rel={r}"
                     for n, (a, r) in errs.items())
-                + f" tol={TOL_FLASH_BWD[dt]}")
+                + f" tol={TOL_FLASH_BWD[dt]}; lse rel={lse_rel} "
+                f"tol={TOL_FLASH_LSE}; bit-equal repeat; splits={splits}")
             for n, (a, r) in errs.items():
                 if r > TOL_FLASH_BWD[dt]:
                     raise SmokeFailure(f"flash_attention_bwd {label} {dt}: "
@@ -5475,7 +5509,7 @@ def train_flash_checks(gen, device) -> dict:
                                        f"{TOL_FLASH_BWD[dt]})")
                 worst["abs"] = max(worst["abs"], a)
                 worst["rel"] = max(worst["rel"], r)
-            del q, k, v, do, o, got, want
+            del q, k, v, do, o, lse, got, want
             gc.collect()
             torch.cuda.empty_cache()
     return worst
@@ -5496,10 +5530,10 @@ def train_flash_row(gen, device, label, b, hq, hkv, s, sk, d, kw) -> dict:
     q, k, v = _tf_qkv(gen, device, b, hq, hkv, s, sk, d, torch.bfloat16)
     do = torch.randn((b, hq, s, d), generator=gen,
                      device=device).to(torch.bfloat16)
-    o = fa.flash_attention_cuda(q, k, v, **kw)
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
 
     def kernel():
-        return fb.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+        return fb.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
 
     if not kw.get("causal", True):
         sdpa_kw, form = {}, "no mask"
@@ -5526,14 +5560,16 @@ def train_flash_row(gen, device, label, b, hq, hkv, s, sk, d, kw) -> dict:
            "ms": graph_ms(kernel, inner=inner, reps=5),
            "eager_ms": event_ms(kernel, inner=inner, reps=5),
            "plain_ms": event_ms(lambda: fb.flash_attention_bwd_plain(
-               q, k, v, o, do, **kw), inner=1, reps=3),
+               q, k, v, o, do, lse, **kw), inner=1, reps=3),
            **bound(nbytes, flops, PEAK_BF16)}
+    row["splits"] = fb.card_splits(b, hq, hkv, sk, d, device)
     sdpa_ms = event_ms(library, inner=inner, reps=5)
     row["tflops"] = flops / row["ms"] / 1e9
-    q32, k32, v32, o32, do32 = (t.float() for t in (q, k, v, o, do))
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    o32, lse32 = fa.flash_attention_cuda(q32, k32, v32, return_lse=True, **kw)
     row["f32_ms"] = graph_ms(lambda: fb.flash_attention_bwd_cuda(
-        q32, k32, v32, o32, do32, **kw), inner=inner, reps=3)
-    del q32, k32, v32, o32, do32
+        q32, k32, v32, o32, do32, lse32, **kw), inner=inner, reps=3)
+    del q32, k32, v32, o32, do32, lse32
     if kw.get("softcap"):
         row.update(library_ms=None, sdpa_no_softcap_ms=sdpa_ms)
     else:
@@ -5545,7 +5581,7 @@ def train_flash_row(gen, device, label, b, hq, hkv, s, sk, d, kw) -> dict:
                                f"{rel} of the kernel's largest ({err})")
         row["library_ms"], row["library_dq_rel_err"] = sdpa_ms, rel
     log("timing flash_attention_bwd " + json.dumps(row, sort_keys=True))
-    del q, k, v, do, o, lq, lk, lv, lout
+    del q, k, v, do, o, lse, lq, lk, lv, lout
     gc.collect()
     torch.cuda.empty_cache()
     return row
@@ -6091,7 +6127,7 @@ def train_kernel_entry(train: dict) -> dict:
     row = train["rows"][0]
     keys = ("shape", "ms", "eager_ms", "f32_ms", "plain_ms", "library_ms",
             "sdpa_no_softcap_ms", "library_form", "bound_ms", "bound_by",
-            "tflops")
+            "tflops", "splits")
     return {"name": "flash_attention_bwd", **KERNEL_META[
                 "flash_attention_bwd"],
             "launches": sum(c["flash_attention_bwd"]
@@ -6104,6 +6140,7 @@ def train_kernel_entry(train: dict) -> dict:
                     "flash_attention_bwd"]},
             "max_abs_err": train["worst"]["abs"],
             "max_rel_err": train["worst"]["rel"],
+            "max_lse_rel_err": train["worst"]["lse_rel"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],

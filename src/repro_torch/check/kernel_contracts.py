@@ -169,7 +169,7 @@ def _library_cases(gen: torch.Generator, device: torch.device):
          (1, 8, 256, 64), bf16),
         ("flash_attention_bwd", lambda: ops.flash_attention_bwd(
             *(randn(1, h, 256, 64, dtype=bf16) for h in (8, 2, 2, 8, 8)),
-            causal=True)[0],
+            randn(1, 8, 256) + 5.0, causal=True)[0],
          (1, 8, 256, 64), bf16),
         ("rwkv6_scan", lambda: ops.rwkv6_scan(
             randn(4, 128, 64, scale=0.5), randn(4, 128, 64, scale=0.5),

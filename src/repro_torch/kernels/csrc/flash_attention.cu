@@ -19,6 +19,15 @@
 //
 // Masking follows the reference: masked logits are -0.7 * FLT_MAX, their
 // probabilities are zeroed, and a row with zero mass writes 0 (l == 0 -> 1).
+//
+// Row statistics for the backward: where `lse` is not null (training asks;
+// serving passes null and nothing else changes), each query row also
+// writes its log-sum-exp m + log(l) in natural-log units, m the row's
+// largest kept logit and l its sum of exp(x - m), so that P = exp(x - lse).
+// (The bf16 kernel runs its softmax in the exp2 form on natural-unit
+// logits, so m and l are already in these units; the backward converts
+// lse to the exp2 domain once a row.)  A row with zero mass writes +inf,
+// which makes every P of the row exp(x - inf) = 0.
 // Unlike the Pallas kernel, keys at k_pos >= Sk are masked here in every
 // mode: the Pallas kernel zero-pads K/V and leaves the pad to `causal`, so
 // a non-causal call with a ragged Sk lets padded keys carry mass.
@@ -87,6 +96,7 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
+  float* lse;  // null, or (B * Hq * S) row statistics
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   int hq, hkv, s, sk, d;
   float scale, softcap;  // softcap <= 0: none
@@ -243,6 +253,9 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Args p) {
   }
 
   if (q_row >= p.s) return;
+  if (p.lse != nullptr && lane == 0)
+    p.lse[static_cast<long long>(bh) * p.s + q_row] =
+        l == 0.f ? INFINITY : m + logf(l);
   const float denom = l == 0.f ? 1.f : l;
   float* orow = static_cast<float*>(p.out) +
                 (static_cast<long long>(bh) * p.s + q_row) * p.d;
@@ -298,6 +311,7 @@ struct FlashTc {
 
 struct TcArgs {
   void* out;   // contiguous (B, Hq, S, D)
+  float* lse;  // null, or (B * Hq * S) row statistics
   int hq, hkv, s, sk, d;
   float scale, softcap;  // softcap <= 0: none
   int causal, window;    // window <= 0: none
@@ -490,6 +504,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const float inv_den = 1.f / (sum == 0.f ? 1.f : sum);
     const int row = row0 + 8 * hh;
     if (row >= p.s) continue;
+    if (p.lse != nullptr && (lane & 3) == 0)
+      p.lse[static_cast<long long>(bh) * p.s + row] =
+          sum == 0.f ? INFINITY : m[hh] + logf(sum);
     __nv_bfloat16* orow =
         out + (static_cast<long long>(bh) * p.s + row) * p.d;
 #pragma unroll
@@ -501,25 +518,6 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                                   o[4 * j + 2 * hh + 1] * inv_den);
     }
   }
-}
-
-// A 4-D tensor map (D, S, H, B) over a strided bf16 view, boxes of 64
-// columns x `rows` rows of one head.  Strides in elements; a dimension of
-// size 1 may carry any stride, so it gets a harmless one.
-int qkv_map(CUtensorMap* map, const void* base, int d, int s, int h,
-            int batch, long long ss, long long sh, long long sb, int rows) {
-  const long long st[3] = {ss, sh, sb};
-  const int ext[3] = {s, h, batch};
-  cuuint64_t strides[3];
-  for (int i = 0; i < 3; ++i)
-    strides[i] = static_cast<cuuint64_t>(ext[i] == 1 ? 16 : 2 * st[i]);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(h),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  return hopper::make_tma_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base,
-                              dims, strides, box);
 }
 
 template <int DMAX>
@@ -534,17 +532,18 @@ int launch_tc(const Args& a, int batch, cudaStream_t stream) {
     raised = true;
   }
   CUtensorMap tq, tk, tv;
-  int err = qkv_map(&tq, a.q, a.d, a.s, a.hq, batch, a.q_ss, a.q_sh, a.q_sb,
-                    kQTile);
+  int err = hopper::bhsd_map(&tq, a.q, a.d, a.s, a.hq, batch, a.q_ss,
+                             a.q_sh, a.q_sb, kQTile);
   if (err == 0)
-    err = qkv_map(&tk, a.k, a.d, a.sk, a.hkv, batch, a.k_ss, a.k_sh, a.k_sb,
-                  kKTile);
+    err = hopper::bhsd_map(&tk, a.k, a.d, a.sk, a.hkv, batch, a.k_ss, a.k_sh,
+                           a.k_sb, kKTile);
   if (err == 0)
-    err = qkv_map(&tv, a.v, a.d, a.sk, a.hkv, batch, a.v_ss, a.v_sh, a.v_sb,
-                  kKTile);
+    err = hopper::bhsd_map(&tv, a.v, a.d, a.sk, a.hkv, batch, a.v_ss, a.v_sh,
+                           a.v_sb, kKTile);
   if (err != 0) return err;
-  const TcArgs p{a.out,   a.hq,      a.hkv,    a.s,      a.sk, a.d,
-                 a.scale, a.softcap, a.causal, a.window, a.q_off};
+  const TcArgs p{a.out,   a.lse,     a.hq,     a.hkv,    a.s,  a.sk,
+                 a.d,     a.scale,   a.softcap, a.causal, a.window,
+                 a.q_off};
   const dim3 grid(batch * a.hq, (a.s + kQTile - 1) / kQTile);
   flash_tc_kernel<DMAX>
       <<<grid, kFlashThreads, F::smem_bytes(), stream>>>(tq, tk, tv, p);
@@ -566,26 +565,27 @@ int dispatch_d(const Args& args, int batch, int is_bf16, cudaStream_t st) {
 
 // q/k/v/out in f32 (is_bf16 = 0) or bf16 (1); strides in elements, the last
 // dimension contiguous.  out is contiguous (B, Hq, S, D); query row i sits
-// at key position q_offset + i.  Refuses D > 256, D % 8 != 0, Hq % Hkv !=
-// 0, a q_offset below 0 or with q_offset + S past 2^30 (flash_attention.py's
-// MAX_POSITION) and grids past the hardware limits with
-// cudaErrorInvalidValue; bf16 views TMA cannot map (a stride that is not a
-// multiple of 8 elements, a base not 16-byte aligned) too.  Otherwise
-// returns cudaGetLastError() after the launch.
+// at key position q_offset + i.  lse is null or (B * Hq * S) floats, each
+// row's log-sum-exp (+inf for a row with zero mass).  Refuses D > 256,
+// D % 8 != 0, Hq % Hkv != 0, a q_offset below 0 or with q_offset + S past
+// 2^30 (flash_attention.py's MAX_POSITION) and grids past the hardware
+// limits with cudaErrorInvalidValue; bf16 views TMA cannot map (a stride
+// that is not a multiple of 8 elements, a base not 16-byte aligned) too.
+// Otherwise returns cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* out, int is_bf16,
     int batch, int hq, int hkv, int s, int sk, int d, long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
     float scale, int causal, int window, float softcap, int q_offset,
-    void* stream) {
+    float* lse, void* stream) {
   if (batch < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || s < 1 || sk < 1 ||
       d < 8 || d > 256 || d % 8 != 0 ||
       static_cast<long long>(batch) * hq > 65535 || q_offset < 0 ||
       static_cast<long long>(q_offset) + s > (1LL << 30))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args args{q,    k,    v,    out,  q_sb,  q_sh,    q_ss,   k_sb,
-                  k_sh, k_ss, v_sb, v_sh, v_ss,  hq,      hkv,    s,
-                  sk,   d,    scale, softcap, causal, window, q_offset};
+  const Args args{q,    k,    v,    out,  lse,   q_sb,    q_sh,   q_ss,
+                  k_sb, k_sh, k_ss, v_sb, v_sh,  v_ss,    hq,     hkv,
+                  s,    sk,   d,    scale, softcap, causal, window, q_offset};
   return dispatch_d(args, batch, is_bf16, static_cast<cudaStream_t>(stream));
 }

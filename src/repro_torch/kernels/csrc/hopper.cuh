@@ -1,10 +1,10 @@
 // hopper.cuh: the Hopper (sm_90a) building blocks of the tensor-core
 // kernels, written once as raw PTX: TMA descriptors and loads, mbarriers,
 // the wgmma shared-memory matrix descriptor, wgmma's fence / commit / wait,
-// setmaxnreg, and the wgmma shapes tiled_gemm.cu and flash_attention.cu
-// issue; and the pieces of the int8 mma.sync kernels (fused_mlp_q8.cu,
-// gemm_int8.cu): 1-D bulk copies, 16-byte cp.async, ldmatrix, the s8
-// m16n8k32 product and a 4 x 4 byte transpose.
+// setmaxnreg, and the wgmma shapes tiled_gemm.cu, flash_attention.cu and
+// flash_attention_bwd.cu issue; and the pieces of the int8 mma.sync
+// kernels (fused_mlp_q8.cu, gemm_int8.cu): 1-D bulk copies, 16-byte
+// cp.async, ldmatrix, the s8 m16n8k32 product and a 4 x 4 byte transpose.
 //
 // Layout convention.  Every operand tile lives in shared memory as rows of
 // 128 bytes (64 bf16 or 128 int8 values) in the 128-byte swizzle TMA writes:
@@ -56,22 +56,56 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A tiled TMA map over a strided tensor of `rank` dimensions, 128-byte
-// swizzle, out-of-bounds elements read as zero.  dims and box innermost
-// first; strides[i] is the byte stride of dimension i + 1 (a multiple of
-// 16); the base is 16-byte aligned.  Returns a cudaError_t value.
-inline int make_tma_map(CUtensorMap* map, CUtensorMapDataType type,
-                        int rank, const void* base, const cuuint64_t* dims,
-                        const cuuint64_t* strides, const cuuint32_t* box) {
+// swizzle (or `swizzle`), out-of-bounds elements read as zero.  dims and
+// box innermost first; strides[i] is the byte stride of dimension i + 1 (a
+// multiple of 16); the base is 16-byte aligned.  Returns a cudaError_t
+// value.
+inline int make_tma_map(
+    CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+    const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, type, static_cast<cuuint32_t>(rank),
                         const_cast<void*>(base), dims, strides, box, ones,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A 4-D map (D, S, H, B) over a strided bf16 view of (B, H, S, D), boxes of
+// 64 columns x `rows` rows of one head.  Strides in elements; a dimension
+// of size 1 may carry any stride, so it gets a harmless one.
+inline int bhsd_map(CUtensorMap* map, const void* base, int d, int s, int h,
+                    int batch, long long ss, long long sh, long long sb,
+                    int rows) {
+  const long long st[3] = {ss, sh, sb};
+  const int ext[3] = {s, h, batch};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i)
+    strides[i] = static_cast<cuuint64_t>(ext[i] == 1 ? 16 : 2 * st[i]);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  return make_tma_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims,
+                      strides, box);
+}
+
+// A 1-D map over n contiguous floats (16-byte-aligned base), boxes of
+// `box` floats (a multiple of 4), unswizzled; elements past n read as zero.
+// A load's first coordinate must be a multiple of 4 (16 bytes): a load
+// from another one faults.
+inline int f32_map_1d(CUtensorMap* map, const float* base, long long n,
+                      int box) {
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {0};
+  const cuuint32_t boxes[1] = {static_cast<cuuint32_t>(box)};
+  return make_tma_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, base, dims,
+                      strides, boxes, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // ---------------------------------------------------------------------------
@@ -158,6 +192,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // the async proxy (wgmma).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
 }
 
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,

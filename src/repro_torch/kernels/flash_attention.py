@@ -11,7 +11,11 @@ chunk of a prompt after ``q_offset`` cached keys), as the reference's
 ``models/layers.py::chunked_attention`` does; the TPU kernel has no offset.
 The CUDA kernel is ``csrc/flash_attention.cu``;
 :func:`flash_attention_plain` is the same function in plain PyTorch, used
-for CPU tensors and as the kernel's oracle on the card.
+for CPU tensors and as the kernel's oracle on the card.  With
+``return_lse=True`` both also return each query row's log-sum-exp ``(B,
+Hq, S)`` in f32, natural-log units (``+inf`` for a row with zero mass, so
+that ``exp(x - lse)`` gives it no probability): the statistics the
+backward (:mod:`flash_attention_bwd`) forms P from.
 """
 
 from __future__ import annotations
@@ -90,11 +94,11 @@ def work(b: int, hq: int, hkv: int, s: int, sk: int, d: int, itemsize: int,
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int | None = None,
                           softcap: float | None = None,
-                          scale: float | None = None,
-                          q_offset: int = 0) -> torch.Tensor:
+                          scale: float | None = None, q_offset: int = 0,
+                          return_lse: bool = False):
     """The kernel's function as one dense masked softmax in f32: the same
     constants, the zero-mass rule, and no key past ``Sk`` (the dense form
-    has no padding to mask)."""
+    has no padding to mask).  ``return_lse``: ``(out, lse)``."""
     _check(q, k, v, window=window, softcap=softcap, q_offset=q_offset)
     s_q, d = q.shape[2], q.shape[3]
     s_k = k.shape[2]
@@ -116,8 +120,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
     den = p.sum(dim=-1, keepdim=True)
-    den = torch.where(den == 0.0, 1.0, den)
-    return (torch.matmul(p, vx) / den).to(q.dtype)
+    out = (torch.matmul(p, vx) / torch.where(den == 0.0, 1.0, den)).to(
+        q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(den == 0.0, torch.inf, m + torch.log(den))
+    return out, lse.squeeze(-1)
 
 
 @functools.cache
@@ -126,7 +134,7 @@ def _lib() -> ctypes.CDLL:
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.repro_flash_attention.argtypes = (
         [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci] + [ll] * 9
-        + [ctypes.c_float, ci, ci, ctypes.c_float, ci, vp])
+        + [ctypes.c_float, ci, ci, ctypes.c_float, ci, vp, vp])
     lib.repro_flash_attention.restype = ci
     return lib
 
@@ -134,12 +142,14 @@ def _lib() -> ctypes.CDLL:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int | None = None,
                          softcap: float | None = None,
-                         scale: float | None = None,
-                         q_offset: int = 0) -> torch.Tensor:
+                         scale: float | None = None, q_offset: int = 0,
+                         return_lse: bool = False):
     """Launch ``csrc/flash_attention.cu`` on q's device and stream.  q, k, v
     may be strided views (the model passes head-transposed projections)
     as long as the last dimension is contiguous and every stride is a
-    multiple of 8 elements; the output is contiguous."""
+    multiple of 8 elements; the output is contiguous.  ``return_lse``:
+    ``(out, lse)``, the kernel writing the statistics as it goes (without
+    it no statistics are written)."""
     global launches, flops, bytes_moved
     _check(q, k, v, window=window, softcap=softcap, q_offset=q_offset)
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
@@ -164,8 +174,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_cuda: B*Hq={b * hq} exceeds the "
                          f"grid limit 65535")
     out = torch.empty((b, hq, s, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if out.numel() == 0 or sk == 0:
-        return out.zero_()
+        return (out.zero_(), lse.fill_(torch.inf)) if return_lse \
+            else out.zero_()
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().repro_flash_attention(
@@ -173,11 +186,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         int(q.dtype == torch.bfloat16), b, hq, hkv, s, sk, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale),
         int(causal), 0 if window is None else int(window),
-        0.0 if softcap is None else float(softcap), q_offset, stream)
+        0.0 if softcap is None else float(softcap), q_offset,
+        None if lse is None else lse.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention: CUDA error {err}")
     launches += 1
     f, nb = work(b, hq, hkv, s, sk, d, q.element_size(), causal=causal,
                  window=window, q_offset=q_offset)
     flops, bytes_moved = flops + f, bytes_moved + nb
-    return out
+    return (out, lse) if return_lse else out

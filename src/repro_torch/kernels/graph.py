@@ -128,7 +128,7 @@ KERNEL_FUNCTIONS = {
     "fused_dense": ("fused_dense_kernel",),
     # One node of its two per call, so that a node counts a call.
     "flash_attention_bwd": ("flash_bwd_dkdv_kernel",
-                            "flash_bwd_tc_dkdv_kernel"),
+                            "flash_bwd_wg_dkdv_kernel"),
     # One node of its two per call (``du_sum_kernel`` is the other).
     "rwkv6_scan_bwd": ("rwkv6_bwd_kernel",),
 }

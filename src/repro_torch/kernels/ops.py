@@ -160,21 +160,23 @@ def gemm_int8(x, w, w_scale, x_scale: float = 1.0, *,
 
 
 class _FlashAttention(torch.autograd.Function):
-    """flash_attention with its gradient: the forward saves q, k, v and the
-    output; the backward is ``flash_attention_bwd`` (the CUDA kernel, or
-    its plain version on the CPU)."""
+    """flash_attention with its gradient: the forward asks for its row
+    statistics and saves q, k, v, the output and the statistics; the
+    backward is ``flash_attention_bwd`` (the CUDA kernel, or its plain
+    version on the CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale):
         ctx.opts = {"causal": causal, "window": window, "softcap": softcap,
                     "scale": scale}
-        out = _flash(q, k, v, q_offset=0, **ctx.opts)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = _flash(q, k, v, q_offset=0, return_lse=True, **ctx.opts)
+        ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        return (*flash_attention_bwd(*ctx.saved_tensors, do, **ctx.opts),
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, out, do, lse, **ctx.opts),
                 None, None, None, None)
 
 
@@ -201,19 +203,20 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
                   scale=scale, q_offset=q_offset)
 
 
-def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                         window: int | None = None,
                         softcap: float | None = None,
                         scale: float | None = None) -> tuple:
-    """(dq, dk, dv) of :func:`flash_attention` for its output ``o`` and the
-    upstream ``do``, as the autograd Function's backward computes them."""
+    """(dq, dk, dv) of :func:`flash_attention` for its output ``o``, the
+    upstream ``do`` and the forward's row statistics ``lse``, as the
+    autograd Function's backward computes them."""
     kw = {"causal": causal, "window": window, "softcap": softcap,
           "scale": scale}
     if q.device.type == "cpu":
-        return _fb.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+        return _fb.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
     if not _fb.strides_ok(do):
         do = do.contiguous()
-    return _fb.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+    return _fb.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
 
 
 class _LinearScan(torch.autograd.Function):

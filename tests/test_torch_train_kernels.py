@@ -121,8 +121,9 @@ def test_flash_backward_matches_autograd_of_plain(name, shape, kw):
 
 def test_flash_backward_refuses_a_query_offset():
     q, k, v, g = (torch.from_numpy(a) for a in _qkvg((1, 2, 2, 8, 16, 16)))
+    lse = torch.zeros((1, 2, 8))
     with pytest.raises(ValueError, match="q_offset"):
-        fb.flash_attention_bwd_plain(q, k, v, q, g, q_offset=4)
+        fb.flash_attention_bwd_plain(q, k, v, q, g, lse, q_offset=4)
     with pytest.raises(ValueError, match="q_offset"):
         ops.flash_attention(q.requires_grad_(), k, v, q_offset=4)
     with torch.no_grad():       # chunked prefill, as served
@@ -137,6 +138,244 @@ def test_flash_backward_work_record():
     assert flops == 10 * 32 * pairs * 2 * 8
     assert nbytes == 2 * (4 * 2 * 8 * 64 * 32 + 4 * 2 * 4 * 64 * 32) \
         + 4 * 2 * 2 * 8 * 64
+
+
+@needs_reference
+@pytest.mark.parametrize("name,shape,kw", FLASH_CASES,
+                         ids=[c[0] for c in FLASH_CASES])
+def test_flash_forward_statistics_match_jax_logsumexp(name, shape, kw):
+    """The plain forward's row statistics against ``jax.nn.logsumexp`` of
+    the masked, capped logits as ``ref.attention`` forms them; a row with
+    zero mass is +inf in the port (no probability) and -inf in JAX (no
+    mass)."""
+    q, k, v, _ = _qkvg(shape, seed=3)
+    out, lse = fa.flash_attention_plain(
+        *(torch.from_numpy(a) for a in (q, k, v)), return_lse=True, **kw)
+    assert lse.shape == q.shape[:3] and lse.dtype == torch.float32
+    assert torch.equal(out, fa.flash_attention_plain(
+        *(torch.from_numpy(a) for a in (q, k, v)), **kw))
+    b, hq, hkv, s, sk, d = shape
+    scale = kw.get("scale") or 1.0 / np.sqrt(d)
+    kx = jnp.repeat(jnp.asarray(k), hq // hkv, axis=1)
+    x = jnp.einsum("bhqd,bhkd->bhqk", jnp.asarray(q), kx) * scale
+    if kw.get("softcap") is not None:
+        x = kw["softcap"] * jnp.tanh(x / kw["softcap"])
+    q_pos, k_pos = jnp.arange(s)[:, None], jnp.arange(sk)[None, :]
+    mask = jnp.ones((s, sk), dtype=bool)
+    if kw.get("causal", True):
+        mask &= k_pos <= q_pos
+    if kw.get("window") is not None:
+        mask &= k_pos > q_pos - kw["window"]
+    want = np.asarray(jax.nn.logsumexp(jnp.where(mask, x, -jnp.inf), axis=-1))
+    got = lse.numpy()
+    assert np.array_equal(np.isposinf(got), np.isneginf(want))
+    finite = np.isfinite(want)
+    _close(got[finite], want[finite], TOL_F32)
+    if name == "zero_mass_rows":
+        assert np.isposinf(got[:, :, 12:]).all()
+
+
+# The tensor-core kernels' formulation in plain torch, tile by tile, as
+# csrc/flash_attention_bwd.cu runs it: 64-row tiles, P = exp2(x log2 e -
+# lse log2 e) from the forward's statistics, only the band's tiles, masks
+# only on edge tiles, the statistics of rows past S read flat from the next
+# head's (or zeros past the end, as TMA's bounds give them), a KV head's
+# query heads split as ``dkdv_splits`` says and the splits' f32 dK and dV
+# summed in split order, and bf16 rounding (``bf16=True``) of dS before
+# dQ, of P before dV and of dS before dK, and of the outputs.
+BT = 64
+LOG2E = 1.4426950408889634
+
+
+def _dkdv_keys(d):
+    """The keys of one dkdv CTA at head dim ``d`` on the tensor cores, as
+    the library's ``repro_flash_bwd_keys`` gives them."""
+    return 64 if d > 128 else 128
+
+
+def _tile_bands(s, sk, kw):
+    causal, window = kw.get("causal", True), kw.get("window")
+
+    def key_band(q0):
+        n = -(-sk // BT)
+        lo, hi = 0, n
+        if causal:
+            hi = min(n, (q0 + BT - 1) // BT + 1)
+        if window is not None and q0 - window + 1 > 0:
+            lo = (q0 - window + 1) // BT
+        return lo, hi
+
+    def query_band(k0):
+        n = -(-s // BT)
+        lo, hi = (min(n, k0 // BT) if causal else 0), n
+        if window is not None:
+            hi = min(n, (k0 + BT - 2 + window) // BT + 1)
+        return lo, hi
+
+    def edge(q0, k0):
+        return (k0 + BT > sk or q0 + BT > s
+                or (causal and k0 + BT - 1 > q0)
+                or (window is not None and k0 <= q0 + BT - 1 - window))
+
+    def kept(q0, k0):
+        qi = q0 + torch.arange(BT)[:, None]
+        kj = k0 + torch.arange(BT)[None, :]
+        ok = (qi < s) & (kj < sk)
+        if causal:
+            ok &= kj <= qi
+        if window is not None:
+            ok &= kj > qi - window
+        return ok
+
+    return key_band, query_band, edge, kept
+
+
+def _emulate_bwd(q, k, v, o, do, lse, kw, nsplit, bf16):
+    rnd = (lambda t: t.bfloat16().float()) if bf16 else (lambda t: t)
+    b, hq, s, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = kw.get("scale") or 1.0 / np.sqrt(d)
+    cap = kw.get("softcap")
+    key_band, query_band, edge, kept = _tile_bands(s, sk, kw)
+    sp, skp = -(-s // BT) * BT, -(-sk // BT) * BT
+
+    def pad(t, n):        # rows past the edge read as zeros
+        return torch.nn.functional.pad(t.float(), (0, 0, 0, n - t.shape[2]))
+
+    qp, op_, gp = pad(q, sp), pad(o, sp), pad(do, sp)
+    kp, vp = pad(k, skp), pad(v, skp)
+    di = (gp * op_).sum(-1)[:, :, :s]
+    flat = {"lse": torch.cat([lse.reshape(-1), torch.zeros(BT)]),
+            "di": torch.cat([di.reshape(-1), torch.zeros(BT)])}
+
+    def logits(dot):
+        x = dot * scale
+        chain = torch.ones_like(x)
+        if cap is not None:
+            t = torch.tanh(x / cap)
+            x, chain = cap * t, 1.0 - t * t
+        return x * LOG2E, chain
+
+    dq = torch.zeros((b, hq, sp, d))
+    for bi in range(b):
+        for h in range(hq):
+            hk = h // group
+            for q0 in range(0, sp, BT):
+                rows = slice(q0, q0 + BT)
+                inside = q0 + torch.arange(BT) < s
+                lse2 = torch.where(inside, torch.nn.functional.pad(
+                    lse[bi, h], (0, sp - s))[rows] * LOG2E, torch.inf)
+                dir_ = torch.where(inside, torch.nn.functional.pad(
+                    di[bi, h], (0, sp - s))[rows], 0.0)
+                lo, hi = key_band(q0)
+                for t in range(lo, hi):
+                    keys = slice(t * BT, t * BT + BT)
+                    x2, chain = logits(qp[bi, h, rows] @ kp[bi, hk, keys].T)
+                    pr = torch.exp2(x2 - lse2[:, None])
+                    if edge(q0, t * BT):
+                        pr = torch.where(kept(q0, t * BT), pr, 0.0)
+                    dp = gp[bi, h, rows] @ vp[bi, hk, keys].T
+                    ds = pr * (dp - dir_[:, None]) * chain
+                    dq[bi, h, rows] += rnd(ds) @ kp[bi, hk, keys]
+    dq = dq[:, :, :s] * scale
+
+    parts = torch.zeros((nsplit, 2, b, hkv, skp, d))
+    for split in range(nsplit):
+        g_lo, g_hi = split * group // nsplit, (split + 1) * group // nsplit
+        for bi in range(b):
+            for hk in range(hkv):
+                for k0 in range(0, skp, BT):
+                    keys = slice(k0, k0 + BT)
+                    lo, hi = query_band(k0)
+                    for g in range(g_lo, g_hi):
+                        h = hk * group + g
+                        row0 = (bi * hq + h) * s
+                        for t in range(lo, hi):
+                            q0 = t * BT
+                            rows = slice(q0, q0 + BT)
+                            l2 = flat["lse"][row0 + q0:row0 + q0 + BT] * LOG2E
+                            d2 = flat["di"][row0 + q0:row0 + q0 + BT]
+                            x2, chain = logits(kp[bi, hk, keys]
+                                               @ qp[bi, h, rows].T)
+                            pr = torch.exp2(x2 - l2[None, :])
+                            if edge(q0, k0):
+                                pr = torch.where(kept(q0, k0).T, pr, 0.0)
+                            dp = vp[bi, hk, keys] @ gp[bi, h, rows].T
+                            ds = pr * (dp - d2[None, :]) * chain
+                            parts[split, 0, bi, hk, keys] += \
+                                rnd(ds) @ qp[bi, h, rows]
+                            parts[split, 1, bi, hk, keys] += \
+                                rnd(pr) @ gp[bi, h, rows]
+    parts[:, 0] *= scale
+    total = parts[0]
+    for split in range(1, nsplit):
+        total = total + parts[split]
+    dk, dv = total[0, :, :, :sk], total[1, :, :, :sk]
+    return tuple(rnd(x) for x in (dq, dk, dv))
+
+
+EMULATED_CASES = FLASH_CASES + [
+    # Griffin's MQA with a window over three query tiles: ten splits.
+    ("mqa_split", (1, 10, 1, 150, 150, 32), dict(causal=True, window=70)),
+]
+
+
+def _emulation_inputs(shape, kw, bf16):
+    q, k, v, g = (torch.from_numpy(a) for a in _qkvg(shape, seed=4))
+    if bf16:
+        q, k, v, g = (t.bfloat16().float() for t in (q, k, v, g))
+    out, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    if bf16:
+        out = out.bfloat16().float()
+    b, hq, hkv, s, sk, d = shape
+    nsplit = fb.dkdv_splits(b, hq, hkv, sk, _dkdv_keys(d), sms=132)
+    return (q, k, v, out, g, lse), nsplit
+
+
+@needs_reference
+@pytest.mark.parametrize("name,shape,kw", EMULATED_CASES,
+                         ids=[c[0] for c in EMULATED_CASES])
+def test_flash_backward_kernel_formulation_matches_plain_and_jax(name, shape,
+                                                                 kw):
+    """The kernels' formulation in f32 against the plain backward and
+    ``jax.vjp`` of ``ref.attention`` at 1e-5 of the largest value."""
+    args, nsplit = _emulation_inputs(shape, kw, bf16=False)
+    if name == "mqa_split":
+        assert nsplit == 10
+    got = _emulate_bwd(*args, kw, nsplit, bf16=False)
+    plain = fb.flash_attention_bwd_plain(*args, **kw)
+    q, k, v, _, g, _ = args
+    _, vjp = jax.vjp(lambda x, y, z: ref.attention(x, y, z, **kw),
+                     *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    want = vjp(jnp.asarray(g.numpy()))
+    for x, p, w in zip(got, plain, want):
+        _close(x.numpy(), p.numpy(), 1e-5)
+        _close(x.numpy(), np.asarray(w), 1e-5)
+
+
+@pytest.mark.parametrize("name,shape,kw", EMULATED_CASES,
+                         ids=[c[0] for c in EMULATED_CASES])
+def test_flash_backward_kernel_bf16_rounding_matches_plain(name, shape, kw):
+    """The same with the kernels' bf16 roundings, on bf16 inputs, against
+    the plain backward in f32 at the card's bf16 2e-2."""
+    args, nsplit = _emulation_inputs(shape, kw, bf16=True)
+    got = _emulate_bwd(*args, kw, nsplit, bf16=True)
+    for x, p in zip(got, fb.flash_attention_bwd_plain(*args, **kw)):
+        _close(x.numpy(), p.numpy(), TOL_CARD["bfloat16"])
+
+
+@pytest.mark.parametrize("shape,sms,want", [
+    ((2, 8, 4, 4096, 64), 132, 1),       # gemma2-2b: 512 CTAs
+    ((1, 10, 1, 2048, 64), 132, 10),     # recurrentgemma-2b: 32 -> 320
+    ((1, 16, 2, 4096, 128), 132, 8),     # qwen2.5-3b: 64 -> 512
+    ((1, 16, 16, 1500, 128), 132, 1),    # whisper: a group of one
+    ((1, 12, 4, 1024, 128), 132, 3),     # 32 CTAs, group 3: all of it
+    ((1, 12, 2, 4096, 128), 132, 6),     # 64 CTAs want 5: 6 divides 6
+    ((1, 12, 2, 4096, 128), 16, 1),      # a small card is full
+])
+def test_dkdv_splits(shape, sms, want):
+    assert fb.dkdv_splits(*shape, sms=sms) == want
 
 
 @needs_reference
@@ -497,6 +736,12 @@ CARD_CASES = FLASH_CASES + [
      dict(causal=True, window=64, softcap=50.0)),
     ("d128_gqa8", (1, 16, 2, 130, 130, 128), dict(causal=True)),
     ("d64_cross", (1, 4, 4, 40, 150, 64), dict(causal=False)),
+    # Griffin's MQA shape cut in S: the dkdv launch splits its ten query
+    # heads over CTAs.
+    ("griffin_mqa_window", (1, 10, 1, 300, 300, 256),
+     dict(causal=True, window=128)),
+    ("d192_gqa_window", (2, 6, 2, 190, 190, 192),
+     dict(causal=True, window=70)),
 ]
 
 
@@ -509,16 +754,59 @@ def test_flash_backward_cuda_matches_plain_on_card(cuda_device, name, shape,
     dt = getattr(torch, dtype)
     q, k, v, g = (torch.from_numpy(a).to(cuda_device, dt)
                   for a in _qkvg(shape, seed=2))
-    o = fa.flash_attention_cuda(q, k, v, **kw)
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
     before = fb.launches
-    got = fb.flash_attention_bwd_cuda(q, k, v, o, g, **kw)
-    want = fb.flash_attention_bwd_plain(q, k, v, o, g, **kw)
+    got = fb.flash_attention_bwd_cuda(q, k, v, o, g, lse, **kw)
+    want = fb.flash_attention_bwd_plain(q, k, v, o, g, lse, **kw)
     torch.cuda.synchronize()
     assert fb.launches == before + 1
     for x, w in zip(got, want):
         assert x.dtype == dt and x.shape == w.shape
         _close(x.float().cpu().numpy(), w.float().cpu().numpy(),
                TOL_CARD[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,shape,kw", CARD_CASES,
+                         ids=[c[0] for c in CARD_CASES])
+def test_flash_forward_statistics_on_card(cuda_device, name, shape, kw,
+                                          dtype):
+    """The kernel's row statistics against the plain forward's at 1e-5 of
+    the largest finite value (in bf16 too: the logits are f32 sums of
+    exact products, and the sums of probabilities are never rounded), +inf
+    on the same rows, and the output bit for bit the one without
+    statistics."""
+    dt = getattr(torch, dtype)
+    q, k, v, _ = (torch.from_numpy(a).to(cuda_device, dt)
+                  for a in _qkvg(shape, seed=5))
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    want = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)[1]
+    assert torch.equal(out, fa.flash_attention_cuda(q, k, v, **kw))
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(lse), inf) and (lse[inf] > 0).all()
+    _close(lse[~inf].cpu().numpy(), want[~inf].cpu().numpy(), 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape,kw", [
+    ("one_split", (1, 4, 4, 200, 200, 64), dict(causal=True)),
+    ("ten_splits", (1, 10, 1, 300, 300, 256), dict(causal=True, window=128)),
+])
+def test_flash_backward_cuda_is_deterministic_on_card(cuda_device, name,
+                                                      shape, kw):
+    """Two bf16 calls on the same inputs give the same bits for dq, dk
+    and dv, with the query heads split over CTAs and without."""
+    q, k, v, g = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                  for a in _qkvg(shape, seed=6))
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    b, hq, hkv, _, sk, d = shape
+    assert (fb.card_splits(b, hq, hkv, sk, d, cuda_device) > 1) == (
+        name == "ten_splits")
+    first = fb.flash_attention_bwd_cuda(q, k, v, o, g, lse, **kw)
+    second = fb.flash_attention_bwd_cuda(q, k, v, o, g, lse, **kw)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.gpu
