@@ -328,13 +328,16 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    model FLOP/s against the bf16 dense peak, peak memory, snapshot and
    restore seconds, flash's launches a step.  17d: recurrentgemma-2b
    whole, 3 AdamW steps at 1 x 2048, ``linear_scan`` launches a step.
-   17e: the ``rwkv6_scan`` backward kernel (``rwkv6_scan_bwd``) against
-   its plain version in f32 and bf16 (``TOL_FLASH_BWD``'s limits) at the
+   17e: the ``rwkv6_scan`` backward kernel (``rwkv6_scan_bwd``), from the
+   forward kernel's chunk states, against its plain version in f32 and
+   bf16 (``TOL_FLASH_BWD``'s limits) and a second call bit for bit at the
    training shape (64,2048,64), the forward's (64,4096,64), D=32 and 128,
-   decays down to 0.01 and near 1, timed in bf16 at the first two beside
-   its bound and the plain version.  17f: one f32 step of rwkv6-7b cut to 2
-   layers at full width and S=1024 through the kernels against the step
-   with the plain backward (``TOL_TRAIN_STEP``) and against the plain step
+   decays down to 0.01, near 1 and with exact zeros and ones, timed in
+   bf16 at the first two beside its bound, the plain version and the
+   scratch one call allocates (read from the caching allocator), and the
+   forward timed without and with its chunk states stored.  17f: one f32
+   step of rwkv6-7b cut to 2 layers at full width and S=1024 through the
+   kernels against the step with the plain backward (``TOL_TRAIN_STEP``) and against the plain step
    (the loss at ``TOL_TRAIN_STEP``, the leaves at ``TOL_TRAIN_STEP_RWKV``).
    17g: the published rwkv6-7b trained whole
    through ``launch.train`` (bf16, AdamW with int8 moments, ``--remat
@@ -566,8 +569,10 @@ TC_INSTANCES = (
     ("fused_mlp_q8", "fused_mlp_q8_kernel", "IMMA", 1),
     ("gemm_int8", "gemm_int8_kernel", "IMMA", 36),
 )
-# Libraries whose instances must not spill (ptxas -v).
-NO_SPILL = ("fused_mlp_q8", "gemm_int8", "flash_attention_bwd")
+# Libraries whose instances must not spill (ptxas -v), in phase 2b's
+# tensor-core and CUDA-core listings alike.
+NO_SPILL = ("fused_mlp_q8", "gemm_int8", "flash_attention_bwd",
+            "fused_dense", "rwkv6_scan_bwd")
 SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA")
 
 
@@ -646,22 +651,24 @@ def tensor_core_phase(libs: dict) -> None:
 
 
 # CUDA-core instances whose registers, spills and shared memory are printed:
-# (library, mark, instances or None, must not spill).  fused_dense.cu's two
-# dtypes x seven strips must not spill; the chunked scans
+# (library, mark, instances or None).  fused_dense.cu's two dtypes x seven
+# strips and the RWKV backward's carry and chunk kernels (two dtypes x three
+# head sizes each) must not spill (``NO_SPILL``); the forward chunked scans
 # (kernels/csrc/rwkv6_scan.cu, linear_scan.cu) are held to no rule.
-PTXAS_INSTANCES = (("fused_dense", "fused_dense_kernel", 14, True),
-                   ("rwkv6_scan", "rwkv6_chunk_kernel", None, False),
-                   ("linear_scan", "chunk_aggregate_kernel", None, False),
-                   ("linear_scan", "chunk_scan_kernel", None, False))
+PTXAS_INSTANCES = (("fused_dense", "fused_dense_kernel", 14),
+                   ("rwkv6_scan_bwd", "rwkv6_bwd_", 12),
+                   ("rwkv6_scan", "rwkv6_chunk_kernel", None),
+                   ("linear_scan", "chunk_aggregate_kernel", None),
+                   ("linear_scan", "chunk_scan_kernel", None))
 
 
 def ptxas_phase() -> None:
     """ptxas's registers, spills and shared memory for every instance of
-    ``fused_dense`` and the chunked scans; fails if a source built in this
-    run has none or the wrong number of them, or if a ``fused_dense``
-    instance spills."""
+    ``fused_dense``, the chunked scans and the RWKV backward; fails if a
+    source built in this run has none or the wrong number of them, or if
+    a ``fused_dense`` or RWKV backward instance spills."""
     from repro_torch.kernels import build
-    for lib, mark, want, no_spill in PTXAS_INSTANCES:
+    for lib, mark, want in PTXAS_INSTANCES:
         if not build.ptxas_report.get(lib):
             log(f"ptxas {lib}: library not rebuilt in this run")
             continue
@@ -672,8 +679,8 @@ def ptxas_phase() -> None:
                                f"instances, want {want or 'some'}")
         for func, row in sorted(rows.items()):
             log(f"ptxas {lib} {func}: " + json.dumps(row, sort_keys=True))
-            if no_spill and (row.get("spill_stores", 0)
-                             or row.get("spill_loads", 0)):
+            if lib in NO_SPILL and (row.get("spill_stores", 0)
+                                    or row.get("spill_loads", 0)):
                 raise SmokeFailure(f"{lib} {func} spills: {row}")
 
 
@@ -5415,6 +5422,13 @@ TRAIN_FLASH_CASES = (
 SCAN_BWD_SHAPE = (2, 4096, 2560)
 
 
+def _rwkv_bwd_plain(r, k, v, w, u, do, states):
+    """The plain RWKV backward under the kernel's signature: it rebuilds S
+    itself and does not read the forward's chunk states."""
+    from repro_torch.kernels import rwkv6 as rw
+    return rw.rwkv6_scan_bwd_plain(r, k, v, w, u, do)
+
+
 @contextlib.contextmanager
 def plain_kernels(only=None):
     """Every kernel wrapper of the training path (or those named in
@@ -5429,7 +5443,7 @@ def plain_kernels(only=None):
              (rglru, "linear_scan_cuda", rglru.linear_scan_plain),
              (rglru, "linear_scan_bwd_cuda", rglru.linear_scan_bwd_plain),
              (rw, "rwkv6_scan_cuda", rw.rwkv6_scan_plain),
-             (rw, "rwkv6_scan_bwd_cuda", rw.rwkv6_scan_bwd_plain)]
+             (rw, "rwkv6_scan_bwd_cuda", _rwkv_bwd_plain)]
     swaps = [s for s in swaps if only is None or s[1] in only]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
@@ -5731,8 +5745,10 @@ FLASH_TRACE_KERNELS = (("flash_forward_ms", ("flash_tc_kernel",
                        ("flash_backward_ms", ("flash_bwd_",)))
 RWKV_TRACE_KERNELS = (("scan_forward_ms", ("rwkv6_chunk_kernel",
                                            "rwkv6_kernel")),
-                      ("scan_backward_ms", ("rwkv6_bwd_kernel",
-                                            "du_sum_kernel")))
+                      ("scan_backward_ms", ("rwkv6_bwd_", "du_sum_kernel")),
+                      ("scan_backward_carry_ms", ("rwkv6_bwd_carry_kernel",)),
+                      ("scan_backward_chunk_ms", ("rwkv6_bwd_chunk_kernel",)),
+                      ("scan_backward_du_ms", ("du_sum_kernel",)))
 
 
 def train_step_trace(driver, batch_fn, *, part: str = "17c",
@@ -5904,8 +5920,8 @@ def griffin_train_phase() -> dict:
 
 # 17e-17g: RWKV training.  The backward kernel's cases (label, BH, T, D,
 # heads, w range): the 17g step's shape (1 x 2048, 64 heads of 64), the
-# forward's 4096, D = 32 and 128 at small shapes, decays down to 0.01 and
-# decays near 1.  Held to TOL_FLASH_BWD's limits (max|err| / max|ref| of
+# forward's 4096, D = 32 and 128 at small shapes, decays down to 0.01,
+# decays near 1, and exact zeros and ones (``_exact_zeros``).  Held to TOL_FLASH_BWD's limits (max|err| / max|ref| of
 # each of dr, dk, dv, dw and du): both sides do f32 arithmetic on the same
 # inputs in other summation orders; bf16 rounds dr, dk and dv once.
 RWKV_BWD_CASES = (
@@ -5915,6 +5931,7 @@ RWKV_BWD_CASES = (
     ("d128", 16, 300, 128, 4, (0.5, 0.99)),
     ("fast decay", 64, 1024, 64, 64, (0.01, 1.0)),
     ("near one", 64, 1024, 64, 64, (0.999, 1.0)),
+    ("exact zeros", 64, 300, 64, 64, (0.01, 1.0)),
 )
 RWKV_BWD_TIMED = ("train step", "forward shape")
 RWKV_TRAIN_SEQ = 2048
@@ -5922,29 +5939,53 @@ RWKV_TRAIN_STEPS = 3
 RWKV_TRAIN_STATE_DTYPE = "int8"
 
 
-def _rwkv_bwd_inputs(gen, device, bh, t, d, heads, w_range, dtype):
+def _exact_zeros(w):
+    """Exact zeros and ones in the decays of rows 0-3 (T >= 128): zeros
+    over five steps inside a sub-chunk, a whole step of zeros on the first
+    step of a chunk (64) and on the last (127), ones over three steps."""
+    w[0, 70:75, :5] = 0.0
+    w[1, 64, :] = 0.0
+    w[2, 100:103, 7:20] = 1.0
+    w[3, 127, :] = 0.0
+    return w
+
+
+def _rwkv_bwd_inputs(gen, device, label, bh, t, d, heads, w_range, dtype):
+    """r, k, v, w, u, do, and the chunk states of the forward kernel on
+    them (as training's forward stores them); the ``exact zeros`` case
+    places ``_exact_zeros`` in w."""
     import torch
+    from repro_torch.kernels import rwkv6 as rw
     dt = getattr(torch, dtype)
     r, k, v, do = [(torch.randn((bh, t, d), generator=gen, device=device)
                     * 0.5).to(dt) for _ in range(4)]
     lo, hi = w_range
     w = torch.rand((bh, t, d), generator=gen, device=device) * (hi - lo) + lo
+    if label == "exact zeros":
+        _exact_zeros(w)
     u = torch.randn((heads, d), generator=gen, device=device) * 0.3
-    return r, k, v, w, u, do
+    _, states = rw.rwkv6_scan_cuda(r, k, v, w, u, return_chunk_states=True)
+    return (r, k, v, w, u, do), states
 
 
 def rwkv_bwd_checks(gen, device) -> dict:
-    """17e's checks: ``rwkv6_scan_bwd_cuda`` against
-    ``rwkv6_scan_bwd_plain`` at each of ``RWKV_BWD_CASES`` in f32 and bf16.
-    Returns the largest absolute and relative errors."""
+    """17e's checks: ``rwkv6_scan_bwd_cuda`` (from the forward kernel's
+    chunk states) against ``rwkv6_scan_bwd_plain`` at each of
+    ``RWKV_BWD_CASES`` in f32 and bf16, and a second call on the same
+    inputs bit for bit the first.  Returns the largest absolute and
+    relative errors."""
     import torch
     from repro_torch.kernels import rwkv6 as rw
     worst = {"abs": 0.0, "rel": 0.0}
     for label, bh, t, d, heads, w_range in RWKV_BWD_CASES:
         for dt in ("float32", "bfloat16"):
-            args = _rwkv_bwd_inputs(gen, device, bh, t, d, heads, w_range,
-                                    dt)
-            got = rw.rwkv6_scan_bwd_cuda(*args)
+            args, states = _rwkv_bwd_inputs(gen, device, label, bh, t, d,
+                                            heads, w_range, dt)
+            got = rw.rwkv6_scan_bwd_cuda(*args, states)
+            again = rw.rwkv6_scan_bwd_cuda(*args, states)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise SmokeFailure(f"rwkv6_scan_bwd {label} {dt}: two calls "
+                                   f"on the same inputs differ")
             want = rw.rwkv6_scan_bwd_plain(*args)
             errs = {}
             for name, g, w in zip(("dr", "dk", "dv", "dw", "du"), got, want):
@@ -5956,7 +5997,7 @@ def rwkv_bwd_checks(gen, device) -> dict:
                 f"heads={heads} w in {list(w_range)}: " + ", ".join(
                     f"{n} max_abs_err={a} rel={r}"
                     for n, (a, r) in errs.items())
-                + f" tol={TOL_FLASH_BWD[dt]}")
+                + f" tol={TOL_FLASH_BWD[dt]}; repeat bit-equal")
             for n, (a, r) in errs.items():
                 if r > TOL_FLASH_BWD[dt]:
                     raise SmokeFailure(f"rwkv6_scan_bwd {label} {dt}: {n} off "
@@ -5964,23 +6005,56 @@ def rwkv_bwd_checks(gen, device) -> dict:
                                        f"(tolerance {TOL_FLASH_BWD[dt]})")
                 worst["abs"] = max(worst["abs"], a)
                 worst["rel"] = max(worst["rel"], r)
-            del args, got, want
+            del args, states, got, again, want
     gc.collect()
     torch.cuda.empty_cache()
     return worst
 
 
+def call_scratch(fn) -> dict:
+    """Device memory one eager call of ``fn`` allocates beyond the outputs
+    it returns, read from the caching allocator: the peak during the call
+    less what is held after it, in bytes requested (``requested``) and in
+    the allocator's rounded blocks (``blocks``)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    st = torch.cuda.memory_stats()
+    del out
+    return {"requested": st["requested_bytes.all.peak"]
+            - st["requested_bytes.all.current"],
+            "blocks": st["allocated_bytes.all.peak"]
+            - st["allocated_bytes.all.current"]}
+
+
 def rwkv_bwd_row(gen, device, label, bh, t, d, heads, w_range) -> dict:
     """One bf16 timing row of the backward: the kernel graph-replayed and
-    eager, the plain version, and the bound max(bytes / 3.35 TB/s, flops /
-    67 TFLOP/s) of ``work_bwd`` (the f32 rate: the arithmetic is f32).  No
-    single PyTorch call computes this function: ``library_ms`` is null."""
+    eager (from the forward kernel's chunk states), the plain version, the
+    bound max(bytes / 3.35 TB/s, flops / 67 TFLOP/s) of ``work_bwd`` (the
+    f32 rate: the arithmetic is f32) and the scratch one call allocates
+    (``call_scratch``; fails unless the bytes requested are the wrapper's
+    ``bwd_scratch_bytes``); beside it the forward kernel graph-replayed on
+    the same inputs without and with the chunk states stored.  No single
+    PyTorch call computes this function: ``library_ms`` is null."""
     from repro_torch.kernels import rwkv6 as rw
-    args = _rwkv_bwd_inputs(gen, device, bh, t, d, heads, w_range,
-                            "bfloat16")
+    args, states = _rwkv_bwd_inputs(gen, device, label, bh, t, d, heads,
+                                    w_range, "bfloat16")
 
     def kernel():
-        return rw.rwkv6_scan_bwd_cuda(*args)
+        return rw.rwkv6_scan_bwd_cuda(*args, states)
+
+    scratch = call_scratch(kernel)
+    if scratch["requested"] != rw.bwd_scratch_bytes(bh, t, d):
+        raise SmokeFailure(f"rwkv6_scan_bwd {label}: one call requested "
+                           f"{scratch['requested']} bytes of scratch, the "
+                           f"wrapper's size is "
+                           f"{rw.bwd_scratch_bytes(bh, t, d)}")
+
+    def forward(keep):
+        return lambda: rw.rwkv6_scan_cuda(*args[:5],
+                                          return_chunk_states=keep)
     flops, nbytes = rw.work_bwd(bh, t, d, heads, 2)
     row = {"shape": f"{label}: r/k/v/do {[bh, t, d]} bfloat16, w f32, "
                     f"heads {heads}",
@@ -5988,7 +6062,12 @@ def rwkv_bwd_row(gen, device, label, bh, t, d, heads, w_range) -> dict:
            "eager_ms": event_ms(kernel, inner=3, reps=5),
            "plain_ms": event_ms(lambda: rw.rwkv6_scan_bwd_plain(*args),
                                 inner=1, reps=1, warm=1),
-           "library_ms": None, **bound(nbytes, flops, PEAK_F32)}
+           "library_ms": None, **bound(nbytes, flops, PEAK_F32),
+           "scratch_bytes": scratch["requested"],
+           "scratch_block_bytes": scratch["blocks"],
+           "chunk_states_bytes": states.numel() * states.element_size(),
+           "forward_ms": graph_ms(forward(False), inner=3, reps=5),
+           "forward_states_ms": graph_ms(forward(True), inner=3, reps=5)}
     row["f32_flops_per_s"] = flops / row["ms"] * 1e3
     log("timing rwkv6_scan_bwd " + json.dumps(row, sort_keys=True))
     return row
@@ -6157,7 +6236,9 @@ def rwkv_bwd_kernel_entry(train: dict) -> dict:
     (17e), and its row at 17g's shape beside the forward's."""
     row = train["rwkv_rows"][0]
     keys = ("shape", "ms", "eager_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by", "f32_flops_per_s")
+            "bound_by", "f32_flops_per_s", "scratch_bytes",
+            "scratch_block_bytes", "forward_ms",
+            "forward_states_ms")
     return {"name": "rwkv6_scan_bwd", **KERNEL_META["rwkv6_scan_bwd"],
             "launches": sum(c["rwkv6_scan_bwd"]
                             for c in train["launches"].values()),

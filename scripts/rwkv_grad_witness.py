@@ -64,11 +64,17 @@ from repro_torch.train import step as step_lib
 F64 = torch.float64
 
 
+def _bwd_plain(r, k, v, w, u, do, states=None):
+    """The plain backward under the kernel's signature (it rebuilds S and
+    does not read the forward's chunk states)."""
+    return rw.rwkv6_scan_bwd_plain(r, k, v, w, u, do)
+
+
 @contextlib.contextmanager
 def swapped(names):
     """The named ``rwkv6`` wrappers swapped for their plain versions."""
     plain = {"rwkv6_scan_cuda": rw.rwkv6_scan_plain,
-             "rwkv6_scan_bwd_cuda": rw.rwkv6_scan_bwd_plain}
+             "rwkv6_scan_bwd_cuda": _bwd_plain}
     saved = {n: getattr(rw, n) for n in names}
     try:
         for n in names:
@@ -111,15 +117,16 @@ class _Scan32(torch.autograd.Function):
     def forward(ctx, r, k, v, w, u, fwd, bwd, real_float):
         ins = [a.to(torch.float32) for a in (r, k, v, w, u)]
         with _float_as(real_float):
-            out = fwd(*ins)
-        ctx.save_for_backward(*ins)
+            out, states = fwd(*ins, return_chunk_states=True)
+        ctx.save_for_backward(*ins, states)
         ctx.bwd, ctx.real_float = bwd, real_float
         return out.to(F64)
 
     @staticmethod
     def backward(ctx, g):
+        *ins, states = ctx.saved_tensors
         with _float_as(ctx.real_float):
-            grads = ctx.bwd(*ctx.saved_tensors, g.to(torch.float32))
+            grads = ctx.bwd(*ins, g.to(torch.float32), states)
         return tuple(x.to(F64) for x in grads) + (None, None, None)
 
 
@@ -156,7 +163,7 @@ def in_f64(round_to=None, scan32=None):
     else:
         fns = ((rw.rwkv6_scan_cuda, rw.rwkv6_scan_bwd_cuda)
                if scan32 == "kernels" and torch.cuda.is_available() else
-               (rw.rwkv6_scan_plain, rw.rwkv6_scan_bwd_plain))
+               (rw.rwkv6_scan_plain, _bwd_plain))
 
         def scan(r, k, v, w, u, *, state0=None, return_state=False):
             if state0 is not None or return_state:

@@ -35,6 +35,7 @@ from repro_torch.check import Finding
 from repro_torch.core import tiling
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels import rwkv6 as _rw
 from repro_torch.kernels.fused_dense import fused_dense_contract
 from repro_torch.kernels.fused_mlp import (fused_mlp_q8_contract,
                                            fused_smem_bytes)
@@ -141,6 +142,17 @@ def _verify_int8_rejects_float(tenant) -> list:
 # The library self-check
 # ---------------------------------------------------------------------------
 
+def _rwkv_bwd_case(r, k, v, w, u, do):
+    """The backward from the forward's chunk states, taken on the card by
+    the plain forward (so that only the backward counts a launch); the
+    CPU's plain backward reads none."""
+    states = None
+    if r.device.type != "cpu":
+        _, states = _rw.rwkv6_scan_plain(r, k, v, w, u,
+                                         return_chunk_states=True)
+    return ops.rwkv6_scan_bwd(r, k, v, w, u, do, states)
+
+
 def _library_cases(gen: torch.Generator, device: torch.device):
     """(kernel, call, expected shape, expected dtype) per kernel: the JAX
     package's four canonical cases as they are, one each for the edge
@@ -176,7 +188,7 @@ def _library_cases(gen: torch.Generator, device: torch.device):
             randn(4, 128, 64, scale=0.5), decay(4, 128, 64),
             randn(64, scale=0.3)),
          (4, 128, 64), F32),
-        ("rwkv6_scan_bwd", lambda: ops.rwkv6_scan_bwd(
+        ("rwkv6_scan_bwd", lambda: _rwkv_bwd_case(
             randn(4, 128, 64, scale=0.5), randn(4, 128, 64, scale=0.5),
             randn(4, 128, 64, scale=0.5), decay(4, 128, 64),
             randn(64, scale=0.3), randn(4, 128, 64))[0],

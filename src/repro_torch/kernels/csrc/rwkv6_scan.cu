@@ -292,7 +292,9 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
 // next chunk's r, k, w, v rows stream into a staging area by cp.async
 // while the current one is computed.  Phases a chunk: (a) staged rows to
 // f32, (b) the anchored factors, (c) A's blocks, (d) outputs and (e) the
-// state.
+// state.  Where training asks (a non-null `states`), (a) also stores the
+// chunk's S_in for the backward (rwkv6_scan_bwd.cu); the arithmetic is the
+// same either way.
 // ---------------------------------------------------------------------------
 
 constexpr int kThreadsC = 256;
@@ -435,8 +437,9 @@ __global__ void __launch_bounds__(kThreadsC, 1)
 rwkv6_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k,
                    const T* __restrict__ v, const float* __restrict__ w,
                    const float* __restrict__ u, const float* __restrict__ s0,
-                   T* __restrict__ out, float* __restrict__ s_out, int heads,
-                   int t_len, long long r_bh, long long r_t, long long k_bh,
+                   T* __restrict__ out, float* __restrict__ s_out,
+                   float* __restrict__ states, int heads, int t_len,
+                   long long r_bh, long long r_t, long long k_bh,
                    long long k_t, long long v_bh, long long v_t,
                    long long w_bh, long long w_t) {
   using L = ChunkSmem<T, D, C>;
@@ -505,6 +508,15 @@ rwkv6_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k,
     __syncthreads();
     // This CTA has left A V of the last chunk: the peer may write its A.
     if constexpr (CL > 1) cluster_arrive();
+    if (states != nullptr && ch > 0) {
+      // Training's backward: the state at this chunk's start, S_in, whole
+      // since the barrier above, into slot ch - 1 of the chunk states.
+      const float* s_in = sS + (ch & 1) * D * kDv;
+      float* sp = states + (static_cast<size_t>(bh) * (n_chunks - 1) + ch - 1)
+                               * D * D + c0;
+      for (int e = 4 * tid; e < D * kDv; e += 4 * kThreadsC)
+        put4(sp + (e / kDv) * D + e % kDv, ld4(s_in + e));
+    }
 #pragma unroll
     for (int e = 4 * tid; e < C * D; e += 4 * kThreadsC) {
       const int row = e / D, col = e % D;
@@ -773,7 +785,7 @@ rwkv6_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k,
 template <typename T, int D, int C>
 int launch_chunked(const void* r, const void* k, const void* v,
                    const void* w, const void* u, const void* s0, void* out,
-                   void* s_out, int bh, int heads, int t_len,
+                   void* s_out, void* states, int bh, int heads, int t_len,
                    const long long* st, cudaStream_t stream) {
   constexpr size_t smem = ChunkSmem<T, D, C>::bytes;
   auto kern = rwkv6_chunk_kernel<T, D, C>;
@@ -799,8 +811,9 @@ int launch_chunked(const void* r, const void* k, const void* v,
       &cfg, kern, static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(w),
       static_cast<const float*>(u), static_cast<const float*>(s0),
-      static_cast<T*>(out), static_cast<float*>(s_out), heads, t_len, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7]);
+      static_cast<T*>(out), static_cast<float*>(s_out),
+      static_cast<float*>(states), heads, t_len, st[0], st[1], st[2], st[3],
+      st[4], st[5], st[6], st[7]);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -864,24 +877,27 @@ extern "C" int repro_rwkv6_scan(const void* r, const void* k, const void* v,
                                    heads, t_len, st, s);
 }
 
-// The chunked form, with the arguments of repro_rwkv6_scan and the chunk
-// length: 64 steps at D = 32 and 64, 32 at D = 128 (shared memory).  r, k, v, w must be 16-byte
-// aligned with strides of whole 16-byte units.  One launch on the stream,
-// no host sync.
+// The chunked form, with the arguments of repro_rwkv6_scan, the chunk
+// states and the chunk length: 64 steps at D = 32 and 64, 32 at D = 128
+// (shared memory).  states: contiguous (BH, ceil(T / chunk) - 1, D, D)
+// f32, the state at the start of every chunk but the first, for
+// training's backward; null (serving) writes nothing.  r, k, v, w must be
+// 16-byte aligned with strides of whole 16-byte units.  One launch on the
+// stream, no host sync.
 extern "C" int repro_rwkv6_scan_chunked(
     const void* r, const void* k, const void* v, const void* w, const void* u,
-    const void* s0, void* out, void* s_out, int is_bf16, int bh, int heads,
-    int t_len, int d, int chunk, long long r_bh, long long r_t, long long k_bh,
-    long long k_t, long long v_bh, long long v_t, long long w_bh,
-    long long w_t, void* stream) {
+    const void* s0, void* out, void* s_out, void* states, int is_bf16,
+    int bh, int heads, int t_len, int d, int chunk, long long r_bh,
+    long long r_t, long long k_bh, long long k_t, long long v_bh,
+    long long v_t, long long w_bh, long long w_t, void* stream) {
   if (bh < 1 || t_len < 1 || heads < 1 || bh % heads != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long st[8] = {r_bh, r_t, k_bh, k_t, v_bh, v_t, w_bh, w_t};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_CHUNKED(T, D, C)                                              \
   if (d == D && chunk == C)                                                 \
-    return launch_chunked<T, D, C>(r, k, v, w, u, s0, out, s_out, bh, heads, \
-                                   t_len, st, s);
+    return launch_chunked<T, D, C>(r, k, v, w, u, s0, out, s_out, states,  \
+                                   bh, heads, t_len, st, s);
   if (is_bf16) {
     REPRO_CHUNKED(__nv_bfloat16, 32, 64)
     REPRO_CHUNKED(__nv_bfloat16, 64, 64)

@@ -129,8 +129,9 @@ KERNEL_FUNCTIONS = {
     # One node of its two per call, so that a node counts a call.
     "flash_attention_bwd": ("flash_bwd_dkdv_kernel",
                             "flash_bwd_wg_dkdv_kernel"),
-    # One node of its two per call (``du_sum_kernel`` is the other).
-    "rwkv6_scan_bwd": ("rwkv6_bwd_kernel",),
+    # One node of its three per call (``rwkv6_bwd_carry_kernel``, absent
+    # when T fits one chunk, and ``du_sum_kernel`` are the others).
+    "rwkv6_scan_bwd": ("rwkv6_bwd_chunk_kernel",),
 }
 
 

@@ -252,17 +252,24 @@ def linear_scan(a, b) -> torch.Tensor:
 
 class _RWKV6Scan(torch.autograd.Function):
     """rwkv6_scan from zeros with its gradient: the forward saves r, k, v,
-    w and u; the backward is ``rwkv6_scan_bwd`` (the CUDA kernel, or its
-    plain version on the CPU)."""
+    w, u and, on the card, the state at every chunk start
+    (``return_chunk_states``); the backward is ``rwkv6_scan_bwd`` (the
+    CUDA kernel from those states, or the plain version on the CPU, which
+    rebuilds S itself and is given none)."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u):
-        ctx.save_for_backward(r, k, v, w, u)
-        return _rwkv(r, k, v, w, u)
+        if r.is_cuda:
+            out, states = _rwkv(r, k, v, w, u, return_chunk_states=True)
+        else:
+            out, states = _rwkv(r, k, v, w, u), None
+        ctx.save_for_backward(r, k, v, w, u, states)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        return rwkv6_scan_bwd(*ctx.saved_tensors, do)
+        *ins, states = ctx.saved_tensors
+        return rwkv6_scan_bwd(*ins, do, states)
 
 
 def _rwkv(r, k, v, w, u, **kw):
@@ -285,12 +292,15 @@ def rwkv6_scan(r, k, v, w, u, *, state0=None, return_state: bool = False):
     return _rwkv(r, k, v, w, u, state0=state0, return_state=return_state)
 
 
-def rwkv6_scan_bwd(r, k, v, w, u, do) -> tuple:
+def rwkv6_scan_bwd(r, k, v, w, u, do, states) -> tuple:
     """(dr, dk, dv, dw, du) of :func:`rwkv6_scan` from zeros for the
-    upstream ``do``, as the autograd Function's backward computes them."""
+    upstream ``do``, as the autograd Function's backward computes them;
+    ``states`` are the forward's chunk states on the card
+    (``rwkv6_scan_cuda(..., return_chunk_states=True)``), and on the CPU,
+    whose plain version reads none, may be None."""
     if r.device.type == "cpu":
         return _rw.rwkv6_scan_bwd_plain(r, k, v, w, u, do)
-    return _rw.rwkv6_scan_bwd_cuda(r, k, v, w, u, do)
+    return _rw.rwkv6_scan_bwd_cuda(r, k, v, w, u, do, states)
 
 
 def tiled_gemm(x, w, *, block_m: int | None = None,

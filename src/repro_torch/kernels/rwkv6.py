@@ -27,7 +27,10 @@ The gradient (r, k, v, w and u; no state in or out) is the kernel of
 ``csrc/rwkv6_scan_bwd.cu`` (:func:`rwkv6_scan_bwd_cuda`, counted in
 :data:`bwd`), beside its plain version :func:`rwkv6_scan_bwd_plain`: the
 state S forward, then the adjoint G backwards beside each kept S, so that
-dw is summed from S and G of one step.
+dw is summed from S and G of one step.  The kernel is chunked on the
+forward's chunks (:data:`CHUNK`): training's forward returns the state at
+every chunk start but the first (``return_chunk_states``), and the
+backward takes them, so it never runs S over T again.
 """
 
 from __future__ import annotations
@@ -57,6 +60,18 @@ CHUNK = {32: 64, 64: 64, 128: 32}
 # The backward's launch counter and work record (``work_bwd``), beside the
 # forward's: a kernel of its own in the port's counts.
 bwd = types.SimpleNamespace(launches=0, flops=0.0, bytes_moved=0.0)
+
+
+def n_chunk_states(t: int, d: int) -> int:
+    """Chunk states of a T-step forward: one at every chunk start but
+    the first."""
+    return -(-t // CHUNK[d]) - 1
+
+
+def bwd_scratch_bytes(bh: int, t: int, d: int) -> int:
+    """Device scratch of one backward call: the adjoint G at every chunk
+    end but the last (shaped as the chunk states) and D floats a row."""
+    return 4 * bh * d * (n_chunk_states(t, d) * d + 1)
 
 
 def _check(r, k, v, w, u, state0) -> int:
@@ -99,16 +114,27 @@ def work_bwd(bh: int, t: int, d: int, heads: int,
     at 2 D^2 each; v.do, r.(u k), the bonus terms of dr, dk, dv and du at
     2 D each); r, k, v and do read and dr, dk, dv written at ``itemsize``,
     w read and dw written in f32, u read and du written once a head.  The
-    kernel's own recomputation and its anchors are not counted."""
+    kernel's own extra products, the chunk states it reads and the G
+    states it keeps are not counted."""
     n = bh * t * d
     nbytes = 7 * n * itemsize + 8 * n + 8 * heads * d
     return bh * t * (10.0 * d * d + 12.0 * d), nbytes
 
 
+def _outputs(out, s_fin, states, return_state, return_chunk_states):
+    """The output, then the final state and the chunk states if asked."""
+    extra = ((s_fin,) if return_state else ()) + (
+        (states,) if return_chunk_states else ())
+    return (out, *extra) if extra else out
+
+
 def rwkv6_scan_plain(r, k, v, w, u, *, state0=None,
-                     return_state: bool = False):
-    """A loop over T in f32.  Returns the output, or (output, final state)
-    when ``return_state``."""
+                     return_state: bool = False,
+                     return_chunk_states: bool = False):
+    """A loop over T in f32.  Returns the output, then the final state
+    when ``return_state``, then the chunk states (the state before every
+    chunk of :data:`CHUNK` steps but the first, ``(BH,
+    n_chunk_states, D, D)`` f32) when ``return_chunk_states``."""
     h = _check(r, k, v, w, u, state0)
     bh, t_len, d = r.shape
     r32, k32, v32, w32 = r.float(), k.float(), v.float(), w.float()
@@ -116,13 +142,19 @@ def rwkv6_scan_plain(r, k, v, w, u, *, state0=None,
     s = (torch.zeros((bh, d, d), dtype=F32, device=r.device)
          if state0 is None else state0.float().clone())
     out = torch.empty((bh, t_len, d), dtype=F32, device=r.device)
+    c_len, kept = CHUNK[d] if return_chunk_states else 0, []
     for t in range(t_len):
         rt, kt, vt = r32[:, t], k32[:, t], v32[:, t]
         bonus = (rt * u32 * kt).sum(-1, keepdim=True)       # (BH, 1)
         out[:, t] = torch.bmm(rt[:, None], s)[:, 0] + bonus * vt
         s = w32[:, t, :, None] * s + kt[:, :, None] * vt[:, None, :]
-    out = out.to(r.dtype)
-    return (out, s) if return_state else out
+        if return_chunk_states and (t + 1) % c_len == 0 and t + 1 < t_len:
+            kept.append(s)
+    states = (torch.stack(kept, 1) if kept else
+              torch.zeros((bh, 0, d, d), dtype=F32, device=r.device)) \
+        if return_chunk_states else None
+    return _outputs(out.to(r.dtype), s, states, return_state,
+                    return_chunk_states)
 
 
 def rwkv6_scan_bwd_plain(r, k, v, w, u, do):
@@ -184,7 +216,7 @@ def _lib() -> ctypes.CDLL:
         [vp] * 8 + [ci] * 5 + [ll] * 8 + [vp])
     lib.repro_rwkv6_scan.restype = ci
     lib.repro_rwkv6_scan_chunked.argtypes = (
-        [vp] * 8 + [ci] * 6 + [ll] * 8 + [vp])
+        [vp] * 9 + [ci] * 6 + [ll] * 8 + [vp])
     lib.repro_rwkv6_scan_chunked.restype = ci
     return lib
 
@@ -194,21 +226,27 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = build.library("rwkv6_scan_bwd")
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.repro_rwkv6_scan_bwd.argtypes = (
-        [vp] * 13 + [ci] * 5 + [ll] * 10 + [vp])
+        [vp] * 13 + [ci] * 7 + [ll] * 10 + [vp])
     lib.repro_rwkv6_scan_bwd.restype = ci
-    lib.repro_rwkv6_scan_bwd_chunk.argtypes = ()
-    lib.repro_rwkv6_scan_bwd_chunk.restype = ci
     return lib
 
 
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def rwkv6_scan_cuda(r, k, v, w, u, *, state0=None,
-                    return_state: bool = False):
+                    return_state: bool = False,
+                    return_chunk_states: bool = False):
     """Launch ``csrc/rwkv6_scan.cu`` on r's device and stream: the chunked
-    kernel when T >= ``CHUNKED_MIN_T``, else the sequential one; one launch
+    kernel when T >= ``CHUNKED_MIN_T`` (or when chunk states are asked and
+    there is more than one chunk), else the sequential one; one launch
     either way, no workspace, no host sync.  r, k, v, w may be strided
     views with a contiguous last axis; u and state0 are made contiguous
-    (state0 also 16-byte aligned).  The output and the final state are new
-    contiguous tensors."""
+    (state0 also 16-byte aligned).  The output, the final state and the
+    chunk states (as :func:`rwkv6_scan_plain` returns them; the chunked
+    kernel stores them only when asked) are new contiguous tensors."""
     global launches, flops, bytes_moved
     h = _check(r, k, v, w, u, state0)
     ts = (r, k, v, w, u) + (() if state0 is None else (state0,))
@@ -241,7 +279,10 @@ def rwkv6_scan_cuda(r, k, v, w, u, *, state0=None,
     out = torch.empty((bh, t_len, d), dtype=r.dtype, device=r.device)
     s_fin = (torch.empty((bh, d, d), dtype=F32, device=r.device)
              if return_state else None)
-    chunked = t_len >= CHUNKED_MIN_T
+    n_st = n_chunk_states(t_len, d) if return_chunk_states else 0
+    states = (torch.empty((bh, n_st, d, d), dtype=F32, device=r.device)
+              if return_chunk_states else None)
+    chunked = t_len >= CHUNKED_MIN_T or n_st > 0
     if chunked:
         # The chunked kernel copies rows in 16-byte pieces: a view whose
         # rows are not so aligned is copied (the model's views are).
@@ -256,8 +297,9 @@ def rwkv6_scan_cuda(r, k, v, w, u, *, state0=None,
     strides = (r.stride(0), r.stride(1), k.stride(0), k.stride(1),
                v.stride(0), v.stride(1), w.stride(0), w.stride(1))
     if chunked:
-        err = _lib().repro_rwkv6_scan_chunked(*ptrs, CHUNK[d], *strides,
-                                              stream)
+        err = _lib().repro_rwkv6_scan_chunked(
+            *ptrs[:8], states.data_ptr() if n_st else 0, *ptrs[8:], CHUNK[d],
+            *strides, stream)
     else:
         err = _lib().repro_rwkv6_scan(*ptrs, *strides, stream)
     if err != 0:
@@ -266,20 +308,20 @@ def rwkv6_scan_cuda(r, k, v, w, u, *, state0=None,
     f, nb = work(bh, t_len, d, h, r.element_size(), state_in=s0 is not None,
                 state_out=return_state)
     flops, bytes_moved = flops + f, bytes_moved + nb
-    return (out, s_fin) if return_state else out
+    return _outputs(out, s_fin, states, return_state, return_chunk_states)
 
 
-def rwkv6_scan_bwd_cuda(r, k, v, w, u, do):
+def rwkv6_scan_bwd_cuda(r, k, v, w, u, do, states):
     """Launch ``csrc/rwkv6_scan_bwd.cu`` on r's device and stream: the
     gradient of :func:`rwkv6_scan_cuda` from zeros, as
-    :func:`rwkv6_scan_bwd_plain` returns it.  r, k, v, w and do may be
-    strided views with a contiguous last axis and 16-byte aligned rows
-    (others are copied); the outputs are new contiguous tensors.  Two
-    launches (the scan and du's sum over the batch), no host sync; the
-    states it keeps are a scratch of ``(BH, ceil(T/C) - 1, D, D)`` f32, C
-    the kernel's chunk (16)."""
+    :func:`rwkv6_scan_bwd_plain` returns it, from the forward's chunk
+    states (``rwkv6_scan_cuda(..., return_chunk_states=True)``).  r, k, v,
+    w and do may be strided views with a contiguous last axis and 16-byte
+    aligned rows (others are copied); the outputs are new contiguous
+    tensors.  Three launches (G's carry over chunks, every chunk at once,
+    du's sum), no host sync; its scratch is :func:`bwd_scratch_bytes`."""
     h = _check(r, k, v, w, u, None)
-    ts = (r, k, v, w, u, do)
+    ts = (r, k, v, w, u, do, states)
     if not all(t.is_cuda and t.device == r.device for t in ts):
         raise ValueError("rwkv6_scan_bwd_cuda: every input must lie on one "
                          "CUDA device")
@@ -296,9 +338,15 @@ def rwkv6_scan_bwd_cuda(r, k, v, w, u, do):
     if d not in HEAD_DIMS:
         raise ValueError(f"rwkv6_scan_bwd_cuda: head dim {d} is not one the "
                          f"kernel takes {HEAD_DIMS}")
-    if bh > 2 ** 24:
-        raise ValueError(f"rwkv6_scan_bwd_cuda: BH={bh} exceeds the grid "
-                         f"limit")
+    n_st = n_chunk_states(t_len, d)
+    if tuple(states.shape) != (bh, n_st, d, d) or states.dtype != F32 \
+            or not states.is_contiguous() or states.data_ptr() % 16:
+        raise ValueError(f"rwkv6_scan_bwd_cuda: want the forward's chunk "
+                         f"states, contiguous ({bh}, {n_st}, {d}, {d}) f32; "
+                         f"got {tuple(states.shape)} {states.dtype}")
+    if bh * (n_st + 1) > 2 ** 31 - 1:
+        raise ValueError(f"rwkv6_scan_bwd_cuda: BH={bh} x {n_st + 1} chunks "
+                         f"exceeds the grid limit")
     r, k, v, w, do = (
         t if t.stride(2) == 1 and _aligned16(t)
         else t.clone(memory_format=torch.contiguous_format)
@@ -309,16 +357,16 @@ def rwkv6_scan_bwd_cuda(r, k, v, w, u, do):
                   for _ in range(3))
     dw = torch.empty((bh, t_len, d), dtype=F32, device=dev)
     du = torch.empty((h, d), dtype=F32, device=dev)
-    du_part = torch.empty((bh, d), dtype=F32, device=dev)
-    n_anchor = -(-t_len // _bwd_lib().repro_rwkv6_scan_bwd_chunk()) - 1
-    anchors = torch.empty((bh, n_anchor, d, d), dtype=F32, device=dev)
+    work = torch.empty(bwd_scratch_bytes(bh, t_len, d) // 4, dtype=F32,
+                       device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _bwd_lib().repro_rwkv6_scan_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-        u_in.data_ptr(), do.data_ptr(), dr.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), dw.data_ptr(), du.data_ptr(), du_part.data_ptr(),
-        anchors.data_ptr() if n_anchor else 0,
-        int(r.dtype == torch.bfloat16), bh, h, t_len, d,
+        u_in.data_ptr(), do.data_ptr(), states.data_ptr() if n_st else 0,
+        dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+        du.data_ptr(), work.data_ptr(), int(r.dtype == torch.bfloat16), bh, h,
+        t_len, d, CHUNK[d], _sms(dev.index if dev.index is not None
+                                 else torch.cuda.current_device()),
         r.stride(0), r.stride(1), k.stride(0), k.stride(1), v.stride(0),
         v.stride(1), w.stride(0), w.stride(1), do.stride(0), do.stride(1),
         stream)

@@ -435,8 +435,7 @@ def _rwkv_port_grads(r, k, v, w, u, do, dtype=torch.float32):
     return out.detach(), grads
 
 
-# (bh, t, d): one step, one chunk of the kernel's 16 steps exactly and one
-# past it, several chunks.
+# (bh, t, d): one step, 16 steps and one past them, several sub-chunks.
 RWKV_REF_CASES = [(2, 1, 8), (3, 16, 16), (2, 17, 16), (2, 53, 32)]
 
 
@@ -504,100 +503,250 @@ def test_rwkv6_backward_matches_autograd_of_plain(dtype, d):
         _close(got.float().numpy(), w_.float().numpy(), tol)
 
 
-def _line_sum(p):
-    """Sums over the last axis (D) in the CUDA kernel's order: eight lanes,
-    lane q holding elements 4 (q + 8 m) + c, each summing over m and c,
-    then three xor shuffles."""
-    *lead, d = p.shape
-    p = p.reshape(*lead, d // 32, 8, 4)
-    acc = torch.zeros((*lead, 8), dtype=p.dtype)
-    for m in range(d // 32):
-        for c in range(4):
-            acc = acc + p[..., m, :, c]
-    for o in (1, 2, 4):
-        acc = acc + acc[..., [q ^ o for q in range(8)]]
-    return acc[..., 0]
+SUB = 16          # the backward's sub-chunk, as in the forward
 
 
-def _kernel_formulation(r, k, v, w, u, do, *, identity=False):
-    """``csrc/rwkv6_scan_bwd.cu``'s arithmetic in f32 on the CPU: pass A
-    keeps S at every 16th step, pass B rebuilds S a chunk at a time
-    backwards beside G, dw from the history; the columns' G^T k and the
-    rows' sums in the kernel's lane order.  ``identity`` takes dw instead
-    through the cumulative-decay identity (dlogw_t = X_t - k_t (G_t v_t),
-    X carried back over T, dw = dlogw / w), which the kernel avoids."""
+def _chunk_formulation(r, k, v, w, u, do, chunk):
+    """``csrc/rwkv6_scan_bwd.cu``'s arithmetic in f32 on the CPU, every
+    (row, chunk) at once: the forward's chunk states (``rwkv6_scan_plain``,
+    ``return_chunk_states``), G's carry over chunks backwards (launch 1),
+    then per chunk the anchored factors r~ (from each sub-chunk's start),
+    k~ (to its end), k^ (to the chunk's end) and the sub-chunk products
+    gam; M = V O^T, A from its diagonal blocks (P carried along i) and
+    off-diagonal ones (r~ k~ times the whole sub-chunks between); S_in do,
+    G_out v, G_out^T k^ and sigma = rowsum(S_in G_out); Yb and Za (what
+    reaches a row from before and after its sub-chunk); the Phi pair sums
+    and X_K; then per sub-chunk the steps with dr, dk and dw (the direct
+    sum on anchored factors) from running products, and du's ordered
+    sum.  Steps past T read r = k = v = do = 0, w = 1."""
     bh, t_len, d = r.shape
     h = u.shape[0]
+    _, states = rw.rwkv6_scan_plain(*(torch.from_numpy(a) for a in
+                                      (r, k, v, w, u)),
+                                    return_chunk_states=True)
     r, k, v, w, do = (torch.from_numpy(a).float() for a in (r, k, v, w, do))
-    u = torch.from_numpy(u).float().repeat(bh // h, 1)[:, None]
-    c_len = 16                   # the kernel's kChunk
-    n = -(-t_len // c_len)
+    uu = torch.from_numpy(u).float().repeat(bh // h, 1)[:, None]  # (BH,1,D)
+    n, c_len, ns = -(-t_len // chunk), chunk, chunk // SUB
+    pad = n * c_len - t_len
 
-    def step(s, t):
-        return w[:, t, :, None] * s + k[:, t, :, None] * v[:, t, None, :]
-    s, anchors = torch.zeros((bh, d, d)), [torch.zeros((bh, d, d))]
-    for t in range((n - 1) * c_len):
-        s = step(s, t)
-        if (t + 1) % c_len == 0:
-            anchors.append(s)
-    drs, dks, dvs, dw = (torch.zeros((bh, t_len, d)) for _ in range(4))
-    g, x = torch.zeros((bh, d, d)), torch.zeros((bh, d))
-    for c in reversed(range(n)):
-        span = range(c * c_len, min((c + 1) * c_len, t_len))
-        s, hist = anchors[c], []
-        for t in span:
-            hist.append(s)
-            drs[:, t] = _line_sum(s * do[:, t, None, :])
-            s = step(s, t)
-        for t, s_prev in zip(reversed(span), reversed(hist)):
-            dks[:, t] = _line_sum(g * v[:, t, None, :])
-            dvs[:, t] = _line_sum((g * k[:, t, :, None]).transpose(1, 2))
-            if identity:
-                dl = x - k[:, t] * dks[:, t]
-                dw[:, t] = dl / w[:, t]
-                x = dl + r[:, t] * drs[:, t]
-            else:
-                dw[:, t] = _line_sum(g * s_prev)
-            g = w[:, t, :, None] * g + r[:, t, :, None] * do[:, t, None, :]
-    vdo = (v * do).sum(-1, keepdim=True)
+    def chunks(x, fill=0.0):
+        x = torch.cat([x, torch.full((bh, pad, d), fill)], 1)
+        return x.reshape(bh, n, c_len, d)
+    R, K, V, O, W = chunks(r), chunks(k), chunks(v), chunks(do), chunks(w, 1.)
+    ones = torch.ones((bh, n, d))
+    s_in = torch.cat([torch.zeros((bh, 1, d, d)), states], 1)
+
+    def blk(x, j):                        # sub-chunk j of a (.., C, ..) axis
+        return x[:, :, j * SUB:(j + 1) * SUB]
+    # The anchored factors.
+    rt, kb, kh, p0 = (torch.empty_like(W) for _ in range(4))
+    gam = torch.empty((bh, n, ns, d))
+    p = ones
+    for j in range(ns):
+        q = ones
+        for s in range(j * SUB, (j + 1) * SUB):
+            p0[:, :, s], rt[:, :, s] = p, R[:, :, s] * q
+            q, p = q * W[:, :, s], p * W[:, :, s]
+        gam[:, :, j] = q
+    gall, p = p, ones
+    for j in reversed(range(ns)):
+        q = ones
+        for s in reversed(range(j * SUB, (j + 1) * SUB)):
+            kb[:, :, s], kh[:, :, s] = K[:, :, s] * q, K[:, :, s] * p
+            q, p = q * W[:, :, s], p * W[:, :, s]
+
+    def between(lo, hi, skip=None):       # prod gam_m, lo < m < hi, m != skip
+        g = ones
+        for m in range(lo + 1, hi):
+            if m != skip:
+                g = g * gam[:, :, m]
+        return g
+    # Launch 1: G's carry, G_in = P_{0,C} G_out + sum_i (r_i P_{0,i}) do_i^T.
+    g_out = torch.zeros((bh, n, d, d))
+    g = torch.zeros((bh, d, d))
+    for c in reversed(range(1, n)):
+        g = gall[:, c, :, None] * g + torch.einsum(
+            "xid,xie->xde", R[:, c] * p0[:, c], O[:, c])
+        g_out[:, c - 1] = g
+    # The products.
+    m_ = torch.einsum("xnae,xnbe->xnab", V, O)
+    sd = torch.einsum("xnde,xnbe->xnbd", s_in, O)
+    gv = torch.einsum("xnde,xnae->xnad", g_out, V)
+    dvx = torch.einsum("xnad,xnde->xnae", kh, g_out)
+    sig = (s_in * g_out).sum(-1)
+    a_ = torch.zeros((bh, n, c_len, c_len))           # A[b][a], b > a
+    for i in range(ns):
+        for j in range(i):
+            a_[:, :, i * SUB:(i + 1) * SUB, j * SUB:(j + 1) * SUB] = \
+                torch.einsum("xnbd,xnad->xnba", blk(rt, i),
+                             blk(kb, j) * between(j, i)[:, :, None])
+        for a in range(SUB):
+            pa = torch.zeros((bh, n, d))
+            for b in range(SUB):
+                if b > a:
+                    a_[:, :, i * SUB + b, i * SUB + a] = (
+                        R[:, :, i * SUB + b] * K[:, :, i * SUB + a]
+                        * pa).sum(-1)
+                pa = pa * W[:, :, i * SUB + b] + (1.0 if b == a else 0.0)
+    z = (R * uu[:, None] * K).sum(-1, keepdim=True)
+    dv = dvx + torch.einsum("xnba,xnbe->xnae", a_.tril(-1), O) + z * O
+    yb, za = torch.empty_like(W), torch.empty_like(W)
+    for i in range(ns):
+        y = between(-1, i)[:, :, None] * blk(sd, i)
+        for j in range(i):
+            y = y + between(j, i)[:, :, None] * torch.einsum(
+                "xnab,xnad->xnbd", blk(blk(m_, j).transpose(2, 3), i)
+                .transpose(2, 3), blk(kb, j))
+        yb[:, :, i * SUB:(i + 1) * SUB] = y
+    phi = {}
+    for j in range(ns):
+        zz = between(j, ns)[:, :, None] * blk(gv, j)
+        for i in range(j + 1, ns):
+            q = torch.einsum("xnab,xnbd->xnad", blk(blk(m_, j).transpose(2, 3),
+                                                    i).transpose(2, 3),
+                             blk(rt, i))
+            phi[j, i] = (blk(kb, j) * q).sum(2)
+            zz = zz + between(j, i)[:, :, None] * q
+        za[:, :, j * SUB:(j + 1) * SUB] = zz
+        phi[-1, j] = (blk(rt, j) * blk(sd, j)).sum(2)
+        phi[j, ns] = (blk(kb, j) * blk(gv, j)).sum(2)
+    phi[-1, ns] = sig
+    dr, dk, dw = (torch.empty_like(W) for _ in range(3))
+    vdo = torch.diagonal(m_, dim1=2, dim2=3)[..., None]
+    for kk in range(ns):
+        x = sum(between(j, i, kk) * phi[j, i] for j in range(-1, kk)
+                for i in range(kk + 1, ns + 1))
+        n0 = kk * SUB
+        lb = [yb[:, :, n0 + b] for b in range(SUB)]
+        for t in range(SUB):
+            mt = m_[:, :, n0 + t, n0:n0 + SUB, None]
+            dr[:, :, n0 + t] = lb[t]
+            pp, a4, ak = ones, torch.zeros_like(ones), torch.zeros_like(ones)
+            for b in range(t + 1, SUB):
+                rp = R[:, :, n0 + b] * pp
+                a4, ak = a4 + rp * lb[b], ak + rp * mt[:, :, b]
+                pp = pp * W[:, :, n0 + b]
+            dw[:, :, n0 + t] = a4 + pp * x
+            dk[:, :, n0 + t] = ak + pp * za[:, :, n0 + t]
+            for b in range(t + 1, SUB):
+                lb[b] = W[:, :, n0 + t] * lb[b] + K[:, :, n0 + t] * mt[:, :, b]
+            x = W[:, :, n0 + t] * x + K[:, :, n0 + t] * za[:, :, n0 + t]
     du = torch.zeros((bh, d))
+    for c in range(n):
+        du = du + (R[:, c] * K[:, c] * vdo[:, c]).sum(1)
+
+    def rows(y):
+        return y.reshape(bh, n * c_len, d)[:, :t_len]
+    return (rows(dr + uu[:, None] * K * vdo), rows(dk + uu[:, None] * R * vdo),
+            rows(dv), rows(dw), du.reshape(bh // h, h, d).sum(0))
+
+
+def _identity_dw(r, k, v, w, u, do):
+    """dw through the cumulative-decay identity, which the kernel avoids:
+    S forward keeping every S_{t-1}, G backwards, dlogw_t = X_t - k_t
+    (G_t v_t) with X carried back over T, dw = dlogw / w."""
+    r, k, v, w, do = (torch.from_numpy(a).float() for a in (r, k, v, w, do))
+    bh, t_len, d = r.shape
+    hist, s = [], torch.zeros((bh, d, d))
     for t in range(t_len):
-        du = du + r[:, t] * k[:, t] * vdo[:, t]
-    return (drs + u * k * vdo, dks + u * r * vdo,
-            dvs + (r * u * k).sum(-1, keepdim=True) * do, dw,
-            du.reshape(bh // h, h, d).sum(0))
+        hist.append(s)
+        s = w[:, t, :, None] * s + k[:, t, :, None] * v[:, t, None, :]
+    dw = torch.zeros((bh, t_len, d))
+    g, x = torch.zeros((bh, d, d)), torch.zeros((bh, d))
+    for t in reversed(range(t_len)):
+        dl = x - k[:, t] * (g * v[:, t, None, :]).sum(-1)
+        dw[:, t] = dl / w[:, t]
+        x = dl + r[:, t] * (hist[t] * do[:, t, None, :]).sum(-1)
+        g = w[:, t, :, None] * g + r[:, t, :, None] * do[:, t, None, :]
+    return dw
 
 
-@pytest.mark.parametrize("label,w_range", [
-    ("slow", (0.45, 0.95)), ("fast_to_0.01", (0.01, 1.0)),
-    ("all_0.01", (0.01, 0.01))])
-def test_rwkv6_backward_kernel_formulation_matches_plain(label, w_range):
-    """The card's two passes (S forward with a state kept every 16 steps;
-    chunks backwards, S rebuilt beside G) against the plain loop, over 200
-    steps, also at w = 0.01, where the reference's chunked form overflows
-    (exp(-L) over a chunk of 32 is 0.01^-32)."""
-    r, k, v, w, u, do = _rwkv_np((4, 200, 32), heads=2, w_range=w_range,
-                                 seed=7)
-    got = _kernel_formulation(r, k, v, w, u, do)
+def _exact_zeros(w):
+    """Exact zeros and ones in the decays of rows 0-3 (T >= 128), on a
+    numpy array or a tensor: zeros over five steps inside a sub-chunk, a
+    whole step of zeros on the first step of a chunk (64) and on the last
+    (127), ones over three steps."""
+    w[0, 70:75, :5] = 0.0
+    w[1, 64, :] = 0.0
+    w[2, 100:103, 7:20] = 1.0
+    w[3, 127, :] = 0.0
+    return w
+
+
+# (label, (bh, t, d), decay range): slow decay, fast decay down to 0.01
+# and every decay 0.01 (where the reference's chunked form overflows:
+# exp(-L) over a chunk of 32 is 0.01^-32) over 200 steps (3 chunks of 64
+# and 8 steps); a ragged T; D = 128 with its chunk of 32; exact zeros (and
+# ones) in a chunk's decays (``_exact_zeros``).
+RWKV_FORMULATION_CASES = [
+    ("slow", (4, 200, 32), (0.45, 0.95)),
+    ("fast_to_0.01", (4, 200, 32), (0.01, 1.0)),
+    ("all_0.01", (4, 200, 32), (0.01, 0.01)),
+    ("ragged", (2, 147, 64), (0.45, 0.95)),
+    ("d128_chunk32", (2, 75, 128), (0.45, 0.95)),
+    ("exact_zeros", (4, 150, 32), (0.01, 1.0)),
+]
+
+
+@pytest.mark.parametrize("label,shape,w_range", RWKV_FORMULATION_CASES,
+                         ids=[c[0] for c in RWKV_FORMULATION_CASES])
+def test_rwkv6_backward_kernel_formulation_matches_plain(label, shape,
+                                                         w_range):
+    """The card's chunked backward (chunk states from the forward, G's
+    carry over chunks, every chunk's terms from anchored factors, dw's
+    direct sum expanded on them) against the plain loop at f32."""
+    r, k, v, w, u, do = _rwkv_np(shape, heads=2, w_range=w_range, seed=7)
+    if label == "exact_zeros":
+        _exact_zeros(w)
+    got = _chunk_formulation(r, k, v, w, u, do, rw.CHUNK[shape[-1]])
     want = rw.rwkv6_scan_bwd_plain(*(torch.from_numpy(a) for a in
                                      (r, k, v, w, u, do)))
     for g_, w_ in zip(got, want):
+        assert torch.isfinite(g_).all()
         _close(g_.numpy(), w_.numpy(), TOL_F32)
 
 
 def test_rwkv6_decay_identity_loses_digits_at_fast_decay():
-    """Why the kernel takes dw from G and S of one step: through the
-    cumulative-decay identity it cancels to w dw and divides by w, so at
-    decays down to 0.01 over 512 steps it misses the plain loop by more
-    than the f32 tolerance, which the direct sum meets."""
+    """Why the kernel takes dw as the direct sum of G and S of one step:
+    through the cumulative-decay identity it cancels to w dw and divides
+    by w, so at decays down to 0.01 over 512 steps it misses the plain
+    loop by more than the f32 tolerance, which the direct sum (expanded
+    on anchored factors, as the kernel takes it) meets."""
     r, k, v, w, u, do = _rwkv_np((2, 512, 32), w_range=(0.01, 1.0), seed=3)
     want = rw.rwkv6_scan_bwd_plain(*(torch.from_numpy(a) for a in
                                      (r, k, v, w, u, do)))[3].numpy()
-    direct = _kernel_formulation(r, k, v, w, u, do)[3].numpy()
-    ident = _kernel_formulation(r, k, v, w, u, do, identity=True)[3].numpy()
+    direct = _chunk_formulation(r, k, v, w, u, do, rw.CHUNK[32])[3]
+    ident = _identity_dw(r, k, v, w, u, do).numpy()
     scale = np.abs(want).max()
-    _close(direct, want, TOL_F32)
+    _close(direct.numpy(), want, TOL_F32)
     assert np.abs(ident - want).max() > TOL_F32 * scale
+
+
+@needs_reference
+@pytest.mark.parametrize("d,t", [(32, 200), (128, 100), (64, 150)])
+def test_rwkv6_plain_chunk_states_match_rwkv6_chunked(d, t):
+    """The plain forward's chunk-start states (the state after each c C
+    steps, C = ``CHUNK[D]``) against the reference's ``rwkv6_chunked``
+    run through JAX on each prefix of c C steps, its final state; decays
+    in [0.1, 1), where its exp(-L) factors stay finite."""
+    b, h = 1, 2
+    r, k, v, w, u, _ = _rwkv_np((b * h, t, d), heads=h, w_range=(0.1, 1.0),
+                                seed=d)
+    out, states = rw.rwkv6_scan_plain(*(torch.from_numpy(a) for a in
+                                        (r, k, v, w, u)),
+                                      return_chunk_states=True)
+    c_len = rw.CHUNK[d]
+    assert states.shape == (b * h, -(-t // c_len) - 1, d, d)
+    assert states.dtype == torch.float32
+    for c in range(1, states.shape[1] + 1):
+        heads = [jnp.asarray(a[:, :c * c_len].reshape(b, h, c * c_len, d))
+                 for a in (r, k, v, w)]
+        _, fin = ref_rwkv.rwkv6_chunked(*heads, jnp.asarray(u))
+        _close(states[:, c - 1].numpy(), np.asarray(fin).reshape(b * h, d, d),
+               TOL_F32)
+    again = rw.rwkv6_scan_plain(*(torch.from_numpy(a) for a in
+                                  (r, k, v, w, u)))
+    assert torch.equal(out, again)
 
 
 def test_rwkv6_backward_refuses_a_state_under_grad():
@@ -841,8 +990,10 @@ def test_linear_scan_backward_cuda_matches_plain_on_card(cuda_device, t):
         _close(x.cpu().numpy(), w.cpu().numpy(), 1e-4)
 
 
-# (name, (bh, t, d), decay range): one step, one chunk of 16 and past it,
-# each head dim, fast decay and decay near 1.
+# (name, (bh, t, d), decay range): one step, one sub-chunk of 16, ragged
+# T, each head dim, fast decay and decay near 1, the forward's shape, T an
+# exact multiple of the chunk (64 at D = 64), one step past a chunk, and
+# exact zeros and ones in the decays (``_exact_zeros``).
 RWKV_CARD_CASES = [
     ("t1", (4, 1, 64), (0.45, 0.95)),
     ("one_chunk", (4, 16, 64), (0.45, 0.95)),
@@ -852,17 +1003,26 @@ RWKV_CARD_CASES = [
     ("fast_decay", (4, 300, 64), (0.01, 1.0)),
     ("near_one", (4, 300, 64), (0.999, 1.0)),
     ("forward_shape", (64, 1024, 64), (0.45, 0.95)),
+    ("chunk_multiple", (4, 256, 64), (0.45, 0.95)),
+    ("chunk_plus_one", (4, 65, 64), (0.45, 0.95)),
+    ("exact_zeros", (4, 150, 64), (0.01, 1.0)),
 ]
 
 
-def _rwkv_card(device, shape, w_range, dtype, seed):
+def _rwkv_card(device, shape, w_range, dtype, seed, zeros=False):
+    """r, k, v, w, u, do on the card and the forward kernel's chunk states
+    on them, as training's forward stores them; with ``zeros``, w holds
+    ``_exact_zeros``."""
     gen = torch.Generator(device=device).manual_seed(seed)
     r, k, v, do = (torch.randn(shape, generator=gen, device=device)
                    .mul(0.5).to(dtype) for _ in range(4))
     lo, hi = w_range
     w = torch.rand(shape, generator=gen, device=device) * (hi - lo) + lo
+    if zeros:
+        _exact_zeros(w)
     u = torch.randn((2, shape[-1]), generator=gen, device=device) * 0.3
-    return r, k, v, w, u, do
+    _, states = rw.rwkv6_scan_cuda(r, k, v, w, u, return_chunk_states=True)
+    return (r, k, v, w, u, do), states
 
 
 @pytest.mark.gpu
@@ -871,10 +1031,11 @@ def _rwkv_card(device, shape, w_range, dtype, seed):
                          ids=[c[0] for c in RWKV_CARD_CASES])
 def test_rwkv6_backward_cuda_matches_plain_on_card(cuda_device, name, shape,
                                                    w_range, dtype):
-    args = _rwkv_card(cuda_device, shape, w_range, getattr(torch, dtype),
-                      seed=len(name))
+    args, states = _rwkv_card(cuda_device, shape, w_range,
+                              getattr(torch, dtype), seed=len(name),
+                              zeros=name == "exact_zeros")
     before = rw.bwd.launches
-    got = rw.rwkv6_scan_bwd_cuda(*args)
+    got = rw.rwkv6_scan_bwd_cuda(*args, states)
     want = rw.rwkv6_scan_bwd_plain(*args)
     torch.cuda.synchronize()
     assert rw.bwd.launches == before + 1
@@ -883,6 +1044,42 @@ def test_rwkv6_backward_cuda_matches_plain_on_card(cuda_device, name, shape,
         assert torch.isfinite(x).all()
         _close(x.float().cpu().numpy(), w_.float().cpu().numpy(),
                TOL_CARD[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_backward_cuda_is_deterministic_on_card(cuda_device, dtype):
+    """Two calls on the same inputs give the same bits in all five
+    gradients: no atomics, every sum in a fixed order."""
+    args, states = _rwkv_card(cuda_device, (8, 300, 64), (0.01, 1.0),
+                              getattr(torch, dtype), seed=3)
+    first = rw.rwkv6_scan_bwd_cuda(*args, states)
+    again = rw.rwkv6_scan_bwd_cuda(*args, states)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [20, 64, 200])
+def test_rwkv6_forward_is_unchanged_by_its_chunk_states(cuda_device, dtype,
+                                                        t):
+    """The served forward (no states asked) and training's (the states
+    stored) give the same output bits; the states match the plain
+    forward's."""
+    gen = torch.Generator(device=cuda_device).manual_seed(t)
+    dt = getattr(torch, dtype)
+    r, k, v = (torch.randn((4, t, 64), generator=gen, device=cuda_device)
+               .mul(0.5).to(dt) for _ in range(3))
+    w = torch.rand((4, t, 64), generator=gen, device=cuda_device) * 0.5 + 0.45
+    u = torch.randn((2, 64), generator=gen, device=cuda_device) * 0.3
+    served = rw.rwkv6_scan_cuda(r, k, v, w, u)
+    out, states = rw.rwkv6_scan_cuda(r, k, v, w, u, return_chunk_states=True)
+    assert torch.equal(served, out)
+    _, want = rw.rwkv6_scan_plain(r, k, v, w, u, return_chunk_states=True)
+    assert states.shape == want.shape == (4, rw.n_chunk_states(t, 64), 64, 64)
+    if states.numel():
+        _close(states.cpu().numpy(), want.cpu().numpy(), TOL_CARD["float32"])
 
 
 @pytest.mark.gpu
