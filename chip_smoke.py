@@ -254,7 +254,8 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    ``python -m repro_torch.launch.serve --arch gemma2-9b`` (exit 0);
 14c. ``qwen2.5-3b`` at full width and depth: the float32 decode check and
    the forward at S=4096 (36 launches, flash at D=128 and a group of 8),
-   then the launcher with and without ``--quant8`` (exit 0);
+   then the launcher with and without ``--quant8`` (exit 0; each its
+   ``main`` in this process);
 14d. forwards only: ``gemma2-27b`` at full width and depth (54.4 GB of
    bf16 weights) at S=4096, and ``qwen2-vl-72b`` at full width cut to 8
    of its 80 layers, with seeded patch embeddings and M-RoPE ids (3, 1,
@@ -344,6 +345,26 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    block``, 1 x 2048, 3 steps): finite losses and ``grad_norm``, step p50,
    tokens/s, model FLOP/s against the bf16 dense peak, peak memory, and
    exactly 64 forward and 32 backward ``rwkv6_scan`` launches a step.
+19. The dry run (``repro_torch.launch.dryrun``) and its roofline.  19a:
+   the CLI over three full-width cells (gemma2-27b ``train_4k`` on the
+   256- and 512-rank fake worlds, rwkv6-7b ``long_500k``), a process a
+   cell, the three at once, then ``repro_torch.launch.roofline`` a mesh;
+   the runs start before the kernels' build and are waited for after
+   phase 2b, before any phase that times anything.  Exit 0, FLOPs on each
+   rank, each train cell's FSDP all-gather and gradient reduction among
+   its collectives and its flash work within ``DRYRUN_FLASH_TOL`` of its
+   even share; each cell's terms, bound, bytes against the card's memory
+   and wall time printed.  19b: 18a's gemma2-2b
+   step counted by the dry run on fake tensors and by ``analyze_step`` of
+   the real step on the card: FLOPs within ``DRYRUN_FLOP_TOL``, the
+   roofline bound at or below the measured p50.
+
+Each entry point and flag runs once in its own process as a user runs it
+(``check``, ``plan --target both``, ``deploy``, ``serve``, ``bench``,
+``replay``, ``chaos``, ``trace``, ``profile``, the launcher bare,
+``--quant8`` and ``--smoke``, the dry run and the roofline); a repeat by
+another family runs its ``main`` in this process (``in_process``).  Each
+phase's wall time is printed (``wall <phase>``).
 
 It prints a ``summary`` line (the fitted constants and each net's
 planned-vs-measured ratio, the edge p50/p95, the LM ticks eager and
@@ -578,21 +599,22 @@ SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA")
 
 def sass_counts(lib: pathlib.Path) -> dict:
     """Tensor-core instructions per kernel function of one library, read
-    with ``cuobjdump -sass`` from the toolkit that built it."""
+    with ``cuobjdump -sass`` from the toolkit that built it: the lines that
+    name each op."""
     import re
     from repro_torch.kernels import build
     tool = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
+    ops = re.compile(rf"\b({'|'.join(SASS_OPS)})\b")
     counts, func = {}, None
     for line in sass.splitlines():
         if "Function : " in line:
             func = line.split("Function : ", 1)[1].strip()
             counts[func] = dict.fromkeys(SASS_OPS, 0)
-        elif func is not None:
-            for op in SASS_OPS:
-                if re.search(rf"\b{op}\b", line):
-                    counts[func][op] += 1
+        elif func is not None and "MMA" in line:    # every op's name has it
+            for op in set(ops.findall(line)):
+                counts[func][op] += 1
     return counts
 
 
@@ -624,9 +646,14 @@ def tensor_core_phase(libs: dict) -> None:
     and shared memory, and ptxas's notes on wgmma serialization or
     setmaxnreg; fails if an instance issues none of its instruction, if an
     instance is missing, or if an instance of ``NO_SPILL`` spills."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
+    names = sorted({t[0] for t in TC_INSTANCES})
+    with ThreadPoolExecutor(len(names)) as pool:
+        sass = dict(zip(names, pool.map(lambda n: sass_counts(libs[n]),
+                                        names)))
     for lib, mark, op, want in TC_INSTANCES:
-        counts = sass_counts(libs[lib])
+        counts = sass[lib]
         ptxas = ptxas_rows(build.ptxas_report.get(lib, ""))
         if not ptxas:
             log(f"tensor cores {lib}: library not rebuilt in this run, "
@@ -1359,12 +1386,21 @@ def _strict_artifact(path: pathlib.Path):
     return json.loads(path.read_text(), parse_constant=refuse)
 
 
-def _cli(args: list, what: str) -> subprocess.CompletedProcess:
+def repro_cli(args: list, own_process: bool) -> subprocess.CompletedProcess:
+    """``python -m repro_torch <args>`` in its own process, as a user runs
+    it, or its ``main`` in this process (:func:`in_process`)."""
+    if not own_process:
+        from repro_torch import cli as cli_lib
+        return in_process(cli_lib.main, args)
     import os
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    proc = subprocess.run([sys.executable, "-m", "repro_torch", *args],
-                          cwd=ROOT, env=env, capture_output=True, text=True,
-                          timeout=600)
+    return subprocess.run([sys.executable, "-m", "repro_torch", *args],
+                          cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(SRC)),
+                          capture_output=True, text=True, timeout=600)
+
+
+def _cli(args: list, what: str, *,
+         own_process: bool = True) -> subprocess.CompletedProcess:
+    proc = repro_cli(args, own_process)
     if proc.returncode != 0:
         raise SmokeFailure(f"python -m repro_torch {what} exited "
                            f"{proc.returncode}:\n{proc.stdout}\n"
@@ -1392,7 +1428,8 @@ def aie_plan_phase() -> dict:
         arts = {t: deploy / f"fleet_{name}_{t}.json" for t in ("h100", "aie")}
         fleets = {t: _strict_artifact(p) for t, p in arts.items()}
         report = json.loads(_cli(["check", "--json", *map(str, arts.values())],
-                                 "check <artifacts>").stdout)
+                                 "check <artifacts>",
+                                 own_process=False).stdout)
         if report["counts"]["error"]:
             raise SmokeFailure(f"check of the plan artifacts: {report}")
         shutil.copytree(SRC / "repro_torch", tree / "src" / "repro_torch",
@@ -1404,7 +1441,7 @@ def aie_plan_phase() -> dict:
             "BENCH_*.json"))]
         tree_report = json.loads(_cli(
             ["check", "--json", "--root", str(tree)],
-            "check --root").stdout)
+            "check --root", own_process=False).stdout)
     checked = tree_report["checked"]
     want = ([f"lint:{n_py} files"]
             + [f"plan:{arts[t].name}" for t in ("aie", "h100")]
@@ -1830,17 +1867,19 @@ FLEET_PROMPTS = (16, 50, 84, 118, 153, 187, 221, 256)
 FLEET_MAX_NEW = 16
 # The CLI subcommands as a user runs them, each in its own process (the
 # built kernels are reused), with the published LM where it takes one.
+# (label, argv, own process): ``plan`` runs in its own process in 4d, so
+# here its ``main`` runs in this one.
 FLEET_CLI = (
     ("plan", ["plan", "jet_tagger", "tau_select", "--lm", "recurrentgemma_2b",
-              "--lm-config", "published"]),
+              "--lm-config", "published"], False),
     ("deploy", ["deploy", "jet_tagger", "tau_select", "--lm",
-                "recurrentgemma_2b", "--lm-config", "published"]),
+                "recurrentgemma_2b", "--lm-config", "published"], True),
     ("serve", ["serve", "jet_tagger", "tau_select", "--lm",
-               "recurrentgemma_2b", "--lm-config", "published"]),
+               "recurrentgemma_2b", "--lm-config", "published"], True),
     ("bench", ["bench", "jet_tagger", "tau_select", "--lm",
                "recurrentgemma_2b", "--lm-config", "published", "--iters",
                str(BENCH_ITERS), "--json",
-               "chiprun_out/BENCH_deploy_torch.json"]))
+               "chiprun_out/BENCH_deploy_torch.json"], True))
 
 
 def fleet_phase(cfg, params, tokens, per_step, per_tick) -> dict:
@@ -1858,7 +1897,6 @@ def fleet_phase(cfg, params, tokens, per_step, per_tick) -> dict:
     steps, the chunk-alone fault outside that limit, and the CLI
     subcommands (``bench`` with the published LM, its rows within 2x)."""
     import dataclasses
-    import os
     import torch
     from repro_torch.characterize import characterize
     from repro_torch.deploy import Deployment
@@ -1995,15 +2033,12 @@ def fleet_phase(cfg, params, tokens, per_step, per_tick) -> dict:
                  chunk_alone_fault=chunked["chunk_alone_fault"])
 
     # The CLI, as a user runs it.
-    env = dict(os.environ, PYTHONPATH=str(SRC))
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     cli = {}
 
-    def run_cli(label, argv):
+    def run_cli(label, argv, own_process):
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "repro_torch", *argv],
-                              cwd=ROOT, env=env, capture_output=True,
-                              text=True, timeout=600)
+        proc = repro_cli(argv, own_process)
         cli[label] = time.perf_counter() - t0
         tail = "\n".join(proc.stdout.splitlines()[-14:])
         log(f"fleet cli {label}: rc {proc.returncode} in {cli[label]:.1f} s"
@@ -2012,8 +2047,8 @@ def fleet_phase(cfg, params, tokens, per_step, per_tick) -> dict:
             raise SmokeFailure(f"python -m repro_torch {' '.join(argv)} "
                                f"exited {proc.returncode}:\n{proc.stderr}")
 
-    for label, argv in FLEET_CLI:
-        run_cli(label, argv)
+    for label, argv, own_process in FLEET_CLI:
+        run_cli(label, argv, own_process)
     # Each bench process fits its own "auto" model; like phase 3c, a row
     # outside 2x under load is measured again, up to CHARACTERIZE_PASSES
     # processes in all.
@@ -2029,7 +2064,7 @@ def fleet_phase(cfg, params, tokens, per_step, per_tick) -> dict:
         if attempt == CHARACTERIZE_PASSES:
             raise SmokeFailure(f"bench --json rows after {attempt} "
                                f"processes: {bench['rows']}")
-        run_cli(f"bench (pass {attempt + 1})", dict(FLEET_CLI)["bench"])
+        run_cli(f"bench (pass {attempt + 1})", FLEET_CLI[-1][1], True)
     fleet["cli_bench_passes"] = attempt
     fleet.update(cli_s=cli, cli_bench_ratios=ratios)
     log("fleet " + json.dumps(fleet, sort_keys=True))
@@ -3832,7 +3867,9 @@ def quant8_phase(cfg, params, tokens, per_tick, served) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    out["launcher"] = launcher_run(cfg.name, "--quant8")
+    # --quant8 in its own process once (Griffin's); RWKV's in this one.
+    out["launcher"] = launcher_run(cfg.name, "--quant8",
+                                   own_process=cfg.family != "rwkv")
     return {"readings": out,
             "launches": {f"quant8 {k}": r["launches"]
                          for k, r in runs.items()}}
@@ -4352,20 +4389,45 @@ def whisper_timing_phase(device) -> list:
             for label, b, hq, hkv, s, sk, d, kw in WHISPER_FLASH_CASES]
 
 
-def launcher_run(arch: str, *extra: str) -> dict:
+def in_process(main, argv: list) -> subprocess.CompletedProcess:
+    """``main(argv)`` of an entry point in this process, its standard
+    output captured: the same code and checks as its own process, without
+    a new process's start and CUDA context."""
+    import io
+    buf, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        try:
+            rc = main(argv)
+        except SystemExit as e:
+            rc = e.code if isinstance(e.code, int) else 1
+    return subprocess.CompletedProcess(argv, rc or 0, buf.getvalue(),
+                                       err.getvalue())
+
+
+def launcher_run(arch: str, *extra: str, own_process: bool = True) -> dict:
     """``python -m repro_torch.launch.serve --arch <arch> [extra]`` in its
-    own process, as a user runs it: exit 0 and a served line."""
+    own process, as a user runs it (or its ``main`` in this process):
+    exit 0 and a served line."""
     import os
     env = dict(os.environ, PYTHONPATH=str(SRC))
     t0 = time.perf_counter()
     argv = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
             *extra]
-    proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=600)
+    if own_process:
+        proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+    else:
+        from repro_torch.launch import serve as serve_launch
+        proc = in_process(serve_launch.main, argv[3:])
+        gc.collect()
+        import torch
+        torch.cuda.empty_cache()
     out = {"rc": proc.returncode, "s": time.perf_counter() - t0,
+           "own_process": own_process,
            "stdout": proc.stdout.splitlines()[:2]}
-    log(f"launcher {arch} {' '.join(extra)}: rc {proc.returncode} in "
-        f"{out['s']:.1f} s\n{proc.stdout.strip()}")
+    log(f"launcher {arch} {' '.join(extra)}"
+        f"{'' if own_process else ' (in process)'}: rc {proc.returncode} "
+        f"in {out['s']:.1f} s\n{proc.stdout.strip()}")
     if proc.returncode != 0 or " tok/s)" not in proc.stdout \
             or ("--quant8" in extra and "int8 weights" not in proc.stdout):
         raise SmokeFailure(f"python -m repro_torch.launch.serve --arch {arch} "
@@ -4728,8 +4790,9 @@ def transformer_phases(device) -> dict:
     del qparams
     gc.collect()
     torch.cuda.empty_cache()
-    qwen = {"launcher": launcher_run(QWEN_ARCH),
-            "launcher_quant8": launcher_run(QWEN_ARCH, "--quant8")}
+    qwen = {"launcher": launcher_run(QWEN_ARCH, own_process=False),
+            "launcher_quant8": launcher_run(QWEN_ARCH, "--quant8",
+                                            own_process=False)}
     walls["14c"] = time.perf_counter() - t0
     log(f"phase 14c ({QWEN_ARCH} forward, launcher, --quant8): "
         f"{walls['14c']:.1f} s")
@@ -5057,7 +5120,8 @@ def deepseek_phase() -> dict:
     del params32
     gc.collect()
     torch.cuda.empty_cache()
-    out["launcher"] = launcher_run(DEEPSEEK_ARCH, "--smoke")
+    out["launcher"] = launcher_run(DEEPSEEK_ARCH, "--smoke",
+                                   own_process=False)
     _phase_end("15b (deepseek-v3-671b)", t0, out)
     return {"readings": out, "launches": launches,
             "per_step": cfg.num_layers}
@@ -5283,7 +5347,7 @@ def whisper_phase() -> dict:
     24 decoder layers) through every LM entry point: (a) the bf16 forward
     over 448 tokens and 1500 frames, (c) the batcher (graphed tick against
     eager, a served run, a profiled trace), (e) ``--quant8``, (d) the
-    fleet, the launcher with and without ``--quant8``, then (b) the
+    fleet, the launcher (its ``main`` in this process), then (b) the
     float32 model's decode and chunked prefill from ``whisper_init_cache``.
     Frames are drawn from a seeded CUDA generator, tokens from numpy."""
     import dataclasses
@@ -5330,8 +5394,7 @@ def whisper_phase() -> dict:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    out["launcher"] = launcher_run(WHISPER_ARCH)
-    out["launcher_quant8"] = launcher_run(WHISPER_ARCH, "--quant8")
+    out["launcher"] = launcher_run(WHISPER_ARCH, own_process=False)
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     f32 = whisper_f32_checks(cfg32, tokens, frames, per_multi)
@@ -6419,7 +6482,15 @@ def dp_world1_phase(device) -> dict:
                 times[kind] = [drive(step_fn, 2 + i)
                                for i in range(MD_TIMED_STEPS)]
                 peaks[kind] = torch.cuda.max_memory_allocated()
-            steps = 2 + 2 * MD_TIMED_STEPS
+            # 19b: one more uncompressed step, counted (the kernels' work
+            # records and the aten ops) for the dry run to be held to.
+            from repro_torch.launch import graph_analysis
+            step_fn = build(loss_fn, opt, mesh, compress=False)
+            batch = _md_batch(cfg, device, TRAIN_BATCH, TRAIN_SEQ, 99)
+            counted = graph_analysis.analyze_step(
+                lambda: state.update(step_fn(state, batch)))
+            del batch
+            steps = 3 + 2 * MD_TIMED_STEPS
             if int(state["step"]) != steps:
                 raise SmokeFailure(f"18a: the state's step is "
                                    f"{int(state['step'])}, want {steps}")
@@ -6446,6 +6517,8 @@ def dp_world1_phase(device) -> dict:
                peaks["compressed"] - peaks["uncompressed"],
            "residual_bytes": residual_bytes,
            "launches": dict(counts), "steps": steps,
+           "counted": {k: v for k, v in counted.items() if k != "kernels"}
+           | {"kernels": {k: dict(v) for k, v in counted["kernels"].items()}},
            "per_step": {n: counts[n] / steps for n in
                         ("flash_attention", "flash_attention_bwd")},
            "wall_s": time.perf_counter() - t_all}
@@ -6806,6 +6879,244 @@ def multi_device_readings(md: dict) -> dict:
         "walls_s": md["walls_s"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the dry run and its roofline
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = ("gemma2-27b:train_4k:single", "gemma2-27b:train_4k:multi",
+                "rwkv6-7b:long_500k:single")
+DRYRUN_FLOP_TOL = 0.01       # 19b: the dry run's FLOPs against the card's
+DRYRUN_FLASH_TOL = 0.01      # 19a: a train cell's flash work, its even share
+
+
+DRYRUN_DIR = ROOT / "chiprun_out" / "dryrun_19"
+
+
+def dryrun_start() -> dict:
+    """19a's runs, started before the kernels' build so that they are done
+    before the first phase that times anything (:func:`dryrun_join`):
+    ``python -m repro_torch.launch.dryrun --cell <cell>`` in a process a
+    cell, the three at once (a fake world of 256 or 512 ranks each, no
+    device memory past a CUDA context), then ``python -m
+    repro_torch.launch.roofline --mesh single`` over their cells.  A thread
+    of this process waits on them; the returned dict holds the processes,
+    and the thread's exit codes, times and roofline run."""
+    import os
+    import shutil
+    import threading
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    run = {"t0": time.perf_counter(), "procs": {}}
+    for cell in DRYRUN_CELLS:
+        tag = cell.replace(":", ".")
+        with open(DRYRUN_DIR / f"{tag}.stdout.txt", "w") as out, \
+                open(DRYRUN_DIR / f"{tag}.stderr.txt", "w") as err:
+            run["procs"][cell] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+                 str(DRYRUN_DIR), "--cell", cell], cwd=ROOT, env=env,
+                stdout=out, stderr=err)
+
+    def wait():
+        try:
+            run["rcs"] = {cell: proc.wait(timeout=900)
+                          for cell, proc in run["procs"].items()}
+            run["dryrun_s"] = time.perf_counter() - run["t0"]
+            if any(run["rcs"].values()):
+                return
+            t1 = time.perf_counter()
+            run["roofline"] = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.roofline",
+                 "--inp", str(DRYRUN_DIR), "--out",
+                 str(DRYRUN_DIR / "roofline_single.md"), "--mesh", "single"],
+                cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=300)
+            run["roofline_s"] = time.perf_counter() - t1
+        except Exception as exc:  # noqa: BLE001 — raised by dryrun_join
+            run["error"] = exc
+
+    run["thread"] = threading.Thread(target=wait, daemon=True)
+    run["thread"].start()
+    return run
+
+
+def dryrun_stop(run: dict) -> None:
+    """Kill what :func:`dryrun_start` started and is still running."""
+    for proc in run["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def dryrun_join(run: dict) -> None:
+    """Wait for :func:`dryrun_start`'s runs: each dry-run process and the
+    roofline must exit 0.  Their output is printed here and read by
+    :func:`dryrun_phase`."""
+    t_wait = time.perf_counter()
+    run["thread"].join(timeout=1200)
+    if run["thread"].is_alive() or "error" in run:
+        dryrun_stop(run)
+        raise SmokeFailure(f"19a dry run: {run.get('error', 'timed out')}")
+    log(f"19a dryrun: {len(DRYRUN_CELLS)} processes at once, done in "
+        f"{run['dryrun_s']:.1f} s (waited {time.perf_counter() - t_wait:.1f}"
+        f" s here)")
+    for cell, rc in run["rcs"].items():
+        tag = cell.replace(":", ".")
+        log(f"19a dryrun --cell {cell}: rc {rc}\n"
+            f"{(DRYRUN_DIR / f'{tag}.stdout.txt').read_text().strip()}")
+        if rc != 0:
+            err = (DRYRUN_DIR / f"{tag}.stderr.txt").read_text()
+            raise SmokeFailure(f"python -m repro_torch.launch.dryrun --cell "
+                               f"{cell} exited {rc}:\n{err[-4000:]}")
+    rp = run["roofline"]
+    log(f"19a roofline --mesh single: rc {rp.returncode} in "
+        f"{run['roofline_s']:.1f} s\n{rp.stdout.strip()}")
+    if rp.returncode != 0:
+        raise SmokeFailure(f"python -m repro_torch.launch.roofline exited "
+                           f"{rp.returncode}:\n{rp.stderr}")
+
+
+def flash_share(arch_name: str, shape_name: str, ranks: int) -> dict:
+    """One rank's flash FLOPs in a train cell whose batch and heads split
+    evenly over its ``ranks``: each layer's forward twice (the block remat
+    runs it again in the backward) and its backward once, at the cell's
+    global shapes, over the ranks."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    arch = configs.get(arch_name)
+    cfg, sh = arch.config, arch.shapes[shape_name]
+    fwd = bwd = 0.0
+    for i in range(cfg.num_layers):
+        kind = cfg.attn_pattern[i % len(cfg.attn_pattern)]
+        window = cfg.window if kind == "local" else None
+        shape = (sh.global_batch, cfg.num_heads, cfg.num_kv_heads,
+                 sh.seq_len, sh.seq_len, cfg.head_dim, 2)
+        fwd += 2 * fa.work(*shape, causal=True, window=window,
+                           q_offset=0)[0]
+        bwd += fb.work(*shape, causal=True, window=window)[0]
+    return {"flash_attention": fwd / ranks, "flash_attention_bwd": bwd / ranks}
+
+
+def dryrun_phase(run: dict) -> dict:
+    """19a: the cells :func:`dryrun_start` counted, and ``python -m
+    repro_torch.launch.roofline --mesh multi``'s ``main`` in this process
+    (the single mesh ran in its own).  Each cell counts FLOPs on its rank;
+    each train cell has the FSDP weight all-gather and the gradient's
+    reduction among its collectives, and each flash kernel's FLOPs within
+    ``DRYRUN_FLASH_TOL`` of its even share (:func:`flash_share`).  Prints
+    each cell's terms and bound on the datasheet ceilings, its bytes
+    against the card's memory, and its wall time."""
+    from repro_torch import hw
+    from repro_torch.launch import roofline
+    t0 = time.perf_counter()
+    argv = ["--inp", str(DRYRUN_DIR), "--out",
+            str(DRYRUN_DIR / "roofline_multi.md"), "--mesh", "multi"]
+    rp = in_process(roofline.main, argv)
+    log(f"19a roofline --mesh multi (in process): rc {rp.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s\n{rp.stdout.strip()}")
+    if rp.returncode != 0:
+        raise SmokeFailure(f"python -m repro_torch.launch.roofline --mesh "
+                           f"multi exited {rp.returncode}:\n{rp.stderr}")
+    cells = {}
+    for spec in DRYRUN_CELLS:
+        arch, shape, mesh = spec.split(":")
+        path = DRYRUN_DIR / f"{arch.replace('-', '_')}.{shape}.{mesh}.json"
+        cell = json.loads(path.read_text())
+        if "error" in cell or "skipped" in cell or not cell["flops"] > 0:
+            raise SmokeFailure(f"19a {spec}: {cell.get('error')} "
+                               f"{cell.get('skipped')} {cell.get('flops')}")
+        kinds = set(cell["collectives"])
+        if cell["phase"] == "train" and not (
+                "all-gather" in kinds
+                and kinds & {"reduce-scatter", "all-reduce"}):
+            raise SmokeFailure(f"19a {spec}: collectives {sorted(kinds)}, "
+                               f"want the FSDP all-gather and the "
+                               f"gradient's reduction")
+        flash = {}
+        if cell["phase"] == "train":
+            for k, want in flash_share(arch, shape, cell["ranks"]).items():
+                got = cell["kernels"].get(k, {}).get("flops", 0.0)
+                flash[k] = {"flops": got, "share": want,
+                            "gap": abs(got - want) / want}
+                if flash[k]["gap"] > DRYRUN_FLASH_TOL:
+                    raise SmokeFailure(
+                        f"19a {spec}: {k} counts {got:.6e} FLOPs a rank, "
+                        f"its even share {want:.6e} ({flash[k]['gap']:.4f} "
+                        f"apart, want {DRYRUN_FLASH_TOL})")
+        row = roofline.analyze_cell(cell)
+        mem = cell["temp_size_in_bytes"] + cell["argument_size_in_bytes"]
+        cells[spec] = {
+            "flops": cell["flops"], "hlo_bytes": cell["hlo_bytes"],
+            "kernel_flops": cell["kernel_flops"], "flash": flash,
+            "collective_operand_bytes": cell["collective_operand_bytes"],
+            "collectives": {k: {f: v[f] for f in ("count", "operand_bytes")}
+                            for k, v in cell["collectives"].items()},
+            "t_compute_s": row["t_compute_s"],
+            "t_memory_s": row["t_memory_s"],
+            "t_collective_s": row["t_collective_s"],
+            "dominant": row["dominant"],
+            "bound_s": row["step_time_lower_bound_s"],
+            "hbm_bytes": mem, "hbm_capacity": hw.H100_SXM.hbm_bytes,
+            "fits_hbm": row["fits_hbm"], "wall_s": cell["compile_s"],
+            "depth": cell["depth"], "device": cell["device"]}
+        log(f"19a {spec}: " + json.dumps(cells[spec], sort_keys=True))
+    return {"cells": cells, "dryrun_s": run["dryrun_s"],
+            "roofline_s": run["roofline_s"],
+            "wall_s": time.perf_counter() - t0}
+
+
+def roofline_step_phase(md: dict) -> dict:
+    """19b: 18a's gemma2-2b step (2 x 4096, block remat, the chunked loss,
+    AdamW with bf16 moments) counted twice: by the dry run on fake tensors
+    (one rank, no world) and by ``analyze_step`` of the real step on the
+    card (18a's ``counted``: the kernels' work records and the aten ops).
+    The FLOPs must agree within ``DRYRUN_FLOP_TOL``, and the dry run's
+    roofline bound on the datasheet ceilings must not pass the measured
+    step's p50."""
+    from repro_torch import configs, hw
+    from repro_torch.launch import dryrun
+    from repro_torch.obs.profile import roofline_terms
+    t0 = time.perf_counter()
+    arch = configs.get(TRAIN_ARCH)
+    shape = configs.ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    arch = configs.Arch(arch.name, arch.config, arch.smoke,
+                        {"train_4k": shape})
+    counts, meta = dryrun.lower_cell(
+        arch, "train_4k", None, device="cuda",
+        opt_overrides={"name": "adamw",
+                       "kw": {"state_dtype": TRAIN_STATE_DTYPE}},
+        train_overrides={"microbatches": 1, "remat": "block",
+                         "chunked_loss": True})
+    card = md["counted"]
+    gap = abs(counts["flops"] - card["flops"]) / card["flops"]
+    terms = roofline_terms(counts["flops"], counts["hlo_bytes"], 0,
+                           hw=hw.H100_SXM)
+    bound_ms = terms["ceiling_s"] * 1e3
+    p50_ms = md["step_p50_ms"]["uncompressed"]
+    out = {"dry_flops": counts["flops"], "card_flops": card["flops"],
+           "flop_gap": gap, "dry_bytes": counts["hlo_bytes"],
+           "card_bytes": card["bytes"],
+           "dry_kernel_flops": counts["kernel_flops"],
+           "card_kernel_flops": card["kernel_flops"],
+           "t_compute_ms": terms["t_compute_s"] * 1e3,
+           "t_memory_ms": terms["t_memory_s"] * 1e3,
+           "bound": terms["bound"], "bound_ms": bound_ms,
+           "step_p50_ms": p50_ms, "p50_over_bound": p50_ms / bound_ms,
+           "roofline_fraction": bound_ms / p50_ms,
+           "depth": meta["depth"], "wall_s": time.perf_counter() - t0}
+    log("19b gemma2-2b step, dry run against the card: "
+        + json.dumps(out, sort_keys=True))
+    if gap > DRYRUN_FLOP_TOL:
+        raise SmokeFailure(f"19b: the dry run counts {counts['flops']:.6e} "
+                           f"FLOPs, the card's step {card['flops']:.6e} "
+                           f"({gap:.4f} apart, want {DRYRUN_FLOP_TOL})")
+    if bound_ms > p50_ms:
+        raise SmokeFailure(f"19b: the roofline bound {bound_ms:.3f} ms "
+                           f"passes the measured p50 {p50_ms:.3f} ms")
+    return out
+
+
 def kernels_line(errs, launches, timing) -> dict:
     """One entry per kernel at the first served net's shapes: the fused
     group of one request, and the per-layer rung of one degraded request
@@ -6963,6 +7274,15 @@ def edge_times_main(src: pathlib.Path) -> int:
     return 0
 
 
+def timed(walls: dict, label: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall time logged and kept in ``walls``."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    walls[label] = round(time.perf_counter() - t0, 1)
+    log(f"wall {label}: {walls[label]:.1f} s")
+    return out
+
+
 def main(argv: list) -> int:
     try:
         import torch
@@ -6987,10 +7307,13 @@ def main(argv: list) -> int:
         return edge_times_main(src)
     sys.path.insert(0, str(SRC))
     t_all = time.perf_counter()
+    walls: dict = {}
+    dry_run = None
     try:
         card = card_line()
         log(card)
         from repro_torch.kernels import build
+        dry_run = dryrun_start()
         t0 = time.perf_counter()
         libs = build.build_all()
         log(f"build: {time.perf_counter() - t0:.1f} s for "
@@ -7000,18 +7323,23 @@ def main(argv: list) -> int:
                            for line in report.splitlines()
                            if "registers" in line})
             log(f"build {name}: ptxas {regs}")
-        tensor_core_phase(libs)
-        ptxas_phase()
+        timed(walls, "2b tensor cores", tensor_core_phase, libs)
+        timed(walls, "2b ptxas", ptxas_phase)
+        timed(walls, "19a dry run (joined)", dryrun_join, dry_run)
         device = torch.device("cuda", torch.cuda.current_device())
-        errs = kernel_phase(device)
-        errs.update(dense_kernel_phase(device))
-        characterized = characterize_phase(device)
-        dep, launches, build_launches, served_edge = serve_phase()
-        forward = edge_forward_phase(device)
-        report = check_cli_phase()
-        aie_plan = aie_plan_phase()
-        timing = timing_phase(device)
-        dense_timing = dense_timing_phase(device, timing["empty_graph_ms"])
+        errs = timed(walls, "2 kernels", kernel_phase, device)
+        errs.update(timed(walls, "2c dense kernels", dense_kernel_phase,
+                          device))
+        characterized = timed(walls, "3c characterize", characterize_phase,
+                              device)
+        dep, launches, build_launches, served_edge = timed(
+            walls, "4 serve", serve_phase)
+        forward = timed(walls, "4b edge_forward", edge_forward_phase, device)
+        report = timed(walls, "4c check", check_cli_phase)
+        aie_plan = timed(walls, "4d aie plan", aie_plan_phase)
+        timing = timed(walls, "5 timing", timing_phase, device)
+        dense_timing = timed(walls, "5b dense timing", dense_timing_phase,
+                             device, timing["empty_graph_ms"])
         line = kernels_line(errs, launches, timing)
         line["kernels"] += dense_kernel_entries(errs, {
             "fused_dense": {"main": build_launches["fused_dense"],
@@ -7022,52 +7350,62 @@ def main(argv: list) -> int:
                            "check library self-check":
                                report["launches"]["tiled_gemm"]}},
             dense_timing)
-        lm_errs = lm_kernel_phase(device)
-        cfg, params, tokens, fwd_launches, per_step, per_tick = \
-            lm_forward_phase(LM_ARCH)
-        fleet = fleet_phase(cfg, params, tokens, per_step, per_tick)
-        guarded = fleet_resilience_phase(fleet["deployment"], cfg, params,
-                                         per_tick, dep)
+        lm_errs = timed(walls, "6 lm kernels", lm_kernel_phase, device)
+        cfg, params, tokens, fwd_launches, per_step, per_tick = timed(
+            walls, "7 griffin forward", lm_forward_phase, LM_ARCH)
+        fleet = timed(walls, "7b fleet", fleet_phase, cfg, params, tokens,
+                      per_step, per_tick)
+        guarded = timed(walls, "7c resilience", fleet_resilience_phase,
+                        fleet["deployment"], cfg, params, per_tick, dep)
         fleet["launches"].update(guarded["launches"])
         fleet["fleet"]["resilience"] = guarded["readings"]
-        scenarios = scenario_phase(fleet["deployment"], cfg, params)
+        scenarios = timed(walls, "7d scenarios", scenario_phase,
+                          fleet["deployment"], cfg, params)
         fleet["launches"].update(scenarios["launches"])
         fleet["fleet"]["scenarios"] = scenarios["readings"]
-        instruments = instruments_phase(cfg, params)
+        instruments = timed(walls, "7e instruments", instruments_phase, cfg,
+                            params)
         fleet["launches"].update(instruments["launches"])
         fleet["fleet"]["instruments"] = instruments["readings"]
-        fleet["fleet"]["edge_call_split_us"] = edge_call_split(
+        fleet["fleet"]["edge_call_split_us"] = timed(
+            walls, "7f edge call split", edge_call_split,
             {"phase 4": dep, "fleet": fleet["deployment"]})
-        served = lm_serve_phase(cfg, params, tokens, per_step, per_tick)
-        q8 = quant8_phase(cfg, params, tokens, per_tick, served)
+        served = timed(walls, "8 griffin serve", lm_serve_phase, cfg, params,
+                       tokens, per_step, per_tick)
+        q8 = timed(walls, "8q griffin quant8", quant8_phase, cfg, params,
+                   tokens, per_tick, served)
         served["launches"].update(q8["launches"])
         served["quant8"] = q8["readings"]
-        bench_after_profiler(fleet)
+        timed(walls, "8b bench after profiler", bench_after_profiler, fleet)
         del params
         gc.collect()
         torch.cuda.empty_cache()
-        lm_timing = lm_timing_phase(device)
-        lm_errs["rwkv6_scan"] = rwkv_kernel_phase(device)
-        rcfg, rparams, rtokens, r_fwd_launches, r_step, r_tick = \
-            lm_forward_phase(RWKV_ARCH)
-        r_served = lm_serve_phase(rcfg, rparams, rtokens, r_step, r_tick)
-        r_q8 = quant8_phase(rcfg, rparams, rtokens, r_tick, r_served)
+        lm_timing = timed(walls, "9 lm timing", lm_timing_phase, device)
+        lm_errs["rwkv6_scan"] = timed(walls, "10 rwkv kernels",
+                                      rwkv_kernel_phase, device)
+        rcfg, rparams, rtokens, r_fwd_launches, r_step, r_tick = timed(
+            walls, "11 rwkv forward", lm_forward_phase, RWKV_ARCH)
+        r_served = timed(walls, "12 rwkv serve", lm_serve_phase, rcfg,
+                         rparams, rtokens, r_step, r_tick)
+        r_q8 = timed(walls, "12q rwkv quant8", quant8_phase, rcfg, rparams,
+                     rtokens, r_tick, r_served)
         r_served["launches"].update(r_q8["launches"])
         r_served["quant8"] = r_q8["readings"]
         del rparams
         gc.collect()
         torch.cuda.empty_cache()
-        lm_timing["rwkv6_scan"] = rwkv_timing_phase(device)
+        lm_timing["rwkv6_scan"] = timed(walls, "13 rwkv timing",
+                                        rwkv_timing_phase, device)
         # Phase 4's deployment (7b's went with bench_after_profiler) makes
         # room for gemma2-27b's 54.4 GB.
         del dep
         gc.collect()
         torch.cuda.empty_cache()
-        tf = transformer_phases(device)
-        moe_run = moe_phases()
+        tf = timed(walls, "14 transformers", transformer_phases, device)
+        moe_run = timed(walls, "15 moe", moe_phases)
         tf["launches"].update(moe_run["launches"])
         tf["per_step"].update(moe_run["per_step"])
-        whisper = whisper_phase()
+        whisper = timed(walls, "16 whisper", whisper_phase)
         tf["launches"].update(whisper["launches"])
         t0 = time.perf_counter()
         lm_timing["flash_attention"]["transformer"] = tf_timing_phase(device)
@@ -7077,9 +7415,12 @@ def main(argv: list) -> int:
         lm_timing["flash_attention"]["whisper"] = \
             whisper_timing_phase(device)
         log(f"phase 9 whisper flash rows: {time.perf_counter() - t0:.1f} s")
-        train = training_phases(device)
+        train = timed(walls, "17 training", training_phases, device)
         tf["launches"].update(train["launches"])
-        md = multi_device_phases(device)
+        md = timed(walls, "18 multi-device", multi_device_phases, device)
+        dry = timed(walls, "19a dry run", dryrun_phase, dry_run)
+        dry["step"] = timed(walls, "19b dry run against the card",
+                            roofline_step_phase, md["dp"])
         paths = {}
         for arch, fwd, srv in ((LM_ARCH, fwd_launches, served),
                                (LM_ARCH, None, fleet),
@@ -7118,6 +7459,9 @@ def main(argv: list) -> int:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    finally:
+        if dry_run is not None:
+            dryrun_stop(dry_run)
     log(f"chip_smoke: all phases in {time.perf_counter() - t_all:.1f} s")
     log("summary " + json.dumps({**summary_line(
         characterized, served_edge, {LM_ARCH: served, RWKV_ARCH: r_served,
@@ -7135,6 +7479,7 @@ def main(argv: list) -> int:
             "rwkv6-7b": {k: v for k, v in train["rwkv"].items()
                          if k != "launches"}},
         "multi_device": multi_device_readings(md),
+        "dry_run": dry, "walls_s": walls,
         "aie_plan": {k: v for k, v in aie_plan.items() if k != "launches"},
         "fleet": {k: v for k, v in fleet["fleet"].items()
                   if k not in ("launches", "chunk_launches")}},

@@ -104,6 +104,20 @@ def placements(spec, mesh) -> list:
     return out
 
 
+def local_shape(shape, mesh, placements) -> tuple[int, ...]:
+    """This rank's block shape of a tensor of ``shape`` under
+    ``placements``, as ``DTensor`` chunks it (``torch.chunk`` along each
+    split dim, mesh dims in order), from the mesh coordinate alone."""
+    out = list(shape)
+    coord = mesh.get_coordinate()
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            n, c = mesh.size(i), coord[i]
+            size = -(-out[pl.dim] // n)
+            out[pl.dim] = max(0, min(size, out[pl.dim] - c * size))
+    return tuple(out)
+
+
 def spec_of(x: DTensor) -> P:
     """The spec of a ``DTensor``'s placements."""
     entries: list[list[str]] = [[] for _ in range(x.dim())]
@@ -179,11 +193,33 @@ def from_local(local: torch.Tensor, spec, mesh) -> DTensor:
 
 
 def redistribute(x, spec) -> DTensor:
-    """A ``DTensor`` laid out anew by ``spec`` (gathered, then each rank's
-    block taken)."""
+    """A ``DTensor`` laid out anew by ``spec``: by ``DTensor.redistribute``
+    on a mesh with a process group per dim, else gathered, then each
+    rank's block taken.  A pending partial sum (a ``DTensor`` op's ``Partial``
+    output, which only a mesh with a process group per dim makes) is
+    reduced first."""
+    if any(p.is_partial() for p in x.placements):
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if p.is_partial() else p for p in x.placements])
     if spec_of(x) == tuple(spec) + (None,) * (x.dim() - len(spec)):
         return x
+    if _dim_groups(x.device_mesh):
+        # DTensor's own move: differentiable, and only what the new layout
+        # needs (a local slice where a replicated dim is split).
+        spec = P(*spec) + P(*(None,) * (x.dim() - len(spec)))
+        return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
     return distribute(gather(x), spec, x.device_mesh)
+
+
+def _dim_groups(mesh) -> bool:
+    """The mesh holds a process group per dim (``init_device_mesh``; the
+    dry run's meshes do, :func:`repro_torch.launch.mesh.make_mesh`'s do
+    not: this module builds its own groups for those)."""
+    try:
+        mesh.get_group(0)
+    except RuntimeError:
+        return False
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -193,14 +229,16 @@ def redistribute(x, spec) -> DTensor:
 def _group(axes, mesh):
     """(process group, its ranks in group order) of this rank's line
     along ``axes``."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
     idx = _check_order(mesh, axes)
-    grid = mesh.mesh
-    key = (tuple(grid.shape), tuple(grid.flatten().tolist()),
-           tuple(mesh.mesh_dim_names), axes)
-    if key not in _GROUPS:
+    with unset_fake_temporarily():     # the ranks are host data, never fake
+        grid = mesh.mesh
+        key = (tuple(grid.shape), tuple(grid.flatten().tolist()),
+               tuple(mesh.mesh_dim_names), axes)
         rest = [d for d in range(grid.dim()) if d not in idx]
         n = math.prod(grid.shape[d] for d in idx)
         lines = grid.permute(*rest, *idx).reshape(-1, n).tolist()
+    if key not in _GROUPS:
         me = dist.get_rank()
         mine = None
         for line in lines:          # every rank builds every line

@@ -1,5 +1,6 @@
 """deepseek-v3-671b [moe]: 61L d_model=7168 128H d_ff=2048(expert) vocab=129280, MoE 1 shared + 256 routed top-8, MLA, MTP. Dense first-3 layers d_ff=18432. [arXiv:2412.19437; hf]"""
 
+from repro_torch.configs import lm_shapes
 from repro_torch.models.config import MLAConfig, ModelConfig, MoEConfig
 
 CONFIG = ModelConfig(
@@ -27,3 +28,5 @@ SMOKE = ModelConfig(
                   qk_rope_head_dim=8, v_head_dim=16),
     mtp=True,
 )
+
+SHAPES = lm_shapes(subquadratic=False)

@@ -2,6 +2,7 @@
 vocab=256000 — local+global alternating attention, logit softcap.
 [arXiv:2408.00118; hf]"""
 
+from repro_torch.configs import lm_shapes
 from repro_torch.models.config import ModelConfig
 
 CONFIG = ModelConfig(
@@ -42,3 +43,5 @@ SMOKE = ModelConfig(
     post_norms=True,
     scale_embeddings=True,
 )
+
+SHAPES = lm_shapes(subquadratic=False)

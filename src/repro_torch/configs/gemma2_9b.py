@@ -1,5 +1,6 @@
 """gemma2-9b [dense]: 42L d_model=3584 16H (GQA kv=8) d_ff=14336 vocab=256000 -- local+global alternating, logit softcap. [arXiv:2408.00118; hf]"""
 
+from repro_torch.configs import lm_shapes
 from repro_torch.models.config import ModelConfig
 
 CONFIG = ModelConfig(
@@ -19,3 +20,5 @@ SMOKE = ModelConfig(
     attn_softcap=50.0, logit_softcap=30.0,
     tie_embeddings=True, post_norms=True, scale_embeddings=True,
 )
+
+SHAPES = lm_shapes(subquadratic=False)

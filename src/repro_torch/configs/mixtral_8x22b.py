@@ -1,5 +1,6 @@
 """mixtral-8x22b [moe]: 56L d_model=6144 48H (GQA kv=8) d_ff=16384 vocab=32768, MoE 8 experts top-2, SWA. [arXiv:2401.04088; hf]"""
 
+from repro_torch.configs import lm_shapes
 from repro_torch.models.config import ModelConfig, MoEConfig
 
 CONFIG = ModelConfig(
@@ -18,3 +19,5 @@ SMOKE = ModelConfig(
     attn_pattern=("local",), window=16, tie_embeddings=False,
     moe=MoEConfig(capacity_factor=8.0, num_experts=4, top_k=2, d_ff_expert=96),
 )
+
+SHAPES = lm_shapes(subquadratic=False)

@@ -1,5 +1,6 @@
 """qwen2.5-3b [dense]: 36L d_model=2048 16H (GQA kv=2) d_ff=11008 vocab=151936 -- GQA, QKV bias. [hf:Qwen/Qwen2.5-3B; hf]"""
 
+from repro_torch.configs import lm_shapes
 from repro_torch.models.config import ModelConfig
 
 CONFIG = ModelConfig(
@@ -16,3 +17,5 @@ SMOKE = ModelConfig(
     d_ff=128, vocab_size=512,
     attn_pattern=("global",), qkv_bias=True, tie_embeddings=True,
 )
+
+SHAPES = lm_shapes(subquadratic=False)

@@ -1,5 +1,6 @@
 """qwen2-vl-72b [vlm]: 80L d_model=8192 64H (GQA kv=8) d_ff=29568 vocab=152064 -- M-RoPE, dynamic resolution (vision frontend STUB: input_specs provides patch embeddings + M-RoPE position ids). [arXiv:2409.12191; hf]"""
 
+from repro_torch.configs import lm_shapes
 from repro_torch.models.config import ModelConfig
 
 CONFIG = ModelConfig(
@@ -17,3 +18,5 @@ SMOKE = ModelConfig(
     attn_pattern=("global",), qkv_bias=True, mrope_sections=(2, 3, 3),
     tie_embeddings=False,
 )
+
+SHAPES = lm_shapes(subquadratic=False)

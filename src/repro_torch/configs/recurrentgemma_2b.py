@@ -1,5 +1,6 @@
 """recurrentgemma-2b [hybrid]: 26L d_model=2560 10H (MQA kv=1) d_ff=7680 -- RG-LRU + local attention, pattern (rec,rec,attn). [arXiv:2402.19427; hf]"""
 
+from repro_torch.configs import lm_shapes
 from repro_torch.models.config import GriffinConfig, ModelConfig
 
 CONFIG = ModelConfig(
@@ -21,3 +22,5 @@ SMOKE = ModelConfig(
     griffin=GriffinConfig(lru_width=64, conv_width=4,
                           pattern=("rec", "rec", "attn"), local_window=16),
 )
+
+SHAPES = lm_shapes(subquadratic=True)

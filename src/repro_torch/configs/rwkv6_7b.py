@@ -1,5 +1,6 @@
 """rwkv6-7b [ssm]: 32L d_model=4096 (attention-free) d_ff=14336 vocab=65536 -- Finch, data-dependent decay. [arXiv:2404.05892; hf]"""
 
+from repro_torch.configs import lm_shapes
 from repro_torch.models.config import ModelConfig
 
 CONFIG = ModelConfig(
@@ -15,3 +16,5 @@ SMOKE = ModelConfig(
     d_ff=128, vocab_size=512,
     rwkv_head_dim=32, tie_embeddings=False, subquadratic=True,
 )
+
+SHAPES = lm_shapes(subquadratic=True)

@@ -1,5 +1,6 @@
 """whisper-medium [audio]: 24L d_model=1024 16H d_ff=4096 vocab=51865 -- enc-dec, conv frontend (STUB: the encoder takes precomputed frame embeddings). [arXiv:2212.04356]"""
 
+from repro_torch.configs import lm_shapes
 from repro_torch.models.config import EncDecConfig, ModelConfig
 
 CONFIG = ModelConfig(
@@ -19,3 +20,5 @@ SMOKE = ModelConfig(
     mlp_act="gelu", mlp_gated=False, tie_embeddings=True,
     encdec=EncDecConfig(encoder_layers=2, decoder_layers=2, encoder_len=32),
 )
+
+SHAPES = lm_shapes(subquadratic=False)

@@ -18,7 +18,11 @@ models :data:`repro_torch.hw.AIE_ML` and :data:`repro_torch.hw.PL_FABRIC`.
 ``aie_interval_s`` may be injected from a measured run: the profiler
 (:mod:`repro_torch.obs.profile`) injects the card's measured interval, which
 answers the paper's question "PL or the accelerator?" with this card's
-time.  The TPU analogue ``lare_tpu`` is not ported.
+time.
+
+:func:`lare_spatial` is the counterpart of the JAX package's ``lare_tpu``
+(it prices no TPU): the core-equivalence of a layer pipelined over cards
+against the same layer tiled on one card.  No planner of the port reads it.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import math
+from typing import Callable
 
 from repro_torch import hw as hwlib
 from repro_torch.core import tiling
@@ -109,3 +114,75 @@ def lare(n_in: int, n_out: int, *, batch: int = 8,
                                - math.log(max(lo.resource, 1e-9))))
     return LareResult(n_in, n_out, aie_interval_s, rf_eq, r_eq,
                       tuple(curve), aie_favorable_below=r_eq)
+
+
+# --------------------------------------------------------------------------
+# Core-equivalence between the pipelined-spatial and the tiled regime
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LareSpatialResult:
+    """:func:`lare_spatial`'s answer; a core is a card."""
+    n_in: int
+    n_out: int
+    tiled_latency_s: float       # the tiled layer's latency on kernel_cores
+    kernel_cores: int
+    core_eq: float               # pipeline cards needed to match (the metric)
+    pipeline_curve: tuple[tuple[int, float], ...]   # (cards, latency_s)
+
+    def decide(self, pipeline_core_budget: int) -> str:
+        return "pipeline" if pipeline_core_budget >= self.core_eq else "tiled"
+
+
+def lare_spatial(n_in: int, n_out: int, *, batch: int = 8, itemsize: int = 1,
+                 kernel_cores: int = 1, max_cores: int = 64,
+                 hw: hwlib.H100 = hwlib.H100_SXM,
+                 tiled_latency_s: float | None = None,
+                 pipeline_latency_fn: Callable[[int], float] | None = None,
+                 ) -> LareSpatialResult:
+    """The LARE adaptation on cards, the JAX package's ``lare_tpu`` with a
+    card for a core.
+
+    *Tiled regime* (the "AIE side"): the layer runs as one planned
+    ``gemm_int8`` on ``kernel_cores`` cards (:func:`tiling.plan_gemm`), or
+    at ``tiled_latency_s`` where measured.
+
+    *Pipelined-spatial regime* (the "PL side"): the layer owns ``c`` cards
+    of a layer pipeline (``train/pipeline_par.py`` runs one); its stage
+    time is the K-split GEMM on ``c`` cards (:func:`tiling.plan_spatial`)
+    plus the hand-off of its outputs to the next stage over NVLink.  The
+    curve doubles ``c`` up to ``max_cores``; ``core_eq`` interpolates the
+    cards at which the pipeline matches the tiled latency."""
+    if tiled_latency_s is None:
+        plan = tiling.plan_gemm(batch, n_in, n_out, itemsize=itemsize,
+                                axis_sizes=(kernel_cores,), hw=hw,
+                                max_tiles=kernel_cores)
+        tiled_latency_s = plan.est_s
+    curve: list[tuple[int, float]] = []
+    c = 1
+    while c <= max_cores:
+        if pipeline_latency_fn is not None:
+            t = pipeline_latency_fn(c)
+        else:
+            sp = tiling.plan_spatial(batch, n_in, n_out, itemsize=itemsize,
+                                     axis_sizes=(c,), hw=hw, max_tiles=c,
+                                     q_k_floor=1, q_n_floor=1)
+            api = tiling.plan_api(batch, sp.q_k, sp.q_n, hw=hw)
+            handoff = batch * n_out * itemsize / hw.nvlink_bw
+            t = api.est_s + sp.est_collective_s + handoff
+        curve.append((c, t))
+        c *= 2
+    core_eq = float("inf")
+    for c, t in curve:
+        if t <= tiled_latency_s:
+            prev = next(((pc, pt) for pc, pt in reversed(curve) if pc < c),
+                        None)
+            if prev is not None and prev[1] > tiled_latency_s:
+                pc, pt = prev
+                f = (pt - tiled_latency_s) / max(pt - t, 1e-30)
+                core_eq = pc + f * (c - pc)
+            else:
+                core_eq = float(c)
+            break
+    return LareSpatialResult(n_in, n_out, tiled_latency_s, kernel_cores,
+                             core_eq, tuple(curve))

@@ -29,6 +29,12 @@ of a set with a roofline model of this card and keeps the cheapest;
 K stage.  All are memoised, since the kernel wrappers plan on every
 call.
 
+:func:`plan_spatial` and :func:`plan_gemm` split one GEMM over several
+cards (the JAX package's spatial level, a card for a TPU core), priced with
+:func:`collective_time` on the card's NVLink and network rates; the
+pipelined-spatial regime of :func:`repro_torch.core.lare.lare_spatial`
+reads them.  No plan the port serves reads them.
+
 The paper's own model of the AI-Engine array closes the module, the JAX
 package's copy, framework-free: one tile (:func:`aie_tile_latency`,
 :func:`aie_tile_interval`, :func:`aie_best_single_tile`), which
@@ -281,6 +287,123 @@ def plan_tiled(m: int, k: int, n: int, *, itemsize: int = 2,
     return _search(m, k, n, (TC_BLOCK_M, (tc_block_k(itemsize),), TC_BLOCK_N),
                    itemsize, rates[itemsize], hw, _TC_SMEM[itemsize],
                    out_bytes=4 if itemsize == 1 else 2, rereads=False)
+
+
+# --------------------------------------------------------------------------
+# The spatial level: a GEMM split over cards (DR3', DR5', DR6')
+# --------------------------------------------------------------------------
+
+# Cards one NVLink switch joins (an HGX H100 node): a reduction over at most
+# this many runs on NVLink, a larger one crosses the network.
+NVLINK_RANKS = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class SpatialPlan:
+    """Across-card tiling: the split factors of K and N."""
+    p_k: int
+    p_n: int
+    q_k: int                      # per-card K extent
+    q_n: int                      # per-card N extent
+    bands: int                    # 1: the K group fits the fast axis (DR6')
+    est_collective_s: float
+
+    @property
+    def tiles(self) -> int:
+        return self.p_k * self.p_n
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    m: int
+    k: int
+    n: int
+    itemsize: int
+    spatial: SpatialPlan
+    api: ApiPlan
+    est_s: float
+    rules: tuple[str, ...]        # which design rules drove the decision
+
+
+def collective_time(bytes_per_device: float, group: int, *, axis_bw: float,
+                    kind: str = "reduce_scatter") -> float:
+    """Ring-collective time over a ``group`` of cards at ``axis_bw``."""
+    if group <= 1 or bytes_per_device <= 0:
+        return 0.0
+    steps = group - 1
+    if kind == "all_reduce":
+        vol = 2.0 * bytes_per_device * steps / group
+    elif kind in ("reduce_scatter", "all_gather", "all_to_all"):
+        vol = bytes_per_device * steps / group
+    else:
+        raise ValueError(kind)
+    return vol / axis_bw
+
+
+def _divisors_leq(x: int, cap: int) -> list[int]:
+    return [d for d in range(1, min(x, cap) + 1) if x % d == 0]
+
+
+def plan_spatial(m: int, k: int, n: int, *, itemsize: int = 1,
+                 axis_sizes=(NVLINK_RANKS,),
+                 hw: hwlib.H100 = hwlib.H100_SXM,
+                 q_k_floor: int = 512, q_n_floor: int = 512,
+                 max_tiles: int | None = None) -> SpatialPlan:
+    """Pick (P_K, P_N) over the cards, the JAX package's rules with a card
+    for a core: each split runs :func:`plan_api` on its (m, q_k, q_n)
+    block, and the K group reduces its f32 partial sums by a ring
+    reduce-scatter.  ``axis_sizes`` lists the mesh axes in preference
+    order, fast first; the fast axis holds at most :data:`NVLINK_RANKS`
+    cards.  A K group that fits it reduces at ``hw.nvlink_bw``; a larger
+    one spills onto the network (``bands`` > 1, DR6') and reduces at
+    ``hw.net_bw``.  Below the per-card floor (DR5') no split is taken; at
+    equal time the larger K split wins (DR3').  ``itemsize`` is the
+    operands' (the block plan is ``gemm_int8``'s)."""
+    total_devices = math.prod(axis_sizes)
+    cap = min(total_devices, max_tiles or total_devices)
+    axis0 = min(axis_sizes[0], NVLINK_RANKS)
+    best: tuple[float, SpatialPlan] | None = None
+    for p_k in _divisors_leq(max(k // 128, 1), cap):
+        for p_n in _divisors_leq(max(n // 128, 1), cap // p_k):
+            q_k, q_n = math.ceil(k / p_k), math.ceil(n / p_n)
+            if p_k * p_n > 1 and (q_k < q_k_floor or q_n < q_n_floor):
+                continue  # DR5' per-card floor
+            bands = 1 if p_k <= axis0 else math.ceil(p_k / axis0)
+            red_bytes = m * q_n * 4
+            bw = hw.nvlink_bw if bands == 1 else hw.net_bw   # DR6'
+            t_red = collective_time(red_bytes, p_k, axis_bw=bw,
+                                    kind="reduce_scatter")
+            api = plan_api(m, q_k, q_n, hw=hw)
+            est = api.est_s + t_red
+            plan = SpatialPlan(p_k, p_n, q_k, q_n, bands, t_red)
+            if best is None or (est, -p_k) < (best[0], -best[1].p_k):
+                best = (est, plan)
+    assert best is not None
+    return best[1]
+
+
+def plan_gemm(m: int, k: int, n: int, *, itemsize: int = 1,
+              axis_sizes=(NVLINK_RANKS,),
+              hw: hwlib.H100 = hwlib.H100_SXM,
+              max_tiles: int | None = None) -> GemmPlan:
+    """The two-level plan of one GEMM over cards (the paper's Algorithm
+    2): :func:`plan_spatial`, then :func:`plan_api` on one card's block;
+    ``rules`` names the design rules that shaped it."""
+    rules: list[str] = []
+    spatial = plan_spatial(m, k, n, itemsize=itemsize, axis_sizes=axis_sizes,
+                           hw=hw, max_tiles=max_tiles)
+    if spatial.p_k > 1:
+        rules.append("DR3'(K-expansion)")
+    if spatial.tiles > 1:
+        rules.append("DR5'(per-device floor held)")
+    if spatial.bands > 1:
+        rules.append("DR6'(band spill penalized)")
+    api = plan_api(m, spatial.q_k, spatial.q_n, hw=hw)
+    rules.append(f"DR1'(block={api.blocks})")
+    if api.block_n >= api.block_k:
+        rules.append("DR2'(N-favored)")
+    est = api.est_s + spatial.est_collective_s
+    return GemmPlan(m, k, n, itemsize, spatial, api, est, tuple(rules))
 
 
 # --------------------------------------------------------------------------

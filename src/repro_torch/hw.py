@@ -11,7 +11,9 @@ tensor cores, which bf16 ``tiled_gemm`` and an LM's bf16 GEMMs run on) and
 planner, and ``dram_round_trip_s`` (one round trip to device memory, which
 ``fused_dense``'s planner charges per K stage) only by that planner, so
 they stay out of the edge plans' keys (``plan_key: False``); an LM plan's
-key adds the bf16 rate itself.
+key adds the bf16 rate itself.  So do the card's memory size and its two
+link rates, NVLink within a node and the network between nodes, which only
+the dry run's roofline and the spatial planner read.
 
 The paper's two other substrates sit apart from it: :class:`AieMl` (the
 VEK280 AI-Engine array) and :class:`PlFabric` (its programmable logic under
@@ -63,6 +65,17 @@ class H100:
     # device memory and back.
     dram_round_trip_s: float = dataclasses.field(default=6e-7,
                                                  metadata=_NOT_IN_PLAN_KEY)
+    # The dry run's roofline (launch/roofline.py) and the spatial planner
+    # (core/tiling.py), datasheet, not measured: 80 GB of HBM3, NVLink 4's
+    # 900 GB/s aggregate a card (the counterpart of the TPU model's
+    # ``ici_bw``), and one 400 Gb/s NDR port a card to the network (its
+    # ``dcn_bw``).
+    hbm_bytes: int = dataclasses.field(default=80 * 10**9,
+                                       metadata=_NOT_IN_PLAN_KEY)
+    nvlink_bw: float = dataclasses.field(default=900e9,
+                                         metadata=_NOT_IN_PLAN_KEY)
+    net_bw: float = dataclasses.field(default=50e9,
+                                      metadata=_NOT_IN_PLAN_KEY)
 
 
 H100_SXM = H100()

@@ -13,11 +13,25 @@ the same Function, saved tensors and formulas as the card.  The other
 kernels have no backward and raise a ``RuntimeError`` naming the kernel
 for such inputs, on every device.  With grad off (serving) nothing is
 recorded and every call runs as before.
+
+**The pricing route.**  Where every tensor argument of a wrapper is a fake
+tensor (``torch._subclasses.fake_tensor.is_fake``, which also sees through
+a ``DTensor``'s local tensor), the wrapper runs neither the kernel nor its
+plain version: it adds the call and its work record (the module's
+``work(...)`` at the local shapes) to the pricing route's own record
+(:func:`priced_counts`), never to a launch counter, and returns empty
+outputs of the shapes, dtypes and placements the kernel gives.  The dry run
+(:mod:`repro_torch.launch.dryrun`) prices a step this way; a plain scan's
+loop over T would otherwise trace every step.  A ``DTensor`` argument is
+first laid out where the kernel's local call is the global one (the
+sequence dims whole, k and v split as q), as the reference's GSPMD would
+place it.  A real tensor, on the CPU or the card, never takes this route.
 """
 
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.core import tiling
 from repro_torch.kernels import flash_attention as _fa
@@ -94,6 +108,26 @@ def work_since(before: dict[str, dict[str, float]]) -> dict:
             for name, w in work_counts().items()}
 
 
+# The pricing route's record, by kernel: ``{"calls", "flops", "bytes"}`` of
+# the calls priced on fake tensors.  A priced call launches nothing, so it
+# adds to no launch counter or work record above; the dry run's counter
+# (``launch.graph_analysis.RankCounter``) reads this record beside them.
+_PRICED = {name: {"calls": 0, "flops": 0.0, "bytes": 0.0}
+           for name in _COUNTERS}
+
+
+def priced_counts() -> dict[str, dict[str, float]]:
+    """The pricing route's record: ``{kernel: {"calls", "flops",
+    "bytes"}}``."""
+    return {name: dict(rec) for name, rec in _PRICED.items()}
+
+
+def priced_since(before: dict[str, dict[str, float]]) -> dict:
+    """The calls priced since ``before`` (a :func:`priced_counts`)."""
+    return {name: {key: rec[key] - before[name][key] for key in rec}
+            for name, rec in _PRICED.items()}
+
+
 def _wants_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(
         torch.is_tensor(t) and t.requires_grad for t in tensors)
@@ -108,9 +142,165 @@ def _refuse_grad(kernel: str, *tensors) -> None:
                            f"not require grad")
 
 
+def _priced(*tensors) -> bool:
+    """Every tensor argument is fake: the call is priced, not run.  A plain
+    ``torch.Tensor`` is never fake, so a real call pays one type test."""
+    for t in tensors:
+        if type(t) is torch.Tensor:
+            return False
+    ts = [t for t in tensors if torch.is_tensor(t)]
+    return bool(ts) and all(is_fake(t) for t in ts)
+
+
+def _record(kernel: str, work: tuple[float, int]) -> None:
+    """One priced call of ``kernel`` and its work record, in the pricing
+    route's own record: nothing was launched."""
+    rec = _PRICED[kernel]
+    rec["calls"] += 1
+    rec["flops"] += work[0]
+    rec["bytes"] += work[1]
+
+
+def _dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _local(t) -> torch.Tensor:
+    return t.to_local() if _dtensor(t) else t
+
+
+def _keep(placements, dims) -> list:
+    """``placements`` with every ``Shard`` of a dim outside ``dims``
+    replaced by ``Replicate``."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [p if isinstance(p, Shard) and p.dim in dims else Replicate()
+            for p in placements]
+
+
+def _laid_out(t, placements):
+    """``t`` redistributed to ``placements`` (a plain tensor as is)."""
+    if not _dtensor(t) or list(t.placements) == list(placements):
+        return t
+    return t.redistribute(t.device_mesh, placements)
+
+
+def _empty(ref, shape, dtype, dims=None, placements=None):
+    """An empty output of global ``shape``: a ``DTensor`` split as ``ref``
+    on the dims ``dims`` (default: every dim below ``len(shape)``), or laid
+    out by ``placements``, where ``ref`` is one, else a plain tensor on
+    ``ref``'s device."""
+    if not _dtensor(ref):
+        return torch.empty(shape, dtype=dtype, device=ref.device)
+    from torch.distributed.tensor import DTensor
+    from repro_torch.collectives import local_shape
+    dims = range(len(shape)) if dims is None else dims
+    pl = (_keep(ref.placements, set(dims)) if placements is None
+          else list(placements))
+    local = local_shape(tuple(shape), ref.device_mesh, pl)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(
+        torch.empty(local, dtype=dtype, device=_local(ref).device),
+        ref.device_mesh, pl, run_check=False, shape=torch.Size(shape),
+        stride=stride)
+
+
+def _attention_layout(q, k):
+    """q's and k's placements for an attention-shaped call (B, H, S, D):
+    the batch and head splits q has, the sequence and feature dims whole;
+    k split as q where its head count divides the split, else whole on
+    that mesh dim (each rank's q heads read their k heads from it)."""
+    pq = _keep(q.placements, {0, 1})
+    mesh = q.device_mesh
+    pk = [_keep([p], ())[0]
+          if getattr(p, "dim", None) == 1 and k.shape[1] % mesh.size(i)
+          else p for i, p in enumerate(pq)]
+    return pq, pk
+
+
+def _kv_heads(q, k) -> int:
+    """The k heads one rank's q heads read (GQA: a group of q heads a k
+    head)."""
+    return max(1, _local(q).shape[1] * k.shape[1] // q.shape[1])
+
+
+def _priced_flash(q, k, v, *, causal, window, softcap, scale, q_offset,
+                  return_lse=False):
+    if _dtensor(q):
+        pq, pk = _attention_layout(q, k)
+        q, k, v = _laid_out(q, pq), _laid_out(k, pk), _laid_out(v, pk)
+    lq = _local(q)
+    b, hq, s, d = lq.shape
+    _record("flash_attention", _fa.work(
+        b, hq, _kv_heads(q, k), s, k.shape[2], d, lq.element_size(),
+        causal=causal, window=window, q_offset=q_offset))
+    out = _empty(q, q.shape, q.dtype)
+    if not return_lse:
+        return out
+    return out, _empty(q, q.shape[:3], torch.float32)
+
+
+def _priced_flash_bwd(q, k, v, o, do, *, causal, window):
+    pk = None
+    if _dtensor(q):
+        from torch.distributed.tensor import Partial
+        pq, pk = _attention_layout(q, k)
+        q, o, do = (_laid_out(t, pq) for t in (q, o, do))
+        k, v = _laid_out(k, pk), _laid_out(v, pk)
+        # A k head whole on a mesh dim that splits q's heads gathers its
+        # gradient from every rank there: a partial sum, as GSPMD leaves it.
+        pk = [Partial() if p != p_k else p_k for p, p_k in zip(pq, pk)]
+    lq = _local(q)
+    b, hq, s, d = lq.shape
+    _record("flash_attention_bwd", _fb.work(
+        b, hq, _kv_heads(q, k), s, k.shape[2], d, lq.element_size(),
+        causal=causal, window=window))
+    return (_empty(q, q.shape, q.dtype),
+            _empty(k, k.shape, k.dtype, placements=pk),
+            _empty(k, k.shape, k.dtype, placements=pk))
+
+
+def _time_whole(*ts):
+    """Scan operands (B, T, D) laid out with T whole, each as the first."""
+    if not _dtensor(ts[0]):
+        return ts
+    pl = _keep(ts[0].placements, {0, 2})
+    return tuple(_laid_out(t, pl) for t in ts)
+
+
+def _rows_whole(*ts):
+    """RWKV operands (BH, T, D) laid out with T and D whole."""
+    if not _dtensor(ts[0]):
+        return ts
+    pl = _keep(ts[0].placements, {0})
+    return tuple(_laid_out(t, pl) for t in ts)
+
+
+def _priced_rwkv(r, k, v, w, u, *, state0=None, return_state=False,
+                 return_chunk_states=False):
+    r, k, v, w = _rows_whole(r, k, v, w)
+    bh, t, d = _local(r).shape
+    _record("rwkv6_scan", _rw.work(bh, t, d, _local(u).shape[0],
+                                   r.element_size(),
+                                   state_in=state0 is not None,
+                                   state_out=return_state))
+    out = _empty(r, r.shape, r.dtype)
+    s_fin = _empty(r, (r.shape[0], d, d), torch.float32, dims=(0,)) \
+        if return_state else None
+    n_st = _rw.n_chunk_states(t, d) if d in _rw.CHUNK else 0
+    states = _empty(r, (r.shape[0], n_st, d, d), torch.float32, dims=(0,)) \
+        if return_chunk_states else None
+    return _rw._outputs(out, s_fin, states, return_state,
+                        return_chunk_states)
+
+
 def fused_group(x: torch.Tensor, g: FusedGroup) -> torch.Tensor:
     """Run a packed fusion group (see :func:`pack_group`) on ``x``."""
     _refuse_grad("fused_mlp_q8", x, g.pack, g.xs)
+    if _priced(x, g.pack, g.xs):
+        shape, dtype = _fm.fused_mlp_q8_contract(x, g.dims)
+        _record("fused_mlp_q8", _fm.work(x.shape[0], g.dims))
+        return _empty(x, shape, dtype)
     if x.device.type == "cpu":
         return _fm.fused_mlp_q8_plain(x, g)
     return _fm.fused_mlp_q8_cuda(x, g)
@@ -151,6 +341,13 @@ def gemm_int8(x, w, w_scale, x_scale: float = 1.0, *,
                                              w.shape[1]),
         tiling.tile_ok, block_m, block_k, block_n)
     _refuse_grad("gemm_int8", x, w, w_scale, x_scale)
+    if _priced(x, w, w_scale, x_scale):
+        shape, dtype = _g8.gemm_int8_contract(
+            x, w, w_scale, block_m=block_m, block_k=block_k,
+            block_n=block_n, out_dtype=out_dtype)
+        _record("gemm_int8", _g8.work(x.shape[0], x.shape[1], shape[1],
+                                      dtype.itemsize))
+        return _empty(x, shape, dtype)
     if x.device.type == "cpu":
         return _g8.gemm_int8_plain(x, w, w_scale, x_scale,
                                    out_dtype=out_dtype)
@@ -181,6 +378,8 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def _flash(q, k, v, **kw) -> torch.Tensor:
+    if _priced(q, k, v):
+        return _priced_flash(q, k, v, **kw)
     if q.device.type == "cpu":
         return _fa.flash_attention_plain(q, k, v, **kw)
     return _fa.flash_attention_cuda(q, k, v, **kw)
@@ -212,6 +411,9 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     autograd Function's backward computes them."""
     kw = {"causal": causal, "window": window, "softcap": softcap,
           "scale": scale}
+    if _priced(q, k, v, o, do, lse):
+        return _priced_flash_bwd(q, k, v, o, do, causal=causal,
+                                 window=window)
     if q.device.type == "cpu":
         return _fb.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
     if not _fb.strides_ok(do):
@@ -231,12 +433,22 @@ class _LinearScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a, h = ctx.saved_tensors
+        if _priced(a, h, g):
+            # linear_scan_bwd_cuda's composition, its scan priced.
+            lam = _scan(torch.flip(_rg._next(a), [1]),
+                        torch.flip(g.to(a.dtype), [1]))
+            return _rg._grads(a, h, torch.flip(lam, [1]))
         if a.device.type == "cpu":
             return _rg.linear_scan_bwd_plain(a, h, g)
         return _rg.linear_scan_bwd_cuda(a, h, g)
 
 
 def _scan(a, b) -> torch.Tensor:
+    if _priced(a, b):
+        a, b = _time_whole(a, b)
+        _record("linear_scan", _rg.work(_local(a).numel(),
+                                        a.element_size()))
+        return _empty(a, a.shape, a.dtype)
     if a.device.type == "cpu":
         return _rg.linear_scan_plain(a, b)
     return _rg.linear_scan_cuda(a, b)
@@ -273,6 +485,8 @@ class _RWKV6Scan(torch.autograd.Function):
 
 
 def _rwkv(r, k, v, w, u, **kw):
+    if _priced(r, k, v, w, u, kw.get("state0")):
+        return _priced_rwkv(r, k, v, w, u, **kw)
     if r.device.type == "cpu":
         return _rw.rwkv6_scan_plain(r, k, v, w, u, **kw)
     return _rw.rwkv6_scan_cuda(r, k, v, w, u, **kw)
@@ -298,6 +512,14 @@ def rwkv6_scan_bwd(r, k, v, w, u, do, states) -> tuple:
     ``states`` are the forward's chunk states on the card
     (``rwkv6_scan_cuda(..., return_chunk_states=True)``), and on the CPU,
     whose plain version reads none, may be None."""
+    if _priced(r, k, v, w, u, do, states):
+        r, k, v, w, do = _rows_whole(r, k, v, w, do)
+        bh, t, d = _local(r).shape
+        _record("rwkv6_scan_bwd", _rw.work_bwd(bh, t, d, _local(u).shape[0],
+                                               r.element_size()))
+        return (*(_empty(r, r.shape, r.dtype) for _ in range(3)),
+                _empty(r, r.shape, torch.float32),
+                _empty(u, u.shape, torch.float32))
     if r.device.type == "cpu":
         return _rw.rwkv6_scan_bwd_plain(r, k, v, w, u, do)
     return _rw.rwkv6_scan_bwd_cuda(r, k, v, w, u, do, states)
@@ -317,6 +539,12 @@ def tiled_gemm(x, w, *, block_m: int | None = None,
                                   itemsize=size),
         lambda *t: tiling.tiled_tile_ok(*t, size), block_m, block_k, block_n)
     _refuse_grad("tiled_gemm", x, w)
+    if _priced(x, w):
+        shape, dtype = _tg.tiled_gemm_contract(x, w, block_m=bm, block_k=bk,
+                                               block_n=bn)
+        _record("tiled_gemm", _tg.work(*x.shape, shape[1], x.element_size(),
+                                       dtype.itemsize))
+        return _empty(x, shape, dtype)
     if x.device.type == "cpu":
         return _tg.tiled_gemm_plain(x, w)
     return _tg.tiled_gemm_cuda(x, w, block_m=bm, block_k=bk, block_n=bn)
@@ -334,6 +562,14 @@ def fused_dense(x, w, b, residual=None, *, act: str = "relu",
                                         itemsize=x.element_size()),
         tiling.fused_dense_tile_ok, block_m, block_k, block_n)
     _refuse_grad("fused_dense", x, w, b, residual)
+    if _priced(x, w, b, residual):
+        shape, dtype = _fd.fused_dense_contract(
+            x, w, b, residual, act=act, block_m=bm, block_k=bk, block_n=bn,
+            out_dtype=out_dtype)
+        _record("fused_dense", _fd.work(*x.shape, shape[1], x.element_size(),
+                                        b.element_size(), dtype.itemsize,
+                                        residual is not None))
+        return _empty(x, shape, dtype)
     if x.device.type == "cpu":
         return _fd.fused_dense_plain(x, w, b, residual, act=act,
                                      out_dtype=out_dtype)

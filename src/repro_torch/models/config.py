@@ -131,3 +131,63 @@ class ModelConfig:
 
     def layer_kind(self, i: int) -> str:
         return self.attn_pattern[i % len(self.attn_pattern)]
+
+    def param_count(self) -> int:
+        """Approximate parameter count N (for MODEL_FLOPS = 6*N*D)."""
+        d = self.d_model
+        n = self.vocab_size * d                     # embeddings
+        if not self.tie_embeddings:
+            n += self.vocab_size * d
+        if self.family == "rwkv":
+            per = 4 * d * d + 3 * d * self.d_ff + 10 * d  # tmix + cmix approx
+            return n + self.num_layers * per
+        if self.family == "griffin":
+            g = self.griffin
+            rec = d * g.lru_width * 3 + g.lru_width * g.conv_width + 4 * g.lru_width
+            att = d * (self.q_dim + 2 * self.kv_dim) + self.q_dim * d
+            mlp = 3 * d * self.d_ff
+            per_pat = []
+            for kind in g.pattern:
+                per_pat.append((rec if kind == "rec" else att) + mlp)
+            full, rem = divmod(self.num_layers, len(g.pattern))
+            total = full * sum(per_pat) + sum(per_pat[:rem])
+            return n + total
+        # transformer / encdec
+        if self.mla is not None:
+            m = self.mla
+            attn = (d * m.q_lora_rank
+                    + m.q_lora_rank * self.num_heads
+                    * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+                    + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                    + m.kv_lora_rank * self.num_heads
+                    * (m.qk_nope_head_dim + m.v_head_dim)
+                    + self.num_heads * m.v_head_dim * d)
+        else:
+            attn = d * (self.q_dim + 2 * self.kv_dim) + self.q_dim * d
+        if self.moe is not None:
+            mo = self.moe
+            dense_ffn = 3 * d * self.d_ff
+            exp_ffn = 3 * d * mo.d_ff_expert
+            moe_layers = self.num_layers - mo.first_k_dense
+            ffn_total = (mo.first_k_dense * dense_ffn
+                         + moe_layers * (mo.num_experts + mo.num_shared_experts)
+                         * exp_ffn + moe_layers * d * mo.num_experts)
+        else:
+            ffn_total = self.num_layers * 3 * d * self.d_ff
+        layers = self.num_layers * attn + ffn_total
+        if self.encdec is not None:
+            # encoder layers add self-attn+mlp; decoder adds cross-attn
+            layers += self.encdec.encoder_layers * (attn + 3 * d * self.d_ff)
+            layers += self.encdec.decoder_layers * attn   # cross-attention
+        return n + layers
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only top_k + shared experts)."""
+        if self.moe is None:
+            return self.param_count()
+        mo = self.moe
+        d = self.d_model
+        full = self.param_count()
+        moe_layers = self.num_layers - mo.first_k_dense
+        inactive = moe_layers * (mo.num_experts - mo.top_k) * 3 * d * mo.d_ff_expert
+        return full - inactive

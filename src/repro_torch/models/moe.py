@@ -45,6 +45,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 import torch.nn.functional as F
 
 from repro_torch import collectives as coll
@@ -335,7 +336,7 @@ def _moe_a2a(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
     y, aux = coll.shard_map(body, mesh, (x_spec, w_spec), (x_spec, P()))(
         x, {k: p[k] for k in w_spec})
-    return coll.gather(y), aux.to_local()
+    return _like_input(x, y, aux)
 
 
 def _moe_sharded(p: dict, x2d: torch.Tensor, cfg: ModelConfig, b: int):
@@ -381,6 +382,17 @@ def _moe_sharded(p: dict, x2d: torch.Tensor, cfg: ModelConfig, b: int):
         w_spec["router_bias"] = P(None)
     y, aux = coll.shard_map(body, mesh, (x_spec, w_spec), (x_spec, P()))(
         x2d, {k: p[k] for k in w_spec})
+    return _like_input(x2d, y, aux)
+
+
+def _like_input(x, y, aux) -> tuple:
+    """(y, aux) as ``x`` is held: the global values as plain tensors on
+    every rank for a plain ``x``; for a ``DTensor`` ``x`` the shard_map's
+    ``DTensor``s themselves, so the block stays differentiable through the
+    mesh (a plain output mixed into ``DTensor`` math would take a
+    ``DTensor`` gradient back into the gather)."""
+    if isinstance(x, DTensor):
+        return y, aux
     return coll.gather(y), aux.to_local()
 
 

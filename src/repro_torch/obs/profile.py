@@ -30,9 +30,9 @@ plan estimate)``.  The result is the PL budget that would match the card's
 measured time on that layer.
 
 The port of the JAX package's ``obs/profile.py``: the same rows on the same
-windows, plans and ceilings.  The card has no interconnect in this port, so
-a collective term is refused rather than divided by a rate it has no figure
-for.
+windows, plans and ceilings.  A served window runs on one card, with no
+collective; :func:`roofline_terms` prices a collective term only at a link
+rate its caller names (the dry run's roofline does).
 """
 
 from __future__ import annotations
@@ -57,7 +57,8 @@ _PRIMARY_KINDS = ("infer", "decode_step")
 
 def roofline_terms(flops: float, bytes_moved: float, launches: float, *,
                    itemsize: int = 2, hw=None,
-                   collective_bytes: float = 0.0) -> dict:
+                   collective_bytes: float = 0.0,
+                   link_bw: float | None = None) -> dict:
     """Roofline time terms and bound classification for one work bundle.
 
     Returns ``{"t_compute_s", "t_memory_s", "t_launch_s",
@@ -66,26 +67,32 @@ def roofline_terms(flops: float, bytes_moved: float, launches: float, *,
     names the term that dominates.  ``hw`` is any object with
     ``peak_int8_ops``/``peak_bf16_ops``/``hbm_bw``/``kernel_overhead_s``:
     :data:`repro_torch.hw.H100_SXM` (default) or a fitted
-    ``MachineModel.h100()``.  One card has no collective: the term stays
-    0, and ``collective_bytes`` other than 0 raises ``ValueError``."""
+    ``MachineModel.h100()``.  ``collective_bytes`` are priced at the link
+    rate ``link_bw`` the caller names (``hw.nvlink_bw`` within a node,
+    ``hw.net_bw`` across nodes: the dry run's roofline picks it); one card
+    has no collective, and collective bytes with no link rate raise
+    ``ValueError``."""
     hw = hw if hw is not None else hwlib.H100_SXM
-    if collective_bytes:
+    if collective_bytes and link_bw is None:
         raise ValueError(f"roofline_terms: {collective_bytes} collective "
-                         f"bytes on one card, which has no interconnect "
-                         f"rate in this model")
+                         f"bytes with no link rate (one card has no "
+                         f"interconnect)")
     peak = hw.peak_int8_ops if itemsize == 1 else hw.peak_bf16_ops
     terms = {
         "compute": flops / peak,
         "memory": bytes_moved / hw.hbm_bw,
         "launch": launches * hw.kernel_overhead_s,
     }
+    t_coll = collective_bytes / link_bw if collective_bytes else 0.0
+    if collective_bytes:
+        terms["collective"] = t_coll
     # max() keeps dict insertion order on ties -> deterministic label.
     bound = max(terms, key=terms.get)
     return {
         "t_compute_s": terms["compute"],
         "t_memory_s": terms["memory"],
         "t_launch_s": terms["launch"],
-        "t_collective_s": 0.0,
+        "t_collective_s": t_coll,
         "bound": bound,
         "ceiling_s": max(terms.values()),
         "peak_flops": peak,

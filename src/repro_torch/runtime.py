@@ -55,7 +55,13 @@ def _dots_saveable(ctx, op, *args, **kwargs):
 
 def maybe_remat(f: Callable) -> Callable:
     """``f`` checkpointed by the active policy; ``f`` itself under
-    ``"none"`` or where grad is off (nothing to keep for a backward)."""
+    ``"none"`` or where grad is off (nothing to keep for a backward).
+
+    The recompute runs in the backward, which for CUDA tensors is the
+    autograd engine's device thread, and a thread carries no context
+    variables (the sharding rules, the remat policy, ``shard_map``'s
+    mesh): each call runs ``f`` in a copy of its forward's context, so
+    the recompute lays out and checkpoints as the forward did."""
     pol = _REMAT.get()
     if pol == "none":
         return f
@@ -68,8 +74,10 @@ def maybe_remat(f: Callable) -> Callable:
         if pol == "dots":
             kw["context_fn"] = functools.partial(
                 ckpt.create_selective_checkpoint_contexts, _dots_saveable)
-        return ckpt.checkpoint(f, *args, use_reentrant=False,
-                               preserve_rng_state=False, **kw)
+        ctx = contextvars.copy_context()
+        return ckpt.checkpoint(functools.partial(ctx.run, f), *args,
+                               use_reentrant=False, preserve_rng_state=False,
+                               **kw)
     return wrapped
 
 

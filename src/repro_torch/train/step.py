@@ -49,17 +49,39 @@ class TrainOptions:
 def global_norm(tree_) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, accumulated in f32.  A bf16
     leaf is widened ``_NORM_CHUNK`` elements at a time, never whole (the
-    tied embedding of gemma2-2b is 590 M elements)."""
+    tied embedding of gemma2-2b is 590 M elements).  A ``DTensor`` leaf
+    sums its own block, then the blocks over the mesh dims that split it
+    (one all-reduce of a scalar, as GSPMD reduces a sharded norm)."""
     total = None
     for leaf in tree.leaves(tree_):
-        flat = leaf.reshape(-1)
-        for i in range(0, flat.numel(), _NORM_CHUNK):
-            c = flat[i:i + _NORM_CHUNK].to(F32)
-            sq = torch.dot(c, c)
+        for sq in _squares(leaf):
             total = sq if total is None else total + sq
     if total is None:
         return torch.zeros((), dtype=F32)
     return torch.sqrt(total)
+
+
+def _squares(leaf: torch.Tensor):
+    """The f32 sums of squares of ``leaf``'s chunks, in order."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if isinstance(leaf, DTensor):
+        if any(p.is_partial() for p in leaf.placements):
+            leaf = leaf.redistribute(leaf.device_mesh, [
+                Replicate() if p.is_partial() else p
+                for p in leaf.placements])
+        local = None
+        for sq in _squares(leaf.to_local()):
+            local = sq if local is None else local + sq
+        if local is not None:
+            yield DTensor.from_local(
+                local, leaf.device_mesh,
+                [Partial() if isinstance(p, Shard) else Replicate()
+                 for p in leaf.placements], run_check=False).full_tensor()
+        return
+    flat = leaf.reshape(-1)
+    for i in range(0, flat.numel(), _NORM_CHUNK):
+        c = flat[i:i + _NORM_CHUNK].to(F32)
+        yield torch.dot(c, c)
 
 
 def clip_by_global_norm(tree_, max_norm: float):
@@ -137,7 +159,8 @@ def build_train_step(cfg: ModelConfig, opt: Optimizer,
         if opts.microbatches > 1:
             mb = opts.microbatches
             acc_dt = getattr(torch, opts.acc_dtype)
-            grads = [torch.zeros(p.shape, dtype=acc_dt, device=dev)
+            grads = [torch.zeros_like(p, dtype=acc_dt,
+                                      memory_format=torch.contiguous_format)
                      for p in leaves]
             total = torch.zeros((), dtype=F32, device=dev)
             metrics = {"ce": torch.zeros((), dtype=F32, device=dev),

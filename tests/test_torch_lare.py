@@ -64,11 +64,16 @@ def test_fabric_models_are_the_references():
 
 def test_the_card_model_keeps_its_fields():
     """The fabric models sit apart from the card's: ``H100`` gains no
-    field (a new field would change every plan key)."""
+    field a plan key reads (one would change every plan key).  The dry
+    run's memory size and link rates stay out of the keys."""
     assert [f.name for f in dataclasses.fields(hw.H100)] == [
         "sms", "hbm_bw", "peak_int8_ops", "smem_bytes", "kernel_overhead_s",
         "fused_epilogue_s", "peak_bf16_ops", "f32_fma_ops",
-        "dram_round_trip_s"]
+        "dram_round_trip_s", "hbm_bytes", "nvlink_bw", "net_bw"]
+    assert [f.name for f in dataclasses.fields(hw.H100)
+            if f.metadata.get("plan_key", True)] == [
+        "sms", "hbm_bw", "peak_int8_ops", "smem_bytes", "kernel_overhead_s",
+        "fused_epilogue_s"]
 
 
 @pytest.mark.parametrize("batch", BATCHES)
